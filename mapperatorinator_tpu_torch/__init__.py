@@ -2,28 +2,12 @@
 
 The JAX package beside it is the reference: every module here keeps the
 layout of its JAX counterpart, and the tests hold each one against it. The
-port imports ``torch`` and never ``jax``, ``flax`` or ``yaml``; the host-side
-osu! code (``mapperatorinator_tpu.osu``, numpy only) is shared. The two
-Pallas kernels on the v32 generation path are CUDA kernels here (``ops/``,
-sources in ``csrc/``).
+port imports ``torch`` and never ``jax``, ``flax``, ``optax`` or ``yaml``,
+nor anything of the JAX package: the host-side code it needs (``osu``,
+``native``, the training data pipeline) is its own copy, which
+``tests/test_torch_nojax.py`` holds byte for byte against its source. The
+Pallas kernels on the v32 generation and training paths are CUDA kernels
+here (``ops/``, sources in ``csrc/``).
 """
 
-import importlib.util as _util
-import sys as _sys
-
 __version__ = "0.1.0"
-
-
-def _share_host_code() -> None:
-    """Make the JAX package's numpy-only subpackages (``osu``, ``native``)
-    importable without running ``mapperatorinator_tpu/__init__.py``, which
-    imports jax whenever ``JAX_PLATFORMS`` is set. The package module is
-    registered from its spec, unexecuted; its subpackages import as usual."""
-    if "mapperatorinator_tpu" in _sys.modules:
-        return
-    spec = _util.find_spec("mapperatorinator_tpu")
-    if spec is not None:
-        _sys.modules["mapperatorinator_tpu"] = _util.module_from_spec(spec)
-
-
-_share_host_code()

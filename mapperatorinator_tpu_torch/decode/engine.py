@@ -36,9 +36,10 @@ def _bucket(p: int) -> int:
 
 
 class DecodeEngine:
-    """Wraps a :class:`..models.Mapperatorinator` on ``device``."""
+    """Wraps a :class:`..models.Mapperatorinator` on ``device``, which the
+    caller names: there is no default device."""
 
-    def __init__(self, model, max_length: int, pad_token_id: int = 0, device="cpu"):
+    def __init__(self, model, max_length: int, pad_token_id: int, device):
         self.model = model
         self.max_length = max_length
         self.pad_token_id = pad_token_id

@@ -17,9 +17,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mapperatorinator_tpu.osu.events import EventType
-from mapperatorinator_tpu.osu.streams import TIMED_EVENTS
-from mapperatorinator_tpu.osu.vocab import MILLISECONDS_PER_STEP, Vocabulary
+from ..osu.events import EventType
+from ..osu.streams import TIMED_EVENTS
+from ..osu.vocab import MILLISECONDS_PER_STEP, Vocabulary
 
 
 class LogitsState(NamedTuple):

@@ -25,20 +25,19 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from mapperatorinator_tpu.osu.beatmap import Beatmap
-from mapperatorinator_tpu.osu.events import ContextType, Event, EventType
-from mapperatorinator_tpu.osu.parsing import BeatmapParser
-from mapperatorinator_tpu.osu.streams import (
+from ..decode.engine import DecodeEngine
+from ..decode.logits import build_logits_pipeline, get_eos_token_ids
+from ..osu.beatmap import Beatmap
+from ..osu.events import ContextType, Event, EventType
+from ..osu.parsing import BeatmapParser
+from ..osu.streams import (
     get_hitsounded_status,
     get_hold_note_ratio,
     get_scroll_speed_ratio,
     remove_events_of_type,
     update_event_times,
 )
-from mapperatorinator_tpu.osu.vocab import MILLISECONDS_PER_STEP, Vocabulary
-
-from ..decode.engine import DecodeEngine
-from ..decode.logits import build_logits_pipeline, get_eos_token_ids
+from ..osu.vocab import MILLISECONDS_PER_STEP, Vocabulary
 
 MILLISECONDS_PER_SECOND = 1000
 
@@ -47,7 +46,7 @@ def calculate_difficulty(path=None, content=None, speed: float = 1.0) -> Optiona
     """Star rating via the native C++ calculator (the reference uses rosu-pp;
     reference: data_utils.py:190-226). None on failure -> conditioning falls
     back to the 'unknown difficulty' token."""
-    from mapperatorinator_tpu.native import calculate_difficulty as native_calculate_difficulty
+    from ..native import calculate_difficulty as native_calculate_difficulty
 
     return native_calculate_difficulty(content=content, path=path, speed=speed)
 

@@ -30,20 +30,20 @@ from pathlib import Path
 
 import torch
 
-from mapperatorinator_tpu.osu import Beatmap, ContextType, build_vocabulary
-from mapperatorinator_tpu.osu.rendering import (
-    BeatmapConfig,
-    Renderer,
-    background_line,
-    beatmap_config_from_beatmap,
-)
-from mapperatorinator_tpu.osu.streams import TIMING_TYPES, events_of_type, merge_events
-
+from .config import select_device
 from .decode import DecodeEngine
 from .infer import GenerationConfig, Preprocessor, Processor, generation_config_from_beatmap
 from .models.io import load_checkpoint
 from .models.mapperatorinator import Mapperatorinator, build_config
 from .models.params import init_params
+from .osu import Beatmap, ContextType, build_vocabulary
+from .osu.rendering import (
+    BeatmapConfig,
+    Renderer,
+    background_line,
+    beatmap_config_from_beatmap,
+)
+from .osu.streams import TIMING_TYPES, events_of_type, merge_events
 
 DEFAULT_ARGS = {
     "gamemode": 0,
@@ -72,13 +72,6 @@ PRECISIONS = {"fp32": torch.float32, "float32": torch.float32, "bf16": torch.bfl
 def get_default_logger():
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     return logging.getLogger("mapperatorinator")
-
-
-def select_device(args) -> torch.device:
-    """``args.device``: "auto" takes the first CUDA device when there is one."""
-    if args.device in ("auto", "gpu", "cuda", "tpu"):
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(args.device)
 
 
 # ---------------------------------------------------------------------------

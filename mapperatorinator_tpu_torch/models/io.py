@@ -14,8 +14,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from mapperatorinator_tpu.osu.vocab import Vocabulary
-
+from ..osu.vocab import Vocabulary
 from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig
 from .params import params_from_flax
 from .transformer import TransformerConfig

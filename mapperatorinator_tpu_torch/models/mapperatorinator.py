@@ -1,8 +1,13 @@
 """The Mapperatorinator model (``models/mapperatorinator.py``): mel front end,
-optional encoder projection, decoder token table and the transformer.
+optional encoder projection, decoder token table, the transformer and the
+rhythm-weighted, label-smoothed training loss.
 
 v32 turns every conditioning embedder off, so the embedders are not ported
-yet: a config that enables one raises. The loss ports with training.
+yet: a config that enables one raises. Parameters stay in their own dtype
+(fp32 in training) and each layer computes in ``backbone.dtype``, which the
+training config's ``mixed_precision`` sets; the mel stays fp32 until it is
+cast for the encoder, and the loss's log-softmax is fp32, as in the JAX
+model.
 """
 
 from __future__ import annotations
@@ -13,10 +18,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mapperatorinator_tpu.osu.events import EventType
-
 from ..audio.mel import MelSpectrogram
-from .transformer import OsuTransformer, TransformerConfig
+from ..osu.events import EventType
+from .transformer import Dense, OsuTransformer, TransformerConfig
+
+LABEL_IGNORE_ID = -100
 
 # public whisper family dimensions (model card constants)
 WHISPER_DIMS = {
@@ -170,7 +176,7 @@ class Mapperatorinator(nn.Module):
         )
         self.transformer = OsuTransformer(b, embed_inputs=not cfg.embed_decoder_input)
         if cfg.project_encoder_input:
-            self.encoder_embedder = nn.Linear(cfg.n_mels + cfg.cond_size, b.d_model)
+            self.encoder_embedder = Dense(cfg.n_mels + cfg.cond_size, b.d_model, True, b.dtype)
         if cfg.embed_decoder_input:
             self.decoder_embedder = nn.Embedding(cfg.vocab_size_in, b.d_model)
 
@@ -182,15 +188,39 @@ class Mapperatorinator(nn.Module):
         return self.transformer.encode(mel)
 
     def forward(self, frames: Optional[torch.Tensor] = None, decoder_input_ids=None,
-                decoder_attention_mask=None, encoder_states=None) -> torch.Tensor:
-        """Teacher-forced forward -> logits (B, T, vocab_size_out)."""
+                decoder_attention_mask=None, encoder_states=None, labels: Optional[torch.Tensor] = None,
+                sample_weights: Optional[torch.Tensor] = None):
+        """Teacher-forced forward -> logits (B, T, vocab_size_out), or
+        (logits, loss) when ``labels`` are given."""
         if encoder_states is None:
             encoder_states = self.encode(frames)
-        return self.transformer(
+        logits = self.transformer(
             decoder_inputs_embeds=self.embed_tokens(decoder_input_ids),
             decoder_attention_mask=decoder_attention_mask,
             encoder_states=encoder_states,
         )
+        if labels is None:
+            return logits
+        return logits, self.loss(logits, labels, sample_weights)
+
+    def loss(self, logits: torch.Tensor, labels: torch.Tensor,
+             sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Rhythm-weighted label-smoothed cross entropy, the mean over labels
+        that are not ``LABEL_IGNORE_ID`` (torch's CE with label smoothing:
+        (1 - eps) nll + eps mean_k(-log p_k), weighted by the target's class
+        weight and the row's sample weight)."""
+        cfg = self.cfg
+        valid = labels != LABEL_IGNORE_ID
+        safe = torch.where(valid, labels, 0)
+        class_weights = torch.ones(cfg.vocab_size_out, device=logits.device)
+        class_weights[cfg.rhythm_token_start:cfg.rhythm_token_end] = cfg.rhythm_weight
+        log_probs = torch.log_softmax(logits.float(), dim=-1)
+        eps = cfg.label_smoothing
+        nll = -log_probs.gather(-1, safe[..., None])[..., 0]
+        per_tok = ((1 - eps) * nll + eps * -log_probs.mean(-1)) * class_weights[safe] * valid
+        if sample_weights is not None:
+            per_tok = per_tok * sample_weights[:, None]
+        return per_tok.sum() / valid.sum().clamp(min=1)
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         if self.cfg.embed_decoder_input:

@@ -13,6 +13,10 @@ so the mapping is by rule:
 The fused ``wqkv`` / ``wkv`` projections stay fused: the port splits their
 output the way the JAX ``Attention`` does (``reshape(b, t, 3h, d)``, then
 thirds along the head axis), so the columns keep their meaning.
+
+:func:`flax_paths` runs the same table backwards, from a module's parameter
+names to the flax paths the JAX optimizer's masks match against, and
+:func:`flax_layout` moves a tensor between the two layouts.
 """
 
 from __future__ import annotations
@@ -47,6 +51,34 @@ def torch_name(flax_path: str) -> str:
     if parts[-1] in ("kernel", "embedding", "scale"):
         parts[-1] = "weight"
     return ".".join(parts)
+
+
+def flax_paths(model: nn.Module) -> dict[str, str]:
+    """{torch parameter name: flax path} for a port module, the inverse of
+    :func:`torch_name` (``params/`` prefix and ``RMSNorm_0`` scope included)."""
+    paths = {}
+    for name, _ in model.named_parameters():
+        *scope, leaf = name.split(".")
+        owner = model.get_submodule(".".join(scope))
+        if leaf == "weight":
+            if isinstance(owner, nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(owner, (nn.Linear, nn.Conv1d)):
+                leaf = "kernel"
+            else:  # RMSNorm: flax nests nn.RMSNorm inside the Norm wrapper
+                scope, leaf = [*scope, "RMSNorm_0"], "scale"
+        paths[name] = "/".join(["params", *scope, leaf]).replace("/layers/", "/layers_")
+    return paths
+
+
+def flax_layout(x: torch.Tensor, flax_path: str) -> torch.Tensor:
+    """A parameter (or its gradient) as a view in the other layout: a
+    ``kernel`` moves between Linear (out, in) and Dense (in, out), or Conv1d
+    (out, in, k) and Conv (k, in, out); every other leaf keeps its layout.
+    It is its own inverse."""
+    if not flax_path.endswith("/kernel"):
+        return x
+    return x.T if x.dim() == 2 else x.permute(2, 1, 0)
 
 
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:

@@ -5,6 +5,12 @@ dynamic-NTK base), RMSNorm, pre-norm blocks, alternating local/global
 self-attention, exact-erf GELU feed-forwards, fused ``wqkv`` / ``wkv``
 projections. Every other family of the JAX ``TransformerConfig`` raises.
 
+Dtypes follow the flax modules op by op rather than ``torch.autocast``: the
+projections and the conv stem compute in ``cfg.dtype`` whatever the dtype of
+their parameters (flax's ``dtype`` / ``param_dtype``: bf16 mixed-precision
+training keeps fp32 parameters), while RoPE, RMSNorm and the softmax compute
+in fp32 and cast back.
+
 Attention follows the JAX routing. A call that is structurally eligible for
 the flash kernel (no cache, no position bias, scaled, at most a key-padding
 mask) goes to :func:`..ops.attention_kernel.flash_attention`, for every shape:
@@ -125,6 +131,32 @@ def check_supported(cfg: TransformerConfig) -> None:
             )
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype``: flax ``Dense(dtype=...)``
+    casts its input, kernel and bias to the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` that computes in ``compute_dtype``, as flax ``Conv(dtype=...)``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
 class RMSNorm(nn.Module):
     """RMSNorm computed in fp32; default eps matches torch.nn.RMSNorm on fp32."""
 
@@ -190,13 +222,13 @@ class Attention(nn.Module):
         # take the plain path (chip_smoke.py holds the two against each other)
         self.use_flash = cfg.use_flash_attention
         inner = num_heads * (cfg.d_model // num_heads)
-        bias = cfg.attention_bias
+        bias, dt = cfg.attention_bias, cfg.dtype
         if is_cross:
-            self.wq = nn.Linear(cfg.d_model, inner, bias=bias)
-            self.wkv = nn.Linear(cfg.d_model, 2 * inner, bias=bias)
+            self.wq = Dense(cfg.d_model, inner, bias, dt)
+            self.wkv = Dense(cfg.d_model, 2 * inner, bias, dt)
         else:
-            self.wqkv = nn.Linear(cfg.d_model, 3 * inner, bias=bias)
-        self.wo = nn.Linear(inner, cfg.d_model, bias=bias)
+            self.wqkv = Dense(cfg.d_model, 3 * inner, bias, dt)
+        self.wo = Dense(inner, cfg.d_model, bias, dt)
 
     @property
     def rope_theta(self) -> float:
@@ -291,8 +323,8 @@ def _key_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 class FeedForward(nn.Module):
     def __init__(self, cfg: TransformerConfig, ffn_dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.d_model, ffn_dim, bias=cfg.mlp_bias)
-        self.fc2 = nn.Linear(ffn_dim, cfg.d_model, bias=cfg.mlp_bias)
+        self.fc1 = Dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
+        self.fc2 = Dense(ffn_dim, cfg.d_model, cfg.mlp_bias, cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
@@ -340,8 +372,8 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.conv1 = nn.Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1)
-        self.conv2 = nn.Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1)
+        self.conv1 = Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1, compute_dtype=cfg.dtype)
+        self.conv2 = Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1, compute_dtype=cfg.dtype)
         self.layers = nn.ModuleList(EncoderLayer(cfg, i) for i in range(cfg.encoder_layers))
         self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
 
@@ -391,11 +423,11 @@ class OsuTransformer(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg, embed_inputs)
         if not cfg.tie_word_embeddings:
-            self.proj_out = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+            self.proj_out = Dense(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
 
     def lm_head(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
-            return x @ self.decoder.embed_tokens.weight.T
+            return x @ self.decoder.embed_tokens.weight.to(x.dtype).T
         return self.proj_out(x)
 
     def encode(self, features: torch.Tensor) -> torch.Tensor:

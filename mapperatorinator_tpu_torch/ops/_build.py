@@ -1,9 +1,10 @@
-"""Builds ``csrc/<name>.cu`` with nvcc and loads it with ctypes.
+"""Builds ``csrc/<name>.cu`` with nvcc (``csrc/<name>.cpp``, host code, with
+g++) and loads the result with ctypes.
 
 Each source has a plain C interface: pointers, sizes and the CUDA stream come
-in as integers, and every entry point returns ``cudaGetLastError()`` after its
-launch, which :func:`check` turns into an exception. Libraries go to
-``build/torch_kernels/`` at the checkout's root and are rebuilt when their
+in as integers, and every CUDA entry point returns ``cudaGetLastError()``
+after its launch, which :func:`check` turns into an exception. Libraries go
+to ``build/torch_kernels/`` at the checkout's root and are rebuilt when their
 source is newer. Nothing here runs at import time: the CPU tests import every
 module of the package on machines that have no nvcc.
 """
@@ -23,6 +24,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+GXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-shared"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -42,15 +44,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu``, else ``csrc/<name>.cpp``."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC_DIR / f"{name}.cu").stat().st_mtime
+    return not lib.exists() or lib.stat().st_mtime < source_path(name).stat().st_mtime
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    src = source_path(name)
+    compiler = [nvcc(), *NVCC_FLAGS] if src.suffix == ".cu" else ["g++", *GXX_FLAGS]
+    cmd = [*compiler, "-o", str(tmp), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
 
 
@@ -59,15 +69,16 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> str:
     (BUILD_DIR / f"{name}.log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"compiling {source_path(name).name} failed (exit {proc.returncode}):\n{log}")
     tmp.replace(library_path(name))
     return log
 
 
 def build(*names: str) -> dict[str, str]:
-    """Compile the named sources that are stale, one nvcc each, all started
-    together. Returns each compiler log (ptxas register and shared-memory
-    use), empty for a library that was already current."""
+    """Compile the named sources that are stale, one compiler process each,
+    all started together. Returns each compiler log (for CUDA sources, ptxas
+    register and shared-memory use), empty for a library that was already
+    current."""
     with _lock:
         jobs = {n: _start(n) for n in names if _stale(n)}
         return {n: _finish(n, *jobs[n]) if n in jobs else "" for n in names}

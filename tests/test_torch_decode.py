@@ -18,10 +18,13 @@ import torch
 
 from mapperatorinator_tpu.decode import DecodeEngine as JaxDecodeEngine
 from mapperatorinator_tpu.decode import logits as jax_logits
-from mapperatorinator_tpu.osu import EventType, build_vocabulary
+from mapperatorinator_tpu.osu import EventType, Vocabulary
 from mapperatorinator_tpu_torch.config import load_config
 from mapperatorinator_tpu_torch.decode import DecodeEngine
 from mapperatorinator_tpu_torch.decode import logits as torch_logits
+from mapperatorinator_tpu_torch.osu import ContextType as PortContextType
+from mapperatorinator_tpu_torch.osu import Vocabulary as PortVocabulary
+from mapperatorinator_tpu_torch.osu import build_vocabulary
 from tests.test_torch_model import audio, tiny  # noqa: F401  (module fixture)
 
 # tiny shapes: one thread each, since several test workers share the CPU
@@ -41,11 +44,18 @@ PIPELINES = {
 
 @pytest.fixture(scope="module")
 def vocab():
-    return build_vocabulary(load_config("v32").train)
+    """The JAX package's copy of the port's v32 vocabulary (the two packages'
+    enum classes differ, so each side reads its own)."""
+    return Vocabulary.from_state_dict(build_vocabulary(load_config("v32").train).state_dict())
+
+
+def port_vocab(vocab) -> PortVocabulary:
+    return PortVocabulary.from_state_dict(vocab.state_dict())
 
 
 def both_pipelines(vocab, **kw):
-    return (jax_logits.build_logits_pipeline(vocab, **kw), torch_logits.build_logits_pipeline(vocab, **kw))
+    return (jax_logits.build_logits_pipeline(vocab, **kw),
+            torch_logits.build_logits_pipeline(port_vocab(vocab), **kw))
 
 
 def assert_scores_close(got, want, tol):
@@ -85,14 +95,17 @@ def test_logits_chain_matches_jax(vocab, name):
 def test_eos_token_ids_match_jax(vocab):
     from mapperatorinator_tpu.osu import ContextType
 
-    for kw in ({}, {"lookback_time": 3276.0}, {"lookahead_time": 6552.0, "context_type": ContextType.MAP}):
-        assert torch_logits.get_eos_token_ids(vocab, **kw) == jax_logits.get_eos_token_ids(vocab, **kw)
+    tvocab = port_vocab(vocab)
+    for kw, port_kw in (({}, {}), ({"lookback_time": 3276.0}, {"lookback_time": 3276.0}),
+                        ({"lookahead_time": 6552.0, "context_type": ContextType.MAP},
+                         {"lookahead_time": 6552.0, "context_type": PortContextType.MAP})):
+        assert torch_logits.get_eos_token_ids(tvocab, **port_kw) == jax_logits.get_eos_token_ids(vocab, **kw)
 
 
 def engines(tiny):  # noqa: F811
     _, jmodel, jparams, tmodel, vocab = tiny
     return (JaxDecodeEngine(jmodel, jparams, MAX_LEN, vocab.pad_id),
-            DecodeEngine(tmodel, MAX_LEN, vocab.pad_id), vocab)
+            DecodeEngine(tmodel, MAX_LEN, vocab.pad_id, device="cpu"), vocab)
 
 
 def decode_prompt(vocab, rows: int):
