@@ -4,19 +4,27 @@
 1. Exits non-zero when no CUDA device is visible; there is no CPU path.
 2. Builds the port's kernels from ``mapperatorinator_tpu_torch/csrc`` (one
    compiler per source, in parallel): the flash-attention forward and
-   backward, the fused mel, and the host star-rating library.
+   backward, the fused mel, the int8 matrix product, and the host
+   star-rating library.
 3. Holds each kernel against its plain PyTorch version on the card at the
    v32 shapes, printing the largest absolute error beside its tolerance and
    the median times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call.
-4. Serving: two requests through ``mapperatorinator_tpu_torch.inference``
+4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
    (``load_model`` / ``generate``) on the full-width v32 model (d_model 768,
    12 + 12 layers, 12 heads, ffn 3072, 2048 source / 2560 target tokens) with
    seeded random weights on a synthesized ~20 s WAV: the v32 defaults
    (sampled, TIMING + MAP + SV), then greedy decode with the fused mel
-   kernel. Each must write a .osu that the repo's parser reads; on request
-   1's first window the encoder states through the flash kernel must match
-   the plain attention path.
+   kernel, then greedy decode from a checkpoint the script writes with the
+   port's ``save_checkpoint``, loaded with int8 weights (kernel D) and an
+   int8 KV cache. Each must write a .osu that the repo's parser reads; on
+   request 1's first window the encoder states through the flash kernel must
+   match the plain attention path; on request 3's, the teacher-forced logits
+   through kernel D must match its plain version, and the int8 model must
+   stay within the reference's bars of the fp model loaded from the same
+   checkpoint. Request 3's engine then runs ``forward_stats``,
+   ``generate_forced`` and ``generate_beams`` against ``forward`` and
+   ``generate``.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -54,6 +62,17 @@ AUDIO_SECONDS = 20.0
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # fp32: test_attention_kernel.py's bar
 MEL_TOL = 5e-3  # rtol = atol, test_audio.py:80
 ENC_TOL = 2e-4  # model-level bar, test_model.py:77
+# qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
+# times the largest |reference output|, at least 1
+QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+QMM_SHAPES = [  # (rows, K, N): decode steps, an encoder window, a prefill, a ragged case
+    (1, 768, 2304), (1, 768, 3072), (1, 3072, 768), (2, 768, 768),
+    (1024, 768, 3072), (1024, 768, 1536), (256, 3072, 768), (3, 200, 128)]
+QMM_TIMED = (1, 768, 3072)  # the decode step's fc1, the kernels line's shape
+QMM_PROFILED = (QMM_TIMED, (1024, 768, 3072))  # also timed by the profiler: a decode step's and an encoder window's fc1
+INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreement (test_quantize_checkpoint.py:58-59)
+ENGINE_STEPS = 64
+STATS_TOL = 1e-4  # forward_stats vs the host reduction, test_decode.py:424
 GRAD_TOL = 2e-4  # the model bar, times each gradient tensor's largest entry
 
 # the card's published rates (NVIDIA H100 SXM data sheet, dense, 700 W)
@@ -88,6 +107,22 @@ def paired_ms(kernel, plain, library=None, reps: int = 20) -> tuple[float, float
     k2, p2 = median_ms(kernel, reps), median_ms(plain, reps)
     lib = statistics.median([median_ms(library, reps), median_ms(library, reps)]) if library else None
     return statistics.median([k1, k2]), statistics.median([p1, p2]), lib
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``, from the profiler: the summed time
+    of the kernels it launches over ``reps`` calls, divided by ``reps``. At
+    a decode shape the CUDA-event time of one call is mostly the host's
+    enqueue time; this is the card's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -271,6 +306,51 @@ def check_mel(report: dict) -> dict:
             "timed_shape": "N2048 1024->513->128 log1p fp32"}
 
 
+def check_qmm(report: dict) -> dict:
+    """Kernel D against its plain version at the v32 shapes in fp32 and bf16,
+    each timed beside ``F.linear`` on the weight dequantized in advance."""
+    from mapperatorinator_tpu_torch.models.transformer import quantize_weight
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm, qmm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    timed = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, k, n in QMM_SHAPES:
+            wq, scale = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * 0.05)
+            x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+            got, want = qmm(x, wq, scale), qmm_plain(x, wq, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = QMM_TOL[dtype] * max(1.0, want.float().abs().max().item())
+            w_lin = (wq.float() * scale).T.contiguous().to(dtype)  # (N, K), what F.linear takes
+            ms, plain_ms, library_ms = paired_ms(lambda: qmm(x, wq, scale), lambda: qmm_plain(x, wq, scale),
+                                                 lambda: torch.nn.functional.linear(x, w_lin))
+            esize = x.element_size()
+            # the int8 weight, x and the scale read once, the output written once
+            bound_ms, bound_by = bound(2.0 * rows * k * n, k * n + rows * k * esize + rows * n * esize + 4 * n, dtype)
+            label = f"qmm {str(dtype)[6:]} rows{rows} K{k} N{n}"
+            print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.linear {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            case = {"dtype": str(dtype), "rows": rows, "K": k, "N": n, "max_abs_err": err, "tol": tol, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            if (rows, k, n) in QMM_PROFILED:
+                case["device_ms"] = {"kernel": device_ms(lambda: qmm(x, wq, scale)),
+                                     "plain": device_ms(lambda: qmm_plain(x, wq, scale)),
+                                     "library": device_ms(lambda: torch.nn.functional.linear(x, w_lin))}
+                print(f"{label}, device time per call (profiler): kernel {case['device_ms']['kernel']:.4f} ms, "
+                      f"plain {case['device_ms']['plain']:.4f} ms, F.linear {case['device_ms']['library']:.4f} ms")
+            report["qmm_cases"].append(case)
+            if got.shape != (rows, n) or got.dtype != dtype or not err <= tol:
+                raise AssertionError(f"{label}: error {err} above {tol}, or shape {tuple(got.shape)} {got.dtype}")
+            if dtype == torch.float32 and (rows, k, n) == QMM_TIMED:
+                timed = case
+    return {"name": "qmm", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
+            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": timed["max_abs_err"],
+            "tol": timed["tol"], "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "device_ms": timed["device_ms"],
+            "timed_shape": "rows1 K768 N3072 fp32 (a decode step's fc1)"}
+
+
 def write_wav(path: Path, seconds: float, sr: int = 16000, seed: int = 0, freq: float = 440.0) -> Path:
     """A beat-gated tone with a little noise, made from a seed."""
     t = np.arange(int(sr * seconds)) / sr
@@ -293,12 +373,31 @@ def set_flash(model, on: bool) -> None:
             m.use_flash = on
 
 
-def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, check_encoder: bool) -> dict:
+def set_qmm(model, on: bool) -> None:
+    from mapperatorinator_tpu_torch.models.transformer import QDense
+
+    for m in model.modules():
+        if isinstance(m, QDense):
+            m.use_kernel = on
+
+
+def window0(args):
+    from mapperatorinator_tpu_torch.infer import Preprocessor
+
+    pre = Preprocessor(args, parallel=args.parallel)
+    return pre.segment(pre.load(args.audio_path))[0][:1]
+
+
+def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, check_encoder: bool,
+          after=None) -> dict:
+    """One request; ``after(engine, args, vocab, first)`` runs more checks on
+    the engine before it is freed, ``first`` holding the first decode call's
+    prompt, tokens and end."""
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config
-    from mapperatorinator_tpu_torch.infer import Preprocessor
     from mapperatorinator_tpu_torch.ops.attention_kernel import flash_attention
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
     from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
 
     (tmp / label).mkdir()
@@ -314,11 +413,14 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     generation_config, beatmap_config = inference.get_config(args)
 
     stats = {"tokens": 0, "decode_s": 0.0, "windows": 0}
+    first = {}
     inner = engine.generate
 
     def counted(encoder_states, ids, *a, **kw):
         t0 = time.perf_counter()
         tokens, end = inner(encoder_states, ids, *a, **kw)
+        if not first:
+            first.update(ids=ids, tokens=tokens, end=end)
         stats["decode_s"] += time.perf_counter() - t0
         stats["tokens"] += int((tokens != vocab.pad_id).sum() - (ids != vocab.pad_id).sum())
         stats["windows"] += 1
@@ -327,14 +429,15 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     engine.generate = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    fused_mel.launches = 0
+    flash_attention.launches = fused_mel.launches = qmm.launches = 0
     t0 = time.perf_counter()
     text, path = inference.generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
                                     engine=engine, vocab=vocab, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": flash_attention.launches, "fused_mel": fused_mel.launches}
+    launches = {"flash_attention_fwd": flash_attention.launches, "fused_mel": fused_mel.launches,
+                "qmm": qmm.launches}
+    engine.generate = inner
     peak = torch.cuda.max_memory_allocated()
 
     beatmap = Beatmap.from_path(path)
@@ -353,8 +456,7 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
           f"{result['timing_points']} timing points, launches {launches}")
 
     if check_encoder:
-        pre = Preprocessor(args, parallel=args.parallel)
-        frames = pre.segment(pre.load(args.audio_path))[0][:1]
+        frames = window0(args)
         with_kernel = engine.encode_with_cond(frames)
         set_flash(engine.model, False)
         plain = engine.encode_with_cond(frames)
@@ -368,10 +470,183 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         if with_kernel.shape != (1, 1024, 768) or not finite or not err <= ENC_TOL:
             raise AssertionError(f"encoder states disagree: shape {tuple(with_kernel.shape)}, finite {finite}, "
                                  f"error {err}")
+    if after is not None:
+        result.update(after(engine, args, vocab, first))
     report["requests"].append(result)
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def nbytes(tree) -> int:
+    """Bytes of the tensors in a state dict or a KV cache (lists of dicts)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(nbytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
+
+
+def profile_decode(engine, enc, ids, pipeline, eos, steps: int = 48) -> dict:
+    """Greedy decode steps on ``engine``: host ms a step without the profiler,
+    then, profiled, device ms and kernel launches a step and the device time
+    of kernel D's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    P = ids.shape[1]
+    engine.generate(enc, ids, pipeline, eos, max_length=P + 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, end = engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
+    torch.cuda.synchronize()
+    n = end - P
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    qmm_events = [e for e in kernels if "qmm_" in e.key]
+    qmm_calls = sum(e.count for e in qmm_events)
+    return {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
+            "kernels_per_step": sum(e.count for e in kernels) / n,
+            "qmm_device_ms_per_step": sum(e.self_device_time_total for e in qmm_events) / 1e3 / n,
+            "qmm_device_us_per_call": sum(e.self_device_time_total for e in qmm_events) / max(qmm_calls, 1)}
+
+
+def int8_checks(ckpt: Path):
+    """Request 3's checks on its int8 engine, window 0."""
+
+    def checks(engine, args, vocab, first) -> dict:
+        from mapperatorinator_tpu_torch import inference
+        from mapperatorinator_tpu_torch.config import load_config
+        from mapperatorinator_tpu_torch.decode.engine import _bucket
+        from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline, get_eos_token_ids
+        from mapperatorinator_tpu_torch.models.transformer import QDense
+        from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
+
+        model, out = engine.model, {}
+        n_qdense = sum(isinstance(m, QDense) for m in model.modules())
+        if n_qdense != 133 or not model.cfg.backbone.quantized_kv:
+            raise AssertionError(f"the int8 model has {n_qdense} QDense modules (want 133), "
+                                 f"quantized_kv {model.cfg.backbone.quantized_kv}")
+        frames = window0(args)
+        enc = engine.encode_with_cond(frames)
+        # the first prompt with the tokens it generated, teacher-forced: 512 rows
+        # keep every decoder QDense but fc2 under the qmm gate
+        seq = first["tokens"][:1, :min(int(first["end"]), 512)]
+        before = qmm.launches
+        with_kernel = engine.forward(enc, seq)
+        if qmm.launches == before:
+            raise AssertionError("the teacher-forced check did not run kernel D")
+        set_qmm(model, False)
+        plain = engine.forward(enc, seq)
+        set_qmm(model, True)
+        err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
+        print(f"request 3, window 0: teacher-forced logits {with_kernel.shape} through kernel D vs qmm_plain: "
+              f"max_abs_err {err:.3e} (tol {tol:.3e} = {ENC_TOL:g} x the largest |logit|)")
+        out["qmm_logits_check"] = {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol}
+        if not (np.isfinite(with_kernel).all() and err <= tol):
+            raise AssertionError(f"logits through kernel D disagree with qmm_plain: {err} above {tol}")
+
+        # the fp model from the same checkpoint
+        fp_engine, _ = inference.load_model(load_config("v32", ["seed=0", "gamemode=0", f"model_path={ckpt}"]))
+        fp_enc = fp_engine.encode_with_cond(frames)
+        fp_logits = fp_engine.forward(fp_enc, seq)
+        rel = float(np.abs(fp_logits - with_kernel).max() / (np.abs(fp_logits).max() + 1e-9))
+        agree = float((fp_logits.argmax(-1) == with_kernel.argmax(-1)).mean())
+        with torch.inference_mode():
+            sizes = {"weights_fp32": nbytes(fp_engine.model.state_dict()),
+                     "weights_int8": nbytes(model.state_dict()),
+                     "kv_cache_fp32": nbytes(fp_engine.model.init_cache(1, engine.max_length, enc)),
+                     "kv_cache_int8": nbytes(model.init_cache(1, engine.max_length, enc))}
+        greedy_chain = (build_logits_pipeline(vocab, do_sample=False), get_eos_token_ids(vocab))
+        steps = {"int8": profile_decode(engine, enc, first["ids"][:1], *greedy_chain),
+                 "fp32": profile_decode(fp_engine, fp_enc, first["ids"][:1], *greedy_chain)}
+        for name, st in steps.items():
+            print(f"request 3 decode steps, {name} weights and KV: {st['host_ms_per_step']:.2f} ms a step on the host "
+                  f"clock; profiled, {st['device_ms_per_step']:.3f} ms of device kernels and "
+                  f"{st['kernels_per_step']:.0f} launches a step, kernel D {st['qmm_device_ms_per_step']:.3f} ms "
+                  f"({st['qmm_device_us_per_call']:.2f} us a call)")
+        out["decode_steps"] = steps
+        del fp_engine
+        torch.cuda.empty_cache()
+        print(f"request 3: int8 vs fp32 logits from the same checkpoint: relative max error {rel:.4f} (bar "
+              f"{INT8_BARS[0]}), argmax agreement {agree:.4f} (bar {INT8_BARS[1]}); weights on the card "
+              f"{sizes['weights_fp32'] / 2**20:.1f} MiB fp32, {sizes['weights_int8'] / 2**20:.1f} MiB int8; "
+              f"KV cache (batch 1, {engine.max_length} slots) {sizes['kv_cache_fp32'] / 2**20:.1f} MiB fp32, "
+              f"{sizes['kv_cache_int8'] / 2**20:.1f} MiB int8")
+        out.update(int8_vs_fp={"relative_max_error": rel, "argmax_agreement": agree}, bytes=sizes)
+        if not (rel < INT8_BARS[0] and agree > INT8_BARS[1]):
+            raise AssertionError(f"the int8 model misses the reference's bars: rel {rel}, agreement {agree}")
+
+        # the engine's other entry points, on window 0's first prompt
+        pad = vocab.pad_id
+        surprisal, entropy, argmax = engine.forward_stats(enc, seq)
+        x = with_kernel - with_kernel.max(-1, keepdims=True)
+        probs = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+        want_ent = -np.sum(probs * np.log2(probs + 1e-10), axis=-1)
+        targets = np.concatenate([seq[:, 1:], np.full((1, 1), pad)], axis=1)
+        scored = targets < probs.shape[-1]  # a context token has no output probability: NaN, as in JAX
+        want_sur = -np.log2(np.take_along_axis(probs, np.where(scored, targets, 0)[..., None], -1)[..., 0] + 1e-10)
+        stats_err = max(float(np.abs(entropy - want_ent).max()),
+                        float(np.abs(surprisal - want_sur)[:, :-1][scored[:, :-1]].max()))
+        if not (stats_err <= STATS_TOL and np.isnan(surprisal[~scored]).all()
+                and np.array_equal(argmax, with_kernel.argmax(-1))):
+            raise AssertionError(f"forward_stats differs from the host reduction of forward: {stats_err}")
+
+        ids = first["ids"][:1]
+        P, valid = ids.shape[1], int((ids[0] != pad).sum())
+        max_length = min(P + ENGINE_STEPS, engine.max_length)
+        pipeline = build_logits_pipeline(vocab, do_sample=False)
+        eos = get_eos_token_ids(vocab)
+        tokens, end = engine.generate(enc, ids, pipeline, eos, max_length=max_length)
+        forced = tokens[:, P:end]
+        scores = engine.generate_forced(enc, ids, pipeline, forced)
+        if scores.shape != (1, forced.shape[1], pipeline.vocab_size) or not np.array_equal(scores.argmax(-1), forced):
+            raise AssertionError("generate_forced's scores do not pick the greedy tokens")
+        # one beam takes the greedy token at every step; it may end earlier, on
+        # an EOS candidate it retired (HF beam search scores finished
+        # hypotheses by length-normalized log-probability)
+        beams, lengths = engine.generate_beams(enc, ids, pipeline, eos, num_beams=1, max_length=max_length)
+        n = int(lengths[0]) - valid
+        hyp = beams[0, _bucket(P):_bucket(P) + n]
+        greedy = n == forced.shape[1] and np.array_equal(hyp, forced[0])
+        if not (greedy or (0 < n < forced.shape[1] and np.array_equal(hyp[:-1], forced[0, :n - 1])
+                           and int(hyp[-1]) in eos)):
+            raise AssertionError(f"one beam is not greedy decode: {hyp.tolist()} vs {forced[0].tolist()}")
+        beams2, lengths2 = engine.generate_beams(enc, ids, pipeline, eos, num_beams=2, max_length=max_length)
+        if not (np.isfinite(lengths2).all() and valid < int(lengths2[0]) <= valid + ENGINE_STEPS):
+            raise AssertionError(f"two beams gave length {lengths2}")
+        print(f"request 3 engine: forward_stats vs the host reduction of forward max error {stats_err:.2e} (tol "
+              f"{STATS_TOL:g}), argmax equal; generate_forced on {forced.shape[1]} greedy tokens picks each; "
+              f"generate_beams with 1 beam follows greedy decode ({n} tokens, "
+              f"{'the same' if greedy else 'ending on a retired EOS'}), with 2 beams length {int(lengths2[0])}")
+        out["engine_checks"] = {"stats_max_err": stats_err, "forced_tokens": int(forced.shape[1]),
+                                "beam1_tokens": n, "beam1_is_greedy": greedy, "beams2_length": int(lengths2[0])}
+        return out
+
+    return checks
+
+
+def int8_request(tmp: Path, wav: Path, report: dict) -> dict:
+    """Request 3: seeded random full-width v32 weights written as a native
+    checkpoint, then served from it with int8 weights and KV cache."""
+    from mapperatorinator_tpu_torch import inference
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.models.io import save_checkpoint
+
+    t0 = time.perf_counter()
+    engine, vocab = inference.load_model(load_config("v32", ["model_path=", "seed=0", "gamemode=0"]))
+    ckpt = tmp / "v32-checkpoint"
+    save_checkpoint(ckpt, engine.model.cfg, engine.model.state_dict(), vocab)
+    del engine
+    torch.cuda.empty_cache()
+    size = (ckpt / "params.msgpack").stat().st_size
+    print(f"checkpoint: seeded random full-width v32 weights saved with save_checkpoint ({size / 2**20:.1f} MiB "
+          f"params.msgpack) in {time.perf_counter() - t0:.1f} s")
+    report["int8_checkpoint_bytes"] = size
+    return serve("3-int8-checkpoint", tmp, wav, [f"model_path={ckpt}", "quantized_weights=true",
+                                                 "quantized_kv=true", "do_sample=false"],
+                 report, check_encoder=False, after=int8_checks(ckpt))
 
 
 OSU_TEMPLATE = """osu file format v14
@@ -580,17 +855,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
-    report = {"attention_cases": [], "attention_bwd_cases": [], "requests": []}
+    report = {"attention_cases": [], "attention_bwd_cases": [], "qmm_cases": [], "requests": []}
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
 
     t0 = time.perf_counter()
-    logs = _build.build("flash_attention", "fused_mel", "difficulty")
+    logs = _build.build("flash_attention", "fused_mel", "qmm", "difficulty")
     report["build_s"] = time.perf_counter() - t0
     report["build_logs"] = logs
-    print(f"built flash_attention.cu and fused_mel.cu for sm_90a and difficulty.cpp in {report['build_s']:.1f} s")
+    print(f"built flash_attention.cu, fused_mel.cu and qmm.cu for sm_90a and difficulty.cpp in "
+          f"{report['build_s']:.1f} s")
 
-    kernels = [check_attention(report), check_mel(report), check_attention_bwd(report)]
+    kernels = [check_attention(report), check_mel(report), check_attention_bwd(report), check_qmm(report)]
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -599,14 +875,16 @@ def main() -> int:
         second = serve("2-greedy-fused-mel", tmp, wav,
                        ["do_sample=false", "train.model.spectrogram.implementation=pallas"],
                        report, check_encoder=False)
-        if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["fused_mel"] == 0:
-            raise AssertionError(f"a kernel of the serving path never launched: {first}, {second}")
+        third = int8_request(tmp, wav, report)
+        if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 \
+                or third["qmm"] == 0 or third["flash_attention_fwd"] == 0:
+            raise AssertionError(f"a kernel of the serving path never launched: {first}, {second}, {third}")
         trained = train_phase(tmp, report)
-    launches = {"fused_mel": first["fused_mel"] + second["fused_mel"],
-                "flash_attention_fwd": first["flash_attention_fwd"] + second["flash_attention_fwd"]
-                + trained["flash_attention_fwd"],
+    served = {k: first[k] + second[k] + third[k] for k in first}
+    launches = {"fused_mel": served["fused_mel"], "qmm": served["qmm"],
+                "flash_attention_fwd": served["flash_attention_fwd"] + trained["flash_attention_fwd"],
                 "flash_attention_bwd": trained["flash_attention_bwd"]}
-    report["launches_by_path"] = {"serving": {k: first[k] + second[k] for k in first}, "training": trained}
+    report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "training": trained}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
 

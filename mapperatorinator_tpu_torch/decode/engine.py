@@ -15,6 +15,12 @@ Sampling draws from a ``torch.Generator`` seeded per call. The JAX engine
 draws with ``jax.random``: the two frameworks' streams differ, so sampled
 tokens are compared through the processed logits, and greedy decode token
 for token.
+
+The other entry points of the JAX engine: :meth:`DecodeEngine.forward` and
+:meth:`DecodeEngine.forward_stats` (teacher-forced logits, and the per-token
+analysis statistics reduced on the device), :meth:`DecodeEngine.generate_forced`
+(the stepwise path fed given tokens, returning the processed scores) and
+:meth:`DecodeEngine.generate_beams` (HF-style beam search and beam sampling).
 """
 
 from __future__ import annotations
@@ -33,6 +39,23 @@ def _bucket(p: int) -> int:
     while b < p:
         b *= 2
     return b
+
+
+def _row_bucket(n: int) -> int:
+    """Smallest power of two >= n (min 1): batch-row bucketing."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last axis: ties go to the lower index."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+NEG = -1e9  # the beam search's "no hypothesis" score
 
 
 class DecodeEngine:
@@ -91,15 +114,9 @@ class DecodeEngine:
         eos_mask = torch.zeros(pipeline.vocab_size, dtype=torch.bool, device=dev)
         eos_mask[list(eos_ids)] = True
 
-        # prefill: one chunked step writes the prompt's KV slots
-        cache = model.init_cache(B, max_length, encoder_states)
+        cache, attn, n_valid, _ = self._prefill(encoder_states, ids, prompt_mask, max_length)
         tokens = torch.full((B, max_length), pad_id, dtype=torch.long, device=dev)
         tokens[:, :P] = ids
-        attn = torch.zeros((B, max_length), dtype=torch.bool, device=dev)
-        attn[:, :P] = prompt_mask
-        positions = (torch.cumsum(prompt_mask.long(), dim=1) - 1).clamp(min=0)
-        n_valid = prompt_mask.sum(dim=1)
-        model.decode_step(model.embed_tokens(ids), cache, 0, self_mask=attn[:, None, None, :], positions=positions)
 
         gen = torch.Generator(device=dev).manual_seed(seed)
         lstate = pipeline.init_state(half, dev)
@@ -134,14 +151,272 @@ class DecodeEngine:
             n_valid = n_valid + 1
         return tokens.cpu().numpy(), cur_len
 
-    def generate_beams(self, *args, **kwargs):
-        raise NotImplementedError("beam search: ROADMAP queue 1, item 8")
+    def _teacher_forced(self, encoder_states, decoder_input_ids, decoder_attention_mask, cfg_scale):
+        """The JAX ``forward`` padding, then the model: T right-padded to its
+        power-of-two bucket (within ``max_target_positions``), rows padded per
+        CFG half by repeating the half's last row. Returns (fp32 logits of the
+        padded batch, padded ids, rows per half, padded rows per half)."""
+        B, T = decoder_input_ids.shape
+        if decoder_attention_mask is None:
+            decoder_attention_mask = decoder_input_ids != self.pad_token_id
+        dev = self.device
+        ids = torch.as_tensor(np.asarray(decoder_input_ids), dtype=torch.long, device=dev)
+        mask = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
+        enc = encoder_states
+        Tb = _bucket(T)
+        limit = self.model.cfg.max_target_positions
+        if Tb > limit:
+            Tb = limit if limit >= T else T
+        if Tb != T:
+            ids = torch.nn.functional.pad(ids, (0, Tb - T), value=self.pad_token_id)
+            mask = torch.nn.functional.pad(mask, (0, Tb - T), value=False)
+        halves = 2 if cfg_scale > 1.0 else 1
+        H = B // halves
+        Hb = _row_bucket(H)
+        if Hb != H:
+            def pad_rows(x):
+                return torch.cat([torch.cat([p, p[-1:].expand(Hb - H, *p.shape[1:])])
+                                  for p in x.chunk(halves)])
+            ids, mask, enc = pad_rows(ids), pad_rows(mask), pad_rows(enc)
+        logits = self.model(decoder_input_ids=ids, decoder_attention_mask=mask, encoder_states=enc)
+        return logits.float(), ids, H, Hb
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError("teacher-forced engine forward: ROADMAP queue 1, item 8")
+    @torch.inference_mode()
+    def forward(self, encoder_states, decoder_input_ids: np.ndarray,
+                decoder_attention_mask: Optional[np.ndarray] = None, cfg_scale: float = 1.0) -> np.ndarray:
+        """Teacher-forced forward -> fp32 logits (B, T, V) on the host. With
+        ``cfg_scale > 1`` the rows are the folded ``[negative; positive]``
+        batch, folded here, and B halves on return."""
+        T = decoder_input_ids.shape[1]
+        logits, _, H, Hb = self._teacher_forced(encoder_states, decoder_input_ids, decoder_attention_mask,
+                                                cfg_scale)
+        if cfg_scale > 1.0:
+            neg, pos = logits[:Hb][:H], logits[Hb:][:H]
+            logits = pos + (neg - pos) * cfg_scale
+        else:
+            logits = logits[:H]
+        return logits[:, :T].cpu().numpy()
 
-    def forward_stats(self, *args, **kwargs):
-        raise NotImplementedError("forward_stats (ai_mod): ROADMAP queue 1, item 8")
+    @torch.inference_mode()
+    def forward_stats(self, encoder_states, decoder_input_ids: np.ndarray,
+                      decoder_attention_mask: Optional[np.ndarray] = None,
+                      cfg_scale: float = 1.0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Teacher-forced analysis statistics, reduced on the device:
+        ``(surprisal_bits, entropy_bits, argmax_ids)``, each (B, T), after the
+        same CFG fold as :meth:`forward` and with its ``+1e-10`` guards.
+        ``surprisal_bits[p]`` scores the next prompt token ``ids[p + 1]`` (of
+        the positive half under CFG), NaN where that token is outside the
+        output vocabulary (a context token), as the JAX gather gives; only the
+        three arrays reach the host."""
+        T = decoder_input_ids.shape[1]
+        logits, ids, H, Hb = self._teacher_forced(encoder_states, decoder_input_ids, decoder_attention_mask,
+                                                  cfg_scale)
+        if cfg_scale > 1.0:
+            neg, pos = logits.chunk(2)
+            logits = pos + (neg - pos) * cfg_scale
+            ids = ids.chunk(2)[1]
+        probs = torch.softmax(logits, dim=-1)
+        entropy = -(probs * torch.log2(probs + 1e-10)).sum(-1)
+        targets = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], self.pad_token_id)], dim=1)
+        in_vocab = (targets >= 0) & (targets < probs.shape[-1])
+        p_target = probs.gather(-1, torch.where(in_vocab, targets, 0)[..., None])[..., 0]
+        p_target = torch.where(in_vocab, p_target, float("nan"))
+        surprisal = -torch.log(p_target + 1e-10) / float(np.log(2.0))
+        argmax = logits.argmax(-1).to(torch.int32)
+        return tuple(x[:H, :T].cpu().numpy() for x in (surprisal, entropy, argmax))
 
-    def generate_forced(self, *args, **kwargs):
-        raise NotImplementedError("forced decode: ROADMAP queue 1, item 8")
+    def _prefill(self, encoder_states, ids, mask, buffer_len: int):
+        """A cache of ``buffer_len`` slots holding the prompt (B, P) written in
+        one chunk at slot 0, at RoPE positions that skip its pads. Returns
+        (cache, attention mask over the buffer, logical lengths, the prompt's
+        logits)."""
+        model, dev = self.model, self.device
+        B, P = ids.shape
+        cache = model.init_cache(B, buffer_len, encoder_states)
+        attn = torch.zeros((B, buffer_len), dtype=torch.bool, device=dev)
+        attn[:, :P] = mask
+        positions = (torch.cumsum(mask.long(), dim=1) - 1).clamp(min=0)
+        logits, _ = model.decode_step(model.embed_tokens(ids), cache, 0, self_mask=attn[:, None, None, :],
+                                      positions=positions)
+        return cache, attn, mask.sum(dim=1), logits
+
+    @torch.inference_mode()
+    def generate_forced(self, encoder_states, decoder_input_ids: np.ndarray, pipeline: LogitsPipeline,
+                        forced_tokens: np.ndarray, decoder_attention_mask: Optional[np.ndarray] = None,
+                        cfg_scale: float = 1.0) -> np.ndarray:
+        """The stepwise path of :meth:`generate` (prefill, one cached step a
+        token, the logits chain with its state), taking each step's token from
+        ``forced_tokens`` (B or, under CFG, B // 2 rows of T tokens) instead of
+        the sampler. Returns the fp32 processed scores (B, T, V) the sampler
+        would have drawn from."""
+        model, dev = self.model, self.device
+        forced = torch.as_tensor(np.asarray(forced_tokens), dtype=torch.long, device=dev)
+        B, P = decoder_input_ids.shape
+        T = forced.shape[1]
+        use_cfg = cfg_scale > 1.0
+        half = B // 2 if use_cfg else B
+        if decoder_attention_mask is None:
+            decoder_attention_mask = decoder_input_ids != self.pad_token_id
+        ids = torch.as_tensor(np.asarray(decoder_input_ids), dtype=torch.long, device=dev)
+        mask = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
+        cache, attn, n_valid, logits = self._prefill(encoder_states, ids, mask, P + T)
+        last = logits[:, -1].float()
+        lstate = pipeline.init_state(half, dev)
+        scores_all = []
+        for t in range(T):
+            if use_cfg:
+                neg, pos = last[:half], last[half:]
+                last = pos + (neg - pos) * cfg_scale
+            lstate, scores = pipeline(lstate, last)
+            scores_all.append(scores)
+            if t == T - 1:  # the step after the last token would feed no score
+                break
+            lstate = pipeline.update_state(lstate, forced[:, t])
+            written = torch.cat([forced[:, t], forced[:, t]]) if use_cfg else forced[:, t]
+            attn[:, P + t] = True
+            logits, _ = model.decode_step(model.embed_tokens(written[:, None]), cache, P + t,
+                                          self_mask=attn[:, None, None, :], positions=n_valid[:, None])
+            n_valid = n_valid + 1
+            last = logits[:, -1].float()
+        return torch.stack(scores_all, dim=1).cpu().numpy()
+
+    @torch.inference_mode()
+    def generate_beams(
+        self,
+        encoder_states: torch.Tensor,
+        decoder_input_ids: np.ndarray,
+        pipeline: LogitsPipeline,
+        eos_ids: list[int],
+        num_beams: int,
+        decoder_attention_mask: Optional[np.ndarray] = None,
+        max_length: Optional[int] = None,
+        length_penalty: float = 1.0,
+        seed: int = 0,
+        cfg_scale: float = 1.0,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """HF-style beam search (``early_stopping=False``) over N = ``num_beams``
+        beams a row, from a left-padded prompt (B, P) that is left-padded
+        further to its power-of-two bucket. Each step takes the top 2N
+        candidates of the beams' summed log-probabilities (the logits chain
+        runs on the log-softmax, after the CFG fold); candidates ending in EOS
+        retire into a finished set, scored by sum / length ** length_penalty,
+        and the N best others continue, reordering the KV cache and the chain's
+        state. With a sampling pipeline the 2N candidates are drawn without
+        replacement (Gumbel top-k, the noise from a ``torch.Generator`` seeded
+        with ``seed``). Under CFG the rows are ``[negative; positive]`` and,
+        as in the reference, both halves' caches are reordered from the
+        negative half's rows. Returns the best hypothesis per row, right-padded
+        to P + max_length, and its logical length."""
+        model, dev, pad_id = self.model, self.device, self.pad_token_id
+        max_length = max_length or self.max_length
+        use_cfg = cfg_scale > 1.0
+        B_rows, P_orig = decoder_input_ids.shape
+        if use_cfg and B_rows % 2:
+            raise ValueError("the CFG fold needs an even row count")
+        if P_orig >= max_length:
+            raise ValueError(f"prompt length {P_orig} >= max_length {max_length}")
+        B = B_rows // 2 if use_cfg else B_rows
+        N = num_beams
+        BN = B * N
+        if decoder_attention_mask is None:
+            decoder_attention_mask = decoder_input_ids != pad_id
+        P = _bucket(P_orig)
+        ids = torch.full((B_rows, P), pad_id, dtype=torch.long, device=dev)
+        ids[:, P - P_orig:] = torch.as_tensor(np.asarray(decoder_input_ids), device=dev)
+        mask = torch.zeros((B_rows, P), dtype=torch.bool, device=dev)
+        mask[:, P - P_orig:] = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
+        gen_limit = max_length - P_orig
+        buffer_len = P + max_length
+        eos_mask = torch.zeros(pipeline.vocab_size, dtype=torch.bool, device=dev)
+        eos_mask[list(eos_ids)] = True
+        V = pipeline.vocab_size
+
+        def expand(x):  # (B | 2B, ...) -> (BN | 2BN, ...), each row N times within its half
+            return torch.cat([half.repeat_interleave(N, dim=0) for half in x.chunk(2 if use_cfg else 1)])
+
+        def fold(step_logits):  # HF beam order: log-softmax first, then the CFG fold
+            logp = torch.log_softmax(step_logits, dim=-1)
+            if use_cfg:
+                neg, pos = logp.chunk(2)
+                return pos + (neg - pos) * cfg_scale
+            return logp
+
+        ids_bn, mask_bn = expand(ids), expand(mask)
+        cache, attn, n_valid, logits = self._prefill(expand(encoder_states), ids_bn, mask_bn, buffer_len)
+        tokens = torch.full((ids_bn.shape[0], buffer_len), pad_id, dtype=torch.long, device=dev)
+        tokens[:, :P] = ids_bn
+        lstate = pipeline.init_state(BN, dev)
+        beam_scores = torch.full((B, N), NEG, device=dev)
+        beam_scores[:, 0] = 0.0
+        fin_scores = torch.full((B, N), NEG, device=dev)
+        fin_tokens = torch.full((B, N, buffer_len), pad_id, dtype=torch.long, device=dev)
+        fin_lengths = torch.zeros((B, N), dtype=torch.long, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        tiny = torch.finfo(torch.float32).tiny
+        step_logits = fold(logits[:, -1].float())
+        cur_len = P
+        while True:
+            gen_len = float(max(cur_len - P, 1))
+            lstate, logp = pipeline(lstate, step_logits)
+            cand = (beam_scores[:, :, None] + logp.view(B, N, V)).view(B, N * V)
+            if pipeline.do_sample:
+                u = torch.rand(cand.shape, generator=gen, device=dev).clamp(min=tiny)
+                _, top_idx = _top_k(cand - torch.log(-torch.log(u)), 2 * N)
+                top_vals = cand.gather(1, top_idx)
+            else:
+                top_vals, top_idx = _top_k(cand, 2 * N)
+            beam_idx, token_ids = top_idx // V, top_idx % V
+            is_eos = eos_mask[token_ids]
+
+            # candidates that end in EOS retire into the finished set
+            cand_fin = torch.where(is_eos, top_vals / gen_len ** length_penalty, NEG)
+            live_rows = (tokens[BN:] if use_cfg else tokens).view(B, N, buffer_len)
+            cand_rows = live_rows.gather(1, beam_idx[:, :, None].expand(B, 2 * N, buffer_len)).clone()
+            cand_rows[:, :, cur_len] = token_ids
+            live_nv = (n_valid[BN:] if use_cfg else n_valid).view(B, N)
+            all_scores = torch.cat([fin_scores, cand_fin], dim=1)
+            fin_scores, keep = _top_k(all_scores, N)
+            fin_tokens = torch.cat([fin_tokens, cand_rows], dim=1).gather(
+                1, keep[:, :, None].expand(B, N, buffer_len))
+            fin_lengths = torch.cat([fin_lengths, live_nv.gather(1, beam_idx) + 1], dim=1).gather(1, keep)
+
+            # the N best other candidates continue
+            beam_scores, sel = _top_k(torch.where(is_eos, NEG, top_vals), N)
+            sel_tok = token_ids.gather(1, sel).reshape(BN)
+            global_idx = (torch.arange(B, device=dev)[:, None] * N + beam_idx.gather(1, sel)).reshape(BN)
+            row_idx = torch.cat([global_idx, global_idx + BN]) if use_cfg else global_idx
+            tokens, attn, n_valid = tokens[row_idx], attn[row_idx], n_valid[row_idx] + 1
+            tokens[:, cur_len] = torch.cat([sel_tok, sel_tok]) if use_cfg else sel_tok
+            attn[:, cur_len] = True
+            # the reference reorders both halves' caches with beam_idx.repeat(2)
+            # (cache_utils.py:16-20): from the second step on, both halves
+            # decode over the negative prompt's KV history
+            cache_idx = torch.cat([global_idx, global_idx]) if use_cfg else global_idx
+            for layer in cache:
+                for part in layer.values():
+                    for key in part:
+                        part[key] = part[key][cache_idx]
+            lstate = pipeline.update_state(type(lstate)(*(
+                x[global_idx] if x.dim() >= 1 and x.shape[0] == BN else x for x in lstate)), sel_tok)
+            cur_len += 1
+
+            # HF early_stopping=False: a row is done once its worst finished
+            # hypothesis beats the best score a live beam can still reach
+            best_reachable = beam_scores.max(dim=1).values / float(max(cur_len - P, 1)) ** length_penalty
+            if cur_len >= P + gen_limit or bool((fin_scores.min(dim=1).values >= best_reachable).all()):
+                break
+            last = tokens[:, cur_len - 1:cur_len]
+            logits, _ = model.decode_step(model.embed_tokens(last), cache, cur_len - 1,
+                                          self_mask=attn[:, None, None, :], positions=(n_valid - 1)[:, None])
+            step_logits = fold(logits[:, -1].float())
+
+        # live beams compete with the finished hypotheses
+        live_norm = beam_scores / float(max(cur_len - P, 1)) ** length_penalty
+        merged_scores = torch.cat([fin_scores, live_norm], dim=1)
+        live_rows = (tokens[BN:] if use_cfg else tokens).view(B, N, buffer_len)
+        merged_tokens = torch.cat([fin_tokens, live_rows], dim=1)
+        merged_lengths = torch.cat([fin_lengths, (n_valid[BN:] if use_cfg else n_valid).view(B, N)], dim=1)
+        best = merged_scores.argmax(dim=1)
+        out_tokens = merged_tokens[torch.arange(B, device=dev), best]
+        out_lengths = merged_lengths.gather(1, best[:, None])[:, 0]
+        return out_tokens.cpu().numpy(), out_lengths.cpu().numpy()

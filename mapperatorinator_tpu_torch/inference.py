@@ -1,7 +1,15 @@
 """Beatmap generation on the PyTorch port: the entry points of the repo's
-``inference.py`` (``load_model``, ``generate`` and the argument compilation
-they need), without super-timing, DiT position refinement, LoRA, int8 or the
-batching server.
+``inference.py`` (``main`` / ``run``, ``load_model``, ``generate`` and the
+argument compilation they need), int8 weights and KV cache included, without
+super-timing, DiT position refinement, LoRA, a separate timing model or the
+batching server (each raises, naming its ROADMAP item).
+
+From the command line, on the card unless ``device=cpu`` is given:
+
+    python -m mapperatorinator_tpu_torch.inference -cn v32 model_path=ckpt/ \
+        audio_path=song.wav output_path=out/ quantized_weights=true quantized_kv=true
+
+From Python:
 
     from mapperatorinator_tpu_torch.config import load_config
     from mapperatorinator_tpu_torch import inference
@@ -24,17 +32,19 @@ from __future__ import annotations
 import dataclasses
 import logging
 import random
+import sys
 import uuid
 from functools import reduce
 from pathlib import Path
 
 import torch
 
-from .config import select_device
+from .config import load_config, select_device
 from .decode import DecodeEngine
 from .infer import GenerationConfig, Preprocessor, Processor, generation_config_from_beatmap
-from .models.io import load_checkpoint
-from .models.mapperatorinator import Mapperatorinator, build_config
+from .models.io import load_checkpoint, quantize_model
+from .models.lora import resolve_model_checkpoint_path
+from .models.mapperatorinator import build_config, build_model
 from .models.params import init_params
 from .osu import Beatmap, ContextType, build_vocabulary
 from .osu.rendering import (
@@ -250,40 +260,49 @@ def should_generate_timing_context(args, output_type) -> bool:
 
 
 def load_model(args):
-    """(engine, vocab) for ``args.model_path`` (a native checkpoint directory),
-    on the device ``args.device`` selects, at the compute dtype ``args.precision``
-    selects. fp32 runs with TF32 off for matmuls and convolutions."""
+    """(engine, vocab) for ``args.model_path`` (a native checkpoint directory,
+    or its ``gamemode=N`` fine-tune subfolder when one exists), on the device
+    ``args.device`` selects, at the compute dtype ``args.precision`` selects,
+    with int8 weights (``quantized_weights``) and an int8 KV cache
+    (``quantized_kv``) when asked. fp32 runs with TF32 off for matmuls and
+    convolutions."""
     if getattr(args, "lora_path", None):
         raise NotImplementedError("lora_path: LoRA waits for ROADMAP queue 1, item 15")
-    for name in ("quantized_weights", "quantized_kv"):
-        if getattr(args, name, False):
-            raise NotImplementedError(f"{name}: int8 options wait for ROADMAP queue 1, item 14")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = select_device(args)
 
-    model = None
     if args.model_path:
-        model, vocab = load_checkpoint(args.model_path)
+        ckpt_path = resolve_model_checkpoint_path(args.model_path, gamemode=args.gamemode,
+                                                  auto_select_gamemode_model=args.auto_select_gamemode_model)
+        if str(ckpt_path) != str(args.model_path):
+            print(f"Using gamemode-specific model checkpoint: {ckpt_path}")
+        model, vocab = load_checkpoint(ckpt_path)
         vocab = vocab or build_vocabulary(args.train)
-        cfg = model.cfg
+        model = model.to(device)
     else:
         vocab = build_vocabulary(args.train)
-        cfg = build_config(args.train, vocab)
-
-    dtype = PRECISIONS.get(str(getattr(args, "precision", "") or "").lower())
-    if dtype is not None and dtype != cfg.backbone.dtype:
-        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
-    if model is None:
-        model = Mapperatorinator(cfg).to(device)
+        model = build_model(build_config(args.train, vocab), device)
         init_params(model, 0 if args.seed is None else args.seed)
         print(f"No model_path: random weights from seed {args.seed}")
-    elif cfg != model.cfg:
+
+    # int8 weights come from the stored ones, before any cast to the compute
+    # dtype; the cast leaves the int8 kernels and their fp32 scales as they are
+    if getattr(args, "quantized_weights", False):
+        model = quantize_model(model)
+        print("Quantized decode weights to int8 (weight-only, fused qmm kernel)")
+    backbone = model.cfg.backbone
+    dtype = PRECISIONS.get(str(getattr(args, "precision", "") or "").lower(), backbone.dtype)
+    if getattr(args, "quantized_kv", False):
+        backbone = dataclasses.replace(backbone, quantized_kv=True)
+        print("Using int8 KV cache for decode")
+    cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(backbone, dtype=dtype))
+    if cfg != model.cfg:
         state = model.state_dict()
-        model = Mapperatorinator(cfg)
+        model = build_model(cfg, device)
         model.load_state_dict(state)
-    # weights are stored at the compute dtype; the mel front end stays fp32
-    model = model.to(device=device, dtype=model.cfg.backbone.dtype).eval()
+    # weights are held at the compute dtype; the mel front end stays fp32
+    model = model.to(dtype=cfg.backbone.dtype).eval()
     model.spectrogram.float()
     engine = DecodeEngine(model, max_length=args.train.data.tgt_seq_len, pad_token_id=vocab.pad_id,
                           device=device)
@@ -397,3 +416,55 @@ def generate(
         if verbose:
             logger.info(f"Generated beatmap saved to {result_path}")
     return result_str, result_path
+
+
+def main(argv=None):
+    """``python -m mapperatorinator_tpu_torch.inference [-cn NAME] key=value ...``:
+    the configuration ``configs/NAME.json`` (default v32) with the overrides,
+    then :func:`run`. Returns what :func:`generate` returns."""
+    argv = sys.argv[1:] if argv is None else argv
+    config_name = "v32"
+    overrides = []
+    i = 0
+    while i < len(argv):
+        if argv[i] in ("-cn", "--config-name"):
+            config_name = argv[i + 1]
+            i += 2
+        else:
+            overrides.append(argv[i])
+            i += 1
+    return run(load_config(config_name, overrides))
+
+
+def should_load_separate_timing_model(args, output_type=None) -> bool:
+    """True when a gamemode fine-tune was auto-selected but timing must be
+    generated: timing then comes from the base (all-gamemode) checkpoint."""
+    output_type = args.output_type if output_type is None else output_type
+    needs_generated_timing = (
+        args.super_timing and (len(args.in_context) == 0 or ContextType.NONE in args.in_context)
+    ) or should_generate_timing_context(args, output_type)
+    if not needs_generated_timing:
+        return False
+    current = resolve_model_checkpoint_path(args.model_path, gamemode=args.gamemode,
+                                            auto_select_gamemode_model=args.auto_select_gamemode_model)
+    base = resolve_model_checkpoint_path(args.model_path, gamemode=args.gamemode, auto_select_gamemode_model=False)
+    return str(current) != str(base)
+
+
+def run(args):
+    """Everything after the configuration: load the model, compile the
+    arguments, generate. PyTorch runs eagerly, so ``precompile`` has nothing
+    to warm. :func:`generate` refuses super-timing, DiT refinement and the
+    batching server."""
+    engine, vocab = load_model(args)
+    compile_args(args, vocab)
+    if should_load_separate_timing_model(args):
+        raise NotImplementedError("a separate timing model (the base checkpoint beside a gamemode=N fine-tune): "
+                                  "ROADMAP queue 1, item 9")
+    generation_config, beatmap_config = get_config(args)
+    return generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
+                    engine=engine, vocab=vocab)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,15 @@
-"""Native checkpoint loading (``models/io.py``).
+"""Native checkpoints (``models/io.py``) and int8 weight quantization.
 
 A native checkpoint is a directory holding ``model_config.json`` (the
 MapperatorinatorConfig tree), ``params.msgpack`` (flax-serialized params) and
-``tokenizer.json`` (the Vocabulary state).
+``tokenizer.json`` (the Vocabulary state). The msgpack file is read and
+written by :mod:`.flax_msgpack`, in pure Python: the port needs no
+``msgpack`` package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Optional, Union
@@ -15,11 +18,13 @@ import numpy as np
 import torch
 
 from ..osu.vocab import Vocabulary
-from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig
-from .params import params_from_flax
-from .transformer import TransformerConfig
+from . import flax_msgpack
+from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig, build_model
+from .params import flax_layout, flax_paths, params_from_flax
+from .transformer import TransformerConfig, quantize_weight
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_DTYPE_NAMES = {dtype: name for name, dtype in _DTYPES.items()}
 
 
 def config_from_dict(d: dict) -> MapperatorinatorConfig:
@@ -30,17 +35,18 @@ def config_from_dict(d: dict) -> MapperatorinatorConfig:
     return MapperatorinatorConfig(backbone=TransformerConfig(**bd), **rest)
 
 
-def read_flax_msgpack(path: Union[str, Path]) -> dict:
-    """``flax.serialization.to_bytes`` output -> nested dict of numpy arrays,
-    decoded with msgpack alone (ext type 1 is an ndarray, 3 a numpy scalar,
-    each packed as ``(shape, dtype name, C-order bytes)``)."""
-    import msgpack
+def config_to_dict(cfg: MapperatorinatorConfig) -> dict:
+    """The ``model_config.json`` tree, as the JAX ``_config_to_dict`` writes it."""
+    d = dataclasses.asdict(cfg)
+    d["backbone"]["dtype"] = _DTYPE_NAMES[cfg.backbone.dtype]
+    d["backbone"]["param_dtype"] = _DTYPE_NAMES[cfg.backbone.param_dtype]
+    return d
 
-    def ext_hook(code, data):
-        if code in (1, 3):
-            shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-            return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
-        raise ValueError(f"unsupported msgpack ext type {code} in {path}")
+
+def read_flax_msgpack(path: Union[str, Path]) -> dict:
+    """``flax.serialization.to_bytes`` output -> nested dict of numpy arrays
+    (ext type 1 is an ndarray, 3 a numpy scalar, each packed as
+    ``(shape, dtype name, C-order bytes)``)."""
 
     def check(node):
         if isinstance(node, dict):
@@ -49,10 +55,66 @@ def read_flax_msgpack(path: Union[str, Path]) -> dict:
             for value in node.values():
                 check(value)
 
-    with open(path, "rb") as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+    try:
+        tree = flax_msgpack.unpackb(Path(path).read_bytes())
+    except ValueError as err:
+        raise ValueError(f"{path}: {err}") from None
     check(tree)
     return tree
+
+
+def save_checkpoint(directory: Union[str, Path], config: MapperatorinatorConfig,
+                    state_dict: dict[str, torch.Tensor], vocab: Optional[Vocabulary] = None) -> None:
+    """The counterpart of the JAX ``save_checkpoint``: ``model_config.json``,
+    ``params.msgpack`` in the flax layout, and ``tokenizer.json`` when a
+    vocabulary is given. ``state_dict`` is a port model's (quantized or not);
+    its floating tensors are stored in fp32, the parameter dtype of every
+    checkpoint the port reads."""
+    if config.backbone.param_dtype != torch.float32:
+        raise ValueError(f"param_dtype {config.backbone.param_dtype}: checkpoints store fp32 parameters")
+    with torch.device("meta"):  # the module tree names the leaves; no storage
+        paths = flax_paths(Mapperatorinator(config))
+    if set(paths) != set(state_dict):
+        raise ValueError(f"state dict does not match the config: {sorted(set(paths) ^ set(state_dict))[:5]}")
+    tree: dict = {}
+    for name, tensor in state_dict.items():
+        path = paths[name]
+        t = flax_layout(tensor.detach(), path).cpu()
+        if t.is_floating_point():
+            t = t.float()
+        *scopes, leaf = path.split("/")
+        node = tree
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = np.ascontiguousarray(t.numpy())
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "model_config.json", "w", encoding="utf-8") as f:
+        json.dump(config_to_dict(config), f)
+    (directory / "params.msgpack").write_bytes(flax_msgpack.packb(tree))
+    if vocab is not None:
+        vocab.save_pretrained(directory)
+
+
+def quantize_model(model: Mapperatorinator) -> Mapperatorinator:
+    """The JAX ``quantize_checkpoint``: ``model`` rebuilt with
+    ``quantized_weights``, on its device. Structure-driven: each weight at a
+    site the quantized model makes a ``QDense`` becomes an int8 kernel with a
+    per-output-channel fp32 scale (:func:`.transformer.quantize_weight`, bit
+    for bit the JAX ``quantize_params``); every other tensor passes through,
+    and so do kernels that are int8 already."""
+    cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(model.cfg.backbone, quantized_weights=True))
+    qmodel = build_model(cfg, next(model.parameters()).device)
+    source = model.state_dict()
+    state = {}
+    for name in qmodel.state_dict():
+        base, leaf = name.rsplit(".", 1)
+        if leaf == "kernel_q" and name not in source:
+            state[name], state[f"{base}.scale"] = quantize_weight(source[f"{base}.weight"].T)
+        elif name not in state:
+            state[name] = source[name]
+    qmodel.load_state_dict(state)
+    return qmodel.train(model.training)
 
 
 def load_checkpoint(directory: Union[str, Path]) -> tuple[Mapperatorinator, Optional[Vocabulary]]:

@@ -233,3 +233,10 @@ class Mapperatorinator(nn.Module):
     def decode_step(self, input_embeds, cache, cache_index: int, self_mask=None, positions=None):
         return self.transformer.decode_step(input_embeds, cache, cache_index, self_mask=self_mask,
                                             positions=positions)
+
+
+def build_model(cfg: MapperatorinatorConfig, device) -> Mapperatorinator:
+    """``Mapperatorinator(cfg)`` with its parameters allocated and initialised
+    on ``device`` (the mel tables, made with numpy, are moved there)."""
+    with torch.device(device):
+        return Mapperatorinator(cfg).to(device)

@@ -8,6 +8,9 @@ so the mapping is by rule:
 * Conv ``kernel`` (k, in, out) -> ``nn.Conv1d.weight`` (out, in, k);
 * Embed ``embedding`` and RMSNorm ``scale`` -> ``weight`` (the flax
   ``RMSNorm_0`` scope is dropped);
+* a ``QDense`` keeps its leaves: ``kernel_q`` (in, out) int8 in the JAX
+  layout, and ``scale``, which a ``kernel_q`` sibling marks as the int8
+  kernel's and not an RMSNorm's;
 * ``bias`` stays ``bias``.
 
 The fused ``wqkv`` / ``wkv`` projections stay fused: the port splits their
@@ -40,24 +43,27 @@ def flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def torch_name(flax_path: str) -> str:
+def torch_name(flax_path: str, qdense: bool = False) -> str:
     """``params/transformer/encoder/layers_0/ffn/fc1/kernel`` ->
-    ``transformer.encoder.layers.0.ffn.fc1.weight``."""
+    ``transformer.encoder.layers.0.ffn.fc1.weight``. ``qdense``: the leaf
+    belongs to a ``QDense`` (its ``scale`` stays ``scale``)."""
     parts = flax_path.split("/")
     if parts[0] == "params":
         parts = parts[1:]
     parts = [p for p in parts if p != "RMSNorm_0"]
     parts = [re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in parts]
-    if parts[-1] in ("kernel", "embedding", "scale"):
+    if parts[-1] in ("kernel", "embedding") or (parts[-1] == "scale" and not qdense):
         parts[-1] = "weight"
     return ".".join(parts)
 
 
 def flax_paths(model: nn.Module) -> dict[str, str]:
-    """{torch parameter name: flax path} for a port module, the inverse of
-    :func:`torch_name` (``params/`` prefix and ``RMSNorm_0`` scope included)."""
+    """{torch state-dict name: flax path} for a port module, the inverse of
+    :func:`torch_name` (``params/`` prefix and ``RMSNorm_0`` scope included):
+    every parameter, and the int8 kernels and scales a ``QDense`` holds as
+    buffers."""
     paths = {}
-    for name, _ in model.named_parameters():
+    for name in model.state_dict(keep_vars=True):
         *scope, leaf = name.split(".")
         owner = model.get_submodule(".".join(scope))
         if leaf == "weight":
@@ -85,11 +91,12 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """Flax params (a nested dict of numpy arrays) -> state dict. Raises if
     two leaves land on one name."""
     state = {}
-    for path, leaf in flatten(tree).items():
+    leaves = flatten(tree)
+    for path, leaf in leaves.items():
         arr = np.asarray(leaf)
         if path.endswith("/kernel"):
             arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
-        name = torch_name(path)
+        name = torch_name(path, qdense=path.rsplit("/", 1)[0] + "/kernel_q" in leaves)
         if name in state:
             raise ValueError(f"two flax leaves map to {name}")
         state[name] = torch.tensor(arr)

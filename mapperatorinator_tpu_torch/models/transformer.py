@@ -19,6 +19,13 @@ not carried over. Cached decode attention is plain PyTorch over the live
 prefix of the cache. The KV cache is preallocated and updated in place (the
 JAX package returns a new cache; the dicts returned here are the same
 objects that were passed in).
+
+The int8 options follow the JAX package too: ``quantized_weights`` makes
+every attention projection, feed-forward layer and untied LM head a
+:class:`QDense` (int8 kernel, fp32 per-column scale, routed through kernel D
+where the JAX gate admits the shape), and ``quantized_kv`` stores the cache as
+int8 with an fp32 scale per token and head, quantized after RoPE on write and
+dequantized in ``cfg.dtype`` on read.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.attention_kernel import NEG_INF, flash_attention
+from ..ops.qmm_kernel import qmm, qmm_plain, qmm_supported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +123,6 @@ _SUPPORTED = (
     ("attention_scale", True, 11),
     ("scale_embedding", False, 11),
     ("head_dim_override", None, 11),
-    ("quantized_weights", False, 14),
-    ("quantized_kv", False, 14),
     ("banded_local_attention", False, 11),
 )
 
@@ -143,6 +149,81 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
+class QDense(nn.Module):
+    """Weight-only int8 dense layer, the JAX ``QDense``:
+    ``(x @ kernel_q) * scale + bias`` with ``kernel_q`` (in, out) int8 and
+    ``scale`` (out,) fp32 held as buffers (int8 cannot take a gradient) and
+    the bias a parameter. Where the JAX gate :func:`qmm_supported` admits the
+    shape, the product is :func:`qmm` (kernel D on a CUDA tensor), summed and
+    scaled in fp32; elsewhere it is the JAX fallback expression in the
+    compute dtype, which rounds at other places in bf16. :func:`quantize_model`
+    fills the buffers from a trained model."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.compute_dtype = compute_dtype
+        self.register_buffer("kernel_q", torch.zeros((in_features, out_features), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        # gated calls go to qmm; cleared, to its plain version (chip_smoke.py
+        # holds the two against each other)
+        self.use_kernel = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, k, n = self.compute_dtype, self.in_features, self.out_features
+        lead = x.shape[:-1]
+        if qmm_supported(k, n, math.prod(lead)):
+            product = qmm if self.use_kernel else qmm_plain
+            y = product(x.to(dt).reshape(-1, k).contiguous(), self.kernel_q, self.scale).reshape(*lead, n)
+        else:
+            y = (x.to(dt) @ self.kernel_q.to(dt)) * self.scale.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+    def _apply(self, fn, recurse=True):
+        # a dtype cast (``model.to(bf16)``) leaves the scale fp32, as the JAX
+        # quantize_params stores it; a move to another device moves it
+        scale = self.scale
+        super()._apply(fn, recurse)
+        self.scale = scale.to(fn(scale[:0]).device)
+        return self
+
+
+def quantize_weight(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An (in, out) kernel -> (int8 kernel, fp32 per-output-channel scale), the
+    JAX ``quantize_params`` rule: ``scale = max(max |W| over in, 1e-8) / 127``,
+    then ``clip(round_half_even(W / scale), -128, 127)``, all in fp32."""
+    w = kernel.float()
+    scale = w.abs().amax(dim=0).clamp(min=1e-8) / 127
+    return torch.clamp(torch.round(w / scale), -128, 127).to(torch.int8), scale
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, H, D) -> (int8 values, (B, T, H) fp32 scales): symmetric
+    max-abs quantization per token and head, in fp32."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`, in ``dtype``."""
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
+def _read_kv(cache: dict, end: Optional[int], dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cached k and v up to slot ``end`` (all slots for None), dequantized
+    when the cache is int8."""
+    k, v = cache["k"][:, :end], cache["v"][:, :end]
+    if "k_scale" in cache:
+        k = dequantize_kv(k, cache["k_scale"][:, :end], dtype)
+        v = dequantize_kv(v, cache["v_scale"][:, :end], dtype)
+    return k, v
 
 
 class Conv1d(nn.Conv1d):
@@ -223,12 +304,13 @@ class Attention(nn.Module):
         self.use_flash = cfg.use_flash_attention
         inner = num_heads * (cfg.d_model // num_heads)
         bias, dt = cfg.attention_bias, cfg.dtype
+        dense = QDense if cfg.quantized_weights else Dense
         if is_cross:
-            self.wq = Dense(cfg.d_model, inner, bias, dt)
-            self.wkv = Dense(cfg.d_model, 2 * inner, bias, dt)
+            self.wq = dense(cfg.d_model, inner, bias, dt)
+            self.wkv = dense(cfg.d_model, 2 * inner, bias, dt)
         else:
-            self.wqkv = Dense(cfg.d_model, 3 * inner, bias, dt)
-        self.wo = Dense(inner, cfg.d_model, bias, dt)
+            self.wqkv = dense(cfg.d_model, 3 * inner, bias, dt)
+        self.wo = dense(inner, cfg.d_model, bias, dt)
 
     @property
     def rope_theta(self) -> float:
@@ -244,8 +326,9 @@ class Attention(nn.Module):
         cache_index: Optional[int] = None,
     ):
         """Returns (out, cache). ``cache`` holds (B, max_len, H, D) k/v written
-        in place at ``cache_index``; cross attention reads its k/v from the
-        cache when one is given. ``attn_mask`` is a (B, 1, 1, S) key mask."""
+        in place at ``cache_index`` (int8 with (B, max_len, H) ``k_scale`` /
+        ``v_scale`` under ``quantized_kv``); cross attention reads its k/v from
+        the cache when one is given. ``attn_mask`` is a (B, 1, 1, S) key mask."""
         cfg = self.cfg
         b, t, _ = x.shape
         h = self.num_heads
@@ -253,7 +336,7 @@ class Attention(nn.Module):
         if self.is_cross:
             q = self.wq(x).view(b, t, h, -1)
             if cache is not None:
-                k, v = cache["k"], cache["v"]
+                k, v = _read_kv(cache, None, cfg.dtype)
             else:
                 kv = self.wkv(kv_source)
                 kv = kv.view(b, kv.shape[1], 2 * h, -1)
@@ -281,9 +364,11 @@ class Attention(nn.Module):
             # keys past the last written slot are causally masked for every
             # query, so only the live prefix of the buffer is read
             end = cache_index + t
-            cache["k"][:, cache_index:end] = k.to(cache["k"].dtype)
-            cache["v"][:, cache_index:end] = v.to(cache["v"].dtype)
-            k, v = cache["k"][:, :end], cache["v"][:, :end]
+            for name, x_new in (("k", k), ("v", v)):
+                if "k_scale" in cache:
+                    x_new, cache[f"{name}_scale"][:, cache_index:end] = quantize_kv(x_new)
+                cache[name][:, cache_index:end] = x_new.to(cache[name].dtype)
+            k, v = _read_kv(cache, end, cfg.dtype)
             k_pos = torch.arange(end, device=x.device)
             q_pos = cache_index + torch.arange(t, device=x.device)
             mask = k_pos[None, :] <= q_pos[:, None]
@@ -323,8 +408,9 @@ def _key_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 class FeedForward(nn.Module):
     def __init__(self, cfg: TransformerConfig, ffn_dim: int):
         super().__init__()
-        self.fc1 = Dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
-        self.fc2 = Dense(ffn_dim, cfg.d_model, cfg.mlp_bias, cfg.dtype)
+        dense = QDense if cfg.quantized_weights else Dense
+        self.fc1 = dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
+        self.fc2 = dense(ffn_dim, cfg.d_model, cfg.mlp_bias, cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
@@ -423,7 +509,8 @@ class OsuTransformer(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg, embed_inputs)
         if not cfg.tie_word_embeddings:
-            self.proj_out = Dense(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
+            head = QDense if cfg.quantized_weights else Dense
+            self.proj_out = head(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
 
     def lm_head(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
@@ -446,18 +533,30 @@ class OsuTransformer(nn.Module):
         return self.lm_head(self.decoder(decoder_inputs_embeds, encoder_states, self_mask=self_mask))
 
     def init_cache(self, batch: int, max_len: int, encoder_states: torch.Tensor) -> list:
-        """Preallocated self-attention k/v and the cross k/v, computed once."""
+        """Preallocated self-attention k/v and the cross k/v, computed once;
+        int8 with fp32 scales under ``quantized_kv``."""
         cfg = self.cfg
         h, d = cfg.decoder_heads, cfg.head_dim
+        dev = encoder_states.device
         caches = []
         for layer in self.decoder.layers:
             kv = layer.cross_attn.wkv(encoder_states)
             kv = kv.view(kv.shape[0], kv.shape[1], 2 * h, d)
-            zeros = lambda: torch.zeros((batch, max_len, h, d), dtype=cfg.dtype, device=encoder_states.device)  # noqa: E731
-            caches.append({
-                "self": {"k": zeros(), "v": zeros()},
-                "cross": {"k": kv[:, :, :h].to(cfg.dtype), "v": kv[:, :, h:].to(cfg.dtype)},
-            })
+            k, v = kv[:, :, :h], kv[:, :, h:]
+            if cfg.quantized_kv:
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                slots = lambda: torch.zeros((batch, max_len, h, d), dtype=torch.int8, device=dev)  # noqa: E731
+                scales = lambda: torch.zeros((batch, max_len, h), dtype=torch.float32, device=dev)  # noqa: E731
+                caches.append({
+                    "self": {"k": slots(), "k_scale": scales(), "v": slots(), "v_scale": scales()},
+                    "cross": {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs},
+                })
+            else:
+                zeros = lambda: torch.zeros((batch, max_len, h, d), dtype=cfg.dtype, device=dev)  # noqa: E731
+                caches.append({
+                    "self": {"k": zeros(), "v": zeros()},
+                    "cross": {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)},
+                })
         return caches
 
     def decode_step(self, input_embeds, cache: list, cache_index: int, self_mask=None,

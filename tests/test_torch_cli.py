@@ -1,0 +1,47 @@
+"""The port's command line, ``python -m mapperatorinator_tpu_torch.inference``:
+``main`` on the tiny checkpoint and a synthesized WAV writes the .osu of the
+API path (``load_model`` / ``generate``), with fp32 and with int8 weights and
+KV cache, and refuses what is not ported, naming its ROADMAP item.
+"""
+
+import pytest
+import torch
+
+from mapperatorinator_tpu_torch import inference
+from mapperatorinator_tpu_torch.config import load_config
+from mapperatorinator_tpu_torch.models.transformer import QDense
+from tests.fixtures.tiny_checkpoint import SRC_SEQ_LEN, TGT_SEQ_LEN, make_wav
+from tests.test_torch_model import tiny  # noqa: F401  (module fixture)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_cli_main_writes_the_api_osu(tiny, tmp_path, int8):  # noqa: F811
+    wav = make_wav(tmp_path / "song.wav", seconds=3.0)
+    overrides = [f"model_path={tiny[0]}", f"audio_path={wav}", f"train.data.src_seq_len={SRC_SEQ_LEN}",
+                 f"train.data.tgt_seq_len={TGT_SEQ_LEN}", "do_sample=false", "seed=7", "gamemode=0", "device=cpu",
+                 "title=TinyFixture", "bpm=120", "offset=0",
+                 f"quantized_weights={str(int8).lower()}", f"quantized_kv={str(int8).lower()}"]
+    (tmp_path / "cli").mkdir()
+    (tmp_path / "api").mkdir()
+    text, path = inference.main(["-cn", "v32", *overrides, f"output_path={tmp_path / 'cli'}"])
+    args = load_config("v32", [*overrides, f"output_path={tmp_path / 'api'}"])
+    engine, vocab = inference.load_model(args)
+    assert engine.model.cfg.backbone.quantized_kv == int8
+    assert any(isinstance(m, QDense) for m in engine.model.modules()) == int8
+    inference.compile_args(args, vocab, verbose=False)
+    generation_config, beatmap_config = inference.get_config(args)
+    want, want_path = inference.generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
+                                         engine=engine, vocab=vocab, verbose=False)
+    assert path.parent == tmp_path / "cli" and "[HitObjects]" in text
+    assert text == want and path.read_bytes() == want_path.read_bytes()
+
+
+def test_cli_refuses_what_is_not_ported(tiny, tmp_path):  # noqa: F811
+    wav = make_wav(tmp_path / "song.wav", seconds=1.0)
+    base = [f"model_path={tiny[0]}", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
+    for extra, item in (("super_timing=true", "item 9"), ("generate_positions=true", "item 12"),
+                        ("use_server=true", "item 9"), ("lora_path=adapter", "item 15")):
+        with pytest.raises(NotImplementedError, match=item):
+            inference.main(["-cn", "v32", *base, extra])

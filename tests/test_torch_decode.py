@@ -154,7 +154,8 @@ def test_sampled_processed_logits_match_jax(tiny):  # noqa: F811
 
 
 def test_unported_engine_paths_raise(tiny):  # noqa: F811
+    """The conditioning embedders are not ported (v32 has none): an encode
+    that asks for one raises."""
     _, teng, _ = engines(tiny)
-    for name in ("generate_beams", "forward", "forward_stats", "generate_forced"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(teng, name)()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.encode_with_cond(audio(1), {"difficulty": np.full((1,), 4.5, np.float32)})

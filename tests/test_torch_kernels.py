@@ -2,7 +2,7 @@
 
 Every test here needs a CUDA device and skips elsewhere (the kernels have no
 CPU mode; the plain versions are held against the JAX package by
-test_torch_attention.py and test_torch_mel.py). The file imports only torch
+test_torch_attention.py, test_torch_mel.py and test_torch_qmm.py). The file imports only torch
 and the port, so it runs where the JAX package's test helpers do not:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -20,12 +20,16 @@ from mapperatorinator_tpu_torch.ops.attention_kernel import (
     flash_attention_fwd,
 )
 from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain
+from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm, qmm_kernel, qmm_plain
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # fp32: test_attention_kernel.py:47
 # the backward's bar is ATTN_TOL times the largest reference gradient (at
 # least 1): gradients grow with the length, and dq is summed with atomics in
 # an order that changes from run to run
 MEL_TOL = 5e-3  # test_audio.py:80
+# qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
+# times the largest |reference output| (at least 1): the sums run in another order
+QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 CASES = [  # t, s, causal, window, key mask
     (64, 64, False, 0, "some"),
@@ -149,3 +153,57 @@ def test_fused_mel_kernel_matches_plain(cuda):
     want = mel_plain(frames, mel.w_re, mel.w_im, mel.fbanks, True)
     torch.testing.assert_close(got, want, rtol=MEL_TOL, atol=MEL_TOL)
     torch.testing.assert_close(mel(x), want, rtol=MEL_TOL, atol=MEL_TOL)
+
+
+def quantized(k, n, device, seed=0):
+    """A (K, N) weight quantized per column as test_qmm_kernel.py:15-18 does."""
+    w = torch.randn((k, n), generator=torch.Generator().manual_seed(seed)) * 0.05
+    scale = w.abs().amax(0).clamp(min=1e-8) / 127
+    q = torch.clamp(torch.round(w / scale), -128, 127).to(torch.int8)
+    return q.to(device), scale.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [
+    (1, 768, 2304), (1, 768, 3072), (1, 3072, 768), (2, 768, 768), (3, 200, 128), (4, 256, 384),
+    (5, 128, 512), (70, 200, 128), (256, 3072, 768), (1024, 768, 3072),
+])
+def test_qmm_kernel_matches_plain(cuda, dtype, rows, k, n):
+    """Both of kernel D's regimes (a GEMV up to 4 rows, a GEMM above) at the
+    v32 shapes and ragged K."""
+    wq, scale = quantized(k, n, cuda)
+    x = torch.randn((rows, k), generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    before = qmm.launches
+    got = qmm(x, wq, scale)
+    assert qmm.launches == before + 1
+    want = qmm_plain(x, wq, scale)
+    assert got.dtype == want.dtype == dtype and got.shape == (rows, n)
+    tol = QMM_TOL[dtype] * max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_qmm_is_differentiable_on_the_card(cuda):
+    wq, scale = quantized(256, 384, cuda)
+    x = torch.randn((3, 256), generator=torch.Generator().manual_seed(2)).to(cuda).requires_grad_()
+    dy = torch.randn((3, 384), generator=torch.Generator().manual_seed(3)).to(cuda)
+    before = qmm.launches
+    (got,) = torch.autograd.grad(qmm(x, wq, scale), x, dy)
+    assert qmm.launches == before + 1
+    (want,) = torch.autograd.grad((x @ wq.float()) * scale, x, dy)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_qmm_rejects_what_the_kernel_does_not_take(cuda):
+    wq, scale = quantized(64, 200, cuda)  # N not a multiple of 16
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qmm_kernel(torch.randn((1, 64), device=cuda), wq, scale)
+    wq, scale = quantized(64, 128, cuda)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        qmm_kernel(torch.randn((1, 64), device=cuda, dtype=torch.float16), wq, scale)
+    with pytest.raises(ValueError, match="int8"):
+        qmm_kernel(torch.randn((1, 64), device=cuda), wq.float(), scale)
+    with pytest.raises(ValueError, match="fp32"):
+        qmm_kernel(torch.randn((1, 64), device=cuda), wq, scale.to(torch.bfloat16))

@@ -6,14 +6,16 @@ A subprocess installs an import hook that refuses those packages (the JAX
 package ``mapperatorinator_tpu`` included) and records every attempt,
 imports every module of the port, checks that the default device raises
 where no card is visible, then, on the CPU by name, builds a tiny
-v32-architecture model with seeded random weights (no checkpoint: reading one
-needs msgpack), runs ``load_model`` / ``generate`` to a written .osu file and
-one step of ``train.main`` on a small ORS dataset.
+v32-architecture model with seeded random weights, runs ``load_model`` /
+``generate`` to a written .osu file, loads the tiny checkpoint (written by the
+JAX package) with int8 weights and KV cache and decodes a few steps from it,
+and runs one step of ``train.main`` on a small ORS dataset.
 
 The drift guard holds each copied file (``osu/``, ``native/``,
 ``csrc/difficulty.cpp``, ``train/data/``) to its source: equal but for
 imports and the module docstring, and, where named below, the lines that
-point the copy at the port's own build.
+point the copy at the port's own build; and each copied definition of
+``models/lora.py`` to the JAX one.
 """
 
 import ast
@@ -25,7 +27,7 @@ import textwrap
 import pytest
 
 from mapperatorinator_tpu.osu.beatmap import Beatmap
-from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_wav
+from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
 from tests.test_torch_data import TINY_MODEL, data_overrides, write_ors
 
 SCRIPT = textwrap.dedent("""
@@ -78,7 +80,22 @@ SCRIPT = textwrap.dedent("""
     text, path = inference.generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
                                     engine=engine, vocab=vocab, verbose=False)
 
-    state = train_main.main(sys.argv[5:], log_dir=sys.argv[4])
+    # a checkpoint, read without msgpack, served with int8 weights and KV cache
+    import numpy as np
+    from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline
+    from mapperatorinator_tpu_torch.models.transformer import QDense
+
+    args = load_config("v32", [f"model_path={sys.argv[5]}", "device=cpu", "gamemode=0", "quantized_weights=true",
+                               "quantized_kv=true", "train.data.src_seq_len=256", "train.data.tgt_seq_len=256"])
+    qengine, qvocab = inference.load_model(args)
+    assert qengine.model.cfg.backbone.quantized_kv
+    assert sum(isinstance(m, QDense) for m in qengine.model.modules()) == 23
+    enc = qengine.encode_with_cond(np.zeros((1, 255 * 128), np.float32))
+    tokens, end = qengine.generate(enc, np.full((1, 1), qvocab.sos_id, np.int32),
+                                   build_logits_pipeline(qvocab, do_sample=False), [qvocab.eos_id], max_length=9)
+    assert tokens.shape == (1, 9) and end > 1
+
+    state = train_main.main(sys.argv[6:], log_dir=sys.argv[4])
     assert state.step == 1
     # not even attempted: an import caught by a try would still be one
     assert not attempts, attempts
@@ -90,12 +107,14 @@ SCRIPT = textwrap.dedent("""
 def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
     wav = make_wav(tmp_path / "song.wav", seconds=3.0)
     ors = write_ors(tmp_path / "ors", tracks=2, seconds=4.0, maps=1)
+    ckpt = make_tiny_checkpoint(tmp_path / "tiny", d_model=128, heads=4, ffn=256)
     train_argv = ["-cn", "v32", "device=cpu", "mixed_precision=no", f"checkpoint_path={tmp_path / 'ckpt'}",
                   *data_overrides(ors, src=128, tgt=192), *TINY_MODEL, "optim.batch_size=2", "optim.grad_acc=1",
                   "optim.total_steps=1", "dataloader.num_workers=0", "dataloader.balancer_buffer_size=0",
                   "logging.log_with=none", "eval.every_steps=0"]
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), *train_argv],
+        [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), str(ckpt),
+         *train_argv],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         # the GPU machine sets JAX_PLATFORMS, which makes the JAX package's
         # __init__ import jax
@@ -158,3 +177,31 @@ def test_copies_do_not_drift_from_their_source(copy):
         assert old in want, f"{COPIES[copy]} no longer has the replaced lines {old!r}"
         want = want.replace(old, new)
     assert code_lines(ported) == want
+
+
+# (the port's copy, its source, the top-level definitions the copy holds verbatim)
+COPIED_DEFINITIONS = [
+    ("models/lora.py", "mapperatorinator_tpu/models/lora.py",
+     ("_GAMEMODE_SUBFOLDER_PATTERN", "get_model_checkpoint_subfolder", "resolve_model_checkpoint_path")),
+]
+
+
+def definitions(text: str) -> dict[str, str]:
+    """{name: source} of a module's top-level functions, classes and assignments."""
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.get_source_segment(text, node)
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name):
+                    out[target.id] = ast.get_source_segment(text, node)
+    return out
+
+
+@pytest.mark.parametrize("copy,source,name", [(c, s, n) for c, s, names in COPIED_DEFINITIONS for n in names])
+def test_copied_definitions_do_not_drift_from_their_source(copy, source, name):
+    want = definitions((REPO_ROOT / source).read_text(encoding="utf-8"))
+    got = definitions((PORT / copy).read_text(encoding="utf-8"))
+    assert name in want, f"{source} no longer defines {name}"
+    assert got.get(name) == want[name]
