@@ -4,12 +4,18 @@
 1. Exits non-zero when no CUDA device is visible; there is no CPU path.
 2. Builds the port's kernels from ``mapperatorinator_tpu_torch/csrc`` (one
    compiler per source, in parallel): the flash-attention forward and
-   backward, the fused mel, the int8 matrix product, and the host
-   star-rating library.
+   backward on two routes (SIMT fp32 FMAs, ``flash_attention.cu``; bf16
+   tensor cores, ``flash_attention_sm90.cu``), the fused mel, the int8
+   matrix product, and the host star-rating library.
 3. Holds each kernel against its plain PyTorch version on the card at the
    v32 shapes, printing the largest absolute error beside its tolerance and
    the median times of the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call.
+   call computes the same function, that call. The tensor-core pair is held
+   against both the plain versions that round where it rounds and the fp32
+   ones, and timed at the three attention calls of a training micro-step
+   beside SDPA, and at the encoder call beside the SIMT kernels it replaces
+   in bf16. Each attention bound counts the (query, key) pairs that the
+   masks leave, not the whole T x S that the kernels compute.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
    (``load_model`` / ``generate``) on the full-width v32 model (d_model 768,
    12 + 12 layers, 12 heads, ffn 3072, 2048 source / 2560 target tokens) with
@@ -33,6 +39,13 @@
    afterwards, every step's loss must be finite, both attention kernels
    must have launched, and restoring the checkpoint must give the same step
    and parameters. One more micro-step is profiled by kernel.
+   The bf16 micro-steps must run the tensor-core pair only (36 forward and
+   36 backward launches each, no SIMT launch), and on the first batch in
+   bf16 at batch 2 the loss and every gradient through them must be no
+   further from the fp32 gradients than twice plain bf16 attention's.
+   Before them, ``train.main`` trains in fp32 (``mixed_precision=no``, batch
+   2, 2 micro-steps), the SIMT pair's training path, which must launch the
+   SIMT pair only.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -74,6 +87,14 @@ INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreeme
 ENGINE_STEPS = 64
 STATS_TOL = 1e-4  # forward_stats vs the host reduction, test_decode.py:424
 GRAD_TOL = 2e-4  # the model bar, times each gradient tensor's largest entry
+# bf16 gradients through the tensor-core kernels, held against the fp32 plain
+# gradients on the same batch and weights: their largest error relative to the
+# tensor's largest entry may be at most this many times plain bf16 attention's
+# own (the two round at different points: the kernels keep the logits in fp32,
+# plain attention rounds them to bf16; near-uniform attention at init makes the
+# q and k gradients small, so both bf16 errors are large there)
+GRAD_TOL_BF16 = 2.0
+ATTN_PER_STEP = 36  # attention calls a micro-step: 12 encoder self, 12 decoder self, 12 cross
 
 # the card's published rates (NVIDIA H100 SXM data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 outside the tensor cores; bf16
@@ -81,6 +102,9 @@ PEAK_BYTES = 3.35e12
 
 # training: v32's batch and accumulation; a cut would be printed here
 TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS = 32, 2, 6
+# fp32 training (the SIMT pair's training path): cut to batch 2 and 2
+# micro-steps, as the fp32 gradient check's batch
+FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 2, 2
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "mapperatorinator_tpu")
 
@@ -100,13 +124,19 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def in_turns(fns: dict, reps: int = 10) -> dict:
+    """Median ms of each function, timed in order and then in reverse (a, b,
+    c, c, b, a), the median of the two rounds."""
+    first = {name: median_ms(fn, reps) for name, fn in fns.items()}
+    second = {name: median_ms(fns[name], reps) for name in reversed(list(fns))}
+    return {name: statistics.median([first[name], second[name]]) for name in fns}
+
+
 def paired_ms(kernel, plain, library=None, reps: int = 20) -> tuple[float, float, float | None]:
-    """Median ms of each, timed in turns (plain, kernel, kernel, plain), the
-    median of the two rounds."""
-    p1, k1 = median_ms(plain, reps), median_ms(kernel, reps)
-    k2, p2 = median_ms(kernel, reps), median_ms(plain, reps)
-    lib = statistics.median([median_ms(library, reps), median_ms(library, reps)]) if library else None
-    return statistics.median([k1, k2]), statistics.median([p1, p2]), lib
+    """(kernel, plain, library) median ms, timed in turns (plain, kernel,
+    library, library, kernel, plain)."""
+    times = in_turns({"plain": plain, "kernel": kernel, **({"library": library} if library else {})}, reps)
+    return times["kernel"], times["plain"], times.get("library")
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -132,13 +162,44 @@ def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def attended_pairs(B: int, T: int, S: int, causal: bool, mask) -> float:
+    """The (query, key) pairs of one head that the function needs: those the
+    causal and key masks leave, in each row with a live key; a row with none
+    averages v over all S keys. The masked pairs that a kernel computes
+    anyway are wasted work, not throughput."""
+    live = torch.ones((T, S), dtype=torch.bool, device="cuda")
+    if causal:
+        live = live.tril()
+    live = live[None].expand(B, T, S) if mask is None else live[None] & mask[:, None, :].bool()
+    per_row = live.sum(-1)
+    return float(torch.where(per_row > 0, per_row, S).sum().item())
+
+
 def sdpa_layout(*xs):
     """(B, T, H, D) -> contiguous (B, H, T, D), the layout SDPA takes."""
     return [x.transpose(1, 2).contiguous() for x in xs]
 
 
+def attention_launches() -> dict:
+    """The four attention kernels' launch counts, by kernels-line name."""
+    from mapperatorinator_tpu_torch.ops import attention_kernel as ak
+
+    return {"flash_attention_fwd": ak.flash_fwd_simt.launches, "flash_attention_bwd": ak.flash_bwd_simt.launches,
+            "flash_attention_fwd_sm90": ak.flash_fwd_sm90.launches,
+            "flash_attention_bwd_sm90": ak.flash_bwd_sm90.launches}
+
+
+def reset_attention_launches() -> None:
+    from mapperatorinator_tpu_torch.ops import attention_kernel as ak
+
+    ak.flash_fwd_simt.launches = ak.flash_bwd_simt.launches = 0
+    ak.flash_fwd_sm90.launches = ak.flash_bwd_sm90.launches = 0
+
+
 def check_attention(report: dict) -> dict:
-    from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, flash_attention
+    """Kernel B on the SIMT route (fp32 and bf16) against its plain version;
+    timed at the serving shape in fp32."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, flash_attention, flash_fwd_simt
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     H, D = 12, 64
@@ -161,12 +222,12 @@ def check_attention(report: dict) -> dict:
         k = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         mask = kw.pop("kv_mask", None)
-        got = flash_attention(q, k, v, mask, **kw)
+        got, _ = flash_fwd_simt(q, k, v, mask, kw.get("causal", False), kw.get("window", 0), D**-0.5, False)
         want = attention_plain(q, k, v, mask, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[dtype]
-        print(f"flash_attention {str(dtype)[6:]} B{B} T{T} S{S} {label}: max_abs_err {err:.3e} (tol {tol:g})")
+        print(f"flash_attention SIMT {str(dtype)[6:]} B{B} T{T} S{S} {label}: max_abs_err {err:.3e} (tol {tol:g})")
         report["attention_cases"].append({"dtype": str(dtype), "B": B, "T": T, "S": S, "case": label,
                                           "max_abs_err": err, "tol": tol})
         if not err <= tol:
@@ -192,13 +253,13 @@ def check_attention(report: dict) -> dict:
 
 
 def check_attention_bwd(report: dict) -> dict:
-    """Kernel C against its plain version at the training shapes, batch 2,
-    fp32 and bf16; then timed at the encoder self-attention of the training
-    batch in bf16."""
+    """Kernel C on the SIMT route against its plain version at the training
+    shapes, batch 2, fp32 and bf16; then timed in fp32 at the encoder
+    self-attention of the fp32 training run (batch 2), its one main path."""
     from mapperatorinator_tpu_torch.ops.attention_kernel import (
         attention_backward_plain,
-        flash_attention_bwd,
-        flash_attention_fwd,
+        flash_bwd_simt,
+        flash_fwd_simt,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -220,15 +281,15 @@ def check_attention_bwd(report: dict) -> dict:
             k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
             do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
             scale = D**-0.5
-            out, lse = flash_attention_fwd(q, k, v, mask, causal, window, scale, with_lse=True)
-            got = flash_attention_bwd(q, k, v, mask, out, lse, do, causal, window, scale)
+            out, lse = flash_fwd_simt(q, k, v, mask, causal, window, scale, True)
+            got = flash_bwd_simt(q, k, v, mask, out, lse, do, causal, window, scale)
             want = attention_backward_plain(q, k, v, mask, do, causal=causal, window=window)
             torch.cuda.synchronize()
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             # the reference's bar, scaled by the largest reference gradient:
             # gradients grow with the length, and dq is summed with atomics
             tol = ATTN_TOL[dtype] * max(1.0, max(w.float().abs().max().item() for w in want))
-            print(f"flash_attention_bwd {str(dtype)[6:]} B{B} {label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+            print(f"flash_attention_bwd SIMT {str(dtype)[6:]} B{B} {label}: max_abs_err {err:.3e} (tol {tol:.3e})")
             report["attention_bwd_cases"].append({"dtype": str(dtype), "B": B, "T": T, "S": S, "case": label,
                                                   "max_abs_err": err, "tol": tol})
             if not err <= tol:
@@ -238,34 +299,167 @@ def check_attention_bwd(report: dict) -> dict:
             if dtype == torch.float32:
                 worst = max(worst, err)
 
-    # the training path's call: encoder self-attention of the training batch, bf16
-    Bt, T, dtype = TRAIN_BATCH, 1024, torch.bfloat16
+    # the fp32 training path's call: encoder self-attention of its batch
+    Bt, T, dtype = FP32_TRAIN_BATCH, 1024, torch.float32
     q, k, v, do = (torch.randn((Bt, T, H, D), generator=gen, device="cuda").to(dtype) for _ in range(4))
     scale = D**-0.5
-    out, lse = flash_attention_fwd(q, k, v, None, False, 0, scale, with_lse=True)
+    out, lse = flash_fwd_simt(q, k, v, None, False, 0, scale, True)
     qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     do_s = do.transpose(1, 2).contiguous()
     ms, plain_ms, library_ms = paired_ms(
-        lambda: flash_attention_bwd(q, k, v, None, out, lse, do, False, 0, scale),
+        lambda: flash_bwd_simt(q, k, v, None, out, lse, do, False, 0, scale),
         lambda: attention_backward_plain(q, k, v, None, do),
-        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True), reps=10)
+        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True))
     el = Bt * T * H * D
     # 5 products of T x S x D per (batch, head): the recomputed logits, dP,
     # dV, dK, dQ; q, k, v, O, dO and lse read once, dq, dk, dv written once
-    flops, nbytes = 10.0 * Bt * H * T * T * D, 8 * el * 2 + Bt * H * T * 4
+    flops, nbytes = 10.0 * Bt * H * T * T * D, 8 * el * 4 + Bt * H * T * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    simt_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
-    print(f"flash_attention_bwd bf16 B{Bt} T1024 S1024 H12 D64: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    print(f"flash_attention_bwd SIMT fp32 B{Bt} T1024 S1024 H12 D64: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-          f"bf16 peak; {simt_ms:.3f} ms at the fp32 SIMT peak)")
-    report["attention_bwd_timing"] = {"simt_bound_ms": simt_ms, "shape": f"B{Bt} T1024 S1024 H12 D64 bf16"}
+          f"fp32 peak outside the tensor cores)")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:197",
             "max_abs_err": worst, "tol": "2e-5 x max(1, max |reference gradient|), fp32",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "timed_shape": f"B{Bt} T1024 S1024 H12 D64 bf16"}
+            "timed_shape": f"B{Bt} T1024 S1024 H12 D64 fp32 (an encoder call of fp32 training)"}
+
+
+def check_attention_sm90(report: dict) -> list[dict]:
+    """Kernels B and C on the tensor-core route (bf16, D 64) against both
+    plain versions over the training cases, batch 2, then timed at the
+    three attention calls of a training micro-step (batch 32) beside their
+    bound and ``scaled_dot_product_attention``; at the encoder call also
+    beside the plain version (at the others its fp32 (B, H, T, S) tensors
+    would not leave room) and the SIMT kernel that took bf16 before."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (
+        attention_backward_plain,
+        attention_backward_plain_bf16_tc,
+        attention_plain,
+        attention_plain_bf16_tc,
+        flash_bwd_simt,
+        flash_bwd_sm90,
+        flash_fwd_simt,
+        flash_fwd_sm90,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    H, D, B, dtype, tol = 12, 64, 2, torch.bfloat16, ATTN_TOL[torch.bfloat16]
+    scale = D**-0.5
+    cases = [  # (label, T, S, causal, window, key mask)
+        ("encoder self T1024", 1024, 1024, False, 0, None),
+        ("decoder self local T2560 causal window128 keymask", 2560, 2560, True, 128, "random"),
+        ("decoder self global T2560 causal keymask", 2560, 2560, True, 0, "random"),
+        ("cross T2560 S1024", 2560, 1024, False, 0, None),
+        ("cross T300 S1024 keymask", 300, 1024, False, 0, "random"),
+        ("all-keys-masked row T1024", 1024, 1024, False, 0, "dead"),
+    ]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for label, T, S, causal, window, kind in cases:
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+        mask = None if kind is None else torch.rand((B, S), generator=gen, device="cuda") > 0.1
+        if kind == "dead":
+            mask[0] = False  # every query row of batch 0 sees no key
+        out, lse = flash_fwd_sm90(q, k, v, mask, causal, window, scale, True)
+        grads = flash_bwd_sm90(q, k, v, mask, out, lse, do, causal, window, scale)
+        kw = {"causal": causal, "window": window}
+        fwd_err, fwd_tol = {}, {}
+        for name, ref in (("tc", attention_plain_bf16_tc), ("fp32", attention_plain)):
+            want = ref(q, k, v, mask, **kw).float()
+            fwd_err[name] = (out.float() - want).abs().max().item()
+            # one bf16 ulp grows with the value: the bar scales as the backward's
+            fwd_tol[name] = tol * max(1.0, want.abs().max().item())
+        bwd_err, bwd_tol = {}, {}
+        for name, ref in (("tc", attention_backward_plain_bf16_tc), ("fp32", attention_backward_plain)):
+            want = ref(q, k, v, mask, do, **kw)
+            bwd_err[name] = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+            bwd_tol[name] = tol * max(1.0, max(w.float().abs().max().item() for w in want))
+        dead = kind == "dead" and (grads[0][0].abs().max().item() != 0 or grads[1][0].abs().max().item() != 0)
+        print(f"flash_attention sm90 bf16 B{B} {label}: forward max_abs_err {fwd_err['tc']:.3e} against the "
+              f"rounding-faithful plain version, {fwd_err['fp32']:.3e} against the fp32 one (tol {fwd_tol['tc']:.3e} / "
+              f"{fwd_tol['fp32']:.3e}); backward "
+              f"{bwd_err['tc']:.3e} / {bwd_err['fp32']:.3e} (tol {bwd_tol['tc']:.3e} / {bwd_tol['fp32']:.3e})"
+              + ("; dq and dk of the rows with no live key exactly 0" if kind == "dead" and not dead else ""))
+        report["attention_sm90_cases"].append({"B": B, "T": T, "S": S, "case": label, "fwd_max_abs_err": fwd_err,
+                                               "fwd_tol": fwd_tol, "bwd_max_abs_err": bwd_err, "bwd_tol": bwd_tol})
+        if not (all(fwd_err[n] <= fwd_tol[n] for n in fwd_err) and all(bwd_err[n] <= bwd_tol[n] for n in bwd_err)) \
+                or dead:
+            raise AssertionError(f"flash_attention sm90 {label}: forward {fwd_err}, backward {bwd_err} above "
+                                 f"{fwd_tol} / {bwd_tol}, or a row with no live key gave dq or dk a gradient")
+        worst["fwd"] = max(worst["fwd"], fwd_err["tc"])
+        worst["bwd"] = max(worst["bwd"], bwd_err["tc"])
+        del q, k, v, do, out, lse, grads
+
+    # the three calls of a training micro-step, batch 32; the decoder's key
+    # mask pads each row's end, as the model's decoder_attention_mask does
+    Bt = TRAIN_BATCH
+    timings = {}
+    for label, T, S, causal in (("encoder self", 1024, 1024, False), ("decoder self", 2560, 2560, True),
+                                ("cross", 2560, 1024, False)):
+        q, do = (torch.randn((Bt, T, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((Bt, S, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        mask = None
+        if causal:
+            lengths = torch.randint(int(0.75 * S), S + 1, (Bt, 1), generator=gen, device="cuda")
+            mask = torch.arange(S, device="cuda")[None] < lengths
+        out, lse = flash_fwd_sm90(q, k, v, mask, causal, 0, scale, True)
+        qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
+        sdpa_mask = None
+        if mask is not None:  # the same function: causal and the key mask as one boolean mask
+            sdpa_mask = (torch.ones((T, S), dtype=torch.bool, device="cuda").tril()[None, None]
+                         & mask[:, None, None, :])
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+        do_s = do.transpose(1, 2).contiguous()
+        fwd = {"kernel": lambda: flash_fwd_sm90(q, k, v, mask, causal, 0, scale, True),
+               "library": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)}
+        bwd = {"kernel": lambda: flash_bwd_sm90(q, k, v, mask, out, lse, do, causal, 0, scale),
+               "library": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True)}
+        if label == "encoder self":
+            out_s, lse_s = flash_fwd_simt(q, k, v, mask, causal, 0, scale, True)
+            fwd["plain"] = lambda: attention_plain_bf16_tc(q, k, v, mask, causal=causal)
+            bwd["plain"] = lambda: attention_backward_plain_bf16_tc(q, k, v, mask, do, causal=causal)
+            fwd["simt"] = lambda: flash_fwd_simt(q, k, v, mask, causal, 0, scale, True)
+            bwd["simt"] = lambda: flash_bwd_simt(q, k, v, mask, out_s, lse_s, do, causal, 0, scale)
+        el_q, el_k = Bt * T * H * D, Bt * S * H * D
+        # the bound counts the pairs the masks leave; the kernels compute all
+        # T x S (no tile is skipped), so the rest is wasted work
+        pairs = H * attended_pairs(Bt, T, S, causal, mask)
+        f_flops, f_computed = 4.0 * pairs * D, 4.0 * Bt * H * T * S * D
+        f_bound = bound(f_flops, 2 * (2 * el_q + 2 * el_k) + 4 * Bt * H * T, dtype)  # q, k, v in; out, lse out
+        # q, k, v, O, dO and lse in; dq, dk, dv out
+        b_bound = bound(2.5 * f_flops, 2 * (3 * el_q + 2 * el_k) + 2 * (el_q + 2 * el_k) + 4 * Bt * H * T, dtype)
+        times = {"fwd": in_turns(fwd), "bwd": in_turns(bwd)}
+        for kind, bnd, flops in (("fwd", f_bound, f_flops), ("bwd", b_bound, 2.5 * f_flops)):
+            t_ = times[kind]
+            t_["bound"], t_["bound_by"] = bnd
+            t_["useful_flops"], t_["computed_flops"] = flops, flops * f_computed / f_flops
+            t_["useful_tflops"] = flops / t_["kernel"] / 1e9
+            plain = f", plain {t_['plain']:.3f} ms" if "plain" in t_ else ", plain not measured (memory)"
+            simt = f", SIMT {t_['simt']:.3f} ms" if "simt" in t_ else ""
+            print(f"flash_attention sm90 {kind} bf16 {label} B{Bt} T{T} S{S} H12 D64"
+                  f"{' causal + key mask' if causal else ''}: kernel {t_['kernel']:.3f} ms{simt}{plain}, "
+                  f"scaled_dot_product_attention {t_['library']:.3f} ms ({t_['kernel'] / t_['library']:.2f}x), "
+                  f"bound {t_['bound']:.4f} ms ({t_['bound_by']}); the masks leave {f_flops / f_computed:.4f} of "
+                  f"the T x S pairs the kernel computes: {t_['useful_tflops']:.1f} useful TFLOP/s")
+        timings[label] = times
+        del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, sdpa_mask
+        torch.cuda.empty_cache()
+    report["attention_sm90_timing"] = timings
+    enc = timings["encoder self"]
+    source = "mapperatorinator_tpu_torch/csrc/flash_attention_sm90.cu"
+    shape = f"B{Bt} T1024 S1024 H12 D64 bf16 (an encoder call of training)"
+    return [{"name": f"flash_attention_{kind}_sm90", "route": "cuda", "source": source, "replaces": replaces,
+             "max_abs_err": worst[kind],
+             "tol": f"2e-2 x max(1, max |reference {'output' if kind == 'fwd' else 'gradient'}|)",
+             "ms": enc[kind]["kernel"], "plain_ms": enc[kind]["plain"], "bound_ms": enc[kind]["bound"],
+             "bound_by": enc[kind]["bound_by"], "library_ms": enc[kind]["library"], "simt_ms": enc[kind]["simt"],
+             "timed_shape": shape}
+            for kind, replaces in (("fwd", "mapperatorinator_tpu/ops/attention_kernel.py:88"),
+                                   ("bwd", "mapperatorinator_tpu/ops/attention_kernel.py:197"))]
 
 
 def check_mel(report: dict) -> dict:
@@ -395,7 +589,6 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     prompt, tokens and end."""
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config
-    from mapperatorinator_tpu_torch.ops.attention_kernel import flash_attention
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
     from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
     from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
@@ -429,14 +622,14 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     engine.generate = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = fused_mel.launches = qmm.launches = 0
+    reset_attention_launches()
+    fused_mel.launches = qmm.launches = 0
     t0 = time.perf_counter()
     text, path = inference.generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
                                     engine=engine, vocab=vocab, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": flash_attention.launches, "fused_mel": fused_mel.launches,
-                "qmm": qmm.launches}
+    launches = {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches}
     engine.generate = inner
     peak = torch.cuda.max_memory_allocated()
 
@@ -708,48 +901,134 @@ def data_overrides(ors: Path) -> list[str]:
             f"data.test_dataset_path={ors}", "data.test_dataset_start=0", f"data.test_dataset_end={ORS_TRACKS}"]
 
 
-def check_gradients(ors: Path, report: dict) -> None:
-    """On the first training batch, in fp32 at batch 2: the loss and every
-    parameter gradient through the kernels (B forward, C backward) against
-    the plain attention path."""
+def check_gradients(ors: Path, report: dict) -> dict:
+    """On the first training batch at batch 2: the loss and every parameter
+    gradient through the kernels against the plain attention path. In fp32
+    (the SIMT kernels B and C) within ``GRAD_TOL``. In bf16 (the tensor-core
+    pair), on the same batch and the same seeded weights, both bf16 paths
+    are held against the fp32 plain gradients: the kernels' error must stay
+    within ``GRAD_TOL_BF16`` times plain bf16 attention's own. Returns the
+    attention launches of both passes: a check, not a main path."""
     from mapperatorinator_tpu_torch.config import load_train_config
-    from mapperatorinator_tpu_torch.ops.attention_kernel import flash_attention, flash_attention_bwd
     from mapperatorinator_tpu_torch.train import main as train_main
     from mapperatorinator_tpu_torch.train.step import to_device
 
-    args = load_train_config("v32", data_overrides(ors) + ["mixed_precision=no", "dataloader.num_workers=0"])
-    model, _, make_batches = train_main.build_model_and_data(args, torch.device("cuda"))
-    batch = to_device({k: v[:2] for k, v in next(iter(make_batches(test=False))).items()}, "cuda")
+    def build(precision: str):
+        args = load_train_config("v32", data_overrides(ors) + [f"mixed_precision={precision}",
+                                                               "dataloader.num_workers=0"])
+        return train_main.build_model_and_data(args, torch.device("cuda"))
 
-    def loss_and_grads(flash: bool):
+    def loss_and_grads(model, batch, flash: bool):
         set_flash(model, flash)
         model.zero_grad(set_to_none=True)
         _, loss = model(**batch)
         loss.backward()
         return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
 
-    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
-    loss_k, grads_k = loss_and_grads(True)
-    if flash_attention.launches == fwd or flash_attention_bwd.launches == bwd:
-        raise AssertionError("the fp32 gradient check did not run through kernels B and C")
-    loss_p, grads_p = loss_and_grads(False)
-    worst = max(((grads_k[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item() for n, g in grads_p.items())
-    print(f"training gradients, first batch, fp32, B2, kernels B+C vs plain attention: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f}, {len(grads_p)} gradient tensors, largest error relative to the tensor's largest entry "
-          f"{worst:.3e} (tol {GRAD_TOL:g})")
-    report["training"]["gradient_check"] = {"loss_kernels": loss_k, "loss_plain": loss_p, "tensors": len(grads_p),
-                                            "worst_relative": worst, "tol": GRAD_TOL}
-    if sorted(grads_k) != sorted(grads_p) or len(grads_p) != len(list(model.parameters())):
+    def with_kernels(model, batch, kernels) -> tuple[float, dict, dict]:
+        reset_attention_launches()
+        loss, grads = loss_and_grads(model, batch, True)
+        launches = attention_launches()
+        want = {name: ATTN_PER_STEP if name in kernels else 0 for name in launches}
+        if launches != want:
+            raise AssertionError(f"the gradient check launched {launches}, not {want}")
+        return loss, grads, launches
+
+    def worst(grads: dict, ref: dict) -> tuple[float, str]:
+        """The largest error relative to the reference tensor's largest entry, and its tensor."""
+        errs = {n: ((grads[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item() for n, g in ref.items()}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    model, _, make_batches = build("no")
+    batch = to_device({k: v[:2] for k, v in next(iter(make_batches(test=False))).items()}, "cuda")
+    weights = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss_k, grads_k, fp32_launches = with_kernels(model, batch, ("flash_attention_fwd", "flash_attention_bwd"))
+    loss_ref, ref = loss_and_grads(model, batch, False)
+    err, name = worst(grads_k, ref)
+    print(f"training gradients, first batch, fp32, B2, kernels B+C (SIMT) vs plain attention: loss {loss_k:.6f} vs "
+          f"{loss_ref:.6f}, {len(ref)} gradient tensors, largest error relative to the tensor's largest entry "
+          f"{err:.3e} ({name}; tol {GRAD_TOL:g}), launches {fp32_launches}")
+    report["training"]["gradient_check"] = {"loss_kernels": loss_k, "loss_plain": loss_ref, "tensors": len(ref),
+                                            "worst_relative": err, "worst_tensor": name, "tol": GRAD_TOL}
+    if sorted(grads_k) != sorted(ref) or len(ref) != len(list(model.parameters())):
         raise AssertionError("the two paths reached different parameters")
-    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= GRAD_TOL * abs(loss_p) and worst <= GRAD_TOL):
-        raise AssertionError(f"gradients through the kernels disagree: loss {loss_k} vs {loss_p}, worst {worst}")
-    del model, grads_k, grads_p, batch
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_ref) <= GRAD_TOL * abs(loss_ref) and err <= GRAD_TOL):
+        raise AssertionError(f"gradients through the kernels disagree: loss {loss_k} vs {loss_ref}, worst {err}")
+    del model, grads_k
     torch.cuda.empty_cache()
+
+    model, _, _ = build("bf16")
+    if any(not torch.equal(p, weights[n]) for n, p in model.named_parameters()):
+        raise AssertionError("the bf16 model's seeded weights differ from the fp32 model's")
+    loss_k, grads_k, launches = with_kernels(model, batch, ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90"))
+    loss_p, grads_p = loss_and_grads(model, batch, False)
+    (err_k, name_k), (err_p, name_p), (err_kp, _) = worst(grads_k, ref), worst(grads_p, ref), worst(grads_k, grads_p)
+    print(f"training gradients, first batch, bf16, B2, against the fp32 plain gradients: kernels B+C (tensor "
+          f"cores) loss {loss_k:.6f}, largest relative error {err_k:.3e} ({name_k}); plain bf16 attention loss "
+          f"{loss_p:.6f}, {err_p:.3e} ({name_p}); fp32 loss {loss_ref:.6f} (tol: the kernels within "
+          f"{GRAD_TOL_BF16:g}x plain bf16's error); kernels vs plain bf16 {err_kp:.3e}; launches {launches}")
+    report["training"]["gradient_check_bf16"] = {
+        "loss_kernels": loss_k, "loss_plain_bf16": loss_p, "loss_fp32": loss_ref, "worst_relative_kernels": err_k,
+        "worst_tensor_kernels": name_k, "worst_relative_plain_bf16": err_p, "worst_tensor_plain_bf16": name_p,
+        "kernels_vs_plain_bf16": err_kp, "tol_factor": GRAD_TOL_BF16, "launches": launches}
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_ref) <= GRAD_TOL_BF16 * abs(loss_p - loss_ref) + 1e-2
+            and err_k <= GRAD_TOL_BF16 * err_p):
+        raise AssertionError(f"bf16 gradients through the kernels are further from fp32 than plain bf16 attention's: "
+                             f"{err_k} against {err_p}, loss {loss_k} against {loss_p} (fp32 {loss_ref})")
+    del model, grads_k, grads_p, ref, batch, weights
+    torch.cuda.empty_cache()
+    return {name: fp32_launches[name] + launches[name] for name in launches}
+
+
+def train_overrides(ors: Path, ckpt: Path, batch: int, grad_acc: int, steps: int) -> list[str]:
+    return data_overrides(ors) + [
+        f"optim.batch_size={batch}", f"optim.grad_acc={grad_acc}", f"optim.total_steps={steps}",
+        "dataloader.balancer_buffer_size=0", "eval.every_steps=0", "checkpoint.every_steps=1000000",
+        f"checkpoint_path={ckpt}", "logging.every_steps=1", "logging.log_with=none"]
+
+
+def metrics_steps(logs: Path) -> list[dict]:
+    records = [json.loads(line) for line in (logs / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in records if "train/loss" in r]
+
+
+def train_fp32(tmp: Path, ors: Path, report: dict) -> dict:
+    """fp32 training through ``train.main`` (``mixed_precision=no``), the
+    SIMT pair's training path: the full-width model at batch
+    ``FP32_TRAIN_BATCH`` for ``FP32_TRAIN_STEPS`` micro-steps. Every step's
+    loss must be finite, and every attention call must launch the SIMT pair
+    and nothing else. Returns its attention launches."""
+    from mapperatorinator_tpu_torch.train import main as train_main
+
+    logs = tmp / "logs_fp32"
+    overrides = train_overrides(ors, tmp / "ckpt_fp32", FP32_TRAIN_BATCH, 1, FP32_TRAIN_STEPS)
+    reset_attention_launches()
+    t0 = time.perf_counter()
+    state = train_main.main(["-cn", "v32", *overrides, "mixed_precision=no"], log_dir=str(logs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = attention_launches()
+    steps = metrics_steps(logs)
+    if state.model.cfg.backbone.dtype != torch.float32 or len(steps) != FP32_TRAIN_STEPS:
+        raise AssertionError(f"fp32 training: dtype {state.model.cfg.backbone.dtype}, {len(steps)} steps logged")
+    if not all(math.isfinite(r["train/loss"]) for r in steps):
+        raise AssertionError(f"an fp32 training loss is not finite: {[r['train/loss'] for r in steps]}")
+    want = {name: 0 for name in launches}
+    want["flash_attention_fwd"] = want["flash_attention_bwd"] = ATTN_PER_STEP * FP32_TRAIN_STEPS
+    if launches != want:
+        raise AssertionError(f"the fp32 micro-steps launched {launches}, not {want}")
+    print(f"training fp32 (mixed_precision=no), batch {FP32_TRAIN_BATCH}: {FP32_TRAIN_STEPS} micro-steps in "
+          f"{wall:.1f} s (model build and data included), losses {[round(r['train/loss'], 4) for r in steps]}, "
+          f"s/step {[round(r['train/seconds_per_step'], 3) for r in steps]}, launches {launches}")
+    report["training_fp32"] = {"wall_s": wall, "launches": launches, "steps": steps, "batch": FP32_TRAIN_BATCH}
+    del state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_phase(tmp: Path, report: dict) -> dict:
     from mapperatorinator_tpu_torch.config import load_train_config
-    from mapperatorinator_tpu_torch.ops.attention_kernel import flash_attention, flash_attention_bwd
     from mapperatorinator_tpu_torch.train import main as train_main
     from mapperatorinator_tpu_torch.train.loop import CheckpointManager, batch_tokens, card_line
     from mapperatorinator_tpu_torch.train.optim import build_optimizer
@@ -760,31 +1039,28 @@ def train_phase(tmp: Path, report: dict) -> dict:
     print(f"ors dataset: {ORS_TRACKS} tracks x {ORS_MAPS} maps, {ORS_SECONDS:g} s of audio each, written in "
           f"{time.perf_counter() - t0:.1f} s")
     report["training"] = {}
-    check_gradients(ors, report)
+    check_launches = check_gradients(ors, report)
+    fp32_launches = train_fp32(tmp, ors, report)
 
     ckpt, logs = tmp / "ckpt", tmp / "logs"
-    overrides = data_overrides(ors) + [
-        f"optim.batch_size={TRAIN_BATCH}", f"optim.grad_acc={TRAIN_GRAD_ACC}", f"optim.total_steps={TRAIN_MICRO_STEPS}",
-        "dataloader.balancer_buffer_size=0", "eval.every_steps=0", "checkpoint.every_steps=1000000",
-        f"checkpoint_path={ckpt}", "logging.every_steps=1", "logging.log_with=none"]
+    overrides = train_overrides(ors, ckpt, TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS)
     print(f"training cuts: {TRAIN_MICRO_STEPS} micro-steps ({TRAIN_MICRO_STEPS // TRAIN_GRAD_ACC} updates) of v32's "
           f"batch {TRAIN_BATCH} x grad_acc {TRAIN_GRAD_ACC}; no eval; token balancer off (its 2048-sample buffer "
           "outlasts the run); width and depth as published")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0
+    reset_attention_launches()
     t0 = time.perf_counter()
     state = train_main.main(["-cn", "v32", *overrides], log_dir=str(logs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": flash_attention.launches, "flash_attention_bwd": flash_attention_bwd.launches}
+    launches = attention_launches()
 
     b = state.model.cfg.backbone
     if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn, b.dtype) != \
             (768, 12, 12, 12, 3072, torch.bfloat16):
         raise AssertionError(f"not the full-width bf16 v32 backbone: {b}")
-    records = [json.loads(line) for line in (logs / "metrics.jsonl").read_text().splitlines()]
-    steps = [r for r in records if "train/loss" in r]
+    steps = metrics_steps(logs)
     shapes = {"frames": np.zeros((TRAIN_BATCH, 2047 * 128)), "decoder_input_ids": np.zeros((TRAIN_BATCH, 2560))}
     tokens = batch_tokens(shapes)
     card = card_line()
@@ -797,8 +1073,11 @@ def train_phase(tmp: Path, report: dict) -> dict:
         raise AssertionError(f"training ran {state.step} steps, logged {len(steps)}")
     if not all(math.isfinite(r["train/loss"]) for r in steps):
         raise AssertionError(f"a training loss is not finite: {[r['train/loss'] for r in steps]}")
-    if launches["flash_attention_fwd"] == 0 or launches["flash_attention_bwd"] == 0:
-        raise AssertionError(f"an attention kernel never launched in training: {launches}")
+    # bf16 micro-steps run the tensor-core pair only, once per attention call
+    want = {name: 0 for name in launches}
+    want["flash_attention_fwd_sm90"] = want["flash_attention_bwd_sm90"] = ATTN_PER_STEP * TRAIN_MICRO_STEPS
+    if launches != want:
+        raise AssertionError(f"the bf16 micro-steps launched {launches}, not {want}")
     print(f"training: {TRAIN_MICRO_STEPS} micro-steps in {wall:.1f} s (model build, data and the final checkpoint "
           f"included), launches {launches}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -841,13 +1120,14 @@ def train_phase(tmp: Path, report: dict) -> dict:
         "breakdown": breakdown})
     del state
     torch.cuda.empty_cache()
-    return launches
+    return launches, fp32_launches, check_launches
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     sys.path.insert(0, str(REPO))
     from mapperatorinator_tpu_torch.ops import _build
     from mapperatorinator_tpu_torch.train.loop import card_line
@@ -855,18 +1135,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
-    report = {"attention_cases": [], "attention_bwd_cases": [], "qmm_cases": [], "requests": []}
+    report = {"attention_cases": [], "attention_bwd_cases": [], "attention_sm90_cases": [], "qmm_cases": [],
+              "requests": []}
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
 
     t0 = time.perf_counter()
-    logs = _build.build("flash_attention", "fused_mel", "qmm", "difficulty")
+    logs = _build.build("flash_attention", "flash_attention_sm90", "fused_mel", "qmm", "difficulty")
     report["build_s"] = time.perf_counter() - t0
     report["build_logs"] = logs
-    print(f"built flash_attention.cu, fused_mel.cu and qmm.cu for sm_90a and difficulty.cpp in "
-          f"{report['build_s']:.1f} s")
+    print(f"built flash_attention.cu, flash_attention_sm90.cu, fused_mel.cu and qmm.cu for sm_90a and "
+          f"difficulty.cpp in {report['build_s']:.1f} s")
 
-    kernels = [check_attention(report), check_mel(report), check_attention_bwd(report), check_qmm(report)]
+    kernels = [check_attention(report), check_mel(report), check_attention_bwd(report), check_qmm(report),
+               *check_attention_sm90(report)]
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -879,20 +1161,28 @@ def main() -> int:
         if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 \
                 or third["qmm"] == 0 or third["flash_attention_fwd"] == 0:
             raise AssertionError(f"a kernel of the serving path never launched: {first}, {second}, {third}")
-        trained = train_phase(tmp, report)
+        trained, trained_fp32, checked = train_phase(tmp, report)
     served = {k: first[k] + second[k] + third[k] for k in first}
-    launches = {"fused_mel": served["fused_mel"], "qmm": served["qmm"],
-                "flash_attention_fwd": served["flash_attention_fwd"] + trained["flash_attention_fwd"],
-                "flash_attention_bwd": trained["flash_attention_bwd"]}
-    report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "training": trained}
+    # each kernel's launches on the main paths that run it: serving (fp32),
+    # fp32 training, bf16 training; the gradient check's are listed apart
+    launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) for k in served}
+    report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third,
+                                  "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
+                                  "gradient check (fp32 and bf16, first batch; not a main path)": checked}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] in checked:
+            entry["gradient_check_launches"] = checked[entry["name"]]
+        if entry["launches"] == 0:
+            raise AssertionError(f"{entry['name']} never launched on the paths it serves: {report['launches_by_path']}")
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
     if loaded:
         raise AssertionError(f"the port's path imported {loaded}")
     report["card"] = card
     report["kernels"] = kernels
+    report["total_s"] = time.perf_counter() - started
+    print(f"chip_smoke: {report['total_s']:.1f} s from start to here (the build included)")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -25,11 +25,13 @@
 //
 // What bounds it: at the v32 shape (T = S = 1024, H = 12, D = 64) the work is
 // 4 * T * S * D flops per head, about 3.2 GFLOP per row of the batch, against
-// a few MB of q/k/v traffic: compute bound. This first version computes with
-// fp32 FMAs on the SIMT cores (67 TFLOP/s peak on an H100 SXM), not with
-// tensor cores, so fp32 inputs keep full fp32 accuracy; the shared-memory
-// operand reads (float4, conflict-free strides) are what limits the inner
-// loops. Tensor-core (wgmma) tiles are later work.
+// a few MB of q/k/v traffic: compute bound. These kernels compute with fp32
+// FMAs on the SIMT cores (67 TFLOP/s peak on an H100 SXM), not with tensor
+// cores, so fp32 inputs keep full fp32 accuracy; the shared-memory operand
+// reads (float4, conflict-free strides) are what limits the inner loops.
+// They are the route of fp32; bf16 goes to the tensor-core (wgmma) kernels
+// of flash_attention_sm90.cu (ops/attention_kernel.py, attention_route), and
+// reaches these only when called directly, to time one beside the other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -266,7 +268,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // recomputed logits, dP, dV, dK, dQ), 10 T S D flops, against q, k, v, O,
 // dO traffic of a few MB: compute bound, on fp32 SIMT FMAs (67 TFLOP/s peak
 // on an H100 SXM) as in the forward, plus T S D / 64 fp32 atomics for dq.
-// Tensor cores, and a dq pass without atomics, are later work.
+// The bf16 tensor-core backward is in flash_attention_sm90.cu; a dq pass
+// without atomics is later work.
 
 constexpr float ALL_MASKED = -1e38f;  // an lse below this: the row has no live key
 

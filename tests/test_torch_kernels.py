@@ -2,8 +2,11 @@
 
 Every test here needs a CUDA device and skips elsewhere (the kernels have no
 CPU mode; the plain versions are held against the JAX package by
-test_torch_attention.py, test_torch_mel.py and test_torch_qmm.py). The file imports only torch
-and the port, so it runs where the JAX package's test helpers do not:
+test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py and
+test_torch_qmm.py). Attention is checked on both routes: the SIMT kernels
+(fp32) and the tensor-core pair (bf16, D 64). The
+file imports only torch and the port, so it runs where the JAX package's
+test helpers do not:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 """
@@ -14,10 +17,16 @@ import torch
 from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
 from mapperatorinator_tpu_torch.ops.attention_kernel import (
     attention_backward_plain,
+    attention_backward_plain_bf16_tc,
     attention_plain,
+    attention_plain_bf16_tc,
     flash_attention,
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_bwd_simt,
+    flash_bwd_sm90,
+    flash_fwd_simt,
+    flash_fwd_sm90,
 )
 from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain
 from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm, qmm_kernel, qmm_plain
@@ -51,6 +60,21 @@ def cuda():
     return torch.device("cuda")
 
 
+def launches():
+    """(SIMT forward, SIMT backward, tensor-core forward, tensor-core backward)."""
+    return flash_fwd_simt.launches, flash_bwd_simt.launches, flash_fwd_sm90.launches, flash_bwd_sm90.launches
+
+
+def route_step(dtype, fwd=1, bwd=0):
+    """What one call at D 64 adds to :func:`launches`: fp32 runs the SIMT
+    pair, bf16 the tensor-core pair."""
+    return {torch.float32: (fwd, bwd, 0, 0), torch.bfloat16: (0, 0, fwd, bwd)}[dtype]
+
+
+def added(before, step):
+    return tuple(b + s for b, s in zip(before, step))
+
+
 def attention_inputs(device, t, s, masked, dtype, d=64, h=2):
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((2, n, h, d), generator=gen).to(device, dtype) for n in (t, s, s))
@@ -67,9 +91,9 @@ def attention_inputs(device, t, s, masked, dtype, d=64, h=2):
 @pytest.mark.parametrize("t,s,causal,window,masked", CASES)
 def test_flash_attention_kernel_matches_plain(cuda, dtype, t, s, causal, window, masked):
     q, k, v, kvm = attention_inputs(cuda, t, s, masked, dtype)
-    before = flash_attention.launches
+    before = launches()
     got = flash_attention(q, k, v, kvm, causal=causal, window=window)
-    assert flash_attention.launches == before + 1
+    assert launches() == added(before, route_step(dtype))
     want = attention_plain(q, k, v, kvm, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATTN_TOL[dtype])
 
@@ -87,9 +111,9 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, t, s, causal
     scale = q.shape[-1] ** -0.5
     out, lse = flash_attention_fwd(q, k, v, kvm, causal, window, scale, with_lse=True)
     assert lse.shape == (2, 2, t) and lse.dtype == torch.float32
-    before = flash_attention_bwd.launches
+    before = launches()
     got = flash_attention_bwd(q, k, v, kvm, out, lse, do, causal, window, scale)
-    assert flash_attention_bwd.launches == before + 1
+    assert launches() == added(before, route_step(dtype, fwd=0, bwd=1))
     want = attention_backward_plain(q, k, v, kvm, do, causal=causal, window=window)
     tol = grad_tol(dtype, *want)
     for g, w in zip(got, want):
@@ -108,11 +132,11 @@ def test_flash_attention_is_differentiable_on_the_card(cuda, dtype):
     qkv = torch.randn((2, 96, 3 * 4, 64), generator=gen).to(cuda, dtype).requires_grad_()
     kvm = (torch.rand((2, 96), generator=gen) > 0.2).to(cuda)
     do = torch.randn((2, 96, 4, 64), generator=gen).to(cuda, dtype)
-    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    before = launches()
     out = flash_attention(qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:], kvm, causal=True, window=32)
     assert out.grad_fn is not None
     (got,) = torch.autograd.grad(out, qkv, do)
-    assert (flash_attention.launches, flash_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    assert launches() == added(before, route_step(dtype, fwd=1, bwd=1))
     plain = attention_plain(qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:], kvm, causal=True, window=32)
     (want,) = torch.autograd.grad(plain, qkv, do)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=grad_tol(dtype, want))
@@ -127,6 +151,84 @@ def test_flash_attention_reads_strided_heads(cuda):
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
     torch.testing.assert_close(flash_attention(q, k, v, causal=True), attention_plain(q, k, v, causal=True),
                                rtol=0, atol=ATTN_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,causal,window,masked", CASES)
+def test_sm90_kernels_match_the_rounding_faithful_plain_versions(cuda, t, s, causal, window, masked):
+    """The tensor-core pair against the plain versions that round where it
+    rounds (and, in test above, against the fp32 plain versions), with the
+    row log-sum-exp equal to the SIMT forward's."""
+    q, k, v, kvm = attention_inputs(cuda, t, s, masked, torch.bfloat16)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
+    mask = kvm if kvm is None else kvm.bool()
+    before = launches()
+    out, lse = flash_fwd_sm90(q, k, v, mask, causal, window, 64**-0.5, True)
+    got = flash_bwd_sm90(q, k, v, mask, out, lse, do, causal, window, 64**-0.5)
+    assert launches() == added(before, (0, 0, 1, 1))
+    want = attention_plain_bf16_tc(q, k, v, kvm, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=ATTN_TOL[torch.bfloat16])
+    _, lse_simt = flash_fwd_simt(q, k, v, mask, causal, window, 64**-0.5, True)
+    torch.testing.assert_close(lse, lse_simt, rtol=1e-6, atol=1e-5)
+    want_grads = attention_backward_plain_bf16_tc(q, k, v, kvm, do, causal=causal, window=window)
+    tol = grad_tol(torch.bfloat16, *want_grads)
+    for g, w in zip(got, want_grads):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+    if masked == "all-in-row-0":
+        assert got[0][0].abs().max().item() == 0 and got[1][0].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [96, 300])
+def test_sm90_kernels_read_fused_qkv_views(cuda, t):
+    """q, k, v as thirds of a fused qkv projection and k, v as halves of a
+    fused kv one, read in place by the tensor-core pair, ragged T included."""
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn((2, t, 3 * 4, 64), generator=gen).to(cuda, torch.bfloat16)
+    kv = torch.randn((2, 200, 2 * 4, 64), generator=gen).to(cuda, torch.bfloat16)
+    do = torch.randn((2, t, 4, 64), generator=gen).to(cuda, torch.bfloat16)
+    for q, k, v, causal in ((qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:], True),
+                            (qkv[:, :, :4], kv[:, :, :4], kv[:, :, 4:], False)):
+        out, lse = flash_fwd_sm90(q, k, v, None, causal, 0, 64**-0.5, True)
+        torch.testing.assert_close(out.float(), attention_plain_bf16_tc(q, k, v, causal=causal).float(),
+                                   rtol=0, atol=ATTN_TOL[torch.bfloat16])
+        got = flash_bwd_sm90(q, k, v, None, out, lse, do, causal, 0, 64**-0.5)
+        want = attention_backward_plain_bf16_tc(q, k, v, None, do, causal=causal)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=grad_tol(torch.bfloat16, *want))
+
+
+@pytest.mark.cuda
+def test_sm90_kernels_reject_misaligned_rows(cuda):
+    """The tensor-core pair loads 16 bytes a thread: a base address or a
+    row stride off the 16-byte grid raises, and nothing falls back."""
+    wide = torch.randn((1, 64, 2, 68), device=cuda).to(torch.bfloat16)  # head stride 136 bytes
+    flat = torch.randn((1 * 64 * 2 * 64 + 1,), device=cuda).to(torch.bfloat16)
+    shifted = flat[1:].view(1, 64, 2, 64)  # base 2 bytes off
+    good = torch.randn((1, 64, 2, 64), device=cuda).to(torch.bfloat16)
+    before = launches()
+    for q in (wide[..., :64], shifted):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(q, good, good)
+    assert launches() == before
+
+
+@pytest.mark.cuda
+def test_launch_counters_show_the_route(cuda):
+    """fp32 takes the SIMT pair at any head dim and bf16 at D 64 the
+    tensor-core pair, each call adding one to its own kernels' counters
+    only; bf16 at another head dim raises and launches nothing."""
+    for dtype, d, step in ((torch.float32, 64, (1, 1, 0, 0)), (torch.float32, 32, (1, 1, 0, 0)),
+                           (torch.bfloat16, 64, (0, 0, 1, 1))):
+        x = torch.randn((1, 40, 2, d), device=cuda).to(dtype).requires_grad_()
+        before = launches()
+        flash_attention(x, x, x, causal=True).sum().backward()
+        assert launches() == added(before, step), (dtype, d)
+    x = torch.randn((1, 40, 2, 32), device=cuda).to(torch.bfloat16).requires_grad_()
+    before = launches()
+    with pytest.raises(ValueError, match="no kernel takes"):
+        flash_attention(x, x, x, causal=True)
+    assert launches() == before
 
 
 @pytest.mark.cuda
