@@ -4,18 +4,21 @@
 1. Exits non-zero when no CUDA device is visible; there is no CPU path.
 2. Builds the port's kernels from ``mapperatorinator_tpu_torch/csrc`` (one
    compiler per source, in parallel): the flash-attention forward and
-   backward on two routes (SIMT fp32 FMAs, ``flash_attention.cu``; bf16
-   tensor cores, ``flash_attention_sm90.cu``), the fused mel, the int8
+   backward on two routes (fp32 as split-TF32 tensor-core products,
+   ``flash_attention.cu``; bf16 tensor cores, ``flash_attention_sm90.cu``),
+   the fused mel, the int8
    matrix product, and the host star-rating library.
 3. Holds each kernel against its plain PyTorch version on the card at the
    v32 shapes, printing the largest absolute error beside its tolerance and
    the median times of the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call. The tensor-core pair is held
+   call computes the same function, that call. Each attention pair is held
    against both the plain versions that round where it rounds and the fp32
-   ones, and timed at the three attention calls of a training micro-step
-   beside SDPA, and at the encoder call beside the SIMT kernels it replaces
-   in bf16. Each attention bound counts the (query, key) pairs that the
-   masks leave, not the whole T x S that the kernels compute.
+   ones, and timed beside SDPA: the fp32 pair at the serving call and the
+   three calls of an fp32 training micro-step, beside two bounds (fp32 FMAs,
+   and three TF32 products for each fp32 one), the bf16 pair at the three
+   calls of a bf16 training micro-step. Each attention bound counts the
+   (query, key) pairs that the masks leave, not the whole T x S that the
+   kernels compute.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
    (``load_model`` / ``generate``) on the full-width v32 model (d_model 768,
    12 + 12 layers, 12 heads, ffn 3072, 2048 source / 2560 target tokens) with
@@ -40,12 +43,12 @@
    must have launched, and restoring the checkpoint must give the same step
    and parameters. One more micro-step is profiled by kernel.
    The bf16 micro-steps must run the tensor-core pair only (36 forward and
-   36 backward launches each, no SIMT launch), and on the first batch in
+   36 backward launches each, no fp32 launch), and on the first batch in
    bf16 at batch 2 the loss and every gradient through them must be no
    further from the fp32 gradients than twice plain bf16 attention's.
    Before them, ``train.main`` trains in fp32 (``mixed_precision=no``, batch
-   2, 2 micro-steps), the SIMT pair's training path, which must launch the
-   SIMT pair only.
+   2, 2 micro-steps), the fp32 pair's training path, which must launch the
+   fp32 pair only.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -98,11 +101,12 @@ ATTN_PER_STEP = 36  # attention calls a micro-step: 12 encoder self, 12 decoder 
 
 # the card's published rates (NVIDIA H100 SXM data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 outside the tensor cores; bf16
+PEAK_TF32 = 495e12  # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 # training: v32's batch and accumulation; a cut would be printed here
 TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS = 32, 2, 6
-# fp32 training (the SIMT pair's training path): cut to batch 2 and 2
+# fp32 training (the fp32 pair's training path): cut to batch 2 and 2
 # micro-steps, as the fp32 gradient check's batch
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 2, 2
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
@@ -184,7 +188,7 @@ def attention_launches() -> dict:
     """The four attention kernels' launch counts, by kernels-line name."""
     from mapperatorinator_tpu_torch.ops import attention_kernel as ak
 
-    return {"flash_attention_fwd": ak.flash_fwd_simt.launches, "flash_attention_bwd": ak.flash_bwd_simt.launches,
+    return {"flash_attention_fwd": ak.flash_fwd_fp32.launches, "flash_attention_bwd": ak.flash_bwd_fp32.launches,
             "flash_attention_fwd_sm90": ak.flash_fwd_sm90.launches,
             "flash_attention_bwd_sm90": ak.flash_bwd_sm90.launches}
 
@@ -192,139 +196,173 @@ def attention_launches() -> dict:
 def reset_attention_launches() -> None:
     from mapperatorinator_tpu_torch.ops import attention_kernel as ak
 
-    ak.flash_fwd_simt.launches = ak.flash_bwd_simt.launches = 0
+    ak.flash_fwd_fp32.launches = ak.flash_bwd_fp32.launches = 0
     ak.flash_fwd_sm90.launches = ak.flash_bwd_sm90.launches = 0
 
 
-def check_attention(report: dict) -> dict:
-    """Kernel B on the SIMT route (fp32 and bf16) against its plain version;
-    timed at the serving shape in fp32."""
-    from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, flash_attention, flash_fwd_simt
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    H, D = 12, 64
-    cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 2):
-            key_mask = torch.rand((B, 1024), generator=gen, device="cuda") > 0.2
-            all_masked = key_mask.clone()
-            all_masked[0] = False  # every query row of batch 0 sees no key
-            cases += [
-                (dtype, B, 1024, 1024, {}, "none"),
-                (dtype, B, 1024, 1024, {"causal": True}, "causal"),
-                (dtype, B, 1024, 1024, {"window": 128, "kv_mask": key_mask}, "window128+keymask"),
-                (dtype, B, 1024, 1024, {"kv_mask": all_masked}, "all-keys-masked row"),
-                (dtype, B, 300, 1024, {"kv_mask": key_mask}, "cross T300 S1024"),
-            ]
-    worst = 0.0
-    for dtype, B, T, S, kw, label in cases:
-        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-        mask = kw.pop("kv_mask", None)
-        got, _ = flash_fwd_simt(q, k, v, mask, kw.get("causal", False), kw.get("window", 0), D**-0.5, False)
-        want = attention_plain(q, k, v, mask, **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = ATTN_TOL[dtype]
-        print(f"flash_attention SIMT {str(dtype)[6:]} B{B} T{T} S{S} {label}: max_abs_err {err:.3e} (tol {tol:g})")
-        report["attention_cases"].append({"dtype": str(dtype), "B": B, "T": T, "S": S, "case": label,
-                                          "max_abs_err": err, "tol": tol})
-        if not err <= tol:
-            raise AssertionError(f"flash_attention {label} {dtype} B{B}: error {err} above {tol}")
-        if dtype == torch.float32:
-            worst = max(worst, err)
-
-    # the serving path's call: one window's encoder self-attention, fp32, no mask
-    B, T = 1, 1024
-    q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(3))
-    qs, ks, vs = sdpa_layout(q, k, v)
-    ms, plain_ms, library_ms = paired_ms(lambda: flash_attention(q, k, v), lambda: attention_plain(q, k, v),
-                                         lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
-    bound_ms, bound_by = bound(4.0 * B * H * T * T * D, 4 * B * T * H * D * 4, torch.float32)
-    print(f"flash_attention fp32 B1 T1024 S1024 H12 D64: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:88",
-            "max_abs_err": worst, "tol": ATTN_TOL[torch.float32], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "timed_shape": "B1 T1024 S1024 H12 D64 fp32"}
+def fp32_bounds(flops: float, nbytes: float) -> dict:
+    """The fp32 kernels' two bounds on operations, fp32 FMAs at 67 TFLOP/s
+    and three TF32 tensor-core products for each fp32 one at 495 TFLOP/s;
+    the least time the card could take is the smaller of the two, or the
+    bytes over the memory rate where that is larger."""
+    fma_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    tf32x3_ms = 3 * flops / PEAK_TF32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    least = min(fma_ms, tf32x3_ms)
+    return {"flops": flops, "fma_ms": fma_ms, "tf32x3_ms": tf32x3_ms, "bytes_ms": bytes_ms, "bound_ms": max(least, bytes_ms),
+            "bound_by": "operations" if least >= bytes_ms else "bytes"}
 
 
-def check_attention_bwd(report: dict) -> dict:
-    """Kernel C on the SIMT route against its plain version at the training
-    shapes, batch 2, fp32 and bf16; then timed in fp32 at the encoder
-    self-attention of the fp32 training run (batch 2), its one main path."""
-    from mapperatorinator_tpu_torch.ops.attention_kernel import (
-        attention_backward_plain,
-        flash_bwd_simt,
-        flash_fwd_simt,
-    )
+# the fp32 route's timed calls: (label, B, T, S, causal + key mask); serving
+# is B's only, the three training calls of the fp32 micro-steps both kernels'
+FP32_SHAPES = [("serving encoder", 1, 1024, 1024, False), ("training encoder", FP32_TRAIN_BATCH, 1024, 1024, False),
+               ("training decoder self", FP32_TRAIN_BATCH, 2560, 2560, True),
+               ("training cross", FP32_TRAIN_BATCH, 2560, 1024, False)]
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    H, D, B = 12, 64, 2
+
+def attention_cases(gen, B: int):
+    """(label, T, S, causal, window, key mask) of the checks: the training
+    calls, a ragged cross call, and a batch row whose keys are all masked."""
     key_mask = torch.rand((B, 2560), generator=gen, device="cuda") > 0.1
     all_masked = torch.ones((B, 1024), dtype=torch.bool, device="cuda")
-    all_masked[0] = False
-    cases = [  # (label, T, S, causal, window, key mask)
+    all_masked[0] = False  # every query row of batch 0 sees no key
+    return [
         ("encoder self T1024", 1024, 1024, False, 0, None),
+        ("causal T1024", 1024, 1024, True, 0, None),
+        ("encoder self T1024 window128 keymask", 1024, 1024, False, 128, key_mask[:, :1024]),
         ("decoder self local T2560 causal window128 keymask", 2560, 2560, True, 128, key_mask),
         ("decoder self global T2560 causal keymask", 2560, 2560, True, 0, key_mask),
         ("cross T2560 S1024", 2560, 1024, False, 0, None),
+        ("cross T300 S1024 keymask", 300, 1024, False, 0, key_mask[:, :1024]),
         ("all-keys-masked row T1024", 1024, 1024, False, 0, all_masked),
     ]
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for label, T, S, causal, window, mask in cases:
-            q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
-            do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
-            scale = D**-0.5
-            out, lse = flash_fwd_simt(q, k, v, mask, causal, window, scale, True)
-            got = flash_bwd_simt(q, k, v, mask, out, lse, do, causal, window, scale)
-            want = attention_backward_plain(q, k, v, mask, do, causal=causal, window=window)
-            torch.cuda.synchronize()
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-            # the reference's bar, scaled by the largest reference gradient:
-            # gradients grow with the length, and dq is summed with atomics
-            tol = ATTN_TOL[dtype] * max(1.0, max(w.float().abs().max().item() for w in want))
-            print(f"flash_attention_bwd SIMT {str(dtype)[6:]} B{B} {label}: max_abs_err {err:.3e} (tol {tol:.3e})")
-            report["attention_bwd_cases"].append({"dtype": str(dtype), "B": B, "T": T, "S": S, "case": label,
-                                                  "max_abs_err": err, "tol": tol})
-            if not err <= tol:
-                raise AssertionError(f"flash_attention_bwd {label} {dtype}: error {err} above {tol}")
-            if mask is all_masked and (got[0][0].abs().max().item() or got[1][0].abs().max().item()):
-                raise AssertionError("flash_attention_bwd: a row with no live key gave dq or dk a gradient")
-            if dtype == torch.float32:
-                worst = max(worst, err)
 
-    # the fp32 training path's call: encoder self-attention of its batch
-    Bt, T, dtype = FP32_TRAIN_BATCH, 1024, torch.float32
-    q, k, v, do = (torch.randn((Bt, T, H, D), generator=gen, device="cuda").to(dtype) for _ in range(4))
+
+def check_attention(report: dict) -> None:
+    """Kernels B and C on the fp32 route (split-TF32) against both their plain
+    versions, the one that splits as they do and the fp32 one, at batch 1
+    and 2: forward within 2e-5, backward within 2e-5 times the largest
+    reference gradient (at least 1), and dq = dk = 0 exactly in a row with
+    no live key."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (
+        attention_backward_plain,
+        attention_backward_plain_fp32_tc,
+        attention_plain,
+        attention_plain_fp32_tc,
+        flash_bwd_fp32,
+        flash_fwd_fp32,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    H, D, tol = 12, 64, ATTN_TOL[torch.float32]
     scale = D**-0.5
-    out, lse = flash_fwd_simt(q, k, v, None, False, 0, scale, True)
-    qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
-    do_s = do.transpose(1, 2).contiguous()
-    ms, plain_ms, library_ms = paired_ms(
-        lambda: flash_bwd_simt(q, k, v, None, out, lse, do, False, 0, scale),
-        lambda: attention_backward_plain(q, k, v, None, do),
-        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True))
-    el = Bt * T * H * D
-    # 5 products of T x S x D per (batch, head): the recomputed logits, dP,
-    # dV, dK, dQ; q, k, v, O, dO and lse read once, dq, dk, dv written once
-    flops, nbytes = 10.0 * Bt * H * T * T * D, 8 * el * 4 + Bt * H * T * 4
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
-    print(f"flash_attention_bwd SIMT fp32 B{Bt} T1024 S1024 H12 D64: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"scaled_dot_product_attention backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-          f"fp32 peak outside the tensor cores)")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:197",
-            "max_abs_err": worst, "tol": "2e-5 x max(1, max |reference gradient|), fp32",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "timed_shape": f"B{Bt} T1024 S1024 H12 D64 fp32 (an encoder call of fp32 training)"}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for B in (1, 2):
+        for label, T, S, causal, window, mask in attention_cases(gen, B):
+            q, do = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(2))
+            k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda") for _ in range(2))
+            out, lse = flash_fwd_fp32(q, k, v, mask, causal, window, scale, True)
+            grads = flash_bwd_fp32(q, k, v, mask, out, lse, do, causal, window, scale)
+            kw = {"causal": causal, "window": window}
+            fwd_err, bwd_err, bwd_tol = {}, {}, {}
+            for name, fwd, bwd in (("tc", attention_plain_fp32_tc, attention_backward_plain_fp32_tc),
+                                   ("fp32", attention_plain, attention_backward_plain)):
+                fwd_err[name] = (out - fwd(q, k, v, mask, **kw)).abs().max().item()
+                want = bwd(q, k, v, mask, do, **kw)
+                bwd_err[name] = max((g - w).abs().max().item() for g, w in zip(grads, want))
+                # the reference's bar, scaled by the largest reference gradient:
+                # gradients grow with the length, and dq is summed with atomics
+                bwd_tol[name] = tol * max(1.0, max(w.abs().max().item() for w in want))
+                del want
+            dead = mask is not None and not mask[0].any() and bool(grads[0][0].any() or grads[1][0].any())
+            print(f"flash_attention fp32 B{B} {label}: forward max_abs_err {fwd_err['tc']:.3e} against the plain "
+                  f"version that splits as the kernel does, {fwd_err['fp32']:.3e} against the fp32 one (tol {tol:g}); "
+                  f"backward {bwd_err['tc']:.3e} / {bwd_err['fp32']:.3e} (tol {bwd_tol['tc']:.3e} / "
+                  f"{bwd_tol['fp32']:.3e})" + ("; dq and dk of the rows with no live key exactly 0"
+                                               if mask is not None and not mask[0].any() and not dead else ""))
+            report["attention_cases"].append({"B": B, "T": T, "S": S, "case": label, "fwd_max_abs_err": fwd_err,
+                                              "fwd_tol": tol, "bwd_max_abs_err": bwd_err, "bwd_tol": bwd_tol})
+            if not (all(e <= tol for e in fwd_err.values()) and all(bwd_err[n] <= bwd_tol[n] for n in bwd_err)) \
+                    or dead:
+                raise AssertionError(f"flash_attention fp32 {label} B{B}: forward {fwd_err}, backward {bwd_err} above "
+                                     f"{tol} / {bwd_tol}, or a row with no live key gave dq or dk a gradient")
+            worst["fwd"] = max(worst["fwd"], *fwd_err.values())
+            worst["bwd"] = max(worst["bwd"], *bwd_err.values())
+            del q, k, v, do, out, lse, grads
+    report["attention_fp32_worst"] = worst
+    torch.cuda.empty_cache()
+
+
+def time_attention_fp32(report: dict) -> list[dict]:
+    """Kernels B and C on the fp32 route timed at the calls of their main
+    paths (``FP32_SHAPES``: B at all four, C at the three of training)
+    beside the plain version, SDPA in fp32 (TF32 off) and the two bounds,
+    which count the (query, key) pairs the masks leave. Returns the two
+    kernels-line entries, each at its first shape, with every shape's
+    figures under ``shapes``."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (
+        attention_backward_plain,
+        attention_plain,
+        flash_bwd_fp32,
+        flash_fwd_fp32,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    H, D = 12, 64
+    scale = D**-0.5
+    shapes = {"fwd": [], "bwd": []}
+    for label, B, T, S, causal in FP32_SHAPES:
+        q, do = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda") for _ in range(2))
+        mask = sdpa_mask = None
+        if causal:  # the decoder's key mask pads each row's end, as decoder_attention_mask does
+            lengths = torch.randint(int(0.75 * S), S + 1, (B, 1), generator=gen, device="cuda")
+            mask = torch.arange(S, device="cuda")[None] < lengths
+            sdpa_mask = torch.ones((T, S), dtype=torch.bool, device="cuda").tril()[None, None] & mask[:, None, None, :]
+        out, lse = flash_fwd_fp32(q, k, v, mask, causal, 0, scale, True)
+        qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+        do_s = do.transpose(1, 2).contiguous()
+        el_q, el_k = B * T * H * D, B * S * H * D
+        pairs = H * attended_pairs(B, T, S, causal, mask)
+        kinds = {"fwd": ({"plain": lambda: attention_plain(q, k, v, mask, causal=causal),
+                          "kernel": lambda: flash_fwd_fp32(q, k, v, mask, causal, 0, scale, True),
+                          "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                              qs, ks, vs, attn_mask=sdpa_mask)},
+                         # q, k, v in; out and lse out
+                         fp32_bounds(4.0 * pairs * D, 4 * (2 * el_q + 2 * el_k) + 4 * B * H * T))}
+        if label != "serving encoder":
+            # q, k, v, O, dO and lse in; dq, dk, dv out
+            kinds["bwd"] = ({"plain": lambda: attention_backward_plain(q, k, v, mask, do, causal=causal),
+                             "kernel": lambda: flash_bwd_fp32(q, k, v, mask, out, lse, do, causal, 0, scale),
+                             "library": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True)},
+                            fp32_bounds(10.0 * pairs * D, 4 * (3 * el_q + 2 * el_k) + 4 * (el_q + 2 * el_k)
+                                        + 4 * B * H * T))
+        for kind, (fns, bounds) in kinds.items():
+            t_ = in_turns(fns)
+            row = {"label": label, "shape": f"B{B} T{T} S{S} H{H} D{D} fp32" + (" causal + key mask" if causal else ""),
+                   "ms": t_["kernel"], "plain_ms": t_["plain"], "library_ms": t_["library"], **bounds,
+                   "pairs_share": pairs / (B * H * T * S), "useful_tflops": bounds["flops"] / t_["kernel"] / 1e9}
+            shapes[kind].append(row)
+            print(f"flash_attention_{kind} fp32 {label} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention {row['library_ms']:.4f} ms "
+                  f"({row['ms'] / row['library_ms']:.2f}x); bounds: fp32 FMAs {row['fma_ms']:.4f} ms, three TF32 "
+                  f"products {row['tf32x3_ms']:.4f} ms, bytes {row['bytes_ms']:.4f} ms; the masks leave "
+                  f"{row['pairs_share']:.4f} of T x S: {row['useful_tflops']:.1f} useful TFLOP/s")
+        del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, sdpa_mask
+        torch.cuda.empty_cache()
+    report["attention_fp32_timing"] = shapes
+    worst = report["attention_fp32_worst"]
+    source = "mapperatorinator_tpu_torch/csrc/flash_attention.cu"
+    return [{"name": f"flash_attention_{kind}", "route": "cuda", "source": source, "replaces": replaces,
+             "max_abs_err": worst[kind],
+             "tol": "2e-5" if kind == "fwd" else "2e-5 x max(1, max |reference gradient|)",
+             "ms": shapes[kind][0]["ms"], "plain_ms": shapes[kind][0]["plain_ms"],
+             "bound_ms": shapes[kind][0]["bound_ms"], "bound_by": shapes[kind][0]["bound_by"],
+             "library_ms": shapes[kind][0]["library_ms"], "timed_shape": shapes[kind][0]["shape"],
+             "shapes": shapes[kind]}
+            for kind, replaces in (("fwd", "mapperatorinator_tpu/ops/attention_kernel.py:88"),
+                                   ("bwd", "mapperatorinator_tpu/ops/attention_kernel.py:197"))]
 
 
 def check_attention_sm90(report: dict) -> list[dict]:
@@ -333,15 +371,13 @@ def check_attention_sm90(report: dict) -> list[dict]:
     three attention calls of a training micro-step (batch 32) beside their
     bound and ``scaled_dot_product_attention``; at the encoder call also
     beside the plain version (at the others its fp32 (B, H, T, S) tensors
-    would not leave room) and the SIMT kernel that took bf16 before."""
+    would not leave room)."""
     from mapperatorinator_tpu_torch.ops.attention_kernel import (
         attention_backward_plain,
         attention_backward_plain_bf16_tc,
         attention_plain,
         attention_plain_bf16_tc,
-        flash_bwd_simt,
         flash_bwd_sm90,
-        flash_fwd_simt,
         flash_fwd_sm90,
     )
 
@@ -419,11 +455,8 @@ def check_attention_sm90(report: dict) -> list[dict]:
         bwd = {"kernel": lambda: flash_bwd_sm90(q, k, v, mask, out, lse, do, causal, 0, scale),
                "library": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True)}
         if label == "encoder self":
-            out_s, lse_s = flash_fwd_simt(q, k, v, mask, causal, 0, scale, True)
             fwd["plain"] = lambda: attention_plain_bf16_tc(q, k, v, mask, causal=causal)
             bwd["plain"] = lambda: attention_backward_plain_bf16_tc(q, k, v, mask, do, causal=causal)
-            fwd["simt"] = lambda: flash_fwd_simt(q, k, v, mask, causal, 0, scale, True)
-            bwd["simt"] = lambda: flash_bwd_simt(q, k, v, mask, out_s, lse_s, do, causal, 0, scale)
         el_q, el_k = Bt * T * H * D, Bt * S * H * D
         # the bound counts the pairs the masks leave; the kernels compute all
         # T x S (no tile is skipped), so the rest is wasted work
@@ -439,9 +472,8 @@ def check_attention_sm90(report: dict) -> list[dict]:
             t_["useful_flops"], t_["computed_flops"] = flops, flops * f_computed / f_flops
             t_["useful_tflops"] = flops / t_["kernel"] / 1e9
             plain = f", plain {t_['plain']:.3f} ms" if "plain" in t_ else ", plain not measured (memory)"
-            simt = f", SIMT {t_['simt']:.3f} ms" if "simt" in t_ else ""
             print(f"flash_attention sm90 {kind} bf16 {label} B{Bt} T{T} S{S} H12 D64"
-                  f"{' causal + key mask' if causal else ''}: kernel {t_['kernel']:.3f} ms{simt}{plain}, "
+                  f"{' causal + key mask' if causal else ''}: kernel {t_['kernel']:.3f} ms{plain}, "
                   f"scaled_dot_product_attention {t_['library']:.3f} ms ({t_['kernel'] / t_['library']:.2f}x), "
                   f"bound {t_['bound']:.4f} ms ({t_['bound_by']}); the masks leave {f_flops / f_computed:.4f} of "
                   f"the T x S pairs the kernel computes: {t_['useful_tflops']:.1f} useful TFLOP/s")
@@ -456,8 +488,7 @@ def check_attention_sm90(report: dict) -> list[dict]:
              "max_abs_err": worst[kind],
              "tol": f"2e-2 x max(1, max |reference {'output' if kind == 'fwd' else 'gradient'}|)",
              "ms": enc[kind]["kernel"], "plain_ms": enc[kind]["plain"], "bound_ms": enc[kind]["bound"],
-             "bound_by": enc[kind]["bound_by"], "library_ms": enc[kind]["library"], "simt_ms": enc[kind]["simt"],
-             "timed_shape": shape}
+             "bound_by": enc[kind]["bound_by"], "library_ms": enc[kind]["library"], "timed_shape": shape}
             for kind, replaces in (("fwd", "mapperatorinator_tpu/ops/attention_kernel.py:88"),
                                    ("bwd", "mapperatorinator_tpu/ops/attention_kernel.py:197"))]
 
@@ -904,7 +935,7 @@ def data_overrides(ors: Path) -> list[str]:
 def check_gradients(ors: Path, report: dict) -> dict:
     """On the first training batch at batch 2: the loss and every parameter
     gradient through the kernels against the plain attention path. In fp32
-    (the SIMT kernels B and C) within ``GRAD_TOL``. In bf16 (the tensor-core
+    (the fp32 kernels B and C) within ``GRAD_TOL``. In bf16 (the tensor-core
     pair), on the same batch and the same seeded weights, both bf16 paths
     are held against the fp32 plain gradients: the kernels' error must stay
     within ``GRAD_TOL_BF16`` times plain bf16 attention's own. Returns the
@@ -946,7 +977,7 @@ def check_gradients(ors: Path, report: dict) -> dict:
     loss_k, grads_k, fp32_launches = with_kernels(model, batch, ("flash_attention_fwd", "flash_attention_bwd"))
     loss_ref, ref = loss_and_grads(model, batch, False)
     err, name = worst(grads_k, ref)
-    print(f"training gradients, first batch, fp32, B2, kernels B+C (SIMT) vs plain attention: loss {loss_k:.6f} vs "
+    print(f"training gradients, first batch, fp32, B2, kernels B+C (fp32) vs plain attention: loss {loss_k:.6f} vs "
           f"{loss_ref:.6f}, {len(ref)} gradient tensors, largest error relative to the tensor's largest entry "
           f"{err:.3e} ({name}; tol {GRAD_TOL:g}), launches {fp32_launches}")
     report["training"]["gradient_check"] = {"loss_kernels": loss_k, "loss_plain": loss_ref, "tensors": len(ref),
@@ -995,9 +1026,9 @@ def metrics_steps(logs: Path) -> list[dict]:
 
 def train_fp32(tmp: Path, ors: Path, report: dict) -> dict:
     """fp32 training through ``train.main`` (``mixed_precision=no``), the
-    SIMT pair's training path: the full-width model at batch
+    fp32 pair's training path: the full-width model at batch
     ``FP32_TRAIN_BATCH`` for ``FP32_TRAIN_STEPS`` micro-steps. Every step's
-    loss must be finite, and every attention call must launch the SIMT pair
+    loss must be finite, and every attention call must launch the fp32 pair
     and nothing else. Returns its attention launches."""
     from mapperatorinator_tpu_torch.train import main as train_main
 
@@ -1135,7 +1166,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
-    report = {"attention_cases": [], "attention_bwd_cases": [], "attention_sm90_cases": [], "qmm_cases": [],
+    report = {"attention_cases": [], "attention_sm90_cases": [], "qmm_cases": [],
               "requests": []}
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
@@ -1147,8 +1178,8 @@ def main() -> int:
     print(f"built flash_attention.cu, flash_attention_sm90.cu, fused_mel.cu and qmm.cu for sm_90a and "
           f"difficulty.cpp in {report['build_s']:.1f} s")
 
-    kernels = [check_attention(report), check_mel(report), check_attention_bwd(report), check_qmm(report),
-               *check_attention_sm90(report)]
+    check_attention(report)
+    kernels = [*time_attention_fp32(report), check_mel(report), check_qmm(report), *check_attention_sm90(report)]
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1161,6 +1192,9 @@ def main() -> int:
         if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 \
                 or third["qmm"] == 0 or third["flash_attention_fwd"] == 0:
             raise AssertionError(f"a kernel of the serving path never launched: {first}, {second}, {third}")
+        tokens = [r["tokens"] for r in report["requests"]]
+        print(f"serving: the three requests generated {tokens} tokens (seeded random weights, greedy decoding "
+              f"with near-ties: a count is a property of the seed and the kernels' rounding)")
         trained, trained_fp32, checked = train_phase(tmp, report)
     served = {k: first[k] + second[k] + third[k] for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),

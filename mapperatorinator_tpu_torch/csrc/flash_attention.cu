@@ -1,61 +1,277 @@
-// Flash attention for Hopper (sm_90a): the forward (kernel B) and the
-// backward (kernel C).
+// Flash attention in fp32 for Hopper (sm_90a): the forward (kernel B) and
+// the backward (kernel C), every product on the tensor cores as three TF32
+// products (split-TF32), so fp32 inputs keep fp32-grade accuracy.
 //
-// The forward replaces the Pallas kernel mapperatorinator_tpu/ops/
-// attention_kernel.py: _attention_kernel, launched by _flash_forward behind
-// flash_attention. The backward replaces _attention_bwd_kernel, launched by
-// _bwd_call via _flash_backward; it is described below the forward.
+// Replaces the Pallas kernels of mapperatorinator_tpu/ops/attention_kernel.py:
+// _attention_kernel, launched by _flash_forward (:88) behind flash_attention,
+// and _attention_bwd_kernel, launched by _bwd_call (:197) via _flash_backward.
+// ops/attention_kernel.py (attention_route) sends every fp32 call here; bf16
+// with D 64 goes to flash_attention_sm90.cu.
 //
-// Forward.
-// Computes out = softmax(q k^T * scale, masked) v with fp32 logits, softmax
-// and accumulation. Masks come from indices: causal (k <= q), the band
-// |q - k| <= window / 2, and a (B, S) key mask. A masked logit is
-// finfo(float32).min, not -inf, exactly as in the reference: a row whose keys
-// are all masked averages v over all S keys.
+// What it computes. Forward: out = softmax(q k^T * scale, masked) v and the
+// row log-sum-exp. Backward, from q, k, v, O, its lse and dO:
+//   P = exp(q k^T * scale - lse) (recomputed, masked as in the forward),
+//   dV = P^T dO, dP = dO V^T, dS = P * (dP - delta) with delta = rowsum(dO * O),
+//   dQ = dS K * scale, dK = dS^T Q * scale.
+// Masks come from indices: causal (k <= q), the band |q - k| <= window / 2,
+// and a (B, S) key mask. A masked logit is finfo(float32).min and a column
+// past S is -inf, exactly as in the reference: a row whose keys are all
+// masked averages v over all S keys, its lse rounds to finfo.min, and the
+// backward gives it P = 1/S on every key and dq = dk = 0 exactly (the exact
+// gradient of jnp.where(mask, logits, finfo.min); the Pallas backward
+// differs there). Softmax, row max and sum, lse and delta stay in fp32, with
+// the accurate expf.
 //
-// Design: one block per (batch * head, 64-query tile). The block streams
-// 64-key tiles of k and v through shared memory and keeps an online softmax
-// (running max m, running sum l) per query row, so no (T, S) logits tile and
-// no whole k/v row is ever resident: the TPU kernel kept a whole k/v row in
-// VMEM, which does not fit 227 KB of shared memory at long S. q, k and v are
-// read in their (B, T, H, D) layout through strides, so the fused qkv
-// projection is consumed without transpose copies. Each of the 8 warps owns
-// 8 query rows end to end (logits, softmax, P v), so only the k/v tile loads
-// need a block barrier.
+// What bounds it on an H100: per (batch, head) the forward does 2 products
+// of T x S x D (4 T S D flops) and the backward 5 (10 T S D) against a few
+// MB of q, k, v, O, dO: bound by operations. fp32 FMAs peak at 67 TFLOP/s;
+// one TF32 tensor-core product is far faster (495 TFLOP/s dense) but keeps 10
+// mantissa bits (a relative error of 2^-11 an operand), far from the fp32
+// bar of 2e-5. So every fp32 operand x is split, as its fragment is read
+// from shared memory or taken from registers, into hi = tf32(x) and lo =
+// tf32(x - hi) (round to nearest, ties away from zero: cvt.rna.tf32.f32,
+// written as integer ops so the low 13 bits are exactly 0), and a.b is
+// taken as the big products hi.hi' plus the small ones hi.lo' + lo.hi':
+// three TF32 products, about 165 TFLOP/s of fp32-grade products at the
+// published rate. The rounding-faithful plain versions are
+// attention_plain_fp32_tc and attention_backward_plain_fp32_tc.
 //
-// What bounds it: at the v32 shape (T = S = 1024, H = 12, D = 64) the work is
-// 4 * T * S * D flops per head, about 3.2 GFLOP per row of the batch, against
-// a few MB of q/k/v traffic: compute bound. These kernels compute with fp32
-// FMAs on the SIMT cores (67 TFLOP/s peak on an H100 SXM), not with tensor
-// cores, so fp32 inputs keep full fp32 accuracy; the shared-memory operand
-// reads (float4, conflict-free strides) are what limits the inner loops.
-// They are the route of fp32; bf16 goes to the tensor-core (wgmma) kernels
-// of flash_attention_sm90.cu (ops/attention_kernel.py, attention_route), and
-// reaches these only when called directly, to time one beside the other.
+// Design. The products are mma.sync.m16n8k8 tf32 (warp-wide, fragments in
+// registers). Tiles arrive in shared memory by cp.async (16 bytes a thread,
+// zero-filled past T, S or the head dim) through a two-stage ring, so the
+// next tile is in flight while the tensor cores work on the current one.
+// q, k, v and dO are read in their (B, T, H, D) layout through strides
+// (fused qkv views included; the wrapper checks 16-byte alignment). Rows
+// are padded to KD + 4 floats (KD: the head dim rounded up to 32, 64 or
+// 128), so every fragment read is free of bank conflicts. A product whose
+// A operand is an accumulator (P V, P^T dO, dS^T Q) permutes its contraction
+// index inside each step of 8 (logical k -> 2k, k + 4 -> 2k + 1): the
+// accumulator's (row, column pair) then is the A fragment, no shuffle is
+// needed, and the B fragment reads rows 2t and 2t + 1 of the tile. Per tile
+// the causal and band masks class the (query, key) block as all live, none
+// live or mixed, and a vote at the tile's barrier says whether all its keys
+// are live: only a mixed tile tests each element. The tensor cores' own
+// sums truncate (round toward zero): kept in their accumulators along a
+// whole contraction, that bias grows with its length. So each step of 8
+// along a contraction sums its big and its small products in two fresh
+// accumulators, which are added to the running sums in fp32, rounded to
+// nearest (mma_3xtf32).
+//
+// Forward: one block per (batch * head, BM queries), each warp owning 16
+// query rows end to end, its Q fragments split once into registers (up to
+// D 64): S = Q K^T over a 64-key tile, masks, an online softmax in
+// registers, O = alpha O + P V. Four warps, 64 queries, a block.
+//
+// Backward: one block of four warps per (batch * head, 64 keys), each warp
+// owning 16 key rows and keeping their dK and dV in fp32 registers across
+// every 32-query tile: S^T = K Q^T and dP^T = V dO^T, P and dS in fp32,
+// dV += P^T dO and dK += dS^T Q; dS^T goes to shared memory, and after a
+// block barrier dQ = dS K for the tile's queries over the block's 64 keys
+// is added into a zeroed fp32 (B, T, H, D) buffer with 8-byte vector
+// atomics (one partial per key block, so the order of the sums changes from
+// run to run). A small kernel first computes delta.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = BLOCK_Q / WARPS;  // query rows per warp
-constexpr int MAX_D = 128;
-constexpr int DIMS = MAX_D / 32;       // output dims per lane
 constexpr float MASKED = -3.4028234663852886e38f;  // finfo(float32).min
+constexpr float ALL_MASKED = -1e38f;               // an lse below this: the row has no live key
+constexpr int BWD_THREADS = 128;                   // four warps
+constexpr int BWD_N = 64;                          // keys a backward block, 16 a warp
+constexpr int BWD_M = 32;                          // queries a backward step
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// tf32(x), round to nearest with ties away from zero, low 13 bits zero
+__device__ __forceinline__ uint32_t tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, tf32 operands, fp32 accumulators. Fragments (g = lane
+// / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); b0 (k t, n g), b1 (k t + 4, n g); d0 (g, 2t), d1 (g, 2t + 1),
+// d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b, from zero accumulators
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// Split fragments: hi and lo of the A (16 x 8) and B (8 x 8) operands of one
+// k step.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// d += a b as three TF32 products of the split operands: the big product
+// hi.hi' and the small ones hi.lo' + lo.hi' each summed in fresh
+// accumulators, which are then added to d in fp32. The tensor cores' own
+// sums truncate: a sum kept in their accumulators would gather a bias with
+// every step along the contraction.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const FragB& b) {
+  float big[4], small[4];
+  mma_tf32_first(small, a.hi, b.lo);
+  mma_tf32(small, a.lo, b.hi);
+  mma_tf32_first(big, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += big[i] + small[i];
+}
+
+// Fragment reads from a row-major tile with LD floats a row, split on the way.
+// A over rows r0.. and columns c0..c0 + 7
+template <int LD>
+__device__ __forceinline__ void frag_a(const float* s, int r0, int c0, int g, int t, FragA& f) {
+  split(s[(r0 + g) * LD + c0 + t], f.hi[0], f.lo[0]);
+  split(s[(r0 + g + 8) * LD + c0 + t], f.hi[1], f.lo[1]);
+  split(s[(r0 + g) * LD + c0 + t + 4], f.hi[2], f.lo[2]);
+  split(s[(r0 + g + 8) * LD + c0 + t + 4], f.hi[3], f.lo[3]);
+}
+
+// A whose rows are the tile's columns (the tile holds A transposed), over the
+// tile's rows k0.. in the permuted order: the A of dQ = dS K from dS^T
+template <int LD>
+__device__ __forceinline__ void frag_a_t(const float* s, int k0, int m0, int g, int t, FragA& f) {
+  split(s[(k0 + 2 * t) * LD + m0 + g], f.hi[0], f.lo[0]);
+  split(s[(k0 + 2 * t) * LD + m0 + g + 8], f.hi[1], f.lo[1]);
+  split(s[(k0 + 2 * t + 1) * LD + m0 + g], f.hi[2], f.lo[2]);
+  split(s[(k0 + 2 * t + 1) * LD + m0 + g + 8], f.hi[3], f.lo[3]);
+}
+
+// B with n over the tile's rows n0.. and k over its columns k0.. (S = Q K^T)
+template <int LD>
+__device__ __forceinline__ void frag_b_nk(const float* s, int n0, int k0, int g, int t, FragB& f) {
+  split(s[(n0 + g) * LD + k0 + t], f.hi[0], f.lo[0]);
+  split(s[(n0 + g) * LD + k0 + t + 4], f.hi[1], f.lo[1]);
+}
+
+// B with k over the tile's rows k0.. (permuted) and n over its columns n0..
+// (O += P V)
+template <int LD>
+__device__ __forceinline__ void frag_b_kn(const float* s, int k0, int n0, int g, int t, FragB& f) {
+  split(s[(k0 + 2 * t) * LD + n0 + g], f.hi[0], f.lo[0]);
+  split(s[(k0 + 2 * t + 1) * LD + n0 + g], f.hi[1], f.lo[1]);
+}
+
+// an accumulator of 16 x 8 as the A fragment of the next product's k step
+// (permuted contraction index)
+__device__ __forceinline__ void frag_from_acc(const float (&c)[4], FragA& f) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// rows [r0, r0 + ROWS) of one (batch, head) of a (B, T, H, D) operand into a
+// tile of KD + 4 floats a row; rows at or past n and columns at or past D are 0
+template <int ROWS, int KD, int NTHR>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long stride, int r0, int n, int D,
+                                          int tid) {
+  constexpr int CH = KD / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = tid; i < ROWS * CH; i += NTHR) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < n && c * 4 < D;
+    cp_async16(dst + r * (KD + 4) + c * 4, src + (ok ? (r0 + r) * stride + c * 4 : 0), ok);
+  }
+}
+
+// the live flags of keys [k0, k0 + N): 0 past S or masked. Each thread reads
+// back only the flags it wrote itself before the tile's barrier.
+template <int N, int NTHR>
+__device__ __forceinline__ void load_flags(int* dst, const int* key_ok, int k0, int S, int tid) {
+  for (int i = tid; i < N; i += NTHR) {
+    const int key = k0 + i;
+    if (key_ok != nullptr)
+      cp_async4(dst + i, key_ok + (key < S ? key : 0), key < S);
+    else
+      dst[i] = key < S;
+  }
+}
+
+template <int N, int NTHR>
+__device__ __forceinline__ bool own_flags_live(const int* flags, int tid) {
+  bool live = true;
+  for (int i = tid; i < N; i += NTHR) live = live && flags[i] != 0;
+  return live;
+}
+
+// How the causal and band masks treat a block of (query, key) pairs, decided
+// from its corners: every pair passes them, none does, or some need a test.
+enum TileClass { SOME_LIVE, ALL_LIVE, NONE_LIVE };
+
+__device__ __forceinline__ TileClass tile_class(int t_lo, int t_hi, int s_lo, int s_hi, int causal, int window) {
+  const int hw = window / 2;
+  if ((causal && s_lo > t_hi) || (window && (s_lo - t_hi > hw || t_lo - s_hi > hw))) return NONE_LIVE;
+  if ((!causal || s_hi <= t_lo) && (!window || (t_hi - s_lo <= hw && s_hi - t_lo <= hw))) return ALL_LIVE;
+  return SOME_LIVE;
+}
+
+__device__ __forceinline__ bool pair_live(int t, int key, int causal, int window) {
+  return (!causal || key <= t) && (!window || abs(t - key) <= window / 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const uint8_t* kv_mask;  // (B, S) or null
-  void* out;               // (B, T, H, D) contiguous
-  float* lse;              // (B, H, T) row log-sum-exp, or null
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* key_ok;  // (B, S) 0/1 flags, or null
+  float* out;         // (B, T, H, D) contiguous
+  float* lse;         // (B, H, T) row log-sum-exp, or null
   int B, T, S, H, D;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -65,226 +281,201 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int FWD_WARPS = 4;  // 16 query rows each
+constexpr int FWD_M = 16 * FWD_WARPS;
+constexpr int FWD_N = 64;  // keys a tile
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+template <int KD>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (FWD_M * (KD + 4) + 4 * FWD_N * (KD + 4)) + sizeof(int) * 2 * FWD_N;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
+template <int KD>
+__global__ void __launch_bounds__(FWD_WARPS * 32) flash_fwd_kernel(const Params p) {
+  constexpr int BM = FWD_M, BN = FWD_N;
+  constexpr int NTHR = FWD_WARPS * 32;
+  constexpr int LD = KD + 4;
+  constexpr int NT = BN / 8;  // key column groups of a logits tile
+  constexpr int DT = KD / 8;  // head-dim groups
   extern __shared__ __align__(16) float smem[];
-  const int D = p.D;
-  const int kstride = D + 4;  // pads k rows: lane-strided float4 reads stay conflict-free
-  float* sQ = smem;                    // BLOCK_Q x D
-  float* sK = sQ + BLOCK_Q * D;        // BLOCK_K x (D + 4)
-  float* sV = sK + BLOCK_K * kstride;  // BLOCK_K x D
-  float* sP = sV + BLOCK_K * D;        // BLOCK_Q x BLOCK_K
+  float* sQ = smem;                                   // BM x LD
+  float* sK = sQ + BM * LD;                           // stage s at sK + s * BN * LD
+  float* sV = sK + 2 * BN * LD;                       // likewise
+  int* sOk = reinterpret_cast<int*>(sV + 2 * BN * LD);  // [2][BN] key flags
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const uint8_t* kv_mask = p.kv_mask ? p.kv_mask + b * p.m_sb : nullptr;
-  const int half_window = p.window / 2;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * BM;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  const int* key_ok = p.key_ok ? p.key_ok + b * p.m_sb : nullptr;
+  const int n_tiles = (p.S + BN - 1) / BN;
 
-  for (int i = tid; i < BLOCK_Q * D; i += THREADS) {
-    const int r = i / D, c = i - r * D;
-    const int t = q0 + r;
-    sQ[i] = t < p.T ? to_float(q[t * p.q_st + c]) : 0.f;
-  }
+  auto load_kv = [&](int j) {
+    const int st = j & 1;
+    load_rows<BN, KD, NTHR>(sK + st * BN * LD, k, p.k_ss, j * BN, p.S, p.D, tid);
+    load_rows<BN, KD, NTHR>(sV + st * BN * LD, v, p.v_ss, j * BN, p.S, p.D, tid);
+    load_flags<BN, NTHR>(sOk + st * BN, key_ok, j * BN, p.S, tid);
+  };
 
-  float m[ROWS], l[ROWS], acc[ROWS][DIMS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DIMS; ++c) acc[r][c] = 0.f;
-  }
+  load_rows<BM, KD, NTHR>(sQ, q, p.q_st, q0, p.T, p.D, tid);
+  cp_async_commit();
+  load_kv(0);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < p.S; k0 += BLOCK_K) {
-    __syncthreads();  // every warp is done with the previous k/v tile
-    for (int i = tid; i < BLOCK_K * D; i += THREADS) {
-      const int r = i / D, c = i - r * D;
-      const int s = k0 + r;
-      const bool in = s < p.S;
-      sK[r * kstride + c] = in ? to_float(k[s * p.k_ss + c]) : 0.f;
-      sV[i] = in ? to_float(v[s * p.v_ss + c]) : 0.f;
-    }
+  const int wr = warp * 16;  // this warp's first query row in the tile
+  const int t_row[2] = {q0 + wr + g, q0 + wr + g + 8};
+
+  // up to D 64 the warp's Q fragments stay in registers, split once
+  constexpr bool Q_IN_REGS = KD <= 64;
+  FragA qf[Q_IN_REGS ? DT : 1];
+  if constexpr (Q_IN_REGS) {
+    cp_async_wait<1>();
     __syncthreads();
-
-    // logits for this warp's rows at key columns lane and lane + 32
-    float s0[ROWS], s1[ROWS];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s0[r] = s1[r] = 0.f;
-    for (int i = 0; i < D; i += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * kstride + i]);
-      const float4 kb = *reinterpret_cast<const float4*>(&sK[(lane + 32) * kstride + i]);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&sQ[(warp * ROWS + r) * D + i]);
-        s0[r] = fmaf(qv.x, ka.x, s0[r]);
-        s0[r] = fmaf(qv.y, ka.y, s0[r]);
-        s0[r] = fmaf(qv.z, ka.z, s0[r]);
-        s0[r] = fmaf(qv.w, ka.w, s0[r]);
-        s1[r] = fmaf(qv.x, kb.x, s1[r]);
-        s1[r] = fmaf(qv.y, kb.y, s1[r]);
-        s1[r] = fmaf(qv.z, kb.z, s1[r]);
-        s1[r] = fmaf(qv.w, kb.w, s1[r]);
-      }
-    }
-
-    const int ka_pos = k0 + lane, kb_pos = k0 + lane + 32;
-    const bool a_in = ka_pos < p.S, b_in = kb_pos < p.S;
-    const bool a_key = a_in && (kv_mask == nullptr || kv_mask[ka_pos]);
-    const bool b_key = b_in && (kv_mask == nullptr || kv_mask[kb_pos]);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int t = q0 + warp * ROWS + r;
-      bool a_ok = a_key, b_ok = b_key;
-      if (p.causal) {
-        a_ok = a_ok && ka_pos <= t;
-        b_ok = b_ok && kb_pos <= t;
-      }
-      if (p.window) {
-        a_ok = a_ok && abs(t - ka_pos) <= half_window;
-        b_ok = b_ok && abs(t - kb_pos) <= half_window;
-      }
-      // columns past S take no part; masked columns take finfo.min
-      const float la = a_in ? (a_ok ? s0[r] * p.scale : MASKED) : -INFINITY;
-      const float lb = b_in ? (b_ok ? s1[r] * p.scale : MASKED) : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(la, lb)));
-      const float pa = expf(la - m_new), pb = expf(lb - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(pa + pb);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DIMS; ++c) acc[r][c] *= alpha;
-      sP[(warp * ROWS + r) * BLOCK_K + lane] = pa;
-      sP[(warp * ROWS + r) * BLOCK_K + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    for (int j = 0; j < BLOCK_K; j += 4) {
-      float4 pr[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(&sP[(warp * ROWS + r) * BLOCK_K + j]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int c = 0; c < DIMS; ++c) {
-          const int d = c * 32 + lane;
-          if (d < D) {
-            const float vv = sV[(j + jj) * D + d];
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) {
-              const float pv = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
-              acc[r][c] = fmaf(pv, vv, acc[r][c]);
-            }
-          }
-        }
-      }
-    }
-    __syncwarp();
+    for (int kk = 0; kk < DT; ++kk) frag_a<LD>(sQ, wr, 8 * kk, g, t4, qf[kk]);
   }
 
-  T* out = static_cast<T*>(p.out);
+  float o[DT][4];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int t = q0 + warp * ROWS + r;
+  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_kv(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const int st = j & 1, k0 = j * BN;
+    const int* ok = sOk + st * BN;
+    const bool keys_live = __syncthreads_and(own_flags_live<BN, NTHR>(ok, tid));
+    const float* kt = sK + st * BN * LD;
+    const float* vt = sV + st * BN * LD;
+
+    // S = Q K^T for this warp's 16 rows
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      FragA a;
+      if constexpr (Q_IN_REGS)
+        a = qf[kk];
+      else
+        frag_a<LD>(sQ, wr, 8 * kk, g, t4, a);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        FragB f;
+        frag_b_nk<LD>(kt, 8 * n, 8 * kk, g, t4, f);
+        mma_3xtf32(s[n], a, f);
+      }
+    }
+
+    // masks and the online softmax, fp32
+    float mx[2] = {m[0], m[1]};
+    const TileClass cls = tile_class(q0 + wr, q0 + wr + 15, k0, k0 + BN - 1, p.causal, p.window);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1, key = k0 + 8 * n + 2 * t4 + (i & 1);
+        float x;
+        if (cls == ALL_LIVE && keys_live) {
+          x = s[n][i] * p.scale;
+        } else if (key >= p.S) {
+          x = -INFINITY;  // a column past S takes no part
+        } else {
+          const bool live = cls != NONE_LIVE && ok[key - k0] != 0 && pair_live(t_row[r], key, p.causal, p.window);
+          x = live ? s[n][i] * p.scale : MASKED;
+        }
+        s[n][i] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = expf(m[r] - mx[r]);  // m = -inf before the first tile: 0
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = expf(s[n][i] - m[i >> 1]);
+        l[i >> 1] += s[n][i];
+      }
+    }
+    // O = alpha O + P V over the tile's keys
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      FragA a;
+      frag_from_acc(s[kk], a);
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        FragB f;
+        frag_b_kn<LD>(vt, 8 * kk, 8 * n, g, t4, f);
+        mma_3xtf32(o[n], a, f);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t_row[r];
+    const float sum = quad_sum(l[r]);
     if (t >= p.T) continue;
-    const float inv = 1.f / l[r];
+    const float inv = 1.f / sum;
     // a row whose keys are all masked has m = finfo.min and l = S, so its
     // lse rounds to finfo.min: the backward reads that as "no live key"
-    if (p.lse != nullptr && lane == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.T + t] = m[r] + logf(l[r]);
-    T* row = out + ((static_cast<long long>(b) * p.T + t) * p.H + h) * D;
+    if (p.lse != nullptr && t4 == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.T + t] = m[r] + logf(sum);
+    float* row = p.out + ((static_cast<long long>(b) * p.T + t) * p.H + h) * p.D;
 #pragma unroll
-    for (int c = 0; c < DIMS; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) store(row + d, acc[r][c] * inv);
+    for (int n = 0; n < DT; ++n) {
+      if (8 * n < p.D)
+        *reinterpret_cast<float2*>(row + 8 * n + 2 * t4) = make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BLOCK_Q * p.D + BLOCK_K * (p.D + 4) + BLOCK_K * p.D + BLOCK_Q * BLOCK_K);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int KD>
+cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem<KD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + BLOCK_Q - 1) / BLOCK_Q, p.B * p.H);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((p.T + FWD_M - 1) / FWD_M, p.B * p.H);
+  flash_fwd_kernel<KD><<<grid, FWD_WARPS * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Backward.
-//
-// Given q, k, v, the forward's output O and its row log-sum-exp L, and dO:
-//   P = exp(q k^T * scale - L) (recomputed, masked as in the forward),
-//   dV = P^T dO, dP = dO V^T, dS = P * (dP - delta) with delta = rowsum(dO * O),
-//   dQ = dS K * scale, dK = dS^T Q * scale.
-// dS is zero at masked entries: jnp.where(mask, logits, finfo.min) passes no
-// gradient to a masked logit, so this is the exact gradient. (The Pallas
-// kernel computes dS everywhere, which differs only in a row whose keys are
-// all masked: there P is uniform, 1/S, and the exact dq and dk terms are 0.)
-//
-// Design: the TPU kernel keeps dk/dv in its output block across the
-// sequential q-block grid axis. CUDA blocks run in no order, so here one block
-// owns one (batch * head, 64-key tile) and loops over every 64-query tile
-// itself, keeping its dk and dv rows in registers (fp32) to the end. dq gets
-// contributions from every key tile, so each block adds its 64 x D partial
-// with fp32 atomicAdd into a zeroed (B, T, H, D) fp32 buffer that the wrapper
-// casts; the order of those sums changes from run to run. A small kernel
-// first computes delta. No tile is skipped: a row whose keys are all masked
-// has uniform P over all S keys, causal or not, and its dv term reaches
-// every key.
-//
-// Inside a q tile each of the 8 warps owns 8 key rows (ROWS): it computes their
-// logits and dP against the 64 queries (lanes own query columns), writes P
-// and dS to shared memory, and accumulates its dk/dv rows (lanes own dims).
-// Then, after a block barrier, each warp owns 8 query rows of dq over all 64
-// keys and adds them to global memory.
-//
-// What bounds it: per (batch, head) it does 5 products of T x S x D (the
-// recomputed logits, dP, dV, dK, dQ), 10 T S D flops, against q, k, v, O,
-// dO traffic of a few MB: compute bound, on fp32 SIMT FMAs (67 TFLOP/s peak
-// on an H100 SXM) as in the forward, plus T S D / 64 fp32 atomics for dq.
-// The bf16 tensor-core backward is in flash_attention_sm90.cu; a dq pass
-// without atomics is later work.
-
-constexpr float ALL_MASKED = -1e38f;  // an lse below this: the row has no live key
 
 struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const uint8_t* kv_mask;  // (B, S) or null
-  const void* out;         // O, (B, T, H, D) contiguous
-  const void* dout;        // dO, (B, T, H, D) strided
-  const float* lse;        // (B, H, T)
-  float* delta;            // (B, H, T), written by flash_bwd_delta_kernel
-  float* dq;               // (B, T, H, D) contiguous fp32, zeroed, added to
-  void* dk;                // (B, S, H, D) contiguous
-  void* dv;                // (B, S, H, D) contiguous
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* key_ok;  // (B, S) 0/1 flags, or null
+  const float* out;   // O, (B, T, H, D) contiguous
+  const float* dout;  // dO, (B, T, H, D) strided
+  const float* lse;   // (B, H, T)
+  float* delta;       // (B, H, T), written by flash_bwd_delta_kernel
+  float* dq;          // (B, T, H, D) contiguous, zeroed, added to
+  float* dk;          // (B, S, H, D) contiguous
+  float* dv;          // (B, S, H, D) contiguous
   int B, T, S, H, D;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -296,278 +487,273 @@ struct BwdParams {
 };
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp per row
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_bwd_delta_kernel(BwdParams p) {
-  const long long row = (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const BwdParams p) {
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= static_cast<long long>(p.B) * p.T * p.H) return;
   const int h = static_cast<int>(row % p.H);
   const int t = static_cast<int>((row / p.H) % p.T);
   const int b = static_cast<int>(row / (static_cast<long long>(p.H) * p.T));
-  const T* o = static_cast<const T*>(p.out) + row * p.D;
-  const T* g = static_cast<const T*>(p.dout) + b * p.g_sb + t * p.g_st + h * p.g_sh;
+  const float* o = p.out + row * p.D;
+  const float* g = p.dout + b * p.g_sb + t * p.g_st + h * p.g_sh;
   float acc = 0.f;
-  for (int d = lane; d < p.D; d += 32) acc = fmaf(to_float(o[d]), to_float(g[d]), acc);
+  for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
   acc = warp_sum(acc);
   if (lane == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.T + t] = acc;
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+template <int KD>
+constexpr size_t bwd_smem() {
+  return sizeof(float) * (2 * BWD_N * (KD + 4) + 4 * BWD_M * (KD + 4) + BWD_N * (BWD_M + 4) + 4 * BWD_M) +
+         sizeof(int) * BWD_N;
 }
 
-__device__ __forceinline__ float lane4(const float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <typename T, int NDIM>
-__global__ void __launch_bounds__(THREADS) flash_bwd_kernel(BwdParams p) {
+template <int KD>
+__global__ void __launch_bounds__(BWD_THREADS) flash_bwd_kernel(const BwdParams p) {
+  constexpr int BM = BWD_M;
+  constexpr int LD = KD + 4;
+  constexpr int LDT = BM + 4;    // dS^T rows
+  constexpr int NT = BM / 8;     // query column groups of S^T and dP^T
+  constexpr int DT = KD / 8;     // head-dim groups
+  constexpr int RG = BM / 16;    // dQ: row groups of 16 queries
+  constexpr int DQT = DT * RG / 4;  // dQ: head-dim groups a warp
   extern __shared__ __align__(16) float smem[];
-  const int D = p.D;
-  const int pad = D + 4;  // q and dO rows are read lane-strided as float4: padded, conflict-free
-  float* sK = smem;                       // BLOCK_K x D
-  float* sV = sK + BLOCK_K * D;           // BLOCK_K x D
-  float* sQ = sV + BLOCK_K * D;           // BLOCK_Q x (D + 4)
-  float* sG = sQ + BLOCK_Q * pad;         // dO, BLOCK_Q x (D + 4)
-  float* sP = sG + BLOCK_Q * pad;         // P, BLOCK_K x BLOCK_Q (key row, query column)
-  float* sS = sP + BLOCK_K * BLOCK_Q;     // dS, BLOCK_K x BLOCK_Q
-  float* sL = sS + BLOCK_K * BLOCK_Q;     // lse, BLOCK_Q
-  float* sDelta = sL + BLOCK_Q;           // delta, BLOCK_Q
+  float* sK = smem;                 // BWD_N x LD
+  float* sV = sK + BWD_N * LD;      // BWD_N x LD
+  float* sQ = sV + BWD_N * LD;      // stage s at sQ + s * BM * LD
+  float* sG = sQ + 2 * BM * LD;     // dO, likewise
+  float* sDS = sG + 2 * BM * LD;    // dS^T, BWD_N x LDT
+  float* sL = sDS + BWD_N * LDT;    // lse, [2][BM]
+  float* sDelta = sL + 2 * BM;      // delta, [2][BM]
+  int* sOk = reinterpret_cast<int*>(sDelta + 2 * BM);  // key flags, BWD_N
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int k0 = blockIdx.x * BLOCK_K;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* g = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
-  const uint8_t* kv_mask = p.kv_mask ? p.kv_mask + b * p.m_sb : nullptr;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * BWD_N;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  const float* gr = p.dout + b * p.g_sb + h * p.g_sh;
+  const int* key_ok = p.key_ok ? p.key_ok + b * p.m_sb : nullptr;
   const float* lse = p.lse + static_cast<long long>(blockIdx.y) * p.T;
   const float* delta = p.delta + static_cast<long long>(blockIdx.y) * p.T;
-  const int half_window = p.window / 2;
   const float uniform = 1.f / p.S;  // P of every key in a row whose keys are all masked
+  const int n_tiles = (p.T + BM - 1) / BM;
 
-  for (int i = tid; i < BLOCK_K * D; i += THREADS) {
-    const int r = i / D, c = i - r * D;
-    const int s = k0 + r;
-    const bool in = s < p.S;
-    sK[i] = in ? to_float(k[s * p.k_ss + c]) : 0.f;
-    sV[i] = in ? to_float(v[s * p.v_ss + c]) : 0.f;
+  auto load_q = [&](int it) {
+    const int st = it & 1, t0 = it * BM;
+    load_rows<BM, KD, BWD_THREADS>(sQ + st * BM * LD, q, p.q_st, t0, p.T, p.D, tid);
+    load_rows<BM, KD, BWD_THREADS>(sG + st * BM * LD, gr, p.g_st, t0, p.T, p.D, tid);
+    for (int i = tid; i < BM; i += BWD_THREADS) {  // past T: lse = delta = 0, with zero q and dO rows
+      const bool in = t0 + i < p.T;
+      cp_async4(sL + st * BM + i, lse + (in ? t0 + i : 0), in);
+      cp_async4(sDelta + st * BM + i, delta + (in ? t0 + i : 0), in);
+    }
+  };
+
+  load_rows<BWD_N, KD, BWD_THREADS>(sK, k, p.k_ss, k0, p.S, p.D, tid);
+  load_rows<BWD_N, KD, BWD_THREADS>(sV, v, p.v_ss, k0, p.S, p.D, tid);
+  load_flags<BWD_N, BWD_THREADS>(sOk, key_ok, k0, p.S, tid);
+  load_q(0);
+  cp_async_commit();
+
+  const int kr = warp * 16;  // this warp's first key row in the block
+  const int s_row[2] = {k0 + kr + g, k0 + kr + g + 8};
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
   }
 
-  float dk[ROWS][NDIM], dv[ROWS][NDIM];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int c = 0; c < NDIM; ++c) dk[r][c] = dv[r][c] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < p.T; q0 += BLOCK_Q) {
-    __syncthreads();  // every warp is done with the previous q tile
-    for (int i = tid; i < BLOCK_Q * D; i += THREADS) {
-      const int r = i / D, c = i - r * D;
-      const int t = q0 + r;
-      const bool in = t < p.T;
-      sQ[r * pad + c] = in ? to_float(q[t * p.q_st + c]) : 0.f;
-      sG[r * pad + c] = in ? to_float(g[t * p.g_st + c]) : 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_q(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    if (tid < BLOCK_Q) {
-      const int t = q0 + tid;
-      sL[tid] = t < p.T ? lse[t] : 0.f;
-      sDelta[tid] = t < p.T ? delta[t] : 0.f;
-    }
-    __syncthreads();
+    const int st = it & 1, t0 = it * BM;
+    const bool keys_live = __syncthreads_and(own_flags_live<BWD_N, BWD_THREADS>(sOk, tid));
+    const float* qt = sQ + st * BM * LD;
+    const float* gt = sG + st * BM * LD;
+    const float* lt = sL + st * BM;
+    const float* dt = sDelta + st * BM;
 
-    // logits (s) and dP (e) of this warp's key rows at query columns lane and lane + 32
-    float s0[ROWS], s1[ROWS], e0[ROWS], e1[ROWS];
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s0[r] = s1[r] = e0[r] = e1[r] = 0.f;
-    for (int i = 0; i < D; i += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(&sQ[lane * pad + i]);
-      const float4 qb = *reinterpret_cast<const float4*>(&sQ[(lane + 32) * pad + i]);
-      const float4 ga = *reinterpret_cast<const float4*>(&sG[lane * pad + i]);
-      const float4 gb = *reinterpret_cast<const float4*>(&sG[(lane + 32) * pad + i]);
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 kr = *reinterpret_cast<const float4*>(&sK[(warp * ROWS + r) * D + i]);
-        const float4 vr = *reinterpret_cast<const float4*>(&sV[(warp * ROWS + r) * D + i]);
-        s0[r] = dot4(kr, qa, s0[r]);
-        s1[r] = dot4(kr, qb, s1[r]);
-        e0[r] = dot4(vr, ga, e0[r]);
-        e1[r] = dot4(vr, gb, e1[r]);
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      FragA ka, va;
+      frag_a<LD>(sK, kr, 8 * kk, g, t4, ka);
+      frag_a<LD>(sV, kr, 8 * kk, g, t4, va);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        FragB f;
+        frag_b_nk<LD>(qt, 8 * n, 8 * kk, g, t4, f);
+        mma_3xtf32(s[n], ka, f);
+        frag_b_nk<LD>(gt, 8 * n, 8 * kk, g, t4, f);
+        mma_3xtf32(dp[n], va, f);
       }
     }
 
-    const int ta = q0 + lane, tb = q0 + lane + 32;
-    const bool a_in = ta < p.T, b_in = tb < p.T;
-    const float la = sL[lane], lb = sL[lane + 32];
-    const float da = sDelta[lane], db = sDelta[lane + 32];
-    const bool a_dead = la < ALL_MASKED, b_dead = lb < ALL_MASKED;
+    // P^T into s, dS^T into dp, fp32; element i of group n: key row
+    // kr + g + 8 (i / 2), query column 8 n + 2 t + i % 2
+    const TileClass cls = tile_class(t0, t0 + BM - 1, k0 + kr, k0 + kr + 15, p.causal, p.window);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int j = warp * ROWS + r;
-      const int s = k0 + j;
-      const bool s_in = s < p.S;
-      const bool key = s_in && (kv_mask == nullptr || kv_mask[s]);
-      bool a_ok = key && a_in, b_ok = key && b_in;
-      if (p.causal) {
-        a_ok = a_ok && s <= ta;
-        b_ok = b_ok && s <= tb;
-      }
-      if (p.window) {
-        a_ok = a_ok && abs(ta - s) <= half_window;
-        b_ok = b_ok && abs(tb - s) <= half_window;
-      }
-      // masked in-range entries: P is 0, or 1/S in a row with no live key
-      float pa = 0.f, pb = 0.f;
-      if (s_in && a_in) pa = a_ok ? expf(s0[r] * p.scale - la) : (a_dead ? uniform : 0.f);
-      if (s_in && b_in) pb = b_ok ? expf(s1[r] * p.scale - lb) : (b_dead ? uniform : 0.f);
-      sP[j * BLOCK_Q + lane] = pa;
-      sP[j * BLOCK_Q + lane + 32] = pb;
-      sS[j * BLOCK_Q + lane] = a_ok ? pa * (e0[r] - da) : 0.f;
-      sS[j * BLOCK_Q + lane + 32] = b_ok ? pb * (e1[r] - db) : 0.f;
-    }
-    __syncwarp();
-
-    // dv[j] += sum_i P[j, i] dO[i]; dk[j] += sum_i dS[j, i] q[i] (scaled at the end)
-    for (int i = 0; i < BLOCK_Q; i += 4) {
-      float4 pr[ROWS], sr[ROWS];
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        pr[r] = *reinterpret_cast<const float4*>(&sP[(warp * ROWS + r) * BLOCK_Q + i]);
-        sr[r] = *reinterpret_cast<const float4*>(&sS[(warp * ROWS + r) * BLOCK_Q + i]);
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-        for (int c = 0; c < NDIM; ++c) {
-          const int d = c * 32 + lane;
-          if (d < D) {
-            const float gv = sG[(i + ii) * pad + d];
-            const float qv = sQ[(i + ii) * pad + d];
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) {
-              dv[r][c] = fmaf(lane4(pr[r], ii), gv, dv[r][c]);
-              dk[r][c] = fmaf(lane4(sr[r], ii), qv, dk[r][c]);
-            }
-          }
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * n + 2 * t4 + (i & 1);
+        const float L = lt[c];
+        if (cls == ALL_LIVE && keys_live) {  // past T: q, dO, lse and delta are 0, so P dO = dS = 0
+          s[n][i] = expf(s[n][i] * p.scale - L);
+          dp[n][i] = s[n][i] * (dp[n][i] - dt[c]);
+        } else {
+          const int key = s_row[i >> 1];
+          const bool live = cls != NONE_LIVE && sOk[kr + g + 8 * (i >> 1)] != 0 &&
+                            pair_live(t0 + c, key, p.causal, p.window);
+          // masked in-range entries: P is 0, or 1/S in a row with no live key
+          const float pr = live ? expf(s[n][i] * p.scale - L) : (L < ALL_MASKED && key < p.S ? uniform : 0.f);
+          dp[n][i] = live ? pr * (dp[n][i] - dt[c]) : 0.f;
+          s[n][i] = pr;
         }
       }
     }
-    __syncthreads();  // every key row of dS is written
 
-    // dq[i] += scale * sum_j dS[j, i] k[j] for this warp's 8 query rows
-    float acc[ROWS][NDIM];
+    // dV += P^T dO and dK += dS^T Q over the tile's queries
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
+    for (int kk = 0; kk < NT; ++kk) {
+      FragA pa, da;
+      frag_from_acc(s[kk], pa);
+      frag_from_acc(dp[kk], da);
 #pragma unroll
-      for (int c = 0; c < NDIM; ++c) acc[r][c] = 0.f;
+      for (int n = 0; n < DT; ++n) {
+        FragB f;
+        frag_b_kn<LD>(gt, 8 * kk, 8 * n, g, t4, f);
+        mma_3xtf32(dv[n], pa, f);
+        frag_b_kn<LD>(qt, 8 * kk, 8 * n, g, t4, f);
+        mma_3xtf32(dk[n], da, f);
+      }
     }
-    for (int j = 0; j < BLOCK_K; ++j) {
-      const float4 d0 = *reinterpret_cast<const float4*>(&sS[j * BLOCK_Q + warp * ROWS]);
-      const float4 d1 = *reinterpret_cast<const float4*>(&sS[j * BLOCK_Q + warp * ROWS + 4]);
+
+    // dS^T to shared memory for dQ
 #pragma unroll
-      for (int c = 0; c < NDIM; ++c) {
-        const int d = c * 32 + lane;
-        const float kv = d < D ? sK[j * D + d] : 0.f;
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r][c] = fmaf(lane4(r < 4 ? d0 : d1, r & 3), kv, acc[r][c]);
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(sDS + (kr + g + 8 * r) * LDT + 8 * n + 2 * t4) =
+            make_float2(dp[n][2 * r], dp[n][2 * r + 1]);
+    }
+    __syncthreads();
+
+    // dQ = dS K: this warp's 16 queries (row group warp % RG) and DQT head-dim
+    // groups (from group (warp / RG) * DQT), over the block's 64 keys
+    const int qr = (warp % RG) * 16, dc = (warp / RG) * DQT;
+    float dq[DQT][4];
+#pragma unroll
+    for (int n = 0; n < DQT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BWD_N / 8; ++kk) {
+      FragA a;
+      frag_a_t<LDT>(sDS, 8 * kk, qr, g, t4, a);
+#pragma unroll
+      for (int n = 0; n < DQT; ++n) {
+        FragB f;
+        frag_b_kn<LD>(sK, 8 * kk, 8 * (dc + n), g, t4, f);
+        mma_3xtf32(dq[n], a, f);
       }
     }
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int t = q0 + warp * ROWS + r;
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + qr + g + 8 * r;
       if (t >= p.T) continue;
-      float* row = p.dq + ((static_cast<long long>(b) * p.T + t) * p.H + h) * D;
+      float* row = p.dq + ((static_cast<long long>(b) * p.T + t) * p.H + h) * p.D;
 #pragma unroll
-      for (int c = 0; c < NDIM; ++c) {
-        const int d = c * 32 + lane;
-        if (d < D) atomicAdd(row + d, acc[r][c] * p.scale);
+      for (int n = 0; n < DQT; ++n) {
+        const int d = 8 * (dc + n) + 2 * t4;
+        if (d < p.D)
+          atomicAdd(reinterpret_cast<float2*>(row + d),
+                    make_float2(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale));
       }
     }
+    __syncthreads();  // dS^T and stage st are free
   }
 
-  T* dk_out = static_cast<T*>(p.dk);
-  T* dv_out = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int s = k0 + warp * ROWS + r;
+  for (int r = 0; r < 2; ++r) {
+    const int s = s_row[r];
     if (s >= p.S) continue;
-    const long long base = ((static_cast<long long>(b) * p.S + s) * p.H + h) * D;
+    const long long base = ((static_cast<long long>(b) * p.S + s) * p.H + h) * p.D;
 #pragma unroll
-    for (int c = 0; c < NDIM; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) {
-        store(dk_out + base + d, dk[r][c] * p.scale);
-        store(dv_out + base + d, dv[r][c]);
+    for (int n = 0; n < DT; ++n) {
+      const int d = 8 * n + 2 * t4;
+      if (d < p.D) {
+        *reinterpret_cast<float2*>(p.dk + base + d) = make_float2(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+        *reinterpret_cast<float2*>(p.dv + base + d) = make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
       }
     }
   }
 }
 
-template <typename T, int NDIM>
-cudaError_t launch_bwd_dims(const BwdParams& p, cudaStream_t stream) {
+template <int KD>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.B) * p.T * p.H;
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(p);
+  flash_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * (2 * BLOCK_K * p.D + 2 * BLOCK_Q * (p.D + 4) + 2 * BLOCK_K * BLOCK_Q +
-                                       2 * BLOCK_Q);
-  err = cudaFuncSetAttribute(flash_bwd_kernel<T, NDIM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr size_t smem = bwd_smem<KD>();
+  err = cudaFuncSetAttribute(flash_bwd_kernel<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BLOCK_K - 1) / BLOCK_K, p.B * p.H);
-  flash_bwd_kernel<T, NDIM><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((p.S + BWD_N - 1) / BWD_N, p.B * p.H);
+  flash_bwd_kernel<KD><<<grid, BWD_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  return p.D <= 64 ? launch_bwd_dims<T, 2>(p, stream) : launch_bwd_dims<T, 4>(p, stream);
-}
 
 }  // namespace
 
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
-                                   void* out, void* lse, int B, int T, int S, int H, int D, long long q_sb,
-                                   long long q_st, long long q_sh, long long k_sb, long long k_ss,
-                                   long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                                   long long m_sb, int causal, int window, float scale, int is_bf16,
-                                   void* stream) {
-  if (D <= 0 || D > MAX_D || D % 8 != 0 || T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  const Params p{q,    k,    v,    static_cast<const uint8_t*>(kv_mask),
-                 out,  static_cast<float*>(lse),
-                 B,    T,    S,    H,    D,
-                 q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                 v_sb, v_ss, v_sh, m_sb,
-                 causal, window, scale};
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* key_ok, void* out,
+                                   void* lse, int B, int T, int S, int H, int D, long long q_sb, long long q_st,
+                                   long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                                   long long v_ss, long long v_sh, long long m_sb, int causal, int window,
+                                   float scale, void* stream) {
+  if (D <= 0 || D > 128 || D % 8 != 0 || T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  const Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                 static_cast<const int*>(key_ok), static_cast<float*>(out), static_cast<float*>(lse),
+                 B, T, S, H, D, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, m_sb, causal, window, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
+  if (D <= 32) return (int)launch_fwd<32>(p, s);
+  if (D <= 64) return (int)launch_fwd<64>(p, s);
+  return (int)launch_fwd<128>(p, s);
 }
 
 // dq must be zeroed by the caller; delta is scratch of B * H * T floats.
-extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* kv_mask,
-                                   const void* out, const void* dout, const void* lse, void* delta, void* dq,
-                                   void* dk, void* dv, int B, int T, int S, int H, int D, long long q_sb,
-                                   long long q_st, long long q_sh, long long k_sb, long long k_ss,
-                                   long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                                   long long g_sb, long long g_st, long long g_sh, long long m_sb, int causal,
-                                   int window, float scale, int is_bf16, void* stream) {
-  if (D <= 0 || D > MAX_D || D % 8 != 0 || T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  const BwdParams p{q,    k,    v,    static_cast<const uint8_t*>(kv_mask),
-                    out,  dout, static_cast<const float*>(lse), static_cast<float*>(delta),
-                    static_cast<float*>(dq), dk, dv,
-                    B,    T,    S,    H,    D,
-                    q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                    v_sb, v_ss, v_sh, g_sb, g_st, g_sh, m_sb,
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* key_ok, const void* out,
+                                   const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
+                                   int B, int T, int S, int H, int D, long long q_sb, long long q_st, long long q_sh,
+                                   long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                                   long long v_sh, long long g_sb, long long g_st, long long g_sh, long long m_sb,
+                                   int causal, int window, float scale, void* stream) {
+  if (D <= 0 || D > 128 || D % 8 != 0 || T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  const BwdParams p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                    static_cast<const int*>(key_ok), static_cast<const float*>(out), static_cast<const float*>(dout),
+                    static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<float*>(dq),
+                    static_cast<float*>(dk), static_cast<float*>(dv),
+                    B, T, S, H, D, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_st, g_sh, m_sb,
                     causal, window, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_bwd<__nv_bfloat16>(p, s) : launch_bwd<float>(p, s));
+  if (D <= 32) return (int)launch_bwd<32>(p, s);
+  if (D <= 64) return (int)launch_bwd<64>(p, s);
+  return (int)launch_bwd<128>(p, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

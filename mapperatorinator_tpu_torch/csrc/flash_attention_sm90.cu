@@ -4,10 +4,10 @@
 //
 // Replaces the Pallas kernels of mapperatorinator_tpu/ops/attention_kernel.py:
 // _attention_kernel, launched by _flash_forward (:88), and
-// _attention_bwd_kernel, launched by _bwd_call (:197). The fp32 path keeps
-// the SIMT kernels of flash_attention.cu: fp32 is held to 2e-5, which no
-// bf16 or TF32 tensor-core product meets. ops/attention_kernel.py picks the
-// route: bf16 with D = 64 comes here.
+// _attention_bwd_kernel, launched by _bwd_call (:197). fp32 takes the
+// kernels of flash_attention.cu, which hold it to 2e-5 with three TF32
+// products for each fp32 one. ops/attention_kernel.py picks the route: bf16
+// with D = 64 comes here.
 //
 // What it computes is what flash_attention.cu computes, with the rounding
 // points of the model's own bf16 attention (transformer.py _attend): logits,

@@ -6,11 +6,14 @@ Replaces ``mapperatorinator_tpu/ops/attention_kernel.py``: the forward
 and the backward ``_attention_bwd_kernel`` (via ``_bwd_call`` /
 ``_flash_backward``, which the JAX ``custom_vjp`` runs). Each has two CUDA
 kernels, and :func:`attention_route` picks one by dtype and head dim: the
-SIMT kernels of ``csrc/flash_attention.cu`` (fp32 FMAs, for fp32) and the
-tensor-core kernels of ``csrc/flash_attention_sm90.cu`` (wgmma, for bf16
-with D 64, v32's head dim); bf16 at another head dim raises. Each source's
-header says what bounds its kernels on the H100. The ``*_bf16_tc`` plain versions round where the tensor-core kernels
-round; the tests and ``chip_smoke.py`` hold those kernels against both.
+fp32 kernels of ``csrc/flash_attention.cu`` (split-TF32 products on the
+tensor cores, for fp32 at any head dim up to 128) and the bf16 kernels of
+``csrc/flash_attention_sm90.cu`` (wgmma, for bf16 with D 64, v32's head
+dim); bf16 at another head dim raises. Each source's header says what bounds
+its kernels on the H100. The ``*_fp32_tc`` and ``*_bf16_tc`` plain versions
+round where the kernels of each route round; the tests and
+``chip_smoke.py`` hold the kernels against them and against the fp32 plain
+versions.
 
 :func:`flash_attention` runs the plain version for a tensor on the CPU, where
 ordinary autograd differentiates it, and the kernels for a tensor on a CUDA
@@ -27,6 +30,7 @@ whose keys are all masked, where it gives dq and dk a nonzero term.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -35,22 +39,21 @@ from . import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
-_FWD_ARGTYPES = (
+# both routes' forward kernels take these; the bf16 backward takes one more
+# scratch pointer (the live keys' sum) than the fp32 one
+_FWD_ARGTYPES = tuple(
     [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 5
     + [ctypes.c_longlong] * 10
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
-_BWD_ARGTYPES = (
+_BWD_ARGTYPES = tuple(
     [ctypes.c_void_p] * 11
     + [ctypes.c_int] * 5
     + [ctypes.c_longlong] * 13
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 )
-# the tensor-core kernels take bf16 only: no dtype flag; the backward takes
-# one more scratch pointer (the live keys' sum)
-_SM90_FWD_ARGTYPES = _FWD_ARGTYPES[:-2] + [ctypes.c_void_p]
-_SM90_BWD_ARGTYPES = [ctypes.c_void_p] + _BWD_ARGTYPES[:-2] + [ctypes.c_void_p]
+_SM90_BWD_ARGTYPES = (ctypes.c_void_p,) + _BWD_ARGTYPES
 
 
 def _structural_mask(t: int, s: int, kv_mask, causal: bool, window: int, device) -> torch.Tensor:
@@ -178,20 +181,95 @@ def attention_backward_plain_bf16_tc(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) fp32 tensors with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``,
+    each rounded to nearest with ties away from zero (``cvt.rna.tf32.f32``),
+    as the fp32 kernels split every operand."""
+
+    def tf32(y: torch.Tensor) -> torch.Tensor:
+        bits = y.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = tf32(x.float())
+    return hi, tf32(x.float() - hi)
+
+
+def _einsum_3tf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as three TF32 products of the split operands:
+    the small ones hi·lo' + lo·hi' and the big one hi·hi' summed apart, then
+    added, all in fp32."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)) + torch.einsum(eq, ah, bh)
+
+
+def attention_plain_fp32_tc(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """What the fp32 forward kernel computes, rounding where it rounds: the
+    logits q·kᵀ and P·V each as three TF32 products of the split operands
+    (:func:`tf32_split`), the masks, softmax and sums in fp32."""
+    t, s, d = q.shape[1], k.shape[1], q.shape[-1]
+    scale = d**-0.5 if sm_scale is None else sm_scale
+    logits = _einsum_3tf32("bqhd,bkhd->bhqk", q, k) * scale
+    logits = torch.where(_structural_mask(t, s, kv_mask, causal, window, q.device), logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return _einsum_3tf32("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def attention_backward_plain_fp32_tc(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    do: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the fp32 backward kernel computes, rounding where it rounds: the
+    five products (logits, dP, dV, dK, dQ) each as three TF32 products of
+    the split operands, P, dS = P (dP - delta) and every sum in fp32, with
+    delta = rowsum(dO O) from :func:`attention_plain_fp32_tc`'s output. The
+    exact gradient otherwise (masked logits get none)."""
+    t, s, d = q.shape[1], k.shape[1], q.shape[-1]
+    scale = d**-0.5 if sm_scale is None else sm_scale
+    mask = _structural_mask(t, s, kv_mask, causal, window, q.device)
+    logits = torch.where(mask, _einsum_3tf32("bqhd,bkhd->bhqk", q, k) * scale, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = attention_plain_fp32_tc(q, k, v, kv_mask, causal=causal, window=window, sm_scale=scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, T, 1)
+    dp = _einsum_3tf32("bqhd,bkhd->bhqk", do, v)
+    ds = torch.where(mask, probs * (dp - delta), 0.0)
+    dq = _einsum_3tf32("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = _einsum_3tf32("bhqk,bqhd->bkhd", ds, q) * scale
+    dv = _einsum_3tf32("bhqk,bqhd->bkhd", probs, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 SM90_HEAD_DIMS = (64,)
 
 
 def attention_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel pair that takes an attention call on the card: ``"simt"``
-    (``csrc/flash_attention.cu``, fp32 FMAs) for fp32, which no bf16 or TF32
-    tensor-core product holds to its 2e-5 bar; ``"sm90"``
-    (``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores, bf16
-    operands, fp32 sums) for bf16 with a head dim in :data:`SM90_HEAD_DIMS`.
-    Anything else raises: no ported model runs bf16 at another head dim. The
-    route is decided here alone; a kernel that fails raises, and no call
-    moves to the other route or to the plain version."""
+    """The kernel pair that takes an attention call on the card: ``"fp32"``
+    (``csrc/flash_attention.cu``) for fp32 at any head dim the kernels take,
+    every product as three TF32 tensor-core products of split operands,
+    which hold the fp32 bar of 2e-5 where one TF32 or bf16 product does not;
+    ``"sm90"`` (``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores,
+    bf16 operands, fp32 sums) for bf16 with a head dim in
+    :data:`SM90_HEAD_DIMS`. Anything else raises: no ported model runs bf16
+    at another head dim. The route is decided here alone; a kernel that
+    fails raises, and no call moves to the other route or to the plain
+    version."""
     if dtype == torch.float32:
-        return "simt"
+        return "fp32"
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
     raise ValueError(f"flash_attention: no kernel takes {dtype} with head dim {head_dim} (fp32, or bf16 with head "
@@ -229,6 +307,16 @@ def _check_aligned(what: str, **xs: torch.Tensor) -> None:
                              f"address {x.data_ptr()} and strides {x.stride()} of {x.element_size()}-byte elements")
 
 
+@functools.cache
+def _function(library: str, symbol: str, argtypes: tuple):
+    """A kernel's C entry point, its argument types set once (``fn.lib``:
+    its library, for error strings)."""
+    lib = _build.load(library)
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype, fn.lib = list(argtypes), ctypes.c_int, lib
+    return fn
+
+
 def _strides(x: torch.Tensor) -> tuple[int, int, int]:
     return x.stride(0), x.stride(1), x.stride(2)
 
@@ -241,7 +329,7 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, window: int, scale: floa
     None."""
     if attention_route(q.dtype, q.shape[-1]) == "sm90":
         return flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse)
-    return flash_fwd_simt(q, k, v, kv_mask, causal, window, scale, with_lse)
+    return flash_fwd_fp32(q, k, v, kv_mask, causal, window, scale, with_lse)
 
 
 def flash_attention_bwd(q, k, v, kv_mask, out, lse, do, causal: bool, window: int,
@@ -258,59 +346,58 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, do, causal: bool, window: in
         do = do.contiguous()
     if attention_route(q.dtype, q.shape[-1]) == "sm90":
         return flash_bwd_sm90(q, k, v, kv_mask, out, lse, do, causal, window, scale)
-    return flash_bwd_simt(q, k, v, kv_mask, out, lse, do, causal, window, scale)
+    return flash_bwd_fp32(q, k, v, kv_mask, out, lse, do, causal, window, scale)
 
 
-def flash_fwd_simt(q, k, v, kv_mask, causal, window, scale, with_lse):
-    """The SIMT forward kernel (``csrc/flash_attention.cu``): the route of
-    fp32. It also takes bf16 when called directly, as ``chip_smoke.py`` does
-    to time it beside the tensor-core kernel."""
+def flash_fwd_fp32(q, k, v, kv_mask, causal, window, scale, with_lse):
+    """The fp32 forward kernel (``csrc/flash_attention.cu``, split-TF32).
+    The key mask goes in as int32 flags."""
     b, t, h, d = q.shape
     s = k.shape[1]
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_fwd_fp32: fp32 operands, got {q.dtype}")
+    _check_aligned("flash_fwd_fp32", q=q, k=k, v=v)
+    flags = kv_mask.to(torch.int32) if kv_mask is not None else None
+    fn = _function("flash_attention", "flash_attention_fwd", _FWD_ARGTYPES)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        b, t, s, h, d, *_strides(q), *_strides(k), *_strides(v),
-        s if kv_mask is not None else 0,
-        int(causal), int(window), float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), flags.data_ptr() if flags is not None else None,
+        out.data_ptr(), lse.data_ptr() if lse is not None else None,
+        b, t, s, h, d, *_strides(q), *_strides(k), *_strides(v), s,
+        int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, err, "flash_attention")
-    flash_fwd_simt.launches += 1
+    _build.check(fn.lib, err, "flash_fwd_fp32")
+    flash_fwd_fp32.launches += 1
     return out, lse
 
 
-def flash_bwd_simt(q, k, v, kv_mask, out, lse, do, causal, window, scale):
-    """The SIMT backward kernel (``csrc/flash_attention.cu``): the route of
-    fp32; bf16 when called directly, as :func:`flash_fwd_simt`."""
+def flash_bwd_fp32(q, k, v, kv_mask, out, lse, do, causal, window, scale):
+    """The fp32 backward kernel (``csrc/flash_attention.cu``, split-TF32),
+    after its delta kernel; ``out`` and ``lse`` from :func:`flash_fwd_fp32`."""
     b, t, h, d = q.shape
     s = k.shape[1]
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_bwd
-    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_bwd_fp32: fp32 operands, got {q.dtype}")
+    _check_aligned("flash_bwd_fp32", q=q, k=k, v=v, do=do)
+    if not out.is_contiguous():
+        raise ValueError("flash_bwd_fp32: out must be the forward's contiguous output")
+    flags = kv_mask.to(torch.int32) if kv_mask is not None else None
+    fn = _function("flash_attention", "flash_attention_bwd", _BWD_ARGTYPES)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, h, d), dtype=v.dtype, device=q.device)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_mask.data_ptr() if kv_mask is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), flags.data_ptr() if flags is not None else None,
         out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(),
-        b, t, s, h, d, *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-        s if kv_mask is not None else 0,
-        int(causal), int(window), float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, t, s, h, d, *_strides(q), *_strides(k), *_strides(v), *_strides(do), s,
+        int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, err, "flash_attention_bwd")
-    flash_bwd_simt.launches += 1
-    return dq.to(q.dtype), dk, dv
+    _build.check(fn.lib, err, "flash_bwd_fp32")
+    flash_bwd_fp32.launches += 1
+    return dq, dk, dv
 
 
 def flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse):
@@ -321,9 +408,7 @@ def flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse):
     s = k.shape[1]
     _check_aligned("flash_fwd_sm90", q=q, k=k, v=v)
     flags = kv_mask.to(torch.int32) if kv_mask is not None else None
-    lib = _build.load("flash_attention_sm90")
-    fn = lib.flash_attention_sm90_fwd
-    fn.argtypes, fn.restype = _SM90_FWD_ARGTYPES, ctypes.c_int
+    fn = _function("flash_attention_sm90", "flash_attention_sm90_fwd", _FWD_ARGTYPES)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     err = fn(
@@ -332,7 +417,7 @@ def flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse):
         b, t, s, h, d, *_strides(q), *_strides(k), *_strides(v), s,
         int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, err, "flash_fwd_sm90")
+    _build.check(fn.lib, err, "flash_fwd_sm90")
     flash_fwd_sm90.launches += 1
     return out, lse
 
@@ -347,9 +432,7 @@ def flash_bwd_sm90(q, k, v, kv_mask, out, lse, do, causal, window, scale):
     if not out.is_contiguous():
         raise ValueError("flash_bwd_sm90: out must be the forward's contiguous output")
     flags = kv_mask.to(torch.int32) if kv_mask is not None else None
-    lib = _build.load("flash_attention_sm90")
-    fn = lib.flash_attention_sm90_bwd
-    fn.argtypes, fn.restype = _SM90_BWD_ARGTYPES, ctypes.c_int
+    fn = _function("flash_attention_sm90", "flash_attention_sm90_bwd", _SM90_BWD_ARGTYPES)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     k_sums = torch.zeros((b, h, d + 1), dtype=torch.float32, device=q.device)  # the live keys' sum and count
     dq = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
@@ -362,12 +445,12 @@ def flash_bwd_sm90(q, k, v, kv_mask, out, lse, do, causal, window, scale):
         b, t, s, h, d, *_strides(q), *_strides(k), *_strides(v), *_strides(do), s,
         int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, err, "flash_bwd_sm90")
+    _build.check(fn.lib, err, "flash_bwd_sm90")
     flash_bwd_sm90.launches += 1
     return dq.to(q.dtype), dk, dv
 
 
-flash_fwd_simt.launches = flash_bwd_simt.launches = 0
+flash_fwd_fp32.launches = flash_bwd_fp32.launches = 0
 flash_fwd_sm90.launches = flash_bwd_sm90.launches = 0
 
 
@@ -404,9 +487,9 @@ def flash_attention(
     """Same contract as :func:`attention_plain`, and differentiable. On a
     CUDA tensor: the kernels of the route :func:`attention_route` picks,
     which take fp32 with D a multiple of 8 up to 128, or bf16 with D 64, each
-    (B, T, H, D) operand with a unit stride along D (the tensor-core route
-    also 16-byte aligned rows); anything else raises. Each kernel counts its launches:
-    ``flash_fwd_simt.launches``, ``flash_bwd_simt.launches``,
+    (B, T, H, D) operand with a unit stride along D and 16-byte aligned
+    rows; anything else raises. Each kernel counts its launches:
+    ``flash_fwd_fp32.launches``, ``flash_bwd_fp32.launches``,
     ``flash_fwd_sm90.launches``, ``flash_bwd_sm90.launches``."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask, causal=causal, window=window, sm_scale=sm_scale)

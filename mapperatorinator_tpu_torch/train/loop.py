@@ -152,12 +152,17 @@ class CheckpointManager:
     manifest that records each step's metrics and the best eval loss: the
     interface of the JAX ``CheckpointManager``. It writes with
     ``torch.save`` where the JAX one writes orbax: ``<dir>/<step>/state.pt``
-    holds the step, the model's state dict and the optimizer's state."""
+    holds the step, the model's state dict and the optimizer's state. The
+    best checkpoint is mirrored to ``<dir>/best``, so retention, which
+    removes only numbered step directories, never loses it."""
 
     def __init__(self, directory, total_limit: int = 2):
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.total_limit = total_limit
+        # called after every save with (step_dir, metadata, is_best); wired to
+        # MetricsLogger.log_checkpoint_artifact when a wandb run is live
+        self.artifact_sink: Optional[Callable[[Path, dict, bool], None]] = None
         self._manifest_path = self.directory / "manifest.json"
         self._manifest = {"metadata": {}, "checkpoints": {}, "best": None}
         if self._manifest_path.exists():
@@ -172,7 +177,7 @@ class CheckpointManager:
 
     def save(self, step: int, state, metrics: Optional[dict] = None) -> None:
         """``metrics`` may carry ``eval_loss``; a new minimum is recorded as
-        the manifest's ``best``."""
+        the manifest's ``best`` and mirrors the checkpoint to ``<dir>/best``."""
         step_dir = self.directory / str(step)
         tmp = self.directory / f".{step}.tmp"
         if tmp.exists():
@@ -188,11 +193,26 @@ class CheckpointManager:
         self._manifest.setdefault("checkpoints", {})[str(step)] = entry
         eval_loss = entry.get("eval_loss")
         best = self._manifest.get("best")
-        if eval_loss is not None and (best is None or eval_loss < best["eval_loss"]):
+        is_best = eval_loss is not None and (best is None or eval_loss < best["eval_loss"])
+        if is_best:
             self._manifest["best"] = {"step": step, "eval_loss": eval_loss}
+            self._mirror_best(step_dir)
         for old in self.all_steps()[:-self.total_limit]:
             shutil.rmtree(self.directory / str(old))
         self._write_manifest()
+        if self.artifact_sink is not None:
+            self.artifact_sink(step_dir, {**self._manifest.get("metadata", {}), **entry}, is_best)
+
+    def _mirror_best(self, step_dir: Path) -> None:
+        """Copy ``step_dir`` to ``<dir>/best`` through a temporary directory
+        and a rename."""
+        tmp, dst = self.directory / ".best.tmp", self.directory / "best"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        shutil.copytree(step_dir, tmp)
+        if dst.exists():
+            shutil.rmtree(dst)
+        tmp.rename(dst)
 
     def _write_manifest(self) -> None:
         self._manifest_path.write_text(json.dumps(self._manifest, indent=1), encoding="utf-8")
@@ -204,13 +224,32 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def best_step(self) -> Optional[int]:
+        best = self._manifest.get("best")
+        return None if best is None else int(best["step"])
+
+    def restore_best(self, state_template):
+        """Restore the best checkpoint from its mirror, or from the live step
+        directory if the mirror is gone."""
+        step = self.best_step()
+        if step is None:
+            raise ValueError("no best checkpoint recorded in the manifest")
+        mirror = self.directory / "best"
+        if (mirror / "state.pt").exists():
+            return self._load(mirror, state_template)
+        return self.restore(state_template, step=step)
+
     def restore(self, state_template, step: Optional[int] = None):
         """Load the checkpoint at ``step`` (default: the latest) into the
         template's model and optimizer, in place, and return the state."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        saved = torch.load(self.directory / str(step) / "state.pt", map_location="cpu", weights_only=True)
+        return self._load(self.directory / str(step), state_template)
+
+    @staticmethod
+    def _load(step_dir: Path, state_template):
+        saved = torch.load(step_dir / "state.pt", map_location="cpu", weights_only=True)
         state_template.model.load_state_dict(saved["model"])
         state_template.optimizer.load_state_dict(saved["optimizer"])
         state_template.step = int(saved["step"])
@@ -258,6 +297,22 @@ class MetricsLogger:
                     self.tb.add_scalar(k, v, step)
         if self.wandb_run is not None:
             self.wandb_run.log({k: v for k, v in record.items() if k != "step"}, step=step)
+
+    def log_checkpoint_artifact(self, checkpoint_dir, metadata: dict, is_best: bool) -> None:
+        """Upload a saved checkpoint directory as a wandb model artifact with
+        the run's metadata, aliased ``best`` on a new eval-loss minimum (the
+        JAX ``log_checkpoint_artifact``). Does nothing without a live wandb
+        run."""
+        if self.wandb_run is None:
+            return
+        import wandb
+
+        art = wandb.Artifact(f"osuT5-{self.wandb_run.id}", type="model",
+                             metadata={k: _jsonable(v) for k, v in metadata.items()})
+        checkpoint_dir = Path(checkpoint_dir)
+        for file in sorted(p for p in checkpoint_dir.rglob("*") if p.is_file()):
+            art.add_file(str(file), str(file.relative_to(checkpoint_dir)))
+        self.wandb_run.log_artifact(art, aliases=["best"] if is_best else None)
 
     def close(self) -> None:
         self.jsonl.close()

@@ -127,6 +127,9 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
 
     logger = MetricsLogger(log_dir, log_with=args.logging.log_with, run_name=args.logging.run_name,
                            mode=args.logging.mode)
+    # checkpoint saves also upload to the tracker when one is live (train.py:228-229)
+    if logger.wandb_run is not None:
+        checkpoints.artifact_sink = logger.log_checkpoint_artifact
     vocab.save_pretrained(ckpt_dir)
     try:
         state = train(

@@ -92,13 +92,13 @@ def test_plain_tc_backward_matches_jax_bf16(t, s, causal, window, masked):
 
 
 # (dtype, head dim) -> route; a pair missing here has no kernel and raises
-ROUTES = {(torch.float32, d): "simt" for d in (8, 32, 64, 128)} | {(torch.bfloat16, 64): "sm90"}
+ROUTES = {(torch.float32, d): "fp32" for d in (8, 32, 64, 128)} | {(torch.bfloat16, 64): "sm90"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("head_dim", [8, 32, 64, 128])
 def test_route_rule(dtype, head_dim):
-    """fp32 goes to the SIMT kernels at any head dim, bf16 at D 64 to the
+    """fp32 goes to the fp32 kernels at any head dim, bf16 at D 64 to the
     tensor-core kernels; bf16 at another head dim, and fp16, raise."""
     assert SM90_HEAD_DIMS == (64,)
     if (dtype, head_dim) in ROUTES:

@@ -3,8 +3,10 @@
 Every test here needs a CUDA device and skips elsewhere (the kernels have no
 CPU mode; the plain versions are held against the JAX package by
 test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py and
-test_torch_qmm.py). Attention is checked on both routes: the SIMT kernels
-(fp32) and the tensor-core pair (bf16, D 64). The
+test_torch_qmm.py). Attention is checked on both routes: the fp32 kernels
+(split-TF32 products, against both the plain versions that round as they
+do and the fp32 ones, at D 32, 64 and 128) and the bf16
+pair (D 64). The
 file imports only torch and the port, so it runs where the JAX package's
 test helpers do not:
 
@@ -18,14 +20,16 @@ from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
 from mapperatorinator_tpu_torch.ops.attention_kernel import (
     attention_backward_plain,
     attention_backward_plain_bf16_tc,
+    attention_backward_plain_fp32_tc,
     attention_plain,
     attention_plain_bf16_tc,
+    attention_plain_fp32_tc,
     flash_attention,
     flash_attention_bwd,
     flash_attention_fwd,
-    flash_bwd_simt,
+    flash_bwd_fp32,
     flash_bwd_sm90,
-    flash_fwd_simt,
+    flash_fwd_fp32,
     flash_fwd_sm90,
 )
 from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain
@@ -61,12 +65,12 @@ def cuda():
 
 
 def launches():
-    """(SIMT forward, SIMT backward, tensor-core forward, tensor-core backward)."""
-    return flash_fwd_simt.launches, flash_bwd_simt.launches, flash_fwd_sm90.launches, flash_bwd_sm90.launches
+    """(fp32 forward, fp32 backward, bf16 forward, bf16 backward)."""
+    return flash_fwd_fp32.launches, flash_bwd_fp32.launches, flash_fwd_sm90.launches, flash_bwd_sm90.launches
 
 
 def route_step(dtype, fwd=1, bwd=0):
-    """What one call at D 64 adds to :func:`launches`: fp32 runs the SIMT
+    """What one call at D 64 adds to :func:`launches`: fp32 runs the fp32
     pair, bf16 the tensor-core pair."""
     return {torch.float32: (fwd, bwd, 0, 0), torch.bfloat16: (0, 0, fwd, bwd)}[dtype]
 
@@ -154,11 +158,49 @@ def test_flash_attention_reads_strided_heads(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t,s,causal,window,masked", CASES)
+def test_fp32_kernels_match_both_plain_versions(cuda, t, s, causal, window, masked, d):
+    """The fp32 pair at D 32, 64 and 128 against the plain versions that
+    split as it does and the fp32 ones, at the fp32 bars."""
+    q, k, v, kvm = attention_inputs(cuda, t, s, masked, torch.float32, d=d)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    scale = d**-0.5
+    before = launches()
+    out, lse = flash_fwd_fp32(q, k, v, kvm, causal, window, scale, True)
+    got = flash_bwd_fp32(q, k, v, kvm, out, lse, do, causal, window, scale)
+    assert launches() == added(before, (1, 1, 0, 0))
+    for fwd, bwd in ((attention_plain_fp32_tc, attention_backward_plain_fp32_tc),
+                     (attention_plain, attention_backward_plain)):
+        want = fwd(q, k, v, kvm, causal=causal, window=window)
+        torch.testing.assert_close(out, want, rtol=0, atol=ATTN_TOL[torch.float32])
+        want_grads = bwd(q, k, v, kvm, do, causal=causal, window=window)
+        tol = grad_tol(torch.float32, *want_grads)
+        for g, w in zip(got, want_grads):
+            torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    if masked == "all-in-row-0":
+        assert got[0][0].abs().max().item() == 0 and got[1][0].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_fp32_kernels_reject_misaligned_rows(cuda):
+    """The fp32 pair loads 16 bytes a thread as well: a base address off the
+    16-byte grid raises, and nothing falls back."""
+    flat = torch.randn((1 * 64 * 2 * 64 + 1,), device=cuda)
+    shifted = flat[1:].view(1, 64, 2, 64)  # base 4 bytes off
+    good = torch.randn((1, 64, 2, 64), device=cuda)
+    before = launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, good, good)
+    assert launches() == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t,s,causal,window,masked", CASES)
 def test_sm90_kernels_match_the_rounding_faithful_plain_versions(cuda, t, s, causal, window, masked):
     """The tensor-core pair against the plain versions that round where it
     rounds (and, in test above, against the fp32 plain versions), with the
-    row log-sum-exp equal to the SIMT forward's."""
+    row log-sum-exp equal to the fp32 forward's on the same values."""
     q, k, v, kvm = attention_inputs(cuda, t, s, masked, torch.bfloat16)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
     mask = kvm if kvm is None else kvm.bool()
@@ -168,8 +210,8 @@ def test_sm90_kernels_match_the_rounding_faithful_plain_versions(cuda, t, s, cau
     assert launches() == added(before, (0, 0, 1, 1))
     want = attention_plain_bf16_tc(q, k, v, kvm, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=ATTN_TOL[torch.bfloat16])
-    _, lse_simt = flash_fwd_simt(q, k, v, mask, causal, window, 64**-0.5, True)
-    torch.testing.assert_close(lse, lse_simt, rtol=1e-6, atol=1e-5)
+    _, lse_fp32 = flash_fwd_fp32(q.float(), k.float(), v.float(), mask, causal, window, 64**-0.5, True)
+    torch.testing.assert_close(lse, lse_fp32, rtol=1e-6, atol=1e-5)
     want_grads = attention_backward_plain_bf16_tc(q, k, v, kvm, do, causal=causal, window=window)
     tol = grad_tol(torch.bfloat16, *want_grads)
     for g, w in zip(got, want_grads):
@@ -215,11 +257,11 @@ def test_sm90_kernels_reject_misaligned_rows(cuda):
 
 @pytest.mark.cuda
 def test_launch_counters_show_the_route(cuda):
-    """fp32 takes the SIMT pair at any head dim and bf16 at D 64 the
+    """fp32 takes the fp32 pair at any head dim and bf16 at D 64 the
     tensor-core pair, each call adding one to its own kernels' counters
     only; bf16 at another head dim raises and launches nothing."""
     for dtype, d, step in ((torch.float32, 64, (1, 1, 0, 0)), (torch.float32, 32, (1, 1, 0, 0)),
-                           (torch.bfloat16, 64, (0, 0, 1, 1))):
+                           (torch.float32, 128, (1, 1, 0, 0)), (torch.bfloat16, 64, (0, 0, 1, 1))):
         x = torch.randn((1, 40, 2, d), device=cuda).to(dtype).requires_grad_()
         before = launches()
         flash_attention(x, x, x, causal=True).sum().backward()
