@@ -18,7 +18,11 @@
    and three TF32 products for each fp32 one), the bf16 pair at the three
    calls of a bf16 training micro-step. Each attention bound counts the
    (query, key) pairs that the masks leave, not the whole T x S that the
-   kernels compute.
+   kernels compute. Kernel D is held on both its paths (a GEMV up to 4
+   rows, the tensor cores above, the latter also against the plain version
+   that rounds as it does), each with its own entry in the kernels line. A
+   device time is the sum of the profiler's device kernels only
+   (``device_kernels``), so a kernel launched through an op counts once.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
    (``load_model`` / ``generate``) on the full-width v32 model (d_model 768,
    12 + 12 layers, 12 heads, ffn 3072, 2048 source / 2560 target tokens) with
@@ -81,11 +85,11 @@ ENC_TOL = 2e-4  # model-level bar, test_model.py:77
 # qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
 # times the largest |reference output|, at least 1
 QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-QMM_SHAPES = [  # (rows, K, N): decode steps, an encoder window, a prefill, a ragged case
+QMM_SHAPES = [  # (rows, K, N): decode steps; an encoder window's fc1, qkv and out; init_cache; a prefill; ragged
     (1, 768, 2304), (1, 768, 3072), (1, 3072, 768), (2, 768, 768),
-    (1024, 768, 3072), (1024, 768, 1536), (256, 3072, 768), (3, 200, 128)]
-QMM_TIMED = (1, 768, 3072)  # the decode step's fc1, the kernels line's shape
-QMM_PROFILED = (QMM_TIMED, (1024, 768, 3072))  # also timed by the profiler: a decode step's and an encoder window's fc1
+    (1024, 768, 3072), (1024, 768, 2304), (1024, 768, 768), (1024, 768, 1536), (256, 3072, 768), (3, 200, 128)]
+QMM_TIMED = {"qmm": (1, 768, 3072),  # the GEMV path (rows <= 4) at a decode step's fc1
+             "qmm_tc": (1024, 768, 3072)}  # the tensor-core path at an encoder window's fc1
 INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreement (test_quantize_checkpoint.py:58-59)
 ENGINE_STEPS = 64
 STATS_TOL = 1e-4  # forward_stats vs the host reduction, test_decode.py:424
@@ -143,20 +147,40 @@ def paired_ms(kernel, plain, library=None, reps: int = 20) -> tuple[float, float
     return times["kernel"], times["plain"], times.get("library")
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_kernels(events) -> list:
+    """The device kernels among a profiler's events (``key_averages()``):
+    those whose device type is CUDA and that are not user annotations. A CPU
+    op's device time includes the kernels it launched, so a sum over every
+    event counts a kernel launched through an ``aten::`` op twice, once as the
+    op and once as itself; torch's own table sums device events only."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, reps: int = 20) -> float | None:
     """Device time of one call of ``fn``, from the profiler: the summed time
     of the kernels it launches over ``reps`` calls, divided by ``reps``. At
     a decode shape the CUDA-event time of one call is mostly the host's
-    enqueue time; this is the card's share."""
+    enqueue time; this is the card's share. A profile that caught no device
+    kernel (seen on the H100 for ``F.linear`` at 1 024 rows) is taken again;
+    None if the second catches none either."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in device_kernels(prof.key_averages()))
+        if total > 0:
+            return total / 1e3 / reps
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -531,14 +555,32 @@ def check_mel(report: dict) -> dict:
             "timed_shape": "N2048 1024->513->128 log1p fp32"}
 
 
-def check_qmm(report: dict) -> dict:
+def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
+    """Kernel D's least time: the int8 weight, x and the scale read once and
+    the output written once, against the operations at the peak rate for
+    x's type (:func:`bound`), except that the tensor-core path (more than 4
+    rows) takes an fp32 x as two TF32 products for each fp32 one."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = k * n + rows * k * esize + rows * n * esize + 4 * n
+    flops = 2.0 * rows * k * n
+    if rows > 4 and dtype == torch.float32:
+        by_ops, by_bytes = 2 * flops / PEAK_TF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return bound(flops, nbytes, dtype)
+
+
+def check_qmm(report: dict) -> list[dict]:
     """Kernel D against its plain version at the v32 shapes in fp32 and bf16,
-    each timed beside ``F.linear`` on the weight dequantized in advance."""
+    each timed beside ``F.linear`` on the weight dequantized in advance; the
+    tensor-core path (more than 4 rows) also against ``qmm_plain_tf32x2``,
+    which rounds as it does. Returns the kernels-line entries of the two
+    paths, each at its ``QMM_TIMED`` shape in fp32, with its device times
+    (profiler) beside the CUDA-event ones."""
     from mapperatorinator_tpu_torch.models.transformer import quantize_weight
-    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm, qmm_plain
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import GEMV_ROWS, qmm, qmm_plain, qmm_plain_tf32x2
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    timed = None
+    timed = {}
     for dtype in (torch.float32, torch.bfloat16):
         for rows, k, n in QMM_SHAPES:
             wq, scale = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * 0.05)
@@ -547,33 +589,44 @@ def check_qmm(report: dict) -> dict:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = QMM_TOL[dtype] * max(1.0, want.float().abs().max().item())
+            path = "qmm" if rows <= GEMV_ROWS else "qmm_tc"
             w_lin = (wq.float() * scale).T.contiguous().to(dtype)  # (N, K), what F.linear takes
             ms, plain_ms, library_ms = paired_ms(lambda: qmm(x, wq, scale), lambda: qmm_plain(x, wq, scale),
                                                  lambda: torch.nn.functional.linear(x, w_lin))
-            esize = x.element_size()
-            # the int8 weight, x and the scale read once, the output written once
-            bound_ms, bound_by = bound(2.0 * rows * k * n, k * n + rows * k * esize + rows * n * esize + 4 * n, dtype)
-            label = f"qmm {str(dtype)[6:]} rows{rows} K{k} N{n}"
-            print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"F.linear {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-            case = {"dtype": str(dtype), "rows": rows, "K": k, "N": n, "max_abs_err": err, "tol": tol, "ms": ms,
-                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            if (rows, k, n) in QMM_PROFILED:
+            bound_ms, bound_by = qmm_bound(rows, k, n, dtype)
+            label = f"qmm {str(dtype)[6:]} rows{rows} K{k} N{n} ({'GEMV' if path == 'qmm' else 'tensor cores'})"
+            case = {"dtype": str(dtype), "rows": rows, "K": k, "N": n, "path": path, "max_abs_err": err, "tol": tol,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            tc_err = ""
+            if path == "qmm_tc":
+                case["max_abs_err_tf32x2"] = (got.float() - qmm_plain_tf32x2(x, wq, scale).float()).abs().max().item()
+                tc_err = f", {case['max_abs_err_tf32x2']:.3e} against qmm_plain_tf32x2"
+            print(f"{label}: max_abs_err {err:.3e} against qmm_plain (tol {tol:.3e}){tc_err}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, F.linear {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+                  f"{bound_ms:.5f} ms ({bound_by})")
+            if dtype == torch.float32 and (rows, k, n) == QMM_TIMED[path]:
                 case["device_ms"] = {"kernel": device_ms(lambda: qmm(x, wq, scale)),
                                      "plain": device_ms(lambda: qmm_plain(x, wq, scale)),
                                      "library": device_ms(lambda: torch.nn.functional.linear(x, w_lin))}
-                print(f"{label}, device time per call (profiler): kernel {case['device_ms']['kernel']:.4f} ms, "
-                      f"plain {case['device_ms']['plain']:.4f} ms, F.linear {case['device_ms']['library']:.4f} ms")
+                print(f"{label}, device time per call (profiler, device kernels only): kernel "
+                      f"{fmt_ms(case['device_ms']['kernel'])}, plain {fmt_ms(case['device_ms']['plain'])}, F.linear "
+                      f"{fmt_ms(case['device_ms']['library'])}")
+                timed[path] = case
             report["qmm_cases"].append(case)
             if got.shape != (rows, n) or got.dtype != dtype or not err <= tol:
                 raise AssertionError(f"{label}: error {err} above {tol}, or shape {tuple(got.shape)} {got.dtype}")
-            if dtype == torch.float32 and (rows, k, n) == QMM_TIMED:
-                timed = case
-    return {"name": "qmm", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
-            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": timed["max_abs_err"],
-            "tol": timed["tol"], "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-            "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "device_ms": timed["device_ms"],
-            "timed_shape": "rows1 K768 N3072 fp32 (a decode step's fc1)"}
+    entries = []
+    for path, what in (("qmm", "a decode step's fc1, the GEMV path"),
+                       ("qmm_tc", "an encoder window's fc1, the tensor-core path")):
+        case = timed[path]
+        entries.append({
+            "name": path, "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
+            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": case["max_abs_err"],
+            "tol": case["tol"], "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"], "device_ms": case["device_ms"],
+            "timed_shape": f"rows{case['rows']} K{case['K']} N{case['N']} fp32 ({what})"})
+    return entries
 
 
 def write_wav(path: Path, seconds: float, sr: int = 16000, seed: int = 0, freq: float = 440.0) -> Path:
@@ -654,13 +707,14 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_attention_launches()
-    fused_mel.launches = qmm.launches = 0
+    fused_mel.launches = qmm.launches = qmm.launches_gemv = qmm.launches_tc = 0
     t0 = time.perf_counter()
     text, path = inference.generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
                                     engine=engine, vocab=vocab, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches}
+    launches = {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches_gemv,
+                "qmm_tc": qmm.launches_tc}
     engine.generate = inner
     peak = torch.cuda.max_memory_allocated()
 
@@ -712,7 +766,8 @@ def nbytes(tree) -> int:
 def profile_decode(engine, enc, ids, pipeline, eos, steps: int = 48) -> dict:
     """Greedy decode steps on ``engine``: host ms a step without the profiler,
     then, profiled, device ms and kernel launches a step and the device time
-    of kernel D's launches."""
+    of kernel D's launches (the GEMV path's, and the tensor-core path's in
+    the generate call's ``init_cache``), all from device kernels only."""
     from torch.profiler import ProfilerActivity, profile
 
     P = ids.shape[1]
@@ -726,14 +781,17 @@ def profile_decode(engine, enc, ids, pipeline, eos, steps: int = 48) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = device_kernels(prof.key_averages())
     device = sum(e.self_device_time_total for e in kernels) / 1e3
-    qmm_events = [e for e in kernels if "qmm_" in e.key]
-    qmm_calls = sum(e.count for e in qmm_events)
-    return {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
-            "kernels_per_step": sum(e.count for e in kernels) / n,
-            "qmm_device_ms_per_step": sum(e.self_device_time_total for e in qmm_events) / 1e3 / n,
-            "qmm_device_us_per_call": sum(e.self_device_time_total for e in qmm_events) / max(qmm_calls, 1)}
+    paths = {path: [e for e in kernels if f"{path}_kernel" in e.key] for path in ("qmm_gemv", "qmm_tc")}
+    out = {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
+           "kernels_per_step": sum(e.count for e in kernels) / n,
+           "qmm_device_ms_per_step": sum(e.self_device_time_total for es in paths.values() for e in es) / 1e3 / n}
+    for path, events in paths.items():
+        calls = sum(e.count for e in events)
+        out[f"{path}_calls"] = calls
+        out[f"{path}_device_us_per_call"] = sum(e.self_device_time_total for e in events) / max(calls, 1)
+    return out
 
 
 def int8_checks(ckpt: Path):
@@ -789,7 +847,8 @@ def int8_checks(ckpt: Path):
             print(f"request 3 decode steps, {name} weights and KV: {st['host_ms_per_step']:.2f} ms a step on the host "
                   f"clock; profiled, {st['device_ms_per_step']:.3f} ms of device kernels and "
                   f"{st['kernels_per_step']:.0f} launches a step, kernel D {st['qmm_device_ms_per_step']:.3f} ms "
-                  f"({st['qmm_device_us_per_call']:.2f} us a call)")
+                  f"(GEMV {st['qmm_gemv_calls']} calls, {st['qmm_gemv_device_us_per_call']:.2f} us a call; tensor "
+                  f"cores {st['qmm_tc_calls']} calls, {st['qmm_tc_device_us_per_call']:.2f} us a call)")
         out["decode_steps"] = steps
         del fp_engine
         torch.cuda.empty_cache()
@@ -1135,8 +1194,7 @@ def train_phase(tmp: Path, report: dict) -> dict:
         metrics["loss"].item()
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t1
-    events = [e for e in prof.key_averages() if e.device_time_total > 0 and not e.key.startswith(
-        ("autograd::", "FlashAttention", "aten::", "Memcpy", "Memset"))]
+    events = device_kernels(prof.key_averages())
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     breakdown = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top]
@@ -1179,7 +1237,7 @@ def main() -> int:
           f"difficulty.cpp in {report['build_s']:.1f} s")
 
     check_attention(report)
-    kernels = [*time_attention_fp32(report), check_mel(report), check_qmm(report), *check_attention_sm90(report)]
+    kernels = [*time_attention_fp32(report), check_mel(report), *check_qmm(report), *check_attention_sm90(report)]
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1190,7 +1248,7 @@ def main() -> int:
                        report, check_encoder=False)
         third = int8_request(tmp, wav, report)
         if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 \
-                or third["qmm"] == 0 or third["flash_attention_fwd"] == 0:
+                or third["qmm"] == 0 or third["qmm_tc"] == 0 or third["flash_attention_fwd"] == 0:
             raise AssertionError(f"a kernel of the serving path never launched: {first}, {second}, {third}")
         tokens = [r["tokens"] for r in report["requests"]]
         print(f"serving: the three requests generated {tokens} tokens (seeded random weights, greedy decoding "

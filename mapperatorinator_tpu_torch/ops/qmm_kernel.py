@@ -5,9 +5,12 @@ Replaces ``mapperatorinator_tpu/ops/qmm_kernel.py`` (``_qmm_kernel`` via
 ``qmm``): ``(x @ upcast(wq)) * scale`` with an int8 (K, N) weight, a
 per-column fp32 scale, fp32 accumulation and the output in x's dtype. The
 kernel (``csrc/qmm.cu``) reads only int8 weight bytes from device memory; its
-header says what bounds it on the H100. :func:`qmm` runs the plain version
-for a tensor on the CPU and the kernel for a tensor on a CUDA device; it
-never falls back from one to the other.
+header says what bounds it on the H100. It has two paths: a GEMV for up to
+``GEMV_ROWS`` rows (a decode step), and above that a GEMM on the tensor cores,
+which takes an fp32 x as two TF32 products (:func:`qmm_plain_tf32x2` rounds
+as it does). :func:`qmm` runs the plain version for a tensor on the CPU and
+the kernel for a tensor on a CUDA device; it never falls back from one to the
+other.
 
 :func:`qmm_supported` is the JAX package's gate, unchanged: it decides which
 of two roundings a ``QDense`` layer gets (this product, or the plain
@@ -22,8 +25,10 @@ import ctypes
 import torch
 
 from . import _build
+from .attention_kernel import tf32_split
 
 _LANE = 128  # the TPU lane width the JAX gate tiles N by
+GEMV_ROWS = 4  # the kernel's GEMV path takes up to this many rows, the tensor-core path more
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -56,6 +61,17 @@ def qmm_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.T
     return ((x.float() @ wq.float()) * scale.float()).to(x.dtype)
 
 
+def qmm_plain_tf32x2(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """What the kernel's tensor-core path computes, rounding where it rounds:
+    x split into ``hi + lo`` (:func:`tf32_split`), two fp32 products with the
+    int8 weight (exact in TF32 and in bf16, so it needs no split), summed,
+    scaled and rounded to x's dtype. A bf16 x has ``lo = 0``: this is then
+    :func:`qmm_plain`."""
+    hi, lo = tf32_split(x)
+    w = wq.float()
+    return (((hi @ w) + (lo @ w)) * scale.float()).to(x.dtype)
+
+
 def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch kernel D. x: contiguous fp32 or bf16 (rows, K) on a CUDA
     device; wq: contiguous int8 (K, N), N a multiple of 16, 16-byte aligned;
@@ -83,6 +99,10 @@ def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.
     err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, k, n,
              int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "qmm")
+    if rows <= GEMV_ROWS:
+        qmm.launches_gemv += 1
+    else:
+        qmm.launches_tc += 1
     qmm.launches += 1
     return out
 
@@ -115,10 +135,11 @@ class QMMFunction(torch.autograd.Function):
 def qmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``(x @ wq) * scale``, differentiable in x. On a CUDA tensor: kernel D
     (:func:`qmm_kernel` says what it takes). ``qmm.launches`` counts kernel
-    launches."""
+    launches, ``qmm.launches_gemv`` and ``qmm.launches_tc`` those of each
+    path."""
     if torch.is_grad_enabled() and x.requires_grad:
         return QMMFunction.apply(x, wq, scale)
     return _forward(x, wq, scale)
 
 
-qmm.launches = 0
+qmm.launches = qmm.launches_gemv = qmm.launches_tc = 0

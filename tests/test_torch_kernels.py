@@ -2,16 +2,17 @@
 
 Every test here needs a CUDA device and skips elsewhere (the kernels have no
 CPU mode; the plain versions are held against the JAX package by
-test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py and
-test_torch_qmm.py). Attention is checked on both routes: the fp32 kernels
-(split-TF32 products, against both the plain versions that round as they
-do and the fp32 ones, at D 32, 64 and 128) and the bf16
-pair (D 64). The
-file imports only torch and the port, so it runs where the JAX package's
-test helpers do not:
+test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py,
+test_torch_qmm.py and test_torch_qmm_tc.py). Attention is checked on both
+routes: the fp32 kernels (split-TF32 products, against both the plain
+versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
+the bf16 pair (D 64); qmm on both of its paths. The file imports only
+torch and the port, so it runs where the JAX package's test helpers do not:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 """
+
+import itertools
 
 import pytest
 import torch
@@ -33,7 +34,7 @@ from mapperatorinator_tpu_torch.ops.attention_kernel import (
     flash_fwd_sm90,
 )
 from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain
-from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm, qmm_kernel, qmm_plain
+from mapperatorinator_tpu_torch.ops.qmm_kernel import GEMV_ROWS, qmm, qmm_kernel, qmm_plain, qmm_plain_tf32x2
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # fp32: test_attention_kernel.py:47
 # the backward's bar is ATTN_TOL times the largest reference gradient (at
@@ -43,6 +44,10 @@ MEL_TOL = 5e-3  # test_audio.py:80
 # qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
 # times the largest |reference output| (at least 1): the sums run in another order
 QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the tensor-core path against qmm_plain_tf32x2, which rounds as it does: in
+# fp32 only the order of the sums differs (bf16: that plain version is
+# qmm_plain, and the output's own rounding sets the bar)
+QMM_TC_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 
 CASES = [  # t, s, causal, window, key mask
     (64, 64, False, 0, "some"),
@@ -311,20 +316,28 @@ def quantized(k, n, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,k,n", [
     (1, 768, 2304), (1, 768, 3072), (1, 3072, 768), (2, 768, 768), (3, 200, 128), (4, 256, 384),
-    (5, 128, 512), (70, 200, 128), (256, 3072, 768), (1024, 768, 3072),
+    (5, 128, 512), (70, 200, 128), (70, 201, 144), (256, 3072, 768), (1024, 768, 3072),
+    # the tensor-core path at the encoder's and init_cache's widths, ragged rows and K
+    *itertools.product((5, 64, 65, 70, 256, 1024), (200, 768), (768, 1536, 2304, 3072)),
 ])
 def test_qmm_kernel_matches_plain(cuda, dtype, rows, k, n):
-    """Both of kernel D's regimes (a GEMV up to 4 rows, a GEMM above) at the
-    v32 shapes and ragged K."""
+    """Both of kernel D's paths (a GEMV up to 4 rows, the tensor cores above)
+    at the v32 shapes and ragged K (201: x loaded element by element), each
+    counted by its own launch counter; the tensor-core path also against the
+    plain version that rounds as it does."""
     wq, scale = quantized(k, n, cuda)
     x = torch.randn((rows, k), generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
-    before = qmm.launches
+    before = qmm.launches, qmm.launches_gemv, qmm.launches_tc
     got = qmm(x, wq, scale)
-    assert qmm.launches == before + 1
+    tc = rows > GEMV_ROWS
+    assert (qmm.launches, qmm.launches_gemv, qmm.launches_tc) == (before[0] + 1, before[1] + (not tc), before[2] + tc)
     want = qmm_plain(x, wq, scale)
     assert got.dtype == want.dtype == dtype and got.shape == (rows, n)
-    tol = QMM_TOL[dtype] * max(1.0, want.float().abs().max().item())
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    scale_out = max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=QMM_TOL[dtype] * scale_out)
+    if tc:
+        torch.testing.assert_close(got.float(), qmm_plain_tf32x2(x, wq, scale).float(), rtol=0,
+                                   atol=QMM_TC_TOL[dtype] * scale_out)
 
 
 @pytest.mark.cuda
