@@ -20,7 +20,10 @@
    (query, key) pairs that the masks leave, not the whole T x S that the
    kernels compute. Kernel D is held on both its paths (a GEMV up to 4
    rows, the tensor cores above, the latter also against the plain version
-   that rounds as it does), each with its own entry in the kernels line. A
+   that rounds as it does), each with its own entry in the kernels line;
+   the GEMV is timed with a cold L2 at a decode step's five shapes, as a
+   step finds it, beside the host cost of each piece of its call and the
+   device time of each column tile. A
    device time is the sum of the profiler's device kernels only
    (``device_kernels``), so a kernel launched through an op counts once.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
@@ -63,6 +66,7 @@ Details (compiler logs, all numbers) go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -86,10 +90,19 @@ ENC_TOL = 2e-4  # model-level bar, test_model.py:77
 # times the largest |reference output|, at least 1
 QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 QMM_SHAPES = [  # (rows, K, N): decode steps; an encoder window's fc1, qkv and out; init_cache; a prefill; ragged
-    (1, 768, 2304), (1, 768, 3072), (1, 3072, 768), (2, 768, 768),
-    (1024, 768, 3072), (1024, 768, 2304), (1024, 768, 768), (1024, 768, 1536), (256, 3072, 768), (3, 200, 128)]
-QMM_TIMED = {"qmm": (1, 768, 3072),  # the GEMV path (rows <= 4) at a decode step's fc1
+    (1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768), (4, 768, 3072), (3, 200, 128),
+    (1024, 768, 3072), (1024, 768, 2304), (1024, 768, 768), (1024, 768, 1536), (256, 3072, 768)]
+# a decode step's products on the GEMV path (rows <= 4): self-attention qkv,
+# the 768-wide ones (self out, cross q and out), fc1, fc2; and out with CFG
+QMM_DECODE = [(1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768)]
+QMM_TIMED = {"qmm": (1, 768, 3072),  # the GEMV path at a decode step's fc1, cold L2
              "qmm_tc": (1024, 768, 3072)}  # the tensor-core path at an encoder window's fc1
+# cold L2: a decode step streams every decoder layer's weights (about 99 MB of
+# int8), twice the 50 MB L2, so each timed GEMV call reads the next of enough
+# weight copies to hold together at least this many bytes
+COLD_BYTES = 2**26
+# the profiler's names of kernel D's kernels (csrc/qmm.cu), by path
+QMM_KERNELS = {"qmm_gemv": "qmm_gemv_cluster_kernel", "qmm_tc": "qmm_tc_kernel"}
 INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreement (test_quantize_checkpoint.py:58-59)
 ENGINE_STEPS = 64
 STATS_TOL = 1e-4  # forward_stats vs the host reduction, test_decode.py:424
@@ -569,18 +582,20 @@ def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
     return bound(flops, nbytes, dtype)
 
 
-def check_qmm(report: dict) -> list[dict]:
-    """Kernel D against its plain version at the v32 shapes in fp32 and bf16,
-    each timed beside ``F.linear`` on the weight dequantized in advance; the
-    tensor-core path (more than 4 rows) also against ``qmm_plain_tf32x2``,
-    which rounds as it does. Returns the kernels-line entries of the two
-    paths, each at its ``QMM_TIMED`` shape in fp32, with its device times
-    (profiler) beside the CUDA-event ones."""
+def check_qmm(report: dict) -> dict:
+    """Kernel D against its plain version at the v32 shapes in fp32 and bf16;
+    on the GEMV path (up to 4 rows) two calls on the same inputs must be
+    bit-equal, and the tensor-core path (more rows) is also held against
+    ``qmm_plain_tf32x2``, which rounds as it does, and timed beside
+    ``F.linear`` on the weight dequantized in advance. Returns the
+    tensor-core path's kernels-line entry, at its ``QMM_TIMED`` shape in
+    fp32, with its device times (profiler) beside the CUDA-event ones; the
+    GEMV path is timed by :func:`time_qmm_cold`."""
     from mapperatorinator_tpu_torch.models.transformer import quantize_weight
     from mapperatorinator_tpu_torch.ops.qmm_kernel import GEMV_ROWS, qmm, qmm_plain, qmm_plain_tf32x2
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    timed = {}
+    timed = None
     for dtype in (torch.float32, torch.bfloat16):
         for rows, k, n in QMM_SHAPES:
             wq, scale = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * 0.05)
@@ -589,44 +604,185 @@ def check_qmm(report: dict) -> list[dict]:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = QMM_TOL[dtype] * max(1.0, want.float().abs().max().item())
-            path = "qmm" if rows <= GEMV_ROWS else "qmm_tc"
-            w_lin = (wq.float() * scale).T.contiguous().to(dtype)  # (N, K), what F.linear takes
-            ms, plain_ms, library_ms = paired_ms(lambda: qmm(x, wq, scale), lambda: qmm_plain(x, wq, scale),
-                                                 lambda: torch.nn.functional.linear(x, w_lin))
-            bound_ms, bound_by = qmm_bound(rows, k, n, dtype)
-            label = f"qmm {str(dtype)[6:]} rows{rows} K{k} N{n} ({'GEMV' if path == 'qmm' else 'tensor cores'})"
-            case = {"dtype": str(dtype), "rows": rows, "K": k, "N": n, "path": path, "max_abs_err": err, "tol": tol,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
-            tc_err = ""
-            if path == "qmm_tc":
+            gemv = rows <= GEMV_ROWS
+            label = f"qmm {str(dtype)[6:]} rows{rows} K{k} N{n} ({'GEMV' if gemv else 'tensor cores'})"
+            case = {"dtype": str(dtype), "rows": rows, "K": k, "N": n, "path": "qmm" if gemv else "qmm_tc",
+                    "max_abs_err": err, "tol": tol}
+            if gemv:
+                case["repeat_bit_equal"] = torch.equal(got, qmm(x, wq, scale))
+                print(f"{label}: max_abs_err {err:.3e} against qmm_plain (tol {tol:.3e}); a second call bit-equal "
+                      f"{case['repeat_bit_equal']}")
+            else:
                 case["max_abs_err_tf32x2"] = (got.float() - qmm_plain_tf32x2(x, wq, scale).float()).abs().max().item()
-                tc_err = f", {case['max_abs_err_tf32x2']:.3e} against qmm_plain_tf32x2"
-            print(f"{label}: max_abs_err {err:.3e} against qmm_plain (tol {tol:.3e}){tc_err}; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, F.linear {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
-                  f"{bound_ms:.5f} ms ({bound_by})")
-            if dtype == torch.float32 and (rows, k, n) == QMM_TIMED[path]:
-                case["device_ms"] = {"kernel": device_ms(lambda: qmm(x, wq, scale)),
-                                     "plain": device_ms(lambda: qmm_plain(x, wq, scale)),
-                                     "library": device_ms(lambda: torch.nn.functional.linear(x, w_lin))}
-                print(f"{label}, device time per call (profiler, device kernels only): kernel "
-                      f"{fmt_ms(case['device_ms']['kernel'])}, plain {fmt_ms(case['device_ms']['plain'])}, F.linear "
-                      f"{fmt_ms(case['device_ms']['library'])}")
-                timed[path] = case
+                w_lin = (wq.float() * scale).T.contiguous().to(dtype)  # (N, K), what F.linear takes
+                ms, plain_ms, library_ms = paired_ms(lambda: qmm(x, wq, scale), lambda: qmm_plain(x, wq, scale),
+                                                     lambda: torch.nn.functional.linear(x, w_lin))
+                bound_ms, bound_by = qmm_bound(rows, k, n, dtype)
+                case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                print(f"{label}: max_abs_err {err:.3e} against qmm_plain (tol {tol:.3e}), "
+                      f"{case['max_abs_err_tf32x2']:.3e} against qmm_plain_tf32x2; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, F.linear {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+                      f"{bound_ms:.5f} ms ({bound_by})")
+                if dtype == torch.float32 and (rows, k, n) == QMM_TIMED["qmm_tc"]:
+                    case["device_ms"] = {"kernel": device_ms(lambda: qmm(x, wq, scale)),
+                                         "plain": device_ms(lambda: qmm_plain(x, wq, scale)),
+                                         "library": device_ms(lambda: torch.nn.functional.linear(x, w_lin))}
+                    print(f"{label}, device time per call (profiler, device kernels only): kernel "
+                          f"{fmt_ms(case['device_ms']['kernel'])}, plain {fmt_ms(case['device_ms']['plain'])}, "
+                          f"F.linear {fmt_ms(case['device_ms']['library'])}")
+                    timed = case
             report["qmm_cases"].append(case)
-            if got.shape != (rows, n) or got.dtype != dtype or not err <= tol:
-                raise AssertionError(f"{label}: error {err} above {tol}, or shape {tuple(got.shape)} {got.dtype}")
-    entries = []
-    for path, what in (("qmm", "a decode step's fc1, the GEMV path"),
-                       ("qmm_tc", "an encoder window's fc1, the tensor-core path")):
-        case = timed[path]
-        entries.append({
-            "name": path, "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
-            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": case["max_abs_err"],
-            "tol": case["tol"], "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": case["library_ms"], "device_ms": case["device_ms"],
-            "timed_shape": f"rows{case['rows']} K{case['K']} N{case['N']} fp32 ({what})"})
-    return entries
+            if got.shape != (rows, n) or got.dtype != dtype or not err <= tol or not case.get("repeat_bit_equal", True):
+                raise AssertionError(f"{label}: error {err} above {tol}, shape {tuple(got.shape)} {got.dtype}, or "
+                                     "two calls differ")
+    return {"name": "qmm_tc", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
+            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": timed["max_abs_err"],
+            "tol": timed["tol"], "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "device_ms": timed["device_ms"],
+            "timed_shape": "rows1024 K768 N3072 fp32 (an encoder window's fc1, the tensor-core path)"}
+
+
+def cycled(calls: list):
+    """One function that makes the given calls in turn."""
+    turn = itertools.cycle(calls)
+    return lambda: next(turn)()
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Microseconds a call takes to return on the host clock (the enqueue:
+    no synchronize inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
+
+
+def qmm_host_pieces(x, wq, scale) -> dict:
+    """Host microseconds of each piece of a ``qmm`` call on the GEMV path
+    (:func:`host_us`), the whole call and ``F.linear`` on the same inputs
+    last. Of the two stream lookups the wrapper makes the first; the second,
+    the public one, is timed beside it."""
+    from mapperatorinator_tpu_torch.ops import _build
+    from mapperatorinator_tpu_torch.ops import qmm_kernel as qk
+
+    (rows, k), n, device = x.shape, wq.shape[1], x.get_device()
+    out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    fn = _build.function("qmm", "qmm_gemv", qk._GEMV_ARGTYPES)
+    args = (x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, k, n,
+            int(x.dtype == torch.bfloat16), *qk.gemv_plan(rows, k, n), torch._C._cuda_getCurrentRawStream(device))
+    w_lin = (wq.float() * scale).T.contiguous().to(x.dtype)
+
+    def counters():
+        qk.qmm.launches_gemv += 1
+        qk.qmm.launches += 1
+
+    pieces = {
+        "checks (_check)": lambda: qk._check(x, wq, scale),
+        "gemv_plan (cached)": lambda: qk.gemv_plan(rows, k, n),
+        "binding (_build.function, cached)": lambda: _build.function("qmm", "qmm_gemv", qk._GEMV_ARGTYPES),
+        "the output (x.new_empty)": lambda: x.new_empty((rows, n)),
+        "stream: torch._C._cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(device),
+        "stream: torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "data_ptr x 4": lambda: (x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr()),
+        "the ctypes call (the launch)": lambda: fn(*args),
+        "error check": lambda: _build.check(fn.lib, 0, "qmm"),
+        "counters": counters,
+        "qmm_kernel, whole": lambda: qk.qmm_kernel(x, wq, scale),
+        "qmm, whole": lambda: qk.qmm(x, wq, scale),
+        "F.linear": lambda: torch.nn.functional.linear(x, w_lin),
+    }
+    return {name: host_us(fn_, reps=500) for name, fn_ in pieces.items()}
+
+
+def gemv_tiles_ms(x, copies) -> dict:
+    """Device ms (profiler, cold L2 as in :func:`time_qmm_cold`) of the GEMV
+    path at each column tile of ``GEMV_TILES`` with the plan's K split, the
+    plan's own tile among them: the trade-off ``gemv_plan`` makes between
+    longer runs of a weight row and more blocks in flight."""
+    from mapperatorinator_tpu_torch.ops import _build
+    from mapperatorinator_tpu_torch.ops import qmm_kernel as qk
+
+    (rows, k), n = x.shape, copies[0][0].shape[1]
+    out = x.new_empty((rows, n))
+    fn = _build.function("qmm", "qmm_gemv", qk._GEMV_ARGTYPES)
+    plan = qk.gemv_plan(rows, k, n)
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+
+    def launch(w, s, bn):
+        err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), rows, k, n,
+                 int(x.dtype == torch.bfloat16), bn, plan.cluster, plan.k_slice, stream)
+        _build.check(fn.lib, err, "qmm (GEMV)")
+
+    return {f"bn{bn} x {plan.cluster} ({plan._replace(bn=bn).blocks(n)} blocks)":
+            device_ms(cycled([lambda w=w, s=s, bn=bn: launch(w, s, bn) for w, s in copies]))
+            for bn in qk.GEMV_TILES}
+
+
+def time_qmm_cold(report: dict) -> dict:
+    """Kernel D's GEMV path at a decode step's shapes (``QMM_DECODE``) in fp32
+    and bf16, with a cold L2 as a decode step finds it: each call of the
+    kernel, of its plain version and of ``F.linear`` (on the weight
+    dequantized in advance) reads the next of enough weight copies of its own
+    to hold ``COLD_BYTES``. CUDA events per call (at these shapes mostly the
+    host's enqueue) and the profiler's device time, beside the bound of
+    bytes; at fc1 in fp32 also the host time a call takes to return. Returns
+    the GEMV path's kernels-line entry, at fc1 in fp32."""
+    from mapperatorinator_tpu_torch.models.transformer import quantize_weight
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import gemv_plan, qmm, qmm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    linear = torch.nn.functional.linear
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, k, n in QMM_DECODE:
+            wq, scale = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * 0.05)
+            x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+            w_lin = (wq.float() * scale).T.contiguous().to(dtype)
+            copies = [(wq.clone(), scale.clone()) for _ in range(math.ceil(COLD_BYTES / wq.numel()))]
+            lin_copies = [w_lin.clone() for _ in range(math.ceil(COLD_BYTES / (w_lin.numel() * w_lin.element_size())))]
+            fns = {"plain": cycled([lambda w=w, s=s: qmm_plain(x, w, s) for w, s in copies]),
+                   "kernel": cycled([lambda w=w, s=s: qmm(x, w, s) for w, s in copies]),
+                   "library": cycled([lambda w=w: linear(x, w) for w in lin_copies])}
+            times = in_turns(fns)
+            fc1 = dtype == torch.float32 and (rows, k, n) == QMM_TIMED["qmm"]
+            dev = {name: device_ms(fn) for name, fn in fns.items() if fc1 or name != "plain"}
+            bound_ms, bound_by = qmm_bound(rows, k, n, dtype)
+            plan = gemv_plan(rows, k, n)
+            case = {"dtype": str(dtype), "rows": rows, "K": k, "N": n, "plan": plan._asdict(),
+                    "blocks": plan.blocks(n), "weight_copies": len(copies),
+                    "library_weight_copies": len(lin_copies), "ms": times["kernel"], "plain_ms": times["plain"],
+                    "library_ms": times["library"], "device_ms": dev, "bound_ms": bound_ms, "bound_by": bound_by}
+            label = f"qmm {str(dtype)[6:]} rows{rows} K{k} N{n} (GEMV, cold L2)"
+            print(f"{label}: CUDA events kernel {times['kernel']:.4f} ms, F.linear {times['library']:.4f} ms "
+                  f"({times['kernel'] / times['library']:.2f}x), plain {times['plain']:.4f} ms; device kernel "
+                  f"{fmt_ms(dev['kernel'])}, F.linear {fmt_ms(dev['library'])}; bound {bound_ms:.5f} ms ({bound_by}); "
+                  f"plan bn{plan.bn} x {plan.cluster} ({case['blocks']} blocks); {len(copies)} weight copies, "
+                  f"{len(lin_copies)} of F.linear's")
+            if dtype == torch.float32:
+                case["tiles_device_ms"] = gemv_tiles_ms(x, copies)
+                print(f"{label}: device time by column tile, " + ", ".join(
+                    f"{tile} {fmt_ms(ms)}" for tile, ms in case["tiles_device_ms"].items()))
+            if fc1:
+                case["host_us"] = qmm_host_pieces(x, wq, scale)
+                print(f"{label}: host microseconds a call takes to return, by piece: "
+                      + ", ".join(f"{name} {us:.2f}" for name, us in case["host_us"].items())
+                      + f"; plain device {fmt_ms(dev['plain'])}")
+                got, want = qmm(x, wq, scale), qmm_plain(x, wq, scale)
+                err = (got.float() - want.float()).abs().max().item()
+                entry = {"name": "qmm", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
+                         "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": err,
+                         "tol": QMM_TOL[dtype] * max(1.0, want.float().abs().max().item()), "ms": times["kernel"],
+                         "plain_ms": times["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": times["library"], "device_ms": dev, "host_us": case["host_us"],
+                         "timed_shape": "rows1 K768 N3072 fp32 (a decode step's fc1, the GEMV path, cold L2)"}
+            report["qmm_cold_cases"].append(case)
+            del copies, lin_copies
+    torch.cuda.empty_cache()
+    return entry
 
 
 def write_wav(path: Path, seconds: float, sr: int = 16000, seed: int = 0, freq: float = 440.0) -> Path:
@@ -763,11 +919,13 @@ def nbytes(tree) -> int:
     return sum(nbytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
 
 
-def profile_decode(engine, enc, ids, pipeline, eos, steps: int = 48) -> dict:
+def profile_decode(engine, enc, ids, pipeline, eos, int8: bool, steps: int = 48) -> dict:
     """Greedy decode steps on ``engine``: host ms a step without the profiler,
     then, profiled, device ms and kernel launches a step and the device time
     of kernel D's launches (the GEMV path's, and the tensor-core path's in
-    the generate call's ``init_cache``), all from device kernels only."""
+    the generate call's ``init_cache``), all from device kernels only, found
+    by the names in ``QMM_KERNELS``. An ``int8`` engine's profile that holds
+    no GEMV kernel raises: a renamed kernel would otherwise read 0."""
     from torch.profiler import ProfilerActivity, profile
 
     P = ids.shape[1]
@@ -783,7 +941,10 @@ def profile_decode(engine, enc, ids, pipeline, eos, steps: int = 48) -> dict:
         torch.cuda.synchronize()
     kernels = device_kernels(prof.key_averages())
     device = sum(e.self_device_time_total for e in kernels) / 1e3
-    paths = {path: [e for e in kernels if f"{path}_kernel" in e.key] for path in ("qmm_gemv", "qmm_tc")}
+    paths = {path: [e for e in kernels if name in e.key] for path, name in QMM_KERNELS.items()}
+    if int8 and not paths["qmm_gemv"]:
+        raise AssertionError(f"the int8 decode steps' profile holds no {QMM_KERNELS['qmm_gemv']}: "
+                             f"{sorted(e.key[:60] for e in kernels)}")
     out = {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
            "kernels_per_step": sum(e.count for e in kernels) / n,
            "qmm_device_ms_per_step": sum(e.self_device_time_total for es in paths.values() for e in es) / 1e3 / n}
@@ -841,8 +1002,8 @@ def int8_checks(ckpt: Path):
                      "kv_cache_fp32": nbytes(fp_engine.model.init_cache(1, engine.max_length, enc)),
                      "kv_cache_int8": nbytes(model.init_cache(1, engine.max_length, enc))}
         greedy_chain = (build_logits_pipeline(vocab, do_sample=False), get_eos_token_ids(vocab))
-        steps = {"int8": profile_decode(engine, enc, first["ids"][:1], *greedy_chain),
-                 "fp32": profile_decode(fp_engine, fp_enc, first["ids"][:1], *greedy_chain)}
+        steps = {"int8": profile_decode(engine, enc, first["ids"][:1], *greedy_chain, int8=True),
+                 "fp32": profile_decode(fp_engine, fp_enc, first["ids"][:1], *greedy_chain, int8=False)}
         for name, st in steps.items():
             print(f"request 3 decode steps, {name} weights and KV: {st['host_ms_per_step']:.2f} ms a step on the host "
                   f"clock; profiled, {st['device_ms_per_step']:.3f} ms of device kernels and "
@@ -1224,7 +1385,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
-    report = {"attention_cases": [], "attention_sm90_cases": [], "qmm_cases": [],
+    report = {"attention_cases": [], "attention_sm90_cases": [], "qmm_cases": [], "qmm_cold_cases": [],
               "requests": []}
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
@@ -1237,7 +1398,8 @@ def main() -> int:
           f"difficulty.cpp in {report['build_s']:.1f} s")
 
     check_attention(report)
-    kernels = [*time_attention_fp32(report), check_mel(report), *check_qmm(report), *check_attention_sm90(report)]
+    kernels = [*time_attention_fp32(report), check_mel(report), time_qmm_cold(report), check_qmm(report),
+               *check_attention_sm90(report)]
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)

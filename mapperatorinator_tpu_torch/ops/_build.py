@@ -12,6 +12,7 @@ module of the package on machines that have no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -97,6 +98,18 @@ def load(name: str) -> ctypes.CDLL:
                 lib.kernel_error_string.restype = ctypes.c_char_p
                 _loaded[name] = lib
     return lib
+
+
+@functools.cache
+def function(library: str, symbol: str, argtypes: tuple):
+    """A kernel's C entry point in ``csrc/<library>``, bound once: its
+    argument and result types are set on the first call for it and the
+    function object is cached, so a launch pays only for the call itself
+    (``fn.lib``: its library, for :func:`check`)."""
+    lib = load(library)
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype, fn.lib = list(argtypes), ctypes.c_int, lib
+    return fn
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -30,7 +30,6 @@ whose keys are all masked, where it gives dq and dk a nonzero term.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -307,16 +306,6 @@ def _check_aligned(what: str, **xs: torch.Tensor) -> None:
                              f"address {x.data_ptr()} and strides {x.stride()} of {x.element_size()}-byte elements")
 
 
-@functools.cache
-def _function(library: str, symbol: str, argtypes: tuple):
-    """A kernel's C entry point, its argument types set once (``fn.lib``:
-    its library, for error strings)."""
-    lib = _build.load(library)
-    fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype, fn.lib = list(argtypes), ctypes.c_int, lib
-    return fn
-
-
 def _strides(x: torch.Tensor) -> tuple[int, int, int]:
     return x.stride(0), x.stride(1), x.stride(2)
 
@@ -358,7 +347,7 @@ def flash_fwd_fp32(q, k, v, kv_mask, causal, window, scale, with_lse):
         raise ValueError(f"flash_fwd_fp32: fp32 operands, got {q.dtype}")
     _check_aligned("flash_fwd_fp32", q=q, k=k, v=v)
     flags = kv_mask.to(torch.int32) if kv_mask is not None else None
-    fn = _function("flash_attention", "flash_attention_fwd", _FWD_ARGTYPES)
+    fn = _build.function("flash_attention", "flash_attention_fwd", _FWD_ARGTYPES)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     err = fn(
@@ -383,7 +372,7 @@ def flash_bwd_fp32(q, k, v, kv_mask, out, lse, do, causal, window, scale):
     if not out.is_contiguous():
         raise ValueError("flash_bwd_fp32: out must be the forward's contiguous output")
     flags = kv_mask.to(torch.int32) if kv_mask is not None else None
-    fn = _function("flash_attention", "flash_attention_bwd", _BWD_ARGTYPES)
+    fn = _build.function("flash_attention", "flash_attention_bwd", _BWD_ARGTYPES)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
@@ -408,7 +397,7 @@ def flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse):
     s = k.shape[1]
     _check_aligned("flash_fwd_sm90", q=q, k=k, v=v)
     flags = kv_mask.to(torch.int32) if kv_mask is not None else None
-    fn = _function("flash_attention_sm90", "flash_attention_sm90_fwd", _FWD_ARGTYPES)
+    fn = _build.function("flash_attention_sm90", "flash_attention_sm90_fwd", _FWD_ARGTYPES)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     err = fn(
@@ -432,7 +421,7 @@ def flash_bwd_sm90(q, k, v, kv_mask, out, lse, do, causal, window, scale):
     if not out.is_contiguous():
         raise ValueError("flash_bwd_sm90: out must be the forward's contiguous output")
     flags = kv_mask.to(torch.int32) if kv_mask is not None else None
-    fn = _function("flash_attention_sm90", "flash_attention_sm90_bwd", _SM90_BWD_ARGTYPES)
+    fn = _build.function("flash_attention_sm90", "flash_attention_sm90_bwd", _SM90_BWD_ARGTYPES)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     k_sums = torch.zeros((b, h, d + 1), dtype=torch.float32, device=q.device)  # the live keys' sum and count
     dq = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)

@@ -6,7 +6,8 @@ test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py,
 test_torch_qmm.py and test_torch_qmm_tc.py). Attention is checked on both
 routes: the fp32 kernels (split-TF32 products, against both the plain
 versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
-the bf16 pair (D 64); qmm on both of its paths. The file imports only
+the bf16 pair (D 64); qmm on both of its paths (its GEMV path also for
+bit-equal repeats and a refused launch). The file imports only
 torch and the port, so it runs where the JAX package's test helpers do not:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -315,16 +316,20 @@ def quantized(k, n, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,k,n", [
-    (1, 768, 2304), (1, 768, 3072), (1, 3072, 768), (2, 768, 768), (3, 200, 128), (4, 256, 384),
+    # the GEMV path: rows 1-4 at a decode step's widths, ragged K, N 16 and 48
+    # (one column tile, and a ragged last one)
+    *itertools.product(range(1, GEMV_ROWS + 1), (768, 3072), (768, 2304, 3072)),
+    (3, 200, 128), (4, 256, 384), (1, 200, 16), (4, 201, 16), (2, 768, 48), (3, 1, 48), (1, 4096, 8192),
     (5, 128, 512), (70, 200, 128), (70, 201, 144), (256, 3072, 768), (1024, 768, 3072),
     # the tensor-core path at the encoder's and init_cache's widths, ragged rows and K
     *itertools.product((5, 64, 65, 70, 256, 1024), (200, 768), (768, 1536, 2304, 3072)),
 ])
 def test_qmm_kernel_matches_plain(cuda, dtype, rows, k, n):
-    """Both of kernel D's paths (a GEMV up to 4 rows, the tensor cores above)
-    at the v32 shapes and ragged K (201: x loaded element by element), each
-    counted by its own launch counter; the tensor-core path also against the
-    plain version that rounds as it does."""
+    """Both of kernel D's paths (a GEMV up to 4 rows with K split across a
+    cluster, the tensor cores above) at the v32 shapes, ragged K (201: the
+    tensor-core path loads x element by element) and ragged column tiles,
+    each counted by its own launch counter; the tensor-core path also against
+    the plain version that rounds as it does."""
     wq, scale = quantized(k, n, cuda)
     x = torch.randn((rows, k), generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
     before = qmm.launches, qmm.launches_gemv, qmm.launches_tc
@@ -338,6 +343,38 @@ def test_qmm_kernel_matches_plain(cuda, dtype, rows, k, n):
     if tc:
         torch.testing.assert_close(got.float(), qmm_plain_tf32x2(x, wq, scale).float(), rtol=0,
                                    atol=QMM_TC_TOL[dtype] * scale_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [(1, 768, 3072), (2, 768, 768), (4, 3072, 768), (3, 200, 48)])
+def test_qmm_gemv_is_bit_equal_from_call_to_call(cuda, dtype, rows, k, n):
+    """The cluster's first block adds the blocks' partial sums in rank order,
+    with no atomics: two calls on the same inputs give the same bits."""
+    wq, scale = quantized(k, n, cuda)
+    x = torch.randn((rows, k), generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    first = qmm(x, wq, scale)
+    assert all(torch.equal(first, qmm(x, wq, scale)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_qmm_gemv_raises_on_a_refused_launch(cuda):
+    """A plan the kernel does not take (a cluster of 9 blocks) comes back as a
+    CUDA error, which the binding raises; nothing falls back."""
+    import ctypes
+
+    from mapperatorinator_tpu_torch.ops import _build
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import _GEMV_ARGTYPES
+
+    wq, scale = quantized(768, 768, cuda)
+    x = torch.randn((1, 768), device=cuda)
+    out = torch.empty((1, 768), device=cuda)
+    fn = _build.function("qmm", "qmm_gemv", _GEMV_ARGTYPES)
+    assert fn is _build.function("qmm", "qmm_gemv", _GEMV_ARGTYPES) and fn.restype is ctypes.c_int
+    err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), 1, 768, 768, 0, 32, 9, 96,
+             torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(fn.lib, err, "qmm (GEMV)")
 
 
 @pytest.mark.cuda
