@@ -23,7 +23,11 @@
    that rounds as it does), each with its own entry in the kernels line;
    the GEMV is timed with a cold L2 at a decode step's five shapes, as a
    step finds it, beside the host cost of each piece of its call and the
-   device time of each column tile. A
+   device time of each column tile. Kernel A (the fused mel, split-TF32
+   tensor-core products) is held against both its plain versions (the one
+   that rounds as it does, and fp32) at 1e-4 and at the reference's bar, with
+   a float64 reference beside them and two calls bit-equal, at one v32 window
+   and at two (CFG), each timed beside its plain version and its bounds. A
    device time is the sum of the profiler's device kernels only
    (``device_kernels``), so a kernel launched through an op counts once.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
@@ -85,6 +89,9 @@ AUDIO_SECONDS = 20.0
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # fp32: test_attention_kernel.py's bar
 MEL_TOL = 5e-3  # rtol = atol, test_audio.py:80
+# the mel kernel against its plain versions (the split-TF32 one and fp32),
+# rtol = atol: fp32 accuracy, the sums taken in another order
+MEL_TC_TOL = 1e-4
 ENC_TOL = 2e-4  # model-level bar, test_model.py:77
 # qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
 # times the largest |reference output|, at least 1
@@ -530,42 +537,93 @@ def check_attention_sm90(report: dict) -> list[dict]:
                                    ("bwd", "mapperatorinator_tpu/ops/attention_kernel.py:197"))]
 
 
-def check_mel(report: dict) -> dict:
-    from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
-    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain
+def mel_work(batch: int, n_frames: int, n_fft: int, n_bins: int, n_mels: int, signal: int) -> tuple[float, float]:
+    """(operations, bytes) of one fused-mel call: the two DFT products and the
+    projection; the padded signal (``signal`` floats: the frames overlap in
+    it), the two DFT matrices and the filterbank read once, the mels written
+    once."""
+    rows = batch * n_frames
+    flops = 2.0 * rows * n_fft * n_bins * 2 + 2.0 * rows * n_bins * n_mels
+    return flops, 4.0 * (signal + 2 * n_fft * n_bins + n_bins * n_mels + rows * n_mels)
 
-    # one v32 window: 2047 hops of 128 samples -> 2048 frames, 1024 -> 128 mels
+
+def mel_frames(batch: int):
+    """``batch`` items of one v32 window of seeded audio (a 440 Hz tone and
+    noise, 2047 hops of 128 samples) on the card, reflect-padded and framed as
+    ``MelSpectrogram`` frames them: (frames, padded signal)."""
     n = 2047 * 128
     t = np.arange(n) / 16000
     rng = np.random.default_rng(0)
-    audio = (0.5 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.standard_normal(n)).astype(np.float32)
-    mel = MelSpectrogram("pallas", True, 16000, 1024, 128, 128, 20, 8000, "reflect").cuda()
-    x = torch.from_numpy(audio)[None].cuda()
+    audio = (0.5 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.standard_normal((batch, n))).astype(np.float32)
+    x = torch.from_numpy(audio).cuda()
     padded = torch.nn.functional.pad(x[:, None], (512, 512), mode="reflect")[:, 0]
-    frames = padded.unfold(1, 1024, 128)[:, :2048]
+    return padded.unfold(1, 1024, 128)[:, :2048], padded
+
+
+def check_mel(report: dict) -> dict:
+    """Kernel A against both its plain versions (``mel_plain_tf32x3``, which
+    rounds as it does, and ``mel_plain``) at ``MEL_TC_TOL`` and at the
+    reference's ``MEL_TOL``, with a float64 reference beside them, two calls
+    bit-equal, at one v32 window (request 2's call) and two (CFG, batch 2);
+    each timed beside its plain version, by CUDA events and by the profiler's
+    device kernels, and set against ``fp32_bounds``. Returns the kernels-line
+    entry at one window."""
+    from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
+
+    mel = MelSpectrogram("pallas", True, 16000, 1024, 128, 128, 20, 8000, "reflect").cuda()
     args = (mel.w_re, mel.w_im, mel.fbanks, True)
-    got = fused_mel(frames, *args)
-    want = mel_plain(frames, *args)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    excess = ((got - want).abs() - MEL_TOL * want.abs()).max().item()
-    print(f"fused_mel N2048 1024->128 log1p: max_abs_err {err:.3e} (rtol = atol = {MEL_TOL:g})")
-    report["mel"] = {"max_abs_err": err, "tol": MEL_TOL, "shape": list(got.shape)}
-    if got.shape != (1, 2048, 128) or not excess <= MEL_TOL:
-        raise AssertionError(f"fused_mel disagrees: max error {err}, shape {tuple(got.shape)}")
-    ms, plain_ms, _ = paired_ms(lambda: fused_mel(frames, *args), lambda: mel_plain(frames, *args))
-    n_fft, n_bins, n_mels = 1024, mel.w_re.shape[-1], 128
-    flops = 2.0 * 2048 * n_fft * n_bins * 2 + 2.0 * 2048 * n_bins * n_mels
-    # the padded signal (the frames overlap in it), the two DFT matrices and
-    # the filterbank read once, the mels written once
-    nbytes = 4 * (padded.numel() + 2 * n_fft * n_bins + n_bins * n_mels + 2048 * n_mels)
-    bound_ms, bound_by = bound(flops, nbytes, torch.float32)
-    print(f"fused_mel N2048: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          "no single PyTorch call computes the mel")
+    n_fft, n_bins, n_mels = mel.w_re.shape[0], mel.w_re.shape[1], mel.fbanks.shape[1]
+    cases = []
+    for batch in (1, 2):
+        frames, padded = mel_frames(batch)
+        got = fused_mel(frames, *args)
+        want, want3 = mel_plain(frames, *args), mel_plain_tf32x3(frames, *args)
+        fd = frames.double()
+        re, im = fd @ mel.w_re.double(), fd @ mel.w_im.double()
+        truth = torch.log1p((re * re + im * im) @ mel.fbanks.double())
+        torch.cuda.synchronize()
+
+        def excess(ref, tol):  # the largest |got - ref| - tol |ref|: at most tol passes rtol = atol = tol
+            return ((got - ref).abs() - tol * ref.abs()).max().item()
+
+        case = {"batch": batch, "shape": list(got.shape), "max_abs_err": (got - want).abs().max().item(),
+                "max_abs_err_tf32x3": (got - want3).abs().max().item(),
+                "max_abs_err_fp64": {"kernel": (got.double() - truth).abs().max().item(),
+                                     "plain": (want.double() - truth).abs().max().item(),
+                                     "plain_tf32x3": (want3.double() - truth).abs().max().item()},
+                "repeat_bit_equal": torch.equal(got, fused_mel(frames, *args)),
+                "finite": bool(torch.isfinite(got).all())}
+        label = f"fused_mel batch {batch} x 2048 frames, 1024 -> {n_bins} -> {n_mels}, log1p"
+        print(f"{label}: max_abs_err {case['max_abs_err']:.3e} against mel_plain, {case['max_abs_err_tf32x3']:.3e} "
+              f"against mel_plain_tf32x3 (rtol = atol = {MEL_TC_TOL:g}; the reference's {MEL_TOL:g}); against "
+              f"float64: kernel {case['max_abs_err_fp64']['kernel']:.3e}, mel_plain "
+              f"{case['max_abs_err_fp64']['plain']:.3e}, mel_plain_tf32x3 {case['max_abs_err_fp64']['plain_tf32x3']:.3e}; "
+              f"a second call bit-equal {case['repeat_bit_equal']}")
+        if (got.shape != (batch, 2048, n_mels) or not case["finite"] or not case["repeat_bit_equal"]
+                or not excess(want, MEL_TOL) <= MEL_TOL or not excess(want, MEL_TC_TOL) <= MEL_TC_TOL
+                or not excess(want3, MEL_TC_TOL) <= MEL_TC_TOL):
+            raise AssertionError(f"{label} disagrees with its plain versions: {case}")
+        ms, plain_ms, _ = paired_ms(lambda: fused_mel(frames, *args), lambda: mel_plain(frames, *args))
+        case.update(ms=ms, plain_ms=plain_ms,
+                    device_ms={"kernel": device_ms(lambda: fused_mel(frames, *args)),
+                               "plain": device_ms(lambda: mel_plain(frames, *args))},
+                    **fp32_bounds(*mel_work(batch, 2048, n_fft, n_bins, n_mels, padded.numel())))
+        print(f"{label}: kernel {ms:.4f} ms (device {fmt_ms(case['device_ms']['kernel'])}), plain {plain_ms:.4f} ms "
+              f"(device {fmt_ms(case['device_ms']['plain'])}); bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
+              f"fp32 FMAs {case['fma_ms']:.4f}, three TF32 products {case['tf32x3_ms']:.4f}, bytes "
+              f"{case['bytes_ms']:.4f}); no single PyTorch call computes the mel")
+        cases.append(case)
+    report["mel_cases"] = cases
+    one = cases[0]
     return {"name": "fused_mel", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/fused_mel.cu",
-            "replaces": "mapperatorinator_tpu/ops/mel_kernel.py:72", "max_abs_err": err, "tol": MEL_TOL,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "timed_shape": "N2048 1024->513->128 log1p fp32"}
+            "replaces": "mapperatorinator_tpu/ops/mel_kernel.py:72", "max_abs_err": one["max_abs_err"],
+            "max_abs_err_tf32x3": one["max_abs_err_tf32x3"], "tol": MEL_TC_TOL, "ms": one["ms"],
+            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+            "bound_fma_ms": one["fma_ms"], "bound_tf32x3_ms": one["tf32x3_ms"], "library_ms": None,
+            "device_ms": one["device_ms"], "timed_shape": f"N2048 1024->{n_bins}->{n_mels} log1p fp32",
+            "cfg_batch2": {k: cases[1][k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "max_abs_err",
+                                                     "max_abs_err_tf32x3")}}
 
 
 def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:

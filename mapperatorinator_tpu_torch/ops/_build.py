@@ -101,14 +101,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def function(library: str, symbol: str, argtypes: tuple):
+def function(library: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
     """A kernel's C entry point in ``csrc/<library>``, bound once: its
-    argument and result types are set on the first call for it and the
-    function object is cached, so a launch pays only for the call itself
-    (``fn.lib``: its library, for :func:`check`)."""
+    argument and result types (an error code unless ``restype`` says
+    otherwise) are set on the first call for it and the function object is
+    cached, so a launch pays only for the call itself (``fn.lib``: its
+    library, for :func:`check`)."""
     lib = load(library)
     fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype, fn.lib = list(argtypes), ctypes.c_int, lib
+    fn.argtypes, fn.restype, fn.lib = list(argtypes), restype, lib
     return fn
 
 

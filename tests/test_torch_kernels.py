@@ -3,11 +3,13 @@
 Every test here needs a CUDA device and skips elsewhere (the kernels have no
 CPU mode; the plain versions are held against the JAX package by
 test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py,
-test_torch_qmm.py and test_torch_qmm_tc.py). Attention is checked on both
-routes: the fp32 kernels (split-TF32 products, against both the plain
+test_torch_mel_tc.py, test_torch_qmm.py and test_torch_qmm_tc.py).
+Attention is checked on both routes: the fp32 kernels (split-TF32 products, against both the plain
 versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
 the bf16 pair (D 64); qmm on both of its paths (its GEMV path also for
-bit-equal repeats and a refused launch). The file imports only
+bit-equal repeats and a refused launch); the fused mel against both its
+plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
+on the frame layouts it takes and refuses. The file imports only
 torch and the port, so it runs where the JAX package's test helpers do not:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -34,7 +36,7 @@ from mapperatorinator_tpu_torch.ops.attention_kernel import (
     flash_fwd_fp32,
     flash_fwd_sm90,
 )
-from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain
+from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
 from mapperatorinator_tpu_torch.ops.qmm_kernel import GEMV_ROWS, qmm, qmm_kernel, qmm_plain, qmm_plain_tf32x2
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # fp32: test_attention_kernel.py:47
@@ -42,6 +44,9 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # fp32: test_attention_k
 # least 1): gradients grow with the length, and dq is summed with atomics in
 # an order that changes from run to run
 MEL_TOL = 5e-3  # test_audio.py:80
+# the mel kernel against its plain versions (the split-TF32 one and fp32):
+# fp32 accuracy, the products' sums taken in another order
+MEL_TC_TOL = 1e-4
 # qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
 # times the largest |reference output| (at least 1): the sums run in another order
 QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -303,6 +308,75 @@ def test_fused_mel_kernel_matches_plain(cuda):
     want = mel_plain(frames, mel.w_re, mel.w_im, mel.fbanks, True)
     torch.testing.assert_close(got, want, rtol=MEL_TOL, atol=MEL_TOL)
     torch.testing.assert_close(mel(x), want, rtol=MEL_TOL, atol=MEL_TOL)
+
+
+def mel_frames(device, batch, n_frames, n_fft=1024, hop=128, seed=0):
+    """``batch`` items of seeded audio (a 440 Hz tone and noise, as
+    chip_smoke.py's check_mel) padded by reflection and framed as
+    ``MelSpectrogram`` frames them: ``n_frames`` frames of ``n_fft`` samples
+    at ``hop``, a strided view into the padded signal."""
+    n = (n_frames - 1) * hop
+    t = torch.arange(n) / 16000
+    noise = torch.randn((batch, n), generator=torch.Generator().manual_seed(seed))
+    x = (0.5 * torch.sin(2 * torch.pi * 440 * t) + 0.1 * noise).to(device)
+    padded = torch.nn.functional.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    return padded.unfold(1, n_fft, hop)[:, :n_frames]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_frames,n_mels,log_scale,n_fft,hop", [
+    (1, 2048, 128, True, 1024, 128),   # one v32 window
+    (2, 2048, 128, True, 1024, 128),   # two windows (CFG)
+    (2, 2047, 128, True, 1024, 128),   # the last tile of item 0 is short: tiles stop at the batch boundary
+    (1, 2048, 128, False, 1024, 128),
+    (1, 2048, 388, True, 1024, 128),   # the default MelSpectrogram's 388 mels: four chunks of the projection
+    (1, 300, 80, True, 1024, 128),
+    (2, 500, 80, True, 400, 160),      # 201 bins, a cluster of 3; n_fft past the last whole k tile
+    (1, 333, 64, True, 200, 80),       # 101 bins, a cluster of 2
+])
+def test_fused_mel_kernel_matches_both_plain_versions(cuda, batch, n_frames, n_mels, log_scale, n_fft, hop):
+    """The kernel (split-TF32 tensor-core products) against the plain version
+    that rounds as it does and the fp32 one, at 1e-4, on the unfold view
+    that ``MelSpectrogram`` passes."""
+    mel = MelSpectrogram("pallas", log_scale, 16000, n_fft, n_mels, hop, 20, 8000, "reflect").to(cuda)
+    frames = mel_frames(cuda, batch, n_frames, n_fft=n_fft, hop=hop)
+    assert frames.shape == (batch, n_frames, n_fft) and frames.stride(1) == hop
+    args = (mel.w_re, mel.w_im, mel.fbanks, log_scale)
+    before = fused_mel.launches
+    got = fused_mel(frames, *args)
+    assert fused_mel.launches == before + 1
+    for plain in (mel_plain_tf32x3, mel_plain):
+        torch.testing.assert_close(got, plain(frames, *args), rtol=MEL_TC_TOL, atol=MEL_TC_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_mel_kernel_is_bit_equal_from_call_to_call(cuda):
+    """The cluster adds its blocks' partial mels in rank order, without
+    atomics: two calls give the same bits."""
+    mel = MelSpectrogram("pallas", True, 16000, 1024, 128, 128, 20, 8000, "reflect").to(cuda)
+    frames = mel_frames(cuda, 2, 2048)
+    args = (mel.w_re, mel.w_im, mel.fbanks, True)
+    assert torch.equal(fused_mel(frames, *args), fused_mel(frames, *args))
+
+
+@pytest.mark.cuda
+def test_fused_mel_kernel_takes_contiguous_frames_whose_span_fits(cuda):
+    """Contiguous frames (frame stride n_fft): at n_fft 256 a tile's frames
+    fit in shared memory and the kernel takes them; at v32's 1024 they do
+    not, and neither does a frame stride that is not a multiple of 16."""
+    mel = MelSpectrogram("pallas", True, 16000, 256, 40, 128, 20, 8000, "reflect").to(cuda)
+    frames = mel_frames(cuda, 2, 500, n_fft=256).contiguous()
+    assert frames.stride(1) == 256
+    args = (mel.w_re, mel.w_im, mel.fbanks, True)
+    got = fused_mel(frames, *args)
+    for plain in (mel_plain_tf32x3, mel_plain):
+        torch.testing.assert_close(got, plain(frames, *args), rtol=MEL_TC_TOL, atol=MEL_TC_TOL)
+    mel = MelSpectrogram("pallas", True, 16000, 1024, 128, 128, 20, 8000, "reflect").to(cuda)
+    args = (mel.w_re, mel.w_im, mel.fbanks, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_mel(mel_frames(cuda, 1, 256).contiguous(), *args)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_mel(mel_frames(cuda, 1, 256, hop=120), *args)
 
 
 def quantized(k, n, device, seed=0):
