@@ -42,7 +42,18 @@
    match the plain attention path; on request 3's, the teacher-forced logits
    through kernel D must match its plain version, and the int8 model must
    stay within the reference's bars of the fp model loaded from the same
-   checkpoint. Request 3's engine then runs ``forward_stats``,
+   checkpoint. ``DecodeEngine.generate`` replays a CUDA graph of its decode
+   step a token (one graph a bucket of cached slots, captured when first
+   reached); each request prints the graphs captured and the seconds spent
+   capturing. On request 3's first window, the "decode graphs" phase holds
+   ``generate`` replaying graphs against the same engine stepping eagerly
+   (``use_graphs`` cleared), with int8 weights and KV and with the fp32
+   model from the same checkpoint, at B 1 and as a CFG pair, greedy and
+   sampled: tokens and the returned position must be equal. It prints the
+   graphs captured, the seconds spent capturing and each engine's graph
+   pool bytes. The decode steps are then profiled in both modes (host and
+   device ms a step, the device's idle share, kernel D's GEMV found by name
+   inside the replays). Request 3's engine then runs ``forward_stats``,
    ``generate_forced`` and ``generate_beams`` against ``forward`` and
    ``generate``.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
@@ -112,6 +123,7 @@ COLD_BYTES = 2**26
 QMM_KERNELS = {"qmm_gemv": "qmm_gemv_cluster_kernel", "qmm_tc": "qmm_tc_kernel"}
 INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreement (test_quantize_checkpoint.py:58-59)
 ENGINE_STEPS = 64
+DECODE_GRAPH_STEPS = 300  # steps of each "decode graphs" case at most
 STATS_TOL = 1e-4  # forward_stats vs the host reduction, test_decode.py:424
 GRAD_TOL = 2e-4  # the model bar, times each gradient tensor's largest entry
 # bf16 gradients through the tensor-core kernels, held against the fp32 plain
@@ -931,6 +943,7 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
                 "qmm_tc": qmm.launches_tc}
     engine.generate = inner
     peak = torch.cuda.max_memory_allocated()
+    graphs = {"captures": engine.captures, "capture_s": engine.capture_seconds, "pool_bytes": pool_bytes(engine)}
 
     beatmap = Beatmap.from_path(path)
     if beatmap.mode != args.gamemode or beatmap.title != args.title or "[HitObjects]" not in text:
@@ -940,12 +953,13 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         "tokens": stats["tokens"], "tok_per_s": stats["tokens"] / wall, "decode_tok_per_s":
         stats["tokens"] / stats["decode_s"] if stats["decode_s"] else 0.0, "peak_mem_gb": peak / 2**30,
         "launches": launches, "hit_objects": len(beatmap.hit_objects()), "timing_points": len(beatmap.timing_points),
-        "osu_bytes": len(text.encode()),
+        "osu_bytes": len(text.encode()), "graphs": graphs,
     }
     print(f"request {label}: wall {wall:.2f} s, {stats['windows']} windows, {stats['tokens']} tokens generated, "
           f"{result['tok_per_s']:.1f} tok/s ({result['decode_tok_per_s']:.1f} tok/s in decode), "
           f"peak memory {result['peak_mem_gb']:.2f} GiB, {result['hit_objects']} hit objects, "
-          f"{result['timing_points']} timing points, launches {launches}")
+          f"{result['timing_points']} timing points, {graphs['captures']} decode graphs captured in "
+          f"{graphs['capture_s']:.2f} s, launches {launches}")
 
     if check_encoder:
         frames = window0(args)
@@ -978,38 +992,115 @@ def nbytes(tree) -> int:
 
 
 def profile_decode(engine, enc, ids, pipeline, eos, int8: bool, steps: int = 48) -> dict:
-    """Greedy decode steps on ``engine``: host ms a step without the profiler,
-    then, profiled, device ms and kernel launches a step and the device time
-    of kernel D's launches (the GEMV path's, and the tensor-core path's in
-    the generate call's ``init_cache``), all from device kernels only, found
-    by the names in ``QMM_KERNELS``. An ``int8`` engine's profile that holds
-    no GEMV kernel raises: a renamed kernel would otherwise read 0."""
+    """Greedy decode steps on ``engine``, replaying its CUDA graphs and, for
+    comparison, stepping eagerly (``use_graphs`` cleared): for each, host ms
+    a step without the profiler (the call's wall time over the steps up to
+    its stop, after a warm-up call of the same length that captures the
+    graphs), then, profiled, device ms and kernel launches a step, the
+    device's idle share of the host time, the kernels with the most device
+    time a step, and the device time of kernel D's launches (the GEMV
+    path's, found by name inside the replays, and the tensor-core path's in
+    the prefill), all from device kernels only, found by the names in
+    ``QMM_KERNELS``. An ``int8`` engine's profile that holds no GEMV kernel
+    raises: a renamed kernel would otherwise read 0."""
     from torch.profiler import ProfilerActivity, profile
 
     P = ids.shape[1]
-    engine.generate(enc, ids, pipeline, eos, max_length=P + 4)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, end = engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
-    torch.cuda.synchronize()
-    n = end - P
-    wall = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    out = {}
+    for mode, graphs in (("graphs", True), ("eager", False)):
+        engine.use_graphs = graphs
         engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
         torch.cuda.synchronize()
-    kernels = device_kernels(prof.key_averages())
-    device = sum(e.self_device_time_total for e in kernels) / 1e3
-    paths = {path: [e for e in kernels if name in e.key] for path, name in QMM_KERNELS.items()}
-    if int8 and not paths["qmm_gemv"]:
-        raise AssertionError(f"the int8 decode steps' profile holds no {QMM_KERNELS['qmm_gemv']}: "
-                             f"{sorted(e.key[:60] for e in kernels)}")
-    out = {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
-           "kernels_per_step": sum(e.count for e in kernels) / n,
-           "qmm_device_ms_per_step": sum(e.self_device_time_total for es in paths.values() for e in es) / 1e3 / n}
-    for path, events in paths.items():
-        calls = sum(e.count for e in events)
-        out[f"{path}_calls"] = calls
-        out[f"{path}_device_us_per_call"] = sum(e.self_device_time_total for e in events) / max(calls, 1)
+        t0 = time.perf_counter()
+        _, end = engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
+        torch.cuda.synchronize()
+        n = end - P
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof.key_averages())
+        device = sum(e.self_device_time_total for e in kernels) / 1e3
+        paths = {path: [e for e in kernels if name in e.key] for path, name in QMM_KERNELS.items()}
+        if int8 and not paths["qmm_gemv"]:
+            raise AssertionError(f"the int8 decode steps' profile ({mode}) holds no {QMM_KERNELS['qmm_gemv']}: "
+                                 f"{sorted(e.key[:60] for e in kernels)}")
+        step = {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
+                "idle_share": 1 - device / n / wall, "kernels_per_step": sum(e.count for e in kernels) / n,
+                "qmm_device_ms_per_step": sum(e.self_device_time_total for es in paths.values() for e in es) / 1e3 / n,
+                "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / n,
+                                 "device_us_per_step": e.self_device_time_total / n}
+                                for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]]}
+        for path, events in paths.items():
+            calls = sum(e.count for e in events)
+            step[f"{path}_calls"] = calls
+            step[f"{path}_device_us_per_call"] = sum(e.self_device_time_total for e in events) / max(calls, 1)
+        out[mode] = step
+    engine.use_graphs = True
+    return out
+
+
+def pool_bytes(engine) -> int | None:
+    """Bytes of the segments in ``engine``'s CUDA-graph memory pool, from the
+    caching allocator's snapshot; None where the snapshot names no pools."""
+    if engine._pool is None:
+        return 0
+    segments = torch.cuda.memory_snapshot()
+    if not all("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == tuple(engine._pool))
+
+
+def decode_graphs(engines: dict, encs: dict, ids, args, vocab) -> dict:
+    """The "decode graphs" phase, on one prompt: each engine's ``generate``
+    replaying CUDA graphs against the same engine stepping eagerly, with the
+    same prompt and seed, at B 1 and as a CFG pair (B 2, ``cfg_scale`` 2),
+    greedy and with the v32 sampling chain. Tokens and the returned position
+    must be equal. Each decode runs ``DECODE_GRAPH_STEPS`` steps at most,
+    which takes it past the prompt's bucket of cached slots into the next."""
+    from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline, get_eos_token_ids
+
+    eos = get_eos_token_ids(vocab)
+    P = ids.shape[1]
+    out = {"cases": [], "engines": {}}
+    for name, engine in engines.items():
+        max_length = min(P + DECODE_GRAPH_STEPS, engine.max_length)
+        captures, capture_s = engine.captures, engine.capture_seconds
+        for rows, cfg_scale in ((1, 1.0), (2, 2.0)):
+            enc = torch.cat([encs[name]] * rows)
+            prompt = np.concatenate([ids] * rows)
+            for sampled in (False, True):
+                pipeline = build_logits_pipeline(
+                    vocab, cfg_scale=cfg_scale, do_sample=sampled, temperature=args.temperature,
+                    timing_temperature=args.timing_temperature, mania_column_temperature=args.mania_column_temperature,
+                    taiko_hit_temperature=args.taiko_hit_temperature, types_first=args.train.data.types_first,
+                    top_k=args.top_k, top_p=args.top_p)
+                runs = {}
+                for graphs in (True, False):
+                    engine.use_graphs = graphs
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tokens, end = engine.generate(enc, prompt, pipeline, eos, seed=11, cfg_scale=cfg_scale,
+                                                  max_length=max_length)
+                    torch.cuda.synchronize()
+                    runs[graphs] = (tokens, end, time.perf_counter() - t0)
+                engine.use_graphs = True
+                (g_tokens, g_end, g_s), (e_tokens, e_end, e_s) = runs[True], runs[False]
+                case = {"weights_and_kv": name, "rows": rows, "cfg_scale": cfg_scale, "sampled": sampled,
+                        "prompt": P, "max_length": max_length, "end_graphs": g_end, "end_eager": e_end,
+                        "tokens_equal": bool(np.array_equal(g_tokens, e_tokens)), "graphs_s": g_s, "eager_s": e_s}
+                out["cases"].append(case)
+                print(f"decode graphs, {name}, B {rows}, cfg {cfg_scale:g}, {'sampled' if sampled else 'greedy'}: "
+                      f"graphs end {g_end} in {g_s:.2f} s (captures included), eager end {e_end} in {e_s:.2f} s, "
+                      f"tokens {'equal' if case['tokens_equal'] else 'DIFFERENT'}")
+                if not (case["tokens_equal"] and g_end == e_end):
+                    raise AssertionError(f"graphed and eager decode disagree: {case}")
+        stats = {"captures": engine.captures - captures, "capture_s": engine.capture_seconds - capture_s,
+                 "pool_bytes": pool_bytes(engine)}
+        out["engines"][name] = stats
+        pool = "not measured" if stats["pool_bytes"] is None else f"{stats['pool_bytes'] / 2**20:.1f} MiB"
+        print(f"decode graphs, {name}: {stats['captures']} graphs captured in {stats['capture_s']:.2f} s; the "
+              f"engine's graph pool holds {pool}")
     return out
 
 
@@ -1059,15 +1150,21 @@ def int8_checks(ckpt: Path):
                      "weights_int8": nbytes(model.state_dict()),
                      "kv_cache_fp32": nbytes(fp_engine.model.init_cache(1, engine.max_length, enc)),
                      "kv_cache_int8": nbytes(model.init_cache(1, engine.max_length, enc))}
+        out["decode_graphs"] = decode_graphs({"fp32": fp_engine, "int8": engine}, {"fp32": fp_enc, "int8": enc},
+                                             first["ids"][:1], args, vocab)
         greedy_chain = (build_logits_pipeline(vocab, do_sample=False), get_eos_token_ids(vocab))
         steps = {"int8": profile_decode(engine, enc, first["ids"][:1], *greedy_chain, int8=True),
                  "fp32": profile_decode(fp_engine, fp_enc, first["ids"][:1], *greedy_chain, int8=False)}
-        for name, st in steps.items():
-            print(f"request 3 decode steps, {name} weights and KV: {st['host_ms_per_step']:.2f} ms a step on the host "
-                  f"clock; profiled, {st['device_ms_per_step']:.3f} ms of device kernels and "
-                  f"{st['kernels_per_step']:.0f} launches a step, kernel D {st['qmm_device_ms_per_step']:.3f} ms "
-                  f"(GEMV {st['qmm_gemv_calls']} calls, {st['qmm_gemv_device_us_per_call']:.2f} us a call; tensor "
-                  f"cores {st['qmm_tc_calls']} calls, {st['qmm_tc_device_us_per_call']:.2f} us a call)")
+        for name, modes in steps.items():
+            for mode, st in modes.items():
+                print(f"request 3 decode steps, {name} weights and KV, {mode}: {st['host_ms_per_step']:.3f} ms a "
+                      f"step on the host clock; profiled, {st['device_ms_per_step']:.3f} ms of device kernels "
+                      f"(idle share {st['idle_share']:.3f}) and {st['kernels_per_step']:.0f} launches a step, kernel "
+                      f"D {st['qmm_device_ms_per_step']:.3f} ms (GEMV {st['qmm_gemv_calls']} calls, "
+                      f"{st['qmm_gemv_device_us_per_call']:.2f} us a call; tensor cores {st['qmm_tc_calls']} calls, "
+                      f"{st['qmm_tc_device_us_per_call']:.2f} us a call); most device time a step: "
+                      + "; ".join(f"{k['name'][:48]} {k['device_us_per_step']:.1f} us in {k['calls_per_step']:.0f}"
+                                  for k in st["top_kernels"]))
         out["decode_steps"] = steps
         del fp_engine
         torch.cuda.empty_cache()

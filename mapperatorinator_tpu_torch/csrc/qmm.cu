@@ -109,6 +109,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -346,15 +347,34 @@ __global__ void __launch_bounds__(GV_THREADS)
   }
 }
 
+// Raise ``kernel``'s dynamic shared memory limit to ``smem`` bytes on the
+// current device, once per size and device rather than per launch:
+// ``allowed`` holds the largest size granted so far, per device. A launch
+// inside a CUDA-graph capture then makes no call but the launch itself,
+// once an eager launch of the same size has run.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<int>* allowed, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;  // the default: nothing to ask for
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (allowed[device].load() >= static_cast<int>(smem)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int seen = allowed[device].load();
+  while (seen < static_cast<int>(smem) && !allowed[device].compare_exchange_weak(seen, static_cast<int>(smem))) {
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int R>
 cudaError_t launch_gemv(const void* x, const void* w, const void* scale, void* out, int K, int N, int bn, int cluster,
                         int ks, cudaStream_t stream) {
+  static std::atomic<int> allowed[64];  // one per instantiation: each is its own kernel
   const size_t smem = sizeof(float) * (static_cast<size_t>(R) * ks + (GV_WARPS + cluster) * R * bn);
-  if (smem > 48 * 1024) {  // above the default, the kernel has to ask for it
-    const cudaError_t err = cudaFuncSetAttribute(qmm_gemv_cluster_kernel<T, R>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t set = allow_smem(qmm_gemv_cluster_kernel<T, R>, allowed, smem);
+  if (set != cudaSuccess) return set;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -655,9 +675,9 @@ __global__ void __launch_bounds__(TC_THREADS)
 template <typename T, bool VEC>
 cudaError_t launch_tc(const T* x, const int8_t* w, const float* scale, T* out, int rows, int K, int N,
                       cudaStream_t stream) {
+  static std::atomic<int> allowed[64];
   constexpr int smem = TC_SMEM<T>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(qmm_tc_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = allow_smem(qmm_tc_kernel<T, VEC>, allowed, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TC_BN - 1) / TC_BN, (rows + TC_BM - 1) / TC_BM);
   qmm_tc_kernel<T, VEC><<<grid, TC_THREADS, smem, stream>>>(x, w, scale, out, rows, K, N);

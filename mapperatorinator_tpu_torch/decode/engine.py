@@ -1,4 +1,4 @@
-"""Autoregressive decode engine (``decode/engine.py``), eager PyTorch.
+"""Autoregressive decode engine (``decode/engine.py``).
 
 Semantics of the JAX ``DecodeEngine.generate``:
 
@@ -9,12 +9,30 @@ Semantics of the JAX ``DecodeEngine.generate``:
 * the logits chain of :mod:`.logits`;
 * classifier-free guidance as a folded ``[negative; positive]`` batch whose
   halves receive the same sampled token;
-* rows that have finished emit pad.
+* rows that have finished emit pad, and the returned position is the first
+  step after which every row had finished (else ``max_length``).
 
-Sampling draws from a ``torch.Generator`` seeded per call. The JAX engine
-draws with ``jax.random``: the two frameworks' streams differ, so sampled
-tokens are compared through the processed logits, and greedy decode token
-for token.
+The JAX engine compiles its loop into one program. Here one step function
+(:meth:`DecodeEngine._step`) runs over static per-engine buffers (the KV
+cache, tokens, masks, the write position, ``finished``, the logits chain's
+state), indexed by device tensors and with no host read. Its cached
+attention reads a static prefix, the end of the ``decode_attend_bucket``
+bucket that holds the write slot. On a CUDA device each (batch, length,
+pipeline, CFG scale, bucket) is captured as a CUDA graph the first time the
+loop reaches it, that step itself running eagerly first as the capture's
+warm-up, and replayed once a token; ``use_graphs = False`` runs the same
+step eagerly instead (to hold the two against each other), as the CPU always
+does. The host counts the write position itself, picks each step's bucket
+and reads whether every row has finished once every ``sync_every`` steps;
+steps past the stop write pad.
+
+Sampling is the exponential race of ``torch.multinomial``: the argmax of
+``probs / noise`` with ``Exp(1)`` noise, drawn outside the step from a
+``torch.Generator`` seeded per call, ``NOISE_BLOCK`` steps at a time, one
+draw a step as ``torch.multinomial`` draws it, so graph and eager steps (and
+``torch.multinomial``) pick the same tokens. The JAX engine draws with
+``jax.random``: the two frameworks' streams differ, so sampled tokens are
+compared through the processed logits, and greedy decode token for token.
 
 The other entry points of the JAX engine: :meth:`DecodeEngine.forward` and
 :meth:`DecodeEngine.forward_stats` (teacher-forced logits, and the per-token
@@ -25,12 +43,18 @@ analysis statistics reduced on the device), :meth:`DecodeEngine.generate_forced`
 
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .logits import LogitsPipeline
+from ..models.transformer import decode_read_limit
+from ..ops import launches
+from .logits import LogitsPipeline, LogitsState
+
+NOISE_BLOCK = 8  # steps of sampling noise drawn at a time, outside the step
+SYNC_EVERY = 8  # steps between the host's reads of whether every row has finished
 
 
 def _bucket(p: int) -> int:
@@ -58,15 +82,75 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 NEG = -1e9  # the beam search's "no hypothesis" score
 
 
+class _Chain(NamedTuple):
+    """The logits chain's buffers for ``half`` sampled rows."""
+
+    state: LogitsState
+    scores: torch.Tensor  # (half, V) fp32: the step's processed scores
+    noise: torch.Tensor  # (NOISE_BLOCK, half, V) fp32: Exp(1) sampling noise
+
+
+class _DecodeState:
+    """The static buffers of one (B, max_length) decode, reused from call to
+    call, and the CUDA graphs captured over them."""
+
+    def __init__(self, model, batch: int, max_length: int, encoder_states: torch.Tensor, pad_id: int):
+        dev = encoder_states.device
+        self.cache = model.init_cache(batch, max_length, encoder_states)
+        self.tokens = torch.full((batch, max_length), pad_id, dtype=torch.long, device=dev)
+        self.attn = torch.zeros((batch, max_length), dtype=torch.bool, device=dev)
+        self.n_valid = torch.zeros(batch, dtype=torch.long, device=dev)  # logical (pad-free) lengths
+        self.cur_len = torch.zeros((), dtype=torch.long, device=dev)  # the next write slot
+        self.start = torch.zeros((), dtype=torch.long, device=dev)  # the prompt's length
+        self.finished = torch.zeros(batch, dtype=torch.bool, device=dev)
+        self.stop = torch.zeros((), dtype=torch.long, device=dev)  # the returned position
+        self.stop_host = torch.zeros((), dtype=torch.long).pin_memory() if dev.type == "cuda" else None
+        self.eos_mask = torch.zeros(model.cfg.vocab_size_out, dtype=torch.bool, device=dev)
+        self.chains: dict[int, _Chain] = {}  # by sampled rows
+        self.graphs: dict[tuple, dict] = {}  # (pipeline, cfg_scale) -> {bucket end: (Graph, pipeline)}
+
+    def chain(self, half: int) -> _Chain:
+        c = self.chains.get(half)
+        if c is None:
+            dev, vocab_size = self.tokens.device, self.eos_mask.shape[0]
+            scores = lambda *lead: torch.zeros((*lead, half, vocab_size), dtype=torch.float32, device=dev)  # noqa: E731
+            c = self.chains[half] = _Chain(
+                LogitsState(torch.full((half,), -1, dtype=torch.int32, device=dev),
+                            torch.full((half,), -1, dtype=torch.int32, device=dev), scores()),
+                scores(), scores(NOISE_BLOCK))
+        return c
+
+    def read_stop(self) -> int:
+        """The device's stop position, through a pinned copy on CUDA."""
+        if self.stop_host is None:
+            return int(self.stop)
+        self.stop_host.copy_(self.stop, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.stop.device))
+        event.synchronize()
+        return int(self.stop_host)
+
+
 class DecodeEngine:
     """Wraps a :class:`..models.Mapperatorinator` on ``device``, which the
-    caller names: there is no default device."""
+    caller names: there is no default device. On a CUDA device
+    :meth:`generate` replays CUDA graphs unless ``use_graphs`` is cleared;
+    ``captures`` and ``capture_seconds`` count the graphs captured and the
+    host time spent capturing them."""
 
     def __init__(self, model, max_length: int, pad_token_id: int, device):
         self.model = model
         self.max_length = max_length
         self.pad_token_id = pad_token_id
         self.device = torch.device(device)
+        # cleared, generate runs its step eagerly on a card too (chip_smoke.py
+        # and the card tests hold the two against each other)
+        self.use_graphs = True
+        self.sync_every = SYNC_EVERY
+        self.captures, self.capture_seconds = 0, 0.0
+        self._states: dict[tuple, _DecodeState] = {}
+        self._pool = None  # the graphs' shared memory pool
+        self._capture_stream: Optional[torch.cuda.Stream] = None
 
     @torch.inference_mode()
     def encode_with_cond(self, frames, cond: Optional[dict] = None) -> torch.Tensor:
@@ -94,62 +178,175 @@ class DecodeEngine:
         """Decode from a left-padded prompt (B, P); with ``cfg_scale > 1`` the
         rows are the folded ``[negative; positive]`` batch and
         ``encoder_states`` matches them. Returns the (B, max_length) token
-        buffer, right-padded with pad, and the final write position. A list
-        passed as ``step_logits`` receives each step's processed scores."""
+        buffer, right-padded with pad, and the position at which the JAX loop
+        stops: the first step after which every row had finished, else
+        ``max_length``. A list passed as ``step_logits`` receives the
+        processed scores of each step up to there."""
         max_length = max_length or self.max_length
-        model, dev, pad_id = self.model, self.device, self.pad_token_id
         B, P_orig = decoder_input_ids.shape
         if P_orig >= max_length:
             raise ValueError(f"prompt length {P_orig} >= max_length {max_length}")
         if decoder_attention_mask is None:
-            decoder_attention_mask = decoder_input_ids != pad_id
+            decoder_attention_mask = decoder_input_ids != self.pad_token_id
         use_cfg = cfg_scale > 1.0
-        half = B // 2 if use_cfg else B
+        state = self._state(B, max_length, encoder_states)
+        chain = state.chain(B // 2 if use_cfg else B)
+        self._start(state, chain, encoder_states, decoder_input_ids, decoder_attention_mask, eos_ids)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        graphs = state.graphs.setdefault((pipeline, cfg_scale), {})
+        graphed = self.use_graphs and self.device.type == "cuda"
+        bucket = self.model.cfg.backbone.decode_attend_bucket
+        first_logits = len(step_logits) if step_logits is not None else 0
+        cur_len = P_orig  # the host's count of the device's write position
+        while cur_len < max_length:
+            if pipeline.do_sample and (cur_len - P_orig) % NOISE_BLOCK == 0:
+                for row in chain.noise:  # one draw a step, as torch.multinomial draws it
+                    row.exponential_(generator=gen)
+            limit = decode_read_limit(bucket, cur_len - 1, max_length)
+            if graphed:
+                self._replay(graphs, limit, state, chain, pipeline, cfg_scale)
+            else:
+                self._step(state, chain, pipeline, cfg_scale, limit)
+            cur_len += 1
+            if step_logits is not None:
+                step_logits.append(chain.scores.clone())
+            if (cur_len - P_orig) % self.sync_every == 0 and cur_len < max_length \
+                    and state.read_stop() < max_length:
+                break
+        end = state.read_stop()
+        if step_logits is not None:
+            del step_logits[first_logits + end - P_orig:]
+        return state.tokens.cpu().numpy(), end
 
+    def _state(self, batch: int, max_length: int, encoder_states: torch.Tensor) -> _DecodeState:
+        key = (batch, max_length, tuple(encoder_states.shape[1:]), encoder_states.dtype)
+        state = self._states.get(key)
+        if state is None:
+            state = self._states[key] = _DecodeState(self.model, batch, max_length, encoder_states,
+                                                     self.pad_token_id)
+        return state
+
+    def _start(self, s: _DecodeState, chain: _Chain, encoder_states, decoder_input_ids, decoder_attention_mask,
+               eos_ids) -> None:
+        """Prefill ``s`` for a new decode: the window's cross k/v, the prompt
+        right-padded to its bucket and written at slot 0, and the loop's
+        state at the prompt's end."""
+        dev, pad_id = self.device, self.pad_token_id
+        B, P_orig = decoder_input_ids.shape
+        max_length = s.tokens.shape[1]
         P = min(_bucket(P_orig), max_length)
         ids = torch.full((B, P), pad_id, dtype=torch.long, device=dev)
         ids[:, :P_orig] = torch.as_tensor(np.asarray(decoder_input_ids), device=dev)
-        prompt_mask = torch.zeros((B, P), dtype=torch.bool, device=dev)
-        prompt_mask[:, :P_orig] = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
-        eos_mask = torch.zeros(pipeline.vocab_size, dtype=torch.bool, device=dev)
-        eos_mask[list(eos_ids)] = True
+        mask = torch.zeros((B, P), dtype=torch.bool, device=dev)
+        mask[:, :P_orig] = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
+        for layer, cross in zip(s.cache, self.model.cross_cache(encoder_states)):
+            for name, x in cross.items():
+                layer["cross"][name].copy_(x)
+        s.attn.zero_()
+        n_valid, _ = self._write_prompt(s.cache, s.attn, ids, mask)
+        s.n_valid.copy_(n_valid)
+        s.tokens.fill_(pad_id)
+        s.tokens[:, :P] = ids
+        s.cur_len.fill_(P_orig)
+        s.start.fill_(P_orig)
+        s.finished.zero_()
+        s.stop.fill_(max_length)
+        s.eos_mask.zero_()
+        s.eos_mask[torch.as_tensor(list(eos_ids), dtype=torch.long, device=dev)] = True
+        chain.state.last_time_shift.fill_(-1)
+        chain.state.last_token.fill_(-1)
+        chain.state.last_scores.zero_()
 
-        cache, attn, n_valid, _ = self._prefill(encoder_states, ids, prompt_mask, max_length)
-        tokens = torch.full((B, max_length), pad_id, dtype=torch.long, device=dev)
-        tokens[:, :P] = ids
+    def _step(self, s: _DecodeState, chain: _Chain, pipeline: LogitsPipeline, cfg_scale: float,
+              limit: int) -> None:
+        """One token for every row, on the device alone: the last token by
+        the device's write position, the cached decoder step reading the
+        cache's first ``limit`` slots, the CFG fold, the logits chain, the
+        sample; then the token, its mask slot, ``finished``, the stop
+        position (the first time every row has finished) and the write
+        position, all written in place."""
+        model, pad_id = self.model, self.pad_token_id
+        use_cfg = cfg_scale > 1.0
+        half = chain.scores.shape[0]
+        index = s.cur_len - 1
+        last = s.tokens.index_select(1, index.view(1))
+        logits, _ = model.decode_step(model.embed_tokens(last), s.cache, index, self_mask=s.attn[:, None, None, :],
+                                      positions=(s.n_valid - 1)[:, None], limit=limit)
+        scores = logits[:, -1].float()
+        if use_cfg:
+            neg, pos = scores[:half], scores[half:]
+            scores = pos + (neg - pos) * cfg_scale
+        lstate, scores = pipeline(chain.state, scores)
+        chain.scores.copy_(scores)
+        if pipeline.do_sample:
+            noise = chain.noise.index_select(0, torch.remainder(s.cur_len - s.start, NOISE_BLOCK).view(1))[0]
+            sampled = (torch.softmax(scores, dim=-1) / noise).argmax(dim=-1)
+        else:
+            sampled = scores.argmax(dim=-1)
+        for dst, src in zip(chain.state, pipeline.update_state(lstate, sampled)):
+            dst.copy_(src)
+        if use_cfg:
+            sampled = torch.cat([sampled, sampled])
+        sampled = torch.where(s.finished, pad_id, sampled)
+        hit_eos = s.eos_mask[sampled[:half]]
+        finished = s.finished | (torch.cat([hit_eos, hit_eos]) if use_cfg else hit_eos)
+        s.stop.copy_(torch.where(finished.all() & ~s.finished.all(), s.cur_len + 1, s.stop))
+        s.finished.copy_(finished)
+        s.tokens.index_copy_(1, s.cur_len.view(1), sampled[:, None])
+        s.attn.index_fill_(1, s.cur_len.view(1), True)
+        s.cur_len.add_(1)
+        s.n_valid.add_(1)
 
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        lstate = pipeline.init_state(half, dev)
-        finished = torch.zeros(B, dtype=torch.bool, device=dev)
-        cur_len = P_orig
-        while cur_len < max_length and not bool(finished.all()):
-            last = tokens[:, cur_len - 1:cur_len]
-            logits, cache = model.decode_step(
-                model.embed_tokens(last), cache, cur_len - 1,
-                self_mask=attn[:, None, None, :], positions=(n_valid - 1)[:, None],
-            )
-            scores = logits[:, -1].float()
-            if use_cfg:
-                neg, pos = scores[:half], scores[half:]
-                scores = pos + (neg - pos) * cfg_scale
-            lstate, scores = pipeline(lstate, scores)
-            if step_logits is not None:
-                step_logits.append(scores)
-            if pipeline.do_sample:
-                sampled = torch.multinomial(torch.softmax(scores, dim=-1), 1, generator=gen)[:, 0]
-            else:
-                sampled = scores.argmax(dim=-1)
-            lstate = pipeline.update_state(lstate, sampled)
-            if use_cfg:
-                sampled = torch.cat([sampled, sampled])
-            sampled = torch.where(finished, pad_id, sampled)
-            hit_eos = eos_mask[sampled[:half]]
-            finished = finished | (torch.cat([hit_eos, hit_eos]) if use_cfg else hit_eos)
-            tokens[:, cur_len] = sampled
-            attn[:, cur_len] = True
-            cur_len += 1
-            n_valid = n_valid + 1
-        return tokens.cpu().numpy(), cur_len
+    def _replay(self, graphs: dict, limit: int, s: _DecodeState, chain: _Chain, pipeline: LogitsPipeline,
+                cfg_scale: float) -> None:
+        """Replay the step's graph for the bucket that ends at ``limit``. On
+        its first step the bucket's step runs eagerly on the capture stream
+        (the capture's warm-up), then is captured; a capture that fails
+        raises."""
+        entry = graphs.get(limit)
+        if entry is not None:
+            entry[0].replay()
+            return
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream, current = self._capture_stream, torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self._step(s, chain, pipeline, cfg_scale, limit)
+        current.wait_stream(stream)
+        t0 = time.perf_counter()
+        graph = launches.Graph()
+        graph.capture(lambda: self._step(s, chain, pipeline, cfg_scale, limit), pool=self._pool, stream=stream)
+        self.capture_seconds += time.perf_counter() - t0
+        self.captures += 1
+        graphs[limit] = (graph, pipeline)  # the graph reads this pipeline's constants
+
+    @torch.inference_mode()
+    def precompile(self, encoder_states: torch.Tensor, max_length: Optional[int] = None,
+                   max_prompt: Optional[int] = None) -> None:
+        """Serving warm-up, the JAX ``precompile``: allocate the static
+        buffers for the batch shape of ``encoder_states`` and run the prefill
+        of every prompt bucket once (64, 128, ... up to ``max_prompt`` or
+        ``max_length``). The decode step's graphs are captured by the first
+        :meth:`generate` that reaches each bucket, for its pipeline."""
+        max_length = max_length or self.max_length
+        limit = min(max_prompt or max_length, max_length)
+        B = encoder_states.shape[0]
+        s = self._state(B, max_length, encoder_states)
+        p = 64
+        while True:
+            P = min(p, limit)
+            ids = torch.full((B, P), self.pad_token_id, dtype=torch.long, device=self.device)
+            mask = torch.zeros((B, P), dtype=torch.bool, device=self.device)
+            mask[:, 0] = True
+            s.attn.zero_()
+            self._write_prompt(s.cache, s.attn, ids, mask)
+            if p >= limit:
+                break
+            p *= 2
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _teacher_forced(self, encoder_states, decoder_input_ids, decoder_attention_mask, cfg_scale):
         """The JAX ``forward`` padding, then the model: T right-padded to its
@@ -226,19 +423,24 @@ class DecodeEngine:
         return tuple(x[:H, :T].cpu().numpy() for x in (surprisal, entropy, argmax))
 
     def _prefill(self, encoder_states, ids, mask, buffer_len: int):
-        """A cache of ``buffer_len`` slots holding the prompt (B, P) written in
-        one chunk at slot 0, at RoPE positions that skip its pads. Returns
-        (cache, attention mask over the buffer, logical lengths, the prompt's
-        logits)."""
-        model, dev = self.model, self.device
-        B, P = ids.shape
-        cache = model.init_cache(B, buffer_len, encoder_states)
-        attn = torch.zeros((B, buffer_len), dtype=torch.bool, device=dev)
-        attn[:, :P] = mask
+        """A new cache of ``buffer_len`` slots holding the prompt (B, P)
+        (:meth:`_write_prompt`). Returns (cache, attention mask over the
+        buffer, logical lengths, the prompt's logits)."""
+        B = ids.shape[0]
+        cache = self.model.init_cache(B, buffer_len, encoder_states)
+        attn = torch.zeros((B, buffer_len), dtype=torch.bool, device=self.device)
+        return cache, attn, *self._write_prompt(cache, attn, ids, mask)
+
+    def _write_prompt(self, cache, attn, ids, mask):
+        """Write the prompt (B, P) into ``cache`` in one chunk at slot 0, at
+        RoPE positions that skip its pads, and its mask into ``attn``.
+        Returns (logical lengths, the prompt's logits)."""
+        model = self.model
+        attn[:, :ids.shape[1]] = mask
         positions = (torch.cumsum(mask.long(), dim=1) - 1).clamp(min=0)
         logits, _ = model.decode_step(model.embed_tokens(ids), cache, 0, self_mask=attn[:, None, None, :],
                                       positions=positions)
-        return cache, attn, mask.sum(dim=1), logits
+        return mask.sum(dim=1), logits
 
     @torch.inference_mode()
     def generate_forced(self, encoder_states, decoder_input_ids: np.ndarray, pipeline: LogitsPipeline,

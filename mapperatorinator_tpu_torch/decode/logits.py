@@ -7,12 +7,15 @@ Order and semantics of the JAX pipeline (HF order, as in the reference):
 
 CFG is folded by the engine before the chain. The per-row state (last time
 shift, last token, last raw scores) is carried between steps instead of
-re-scanning the emitted ids.
+re-scanning the emitted ids. The chain's vocabulary-sized constants are made
+once per pipeline and device (:meth:`LogitsPipeline.constants`), so a step
+copies nothing from the host and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -26,6 +29,16 @@ class LogitsState(NamedTuple):
     last_time_shift: torch.Tensor  # (B,) int32, -1 if none yet
     last_token: torch.Tensor  # (B,) int32, -1 at start
     last_scores: torch.Tensor  # (B, V) fp32 raw scores of the previous step
+
+
+class ChainConstants(NamedTuple):
+    """A pipeline's constants on one device."""
+
+    time_shifts: torch.Tensor  # (time_end - time_start,) the time-shift token ids
+    temperatures: torch.Tensor  # (V + 1,) fp32: the temperature after each token, then at the start
+    lookback: torch.Tensor  # (V,) bool: the lookback window's time shifts
+    timed: torch.Tensor  # (V,) bool: ``timed_token_mask``
+    eos: torch.Tensor  # (V,) bool: ``eos_ids``
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +64,36 @@ class LogitsPipeline:
     top_p: float = 1.0
     do_sample: bool = True
 
+    @functools.cached_property
+    def _constants_by_device(self) -> dict:
+        return {}
+
+    def constants(self, device: torch.device) -> ChainConstants:
+        """The chain's constants on ``device``, made on the first call for it.
+        Conditional temperatures are a table over the previous token, the
+        others' entries ``temperature``."""
+        c = self._constants_by_device.get(device)
+        if c is None:
+            V = self.vocab_size
+            temps = [self.temperature] * (V + 1)
+            if self.types_first:
+                for t, tokens in self._conditionals():
+                    for tok in tokens:
+                        if 0 <= tok < V:
+                            temps[tok] = t
+            lookback = torch.zeros(V, dtype=torch.bool)
+            lookback[self.time_start:self.time_start + int(self.lookback_max_time / MILLISECONDS_PER_STEP)] = True
+            eos = torch.zeros(V, dtype=torch.bool)
+            eos[list(self.eos_ids)] = True
+            timed = self.timed_token_mask if self.timed_token_mask is not None else (False,) * V
+            c = ChainConstants(
+                time_shifts=torch.arange(self.time_start, self.time_end, device=device),
+                temperatures=torch.tensor(temps, dtype=torch.float32).to(device),
+                lookback=lookback.to(device), timed=torch.tensor(timed, dtype=torch.bool).to(device),
+                eos=eos.to(device))
+            self._constants_by_device[device] = c
+        return c
+
     def init_state(self, batch: int, device) -> LogitsState:
         return LogitsState(
             last_time_shift=torch.full((batch,), -1, dtype=torch.int32, device=device),
@@ -63,13 +106,14 @@ class LogitsPipeline:
         (state, processed scores); the sampled token enters the state in
         :meth:`update_state`."""
         raw = scores
-        scores = self._monotonic_time_shift(state, scores)
+        consts = self.constants(scores.device)
+        scores = self._monotonic_time_shift(state, scores, consts)
         if self.timeshift_bias != 0.0:
             scores = scores.clone()
             scores[:, self.time_start:self.time_end] += self.timeshift_bias
-        scores = self._temperature(state, scores)
+        scores = self._temperature(state, scores, consts)
         if self.lookback_max_time > 0:
-            scores = self._lookback_bias(state, scores)
+            scores = self._lookback_bias(state, scores, consts)
         state = state._replace(last_scores=raw)
         if self.do_sample:
             if self.top_k > 0:
@@ -87,28 +131,23 @@ class LogitsPipeline:
         last_ts = torch.where(is_sos, -1, last_ts)  # SOS resets monotonicity
         return state._replace(last_time_shift=last_ts.to(torch.int32), last_token=token.to(torch.int32))
 
-    def _monotonic_time_shift(self, state: LogitsState, scores: torch.Tensor) -> torch.Tensor:
+    def _monotonic_time_shift(self, state: LogitsState, scores: torch.Tensor,
+                              consts: ChainConstants) -> torch.Tensor:
         """Mask time shifts earlier than the last emitted one."""
-        ts = torch.arange(self.time_start, self.time_end, device=scores.device)
-        invalid = ts[None, :] < (self.time_start + state.last_time_shift)[:, None]
+        invalid = consts.time_shifts[None, :] < (self.time_start + state.last_time_shift)[:, None]
         invalid = invalid & (state.last_time_shift >= 0)[:, None]
         mask = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
         mask[:, self.time_start:self.time_end] = invalid
         return torch.where(mask, -torch.inf, scores)
 
-    def _temperature(self, state: LogitsState, scores: torch.Tensor) -> torch.Tensor:
+    def _temperature(self, state: LogitsState, scores: torch.Tensor, consts: ChainConstants) -> torch.Tensor:
         if not self.types_first:
             return scores / self.temperature
         # keyed on the previous token of the FIRST row, for the whole batch
         # (as the reference's processor reads input_ids[0])
-        temp = torch.tensor(self.temperature, dtype=torch.float32, device=scores.device)
-        prev = state.last_token[0]
-        for t, tokens in self._conditionals():
-            hit = torch.zeros((), dtype=torch.bool, device=scores.device)
-            for tok in tokens:
-                hit = hit | (prev == tok)
-            temp = torch.where(hit, torch.tensor(t, dtype=torch.float32, device=scores.device), temp)
-        return scores / temp
+        prev = state.last_token[0].long()
+        start = self.vocab_size  # the table's entry for "no previous token"
+        return scores / consts.temperatures[torch.where((prev >= 0) & (prev < start), prev, start)]
 
     def _conditionals(self):
         # the reference returns on the first matching conditional; applying
@@ -122,24 +161,17 @@ class LogitsPipeline:
             conds.append((self.taiko_hit_temperature, self.scroll_speed_tokens))
         return reversed(conds)
 
-    def _lookback_bias(self, state: LogitsState, scores: torch.Tensor) -> torch.Tensor:
+    def _lookback_bias(self, state: LogitsState, scores: torch.Tensor, consts: ChainConstants) -> torch.Tensor:
         """Move the lookback-window token mass into EOS."""
-        device = scores.device
-        lb_start = self.time_start
-        lb_end = self.time_start + int(self.lookback_max_time / MILLISECONDS_PER_STEP)
-        lb_mask = torch.zeros(self.vocab_size, dtype=torch.bool, device=device)
-        lb_mask[lb_start:lb_end] = True
+        lb_start, lb_mask = self.time_start, consts.lookback
         if not self.types_first:
             return torch.where(lb_mask[None, :], -torch.inf, scores)
 
-        timed = torch.tensor(self.timed_token_mask, dtype=torch.bool, device=device)
         last = state.last_token.long()
-        last_timed = timed[last.clamp(0, self.vocab_size - 1)] & (last >= 0)
+        last_timed = consts.timed[last.clamp(0, self.vocab_size - 1)] & (last >= 0)
         last_probs = torch.softmax(state.last_scores, dim=-1)
         probs = torch.softmax(scores, dim=-1)
-        eos_mask = torch.zeros(self.vocab_size, dtype=torch.bool, device=device)
-        eos_mask[list(self.eos_ids)] = True
-        prob_eos = (last_probs * eos_mask[None, :]).sum(-1)
+        prob_eos = (last_probs * consts.eos[None, :]).sum(-1)
         prob_event = 1 - prob_eos
         other = ~lb_mask
         s = 1 / ((probs * other[None, :]).sum(-1) * prob_event + prob_eos)

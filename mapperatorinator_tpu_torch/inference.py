@@ -37,6 +37,7 @@ import uuid
 from functools import reduce
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .config import load_config, select_device
@@ -451,16 +452,28 @@ def should_load_separate_timing_model(args, output_type=None) -> bool:
     return str(current) != str(base)
 
 
+def warm_engine(engine, train_args) -> None:
+    """Allocate the engine's decode buffers and run its prompt-bucket prefill
+    ladder for the serving batch shapes (B 1, the timing pass; B 2, the CFG
+    pair) ahead of the first request (``precompile=true``)."""
+    n = (train_args.data.src_seq_len - 1) * train_args.data.hop_length
+    enc = engine.encode_with_cond(np.zeros((1, n), np.float32))
+    engine.precompile(enc)
+    engine.precompile(torch.cat([enc, enc]))
+
+
 def run(args):
     """Everything after the configuration: load the model, compile the
-    arguments, generate. PyTorch runs eagerly, so ``precompile`` has nothing
-    to warm. :func:`generate` refuses super-timing, DiT refinement and the
-    batching server."""
+    arguments, warm the engine when ``precompile`` is set, generate.
+    :func:`generate` refuses super-timing, DiT refinement and the batching
+    server."""
     engine, vocab = load_model(args)
     compile_args(args, vocab)
     if should_load_separate_timing_model(args):
         raise NotImplementedError("a separate timing model (the base checkpoint beside a gamemode=N fine-tune): "
                                   "ROADMAP queue 1, item 9")
+    if getattr(args, "precompile", False):
+        warm_engine(engine, args.train)
     generation_config, beatmap_config = get_config(args)
     return generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
                     engine=engine, vocab=vocab)

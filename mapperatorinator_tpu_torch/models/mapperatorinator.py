@@ -230,9 +230,13 @@ class Mapperatorinator(nn.Module):
     def init_cache(self, batch: int, max_len: int, encoder_states: torch.Tensor) -> list:
         return self.transformer.init_cache(batch, max_len, encoder_states)
 
-    def decode_step(self, input_embeds, cache, cache_index: int, self_mask=None, positions=None):
+    def cross_cache(self, encoder_states: torch.Tensor) -> list:
+        return self.transformer.cross_cache(encoder_states)
+
+    def decode_step(self, input_embeds, cache, cache_index, self_mask=None, positions=None,
+                    limit: Optional[int] = None):
         return self.transformer.decode_step(input_embeds, cache, cache_index, self_mask=self_mask,
-                                            positions=positions)
+                                            positions=positions, limit=limit)
 
 
 def build_model(cfg: MapperatorinatorConfig, device) -> Mapperatorinator:

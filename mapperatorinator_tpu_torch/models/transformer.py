@@ -15,10 +15,13 @@ Attention follows the JAX routing. A call that is structurally eligible for
 the flash kernel (no cache, no position bias, scaled, at most a key-padding
 mask) goes to :func:`..ops.attention_kernel.flash_attention`, for every shape:
 the JAX package's ``flash_min_logits`` gate is a TPU v5e measurement and is
-not carried over. Cached decode attention is plain PyTorch over the live
-prefix of the cache. The KV cache is preallocated and updated in place (the
-JAX package returns a new cache; the dicts returned here are the same
-objects that were passed in).
+not carried over. Cached decode attention is plain PyTorch over a static
+prefix of the cache: the end of the ``decode_attend_bucket`` bucket that
+holds the write slot, which the caller passes as ``limit``, so that a step
+indexed by a device tensor has static shapes and can be captured in a CUDA
+graph. The KV cache is preallocated and updated in place (the JAX package
+returns a new cache; the dicts returned here are the same objects that were
+passed in).
 
 The int8 options follow the JAX package too: ``quantized_weights`` makes
 every attention projection, feed-forward layer and untied LM head a
@@ -217,8 +220,8 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> t
 
 
 def _read_kv(cache: dict, end: Optional[int], dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """The cached k and v up to slot ``end`` (all slots for None), dequantized
-    when the cache is int8."""
+    """The cached k and v up to slot ``end`` (all slots for None), sliced
+    before an int8 cache is dequantized."""
     k, v = cache["k"][:, :end], cache["v"][:, :end]
     if "k_scale" in cache:
         k = dequantize_kv(k, cache["k_scale"][:, :end], dtype)
@@ -269,6 +272,16 @@ def dynamic_ntk_theta(theta: float, head_dim: int, seq_len: int, max_positions: 
         return theta
     scale = (factor * seq_len / max_positions) - (factor - 1)
     return theta * scale ** (head_dim / (head_dim - 2))
+
+
+def decode_read_limit(bucket: int, cache_index: int, buffer_len: int) -> int:
+    """The slots a one-token cached step at ``cache_index`` reads: the end of
+    the ``decode_attend_bucket`` bucket that holds it (the JAX
+    ``_bucketed_decode_attend``), or the whole buffer where ``bucket`` is 0 or
+    covers it. Each bucket is one static shape."""
+    if bucket <= 0 or buffer_len <= bucket:
+        return buffer_len
+    return min((cache_index // bucket + 1) * bucket, buffer_len)
 
 
 def sliding_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
@@ -323,12 +336,17 @@ class Attention(nn.Module):
         positions: Optional[torch.Tensor] = None,
         attn_mask: Optional[torch.Tensor] = None,
         cache: Optional[dict] = None,
-        cache_index: Optional[int] = None,
+        cache_index=None,
+        limit: Optional[int] = None,
     ):
         """Returns (out, cache). ``cache`` holds (B, max_len, H, D) k/v written
         in place at ``cache_index`` (int8 with (B, max_len, H) ``k_scale`` /
-        ``v_scale`` under ``quantized_kv``); cross attention reads its k/v from
-        the cache when one is given. ``attn_mask`` is a (B, 1, 1, S) key mask."""
+        ``v_scale`` under ``quantized_kv``): a Python int, or a 0-d long
+        tensor on the device. Self attention then reads the first ``limit``
+        slots, a static length past the last slot written (default: that
+        slot, which needs an int index); masked slots add exactly 0. Cross
+        attention reads its k/v from the cache when one is given.
+        ``attn_mask`` is a (B, 1, 1, S) key mask."""
         cfg = self.cfg
         b, t, _ = x.shape
         h = self.num_heads
@@ -362,21 +380,23 @@ class Attention(nn.Module):
 
         if cache is not None:
             # keys past the last written slot are causally masked for every
-            # query, so only the live prefix of the buffer is read
-            end = cache_index + t
+            # query, so only a prefix of the buffer that holds them is read
+            q_pos = cache_index + torch.arange(t, device=x.device)
+            if limit is None:
+                limit = cache_index + t
             for name, x_new in (("k", k), ("v", v)):
                 if "k_scale" in cache:
-                    x_new, cache[f"{name}_scale"][:, cache_index:end] = quantize_kv(x_new)
-                cache[name][:, cache_index:end] = x_new.to(cache[name].dtype)
-            k, v = _read_kv(cache, end, cfg.dtype)
-            k_pos = torch.arange(end, device=x.device)
-            q_pos = cache_index + torch.arange(t, device=x.device)
+                    x_new, scale = quantize_kv(x_new)
+                    cache[f"{name}_scale"].index_copy_(1, q_pos, scale)
+                cache[name].index_copy_(1, q_pos, x_new.to(cache[name].dtype))
+            k, v = _read_kv(cache, limit, cfg.dtype)
+            k_pos = torch.arange(limit, device=x.device)
             mask = k_pos[None, :] <= q_pos[:, None]
             if self.is_local:
                 mask = mask & sliding_window_mask(q_pos, k_pos, cfg.local_attention)
             mask = mask[None, None]
             if attn_mask is not None:
-                mask = mask & attn_mask[..., :end]
+                mask = mask & attn_mask[..., :limit]
             out = attend(q, k, v, mask, cfg.dtype)
         elif self.use_flash and _key_mask_only(attn_mask):
             out = flash_attention(
@@ -440,10 +460,10 @@ class DecoderLayer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
 
     def forward(self, x, encoder_states, positions, self_mask=None, cross_mask=None,
-                cache: Optional[dict] = None, cache_index: Optional[int] = None):
+                cache: Optional[dict] = None, cache_index=None, limit: Optional[int] = None):
         attn_out, _ = self.self_attn(
             self.self_attn_norm(x), positions=positions, attn_mask=self_mask,
-            cache=cache["self"] if cache is not None else None, cache_index=cache_index,
+            cache=cache["self"] if cache is not None else None, cache_index=cache_index, limit=limit,
         )
         x = x + attn_out
         cross_out, _ = self.cross_attn(
@@ -485,14 +505,14 @@ class Decoder(nn.Module):
         self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
 
     def forward(self, inputs_embeds, encoder_states, positions=None, self_mask=None,
-                cross_mask=None, cache: Optional[list] = None, cache_index: Optional[int] = None):
+                cross_mask=None, cache: Optional[list] = None, cache_index=None, limit: Optional[int] = None):
         x = inputs_embeds.to(self.cfg.dtype)
         b, t, _ = x.shape
         if positions is None:
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
         for i, layer in enumerate(self.layers):
             x = layer(x, encoder_states, positions, self_mask, cross_mask,
-                      cache[i] if cache is not None else None, cache_index)
+                      cache[i] if cache is not None else None, cache_index, limit)
         return self.norm(x)
 
 
@@ -538,36 +558,43 @@ class OsuTransformer(nn.Module):
         cfg = self.cfg
         h, d = cfg.decoder_heads, cfg.head_dim
         dev = encoder_states.device
-        caches = []
+        if cfg.quantized_kv:
+            parts = {"k": torch.int8, "k_scale": torch.float32, "v": torch.int8, "v_scale": torch.float32}
+        else:
+            parts = {"k": cfg.dtype, "v": cfg.dtype}
+        return [{"self": {name: torch.zeros((batch, max_len, h) + (() if "scale" in name else (d,)), dtype=dt,
+                                            device=dev) for name, dt in parts.items()},
+                 "cross": cross}
+                for cross in self.cross_cache(encoder_states)]
+
+    def cross_cache(self, encoder_states: torch.Tensor) -> list:
+        """Each decoder layer's cross-attention k/v of ``encoder_states``, in
+        the cache's format."""
+        cfg = self.cfg
+        h, d = cfg.decoder_heads, cfg.head_dim
+        out = []
         for layer in self.decoder.layers:
             kv = layer.cross_attn.wkv(encoder_states)
             kv = kv.view(kv.shape[0], kv.shape[1], 2 * h, d)
             k, v = kv[:, :, :h], kv[:, :, h:]
             if cfg.quantized_kv:
                 (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-                slots = lambda: torch.zeros((batch, max_len, h, d), dtype=torch.int8, device=dev)  # noqa: E731
-                scales = lambda: torch.zeros((batch, max_len, h), dtype=torch.float32, device=dev)  # noqa: E731
-                caches.append({
-                    "self": {"k": slots(), "k_scale": scales(), "v": slots(), "v_scale": scales()},
-                    "cross": {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs},
-                })
+                out.append({"k": kq, "k_scale": ks, "v": vq, "v_scale": vs})
             else:
-                zeros = lambda: torch.zeros((batch, max_len, h, d), dtype=cfg.dtype, device=dev)  # noqa: E731
-                caches.append({
-                    "self": {"k": zeros(), "v": zeros()},
-                    "cross": {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)},
-                })
-        return caches
+                out.append({"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)})
+        return out
 
-    def decode_step(self, input_embeds, cache: list, cache_index: int, self_mask=None,
-                    cross_mask=None, positions=None):
+    def decode_step(self, input_embeds, cache: list, cache_index, self_mask=None,
+                    cross_mask=None, positions=None, limit: Optional[int] = None):
         """One step (or a chunk) of cached decode: ``input_embeds`` (B, t, D)
-        are written at cache slots ``cache_index .. cache_index + t``;
+        are written at cache slots ``cache_index .. cache_index + t``
+        (``cache_index`` a Python int, or a 0-d long tensor on the device);
+        self attention reads the first ``limit`` slots (:class:`Attention`);
         ``positions`` (B, t) are the RoPE positions (default: the slots).
         Returns (logits, cache)."""
         b, t, _ = input_embeds.shape
         if positions is None:
             positions = (cache_index + torch.arange(t, device=input_embeds.device))[None].expand(b, t)
         x = self.decoder(input_embeds, None, positions=positions, self_mask=self_mask,
-                         cross_mask=cross_mask, cache=cache, cache_index=cache_index)
+                         cross_mask=cross_mask, cache=cache, cache_index=cache_index, limit=limit)
         return self.lm_head(x), cache

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, launches
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -357,7 +357,7 @@ def flash_fwd_fp32(q, k, v, kv_mask, causal, window, scale, with_lse):
         int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(fn.lib, err, "flash_fwd_fp32")
-    flash_fwd_fp32.launches += 1
+    launches.count(flash_fwd_fp32, "launches")
     return out, lse
 
 
@@ -385,7 +385,7 @@ def flash_bwd_fp32(q, k, v, kv_mask, out, lse, do, causal, window, scale):
         int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(fn.lib, err, "flash_bwd_fp32")
-    flash_bwd_fp32.launches += 1
+    launches.count(flash_bwd_fp32, "launches")
     return dq, dk, dv
 
 
@@ -407,7 +407,7 @@ def flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse):
         int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(fn.lib, err, "flash_fwd_sm90")
-    flash_fwd_sm90.launches += 1
+    launches.count(flash_fwd_sm90, "launches")
     return out, lse
 
 
@@ -435,7 +435,7 @@ def flash_bwd_sm90(q, k, v, kv_mask, out, lse, do, causal, window, scale):
         int(causal), int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(fn.lib, err, "flash_bwd_sm90")
-    flash_bwd_sm90.launches += 1
+    launches.count(flash_bwd_sm90, "launches")
     return dq.to(q.dtype), dk, dv
 
 

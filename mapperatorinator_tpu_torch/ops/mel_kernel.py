@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, launches
 from .attention_kernel import tf32_split
 
 MEL_TM = 64  # frames a tile (csrc/fused_mel.cu TM)
@@ -154,7 +154,7 @@ def fused_mel(frames, w_re, w_im, fbanks, log_scale: bool = False) -> torch.Tens
              b, n_frames, frames.stride(0), frames.stride(1), n_fft, n_freqs, n_mels, int(log_scale),
              plan.cluster, plan.nb, torch._C._cuda_getCurrentRawStream(frames.device.index))
     _build.check(fn.lib, err, "fused_mel")
-    fused_mel.launches += 1
+    launches.count(fused_mel, "launches")
     return out
 
 

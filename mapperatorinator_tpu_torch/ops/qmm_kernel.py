@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, launches
 from .attention_kernel import tf32_split
 
 _LANE = 128  # the TPU lane width the JAX gate tiles N by
@@ -159,13 +159,12 @@ def qmm_kernel(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.
         err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, k, n, bf16,
                  *gemv_plan(rows, k, n), stream)
         _build.check(fn.lib, err, "qmm (GEMV)")
-        qmm.launches_gemv += 1
+        launches.count(qmm, "launches", "launches_gemv")
     else:
         fn = _build.function("qmm", "qmm_tc", _TC_ARGTYPES)
         err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, k, n, bf16, stream)
         _build.check(fn.lib, err, "qmm (tensor cores)")
-        qmm.launches_tc += 1
-    qmm.launches += 1
+        launches.count(qmm, "launches", "launches_tc")
     return out
 
 
@@ -198,7 +197,7 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``(x @ wq) * scale``, differentiable in x. On a CUDA tensor: kernel D
     (:func:`qmm_kernel` says what it takes). ``qmm.launches`` counts kernel
     launches, ``qmm.launches_gemv`` and ``qmm.launches_tc`` those of each
-    path."""
+    path, replays of a captured :class:`.launches.Graph` included."""
     if torch.is_grad_enabled() and x.requires_grad:
         return QMMFunction.apply(x, wq, scale)
     return _forward(x, wq, scale)

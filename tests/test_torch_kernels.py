@@ -9,7 +9,10 @@ versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
 the bf16 pair (D 64); qmm on both of its paths (its GEMV path also for
 bit-equal repeats and a refused launch); the fused mel against both its
 plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
-on the frame layouts it takes and refuses. The file imports only
+on the frame layouts it takes and refuses. CUDA graphs: the GEMV captured
+and replayed, its counters counting the replays; a tiny engine's graphed
+``generate`` against its eager one; the sampler's noise against
+``torch.multinomial``. The file imports only
 torch and the port, so it runs where the JAX package's test helpers do not:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -475,3 +478,118 @@ def test_qmm_rejects_what_the_kernel_does_not_take(cuda):
         qmm_kernel(torch.randn((1, 64), device=cuda), wq.float(), scale)
     with pytest.raises(ValueError, match="fp32"):
         qmm_kernel(torch.randn((1, 64), device=cuda), wq, scale.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [(1, 768, 3072), (2, 768, 768), (1, 3072, 768)])
+def test_qmm_gemv_in_a_cuda_graph_matches_plain_and_counts_replays(cuda, dtype, rows, k, n):
+    """Kernel D's GEMV captured in a graph (a decode step's shapes): each
+    replay computes what ``qmm_plain`` gives on the inputs it then finds, and
+    the launch counters count the replays, not the capture."""
+    from mapperatorinator_tpu_torch.ops.launches import Graph
+
+    wq, scale = quantized(k, n, cuda)
+    x = torch.zeros((rows, k), device=cuda, dtype=dtype)
+    qmm(x, wq, scale)  # the warm-up a capture needs
+    torch.cuda.synchronize()
+    graph, out = Graph(), {}
+    before = qmm.launches, qmm.launches_gemv, qmm.launches_tc
+    graph.capture(lambda: out.setdefault("y", qmm(x, wq, scale)))
+    assert (qmm.launches, qmm.launches_gemv, qmm.launches_tc) == before
+    for seed in range(3):
+        x.copy_(torch.randn((rows, k), generator=torch.Generator().manual_seed(seed)).to(cuda, dtype))
+        graph.replay()
+        want = qmm_plain(x, wq, scale)
+        scale_out = max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(out["y"].float(), want.float(), rtol=0, atol=QMM_TOL[dtype] * scale_out)
+    assert (qmm.launches, qmm.launches_gemv, qmm.launches_tc) == (before[0] + 3, before[1] + 3, before[2])
+
+
+@pytest.mark.cuda
+def test_kernel_launches_outside_a_counted_graph_refuse_to_be_captured(cuda):
+    wq, scale = quantized(768, 768, cuda)
+    x = torch.randn((1, 768), device=cuda)
+    qmm(x, wq, scale)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="would not be counted"):
+        with torch.cuda.graph(graph):
+            qmm(x, wq, scale)
+
+
+def tiny_engine(device, int8: bool, bucket: int = 16, max_length: int = 96):
+    """A seeded random fp32 port model at the v32 architecture, 2 + 2 layers
+    of width 128 (lane-tileable, so int8 weights take kernel D), 2 heads,
+    each cached read in buckets of ``bucket`` slots; its engine and
+    vocabulary."""
+    import dataclasses
+
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.decode import DecodeEngine
+    from mapperatorinator_tpu_torch.models.io import quantize_model
+    from mapperatorinator_tpu_torch.models.mapperatorinator import build_config, build_model
+    from mapperatorinator_tpu_torch.models.params import init_params
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+
+    train = load_config("v32", ["train.data.src_seq_len=256", f"train.data.tgt_seq_len={max_length}"]).train
+    vocab = build_vocabulary(train)
+    cfg = build_config(train, vocab)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, d_model=128, encoder_layers=2, decoder_layers=2, encoder_heads=2, decoder_heads=2,
+        encoder_ffn=256, decoder_ffn=256, decode_attend_bucket=bucket, quantized_kv=int8, dtype=torch.float32))
+    model = build_model(cfg, device)
+    init_params(model, 0)
+    if int8:
+        model = quantize_model(model)
+    return DecodeEngine(model.eval(), max_length, vocab.pad_id, device=device), vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("rows,cfg_scale,sampled", [(1, 1.0, False), (1, 1.0, True), (2, 2.0, True)])
+def test_graphed_generate_equals_eager_generate(cuda, int8, rows, cfg_scale, sampled):
+    """A tiny engine's ``generate`` replaying CUDA graphs (one a bucket)
+    against the same engine stepping eagerly: the same tokens and end, with
+    kernel D launched inside the replays where the weights are int8."""
+    from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline
+    from mapperatorinator_tpu_torch.osu import EventType
+
+    engine, vocab = tiny_engine(cuda, int8)
+    pipeline = build_logits_pipeline(vocab, do_sample=sampled, temperature=0.9, top_p=0.9)
+    frames = torch.randn((1, 255 * 128), generator=torch.Generator().manual_seed(0)).numpy() * 0.1
+    enc = engine.encode_with_cond(frames)
+    if cfg_scale > 1:
+        enc = torch.cat([enc, enc])
+    ids = torch.randint(vocab.event_start[EventType.TIME_SHIFT], vocab.vocab_size_out, (rows, 20),
+                        generator=torch.Generator().manual_seed(1)).numpy()
+    ids[:, -1] = vocab.sos_id
+    results = {}
+    for graphs in (True, False, True):  # capture, eager, replay
+        engine.use_graphs = graphs
+        before = qmm.launches_gemv
+        tokens, end = engine.generate(enc, ids, pipeline, [], seed=7, cfg_scale=cfg_scale)  # no EOS: 76 steps
+        results.setdefault(graphs, []).append((tokens, end, qmm.launches_gemv - before))
+    (g1, g1_end, g1_gemv), (g2, g2_end, g2_gemv) = results[True]
+    ((e, e_end, e_gemv),) = results[False]
+    assert engine.captures == 5  # the buckets ending at 32, 48, 64, 80 and 96
+    assert g1_end == e_end == g2_end == 96 and (g1 == e).all() and (g2 == e).all()
+    # 2 layers x (self qkv and out, cross q and out, fc1, fc2) a step
+    assert g1_gemv == e_gemv == g2_gemv == (12 * 76 if int8 else 0)
+
+
+@pytest.mark.cuda
+def test_noise_drawn_a_block_at_a_time_samples_what_multinomial_samples(cuda):
+    """The decode step samples by ``torch.multinomial``'s own exponential
+    race, its noise drawn outside the step one ``exponential_`` a step from
+    the call's generator: on the card too, the same tokens as
+    ``torch.multinomial`` from a generator with the same seed."""
+    from mapperatorinator_tpu_torch.decode.engine import NOISE_BLOCK
+
+    probs = torch.softmax(torch.randn((2, 4097), generator=torch.Generator().manual_seed(0)).to(cuda) * 3, dim=-1)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    want = torch.stack([torch.multinomial(probs, 1, generator=gen)[:, 0] for _ in range(2 * NOISE_BLOCK)])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    noise = torch.empty((2 * NOISE_BLOCK, 2, 4097), device=cuda)
+    for row in noise:
+        row.exponential_(generator=gen)
+    assert torch.equal((probs / noise).argmax(dim=-1), want)
