@@ -55,7 +55,17 @@
    device ms a step, the device's idle share, kernel D's GEMV found by name
    inside the replays). Request 3's engine then runs ``forward_stats``,
    ``generate_forced`` and ``generate_beams`` against ``forward`` and
-   ``generate``.
+   ``generate``. Three more phases on the full-width v32 model follow:
+   MaiMod (``mai_mod.ai_mod``, as ``run_analysis`` runs it) on request 2's
+   .osu, or on a dense map where that one has no timing point, whose
+   teacher-forced decoder must launch kernel B (36 launches a batch), its
+   first batch's ``forward_stats`` held against plain attention;
+   ``generate`` with ``super_timing=true`` at v32's 20 ensemble members,
+   every pooled window decoded on the graphed step at up to 32 rows; and the
+   batching server (``infer/server.py``) in this process, two greedy
+   requests from two client threads batched together on its batch thread,
+   whose first batch of more than one row must decode to the same tokens
+   when the engine glue is called on it directly.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -81,12 +91,17 @@ Details (compiler logs, all numbers) go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import itertools
 import json
 import math
+import os
 import statistics
 import sys
 import tempfile
+import threading
 import time
 import wave
 from pathlib import Path
@@ -146,6 +161,8 @@ TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS = 32, 2, 6
 # micro-steps, as the fp32 gradient check's batch
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 2, 2
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
+TIMER_ITERATIONS = 20  # super-timing: v32's ensemble size; a cut would be printed here
+SERVER_JOIN_S = 600  # the server phase's two requests must return within this
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "mapperatorinator_tpu")
 
 
@@ -885,6 +902,16 @@ def set_qmm(model, on: bool) -> None:
             m.use_kernel = on
 
 
+def fmt_bytes(n: int | None) -> str:
+    return "not measured" if n is None else f"{n / 2**20:.1f} MiB"
+
+
+def check_full_width(model) -> None:
+    b = model.cfg.backbone
+    if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn) != (768, 12, 12, 12, 3072):
+        raise AssertionError(f"not the full-width v32 backbone: {b}")
+
+
 def window0(args):
     from mapperatorinator_tpu_torch.infer import Preprocessor
 
@@ -910,12 +937,11 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
 
     engine, vocab = inference.load_model(args)
     inference.compile_args(args, vocab, verbose=False)
-    b = engine.model.cfg.backbone
-    if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn) != (768, 12, 12, 12, 3072):
-        raise AssertionError(f"not the full-width v32 backbone: {b}")
+    check_full_width(engine.model)
     generation_config, beatmap_config = inference.get_config(args)
 
     stats = {"tokens": 0, "decode_s": 0.0, "windows": 0}
+    by_rows = collections.defaultdict(lambda: {"calls": 0, "steps": 0, "s": 0.0})  # decode calls by batch rows
     first = {}
     inner = engine.generate
 
@@ -924,9 +950,14 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         tokens, end = inner(encoder_states, ids, *a, **kw)
         if not first:
             first.update(ids=ids, tokens=tokens, end=end)
-        stats["decode_s"] += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        stats["decode_s"] += seconds
         stats["tokens"] += int((tokens != vocab.pad_id).sum() - (ids != vocab.pad_id).sum())
         stats["windows"] += 1
+        call = by_rows[int(ids.shape[0])]
+        call["calls"] += 1
+        call["steps"] += int(end) - ids.shape[1]
+        call["s"] += seconds
         return tokens, end
 
     engine.generate = counted
@@ -953,7 +984,8 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         "tokens": stats["tokens"], "tok_per_s": stats["tokens"] / wall, "decode_tok_per_s":
         stats["tokens"] / stats["decode_s"] if stats["decode_s"] else 0.0, "peak_mem_gb": peak / 2**30,
         "launches": launches, "hit_objects": len(beatmap.hit_objects()), "timing_points": len(beatmap.timing_points),
-        "osu_bytes": len(text.encode()), "graphs": graphs,
+        "osu_bytes": len(text.encode()), "osu_path": str(path), "graphs": graphs,
+        "decode_rows": {rows: {**c, "ms_per_step": 1e3 * c["s"] / max(c["steps"], 1)} for rows, c in by_rows.items()},
     }
     print(f"request {label}: wall {wall:.2f} s, {stats['windows']} windows, {stats['tokens']} tokens generated, "
           f"{result['tok_per_s']:.1f} tok/s ({result['decode_tok_per_s']:.1f} tok/s in decode), "
@@ -1098,9 +1130,8 @@ def decode_graphs(engines: dict, encs: dict, ids, args, vocab) -> dict:
         stats = {"captures": engine.captures - captures, "capture_s": engine.capture_seconds - capture_s,
                  "pool_bytes": pool_bytes(engine)}
         out["engines"][name] = stats
-        pool = "not measured" if stats["pool_bytes"] is None else f"{stats['pool_bytes'] / 2**20:.1f} MiB"
         print(f"decode graphs, {name}: {stats['captures']} graphs captured in {stats['capture_s']:.2f} s; the "
-              f"engine's graph pool holds {pool}")
+              f"engine's graph pool holds {fmt_bytes(stats['pool_bytes'])}")
     return out
 
 
@@ -1246,6 +1277,271 @@ def int8_request(tmp: Path, wav: Path, report: dict) -> dict:
     return serve("3-int8-checkpoint", tmp, wav, [f"model_path={ckpt}", "quantized_weights=true",
                                                  "quantized_kv=true", "do_sample=false"],
                  report, check_encoder=False, after=int8_checks(ckpt))
+
+
+def maimod_phase(tmp: Path, wav: Path, osu: str, report: dict) -> dict:
+    """MaiMod on request 2's .osu and WAV, with request 2's overrides (the
+    fused mel): ``mai_mod.run_analysis``'s steps, the engine kept for the
+    checks. Random weights may write a map with no timing point, which MaiMod
+    cannot read (its parser asserts one, as the JAX one does); the phase then
+    analyses a dense map instead, a circle every 50 ms over the song (the
+    ``ors`` maps' layout, ``OSU_TEMPLATE``), and prints which. Every batch's
+    encoder and teacher-forced decoder (``forward_stats``: 12 self-attention
+    calls, causal with the key mask, and 12 cross) must launch kernel B, 36
+    launches a batch. On the first batch, ``forward_stats``
+    through the kernel is held against the same call on plain attention:
+    surprisal and entropy within ENC_TOL, argmax ids equal except at near-ties
+    (where the plain logits of the two ids differ by at most twice the largest
+    logit error between the two paths), which are counted."""
+    from mapperatorinator_tpu_torch import inference, mai_mod
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+
+    written = Beatmap.from_path(osu)
+    source = "request 2's .osu"
+    if not (written.timing_points and written.hit_objects()):
+        rng = np.random.default_rng(0)
+        objects = "\n".join(f"{int(rng.integers(50, 450))},{int(rng.integers(50, 330))},{500 + k * 50},"
+                            f"{5 if k % 8 == 0 else 1},0,0:0:0:0:" for k in range(int((AUDIO_SECONDS - 1) * 20)))
+        osu = tmp / "dense.osu"
+        osu.write_text(OSU_TEMPLATE.format(i=0, bid=1, objects=objects))
+        source = (f"a dense map (request 2's has {len(written.timing_points)} timing points and "
+                  f"{len(written.hit_objects())} hit objects)")
+    args = load_config("v32", ["model_path=", "seed=0", f"audio_path={wav}", f"beatmap_path={osu}", "gamemode=0",
+                               "do_sample=false", "train.model.spectrogram.implementation=pallas"])
+    args = mai_mod.select_config_for_gamemode(args)
+    engine, vocab = inference.load_model(args)
+    check_full_width(engine.model)
+    inference.compile_args(args, vocab, verbose=False)
+    generation_config, _ = inference.get_config(args)
+
+    calls, first = [], {}
+    forward_stats = engine.forward_stats
+
+    def recorded(encoder_states, ids, *a, **kw):
+        out = forward_stats(encoder_states, ids, *a, **kw)
+        calls.append([int(x) for x in ids.shape])
+        if not first:
+            first.update(enc=encoder_states, ids=ids, out=out)
+        return out
+
+    engine.forward_stats = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_launches()
+    fused_mel.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        records = mai_mod.ai_mod(args, generation_config=generation_config, engine=engine, vocab=vocab,
+                                 beatmap_path=args.beatmap_path, raw_output=True, structured=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**attention_launches(), "fused_mel": fused_mel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    engine.forward_stats = forward_stats
+    windows = sum(c[0] for c in calls)
+    print(f"maimod on {source}: {windows} windows in {len(calls)} forward_stats calls (B, T) {calls}, {wall:.2f} s, "
+          f"{len(records)} suggestions, peak memory {peak / 2**30:.2f} GiB, launches {launches}")
+    b = engine.model.cfg.backbone
+    want = {name: 0 for name in attention_launches()}
+    want["flash_attention_fwd"] = (b.encoder_layers + 2 * b.decoder_layers) * len(calls)
+    if not calls or {k: launches[k] for k in want} != want or launches["fused_mel"] == 0:
+        raise AssertionError(f"maimod launched {launches}, not {want} and the fused mel")
+
+    enc, ids, (sur, ent, arg) = first["enc"], first["ids"], first["out"]
+    set_flash(engine.model, False)
+    p_sur, p_ent, p_arg = forward_stats(enc, ids)
+    plain_logits = engine.forward(enc, ids)
+    set_flash(engine.model, True)
+    flash_logits = engine.forward(enc, ids)
+    logit_err = float(np.abs(flash_logits - plain_logits).max())
+    scored = ~np.isnan(p_sur)
+    sur_err = float(np.abs(sur - p_sur)[scored].max()) if scored.any() else 0.0
+    ent_err = float(np.abs(ent - p_ent).max())
+    differ = np.argwhere(arg != p_arg)
+    gaps = [float(plain_logits[b, t, p_arg[b, t]] - plain_logits[b, t, arg[b, t]]) for b, t in differ]
+    ties = sum(g <= 2 * logit_err for g in gaps)
+    check = {"shape": [int(x) for x in ids.shape], "surprisal_max_err": sur_err, "entropy_max_err": ent_err,
+             "logits_max_err": logit_err, "argmax_differ": len(gaps), "near_ties": ties, "tol": ENC_TOL}
+    print(f"maimod, first batch {tuple(ids.shape)}: forward_stats through kernel B vs plain attention: surprisal "
+          f"max_abs_err {sur_err:.3e}, entropy {ent_err:.3e} (tol {ENC_TOL:g}); argmax ids differ at {len(gaps)} "
+          f"of {arg.size} positions, {ties} of them near-ties (logits max_abs_err {logit_err:.3e})")
+    if not (np.array_equal(np.isnan(sur), ~scored) and sur_err <= ENC_TOL and ent_err <= ENC_TOL
+            and ties == len(gaps) and np.isfinite(ent).all()):
+        raise AssertionError(f"maimod's forward_stats through kernel B disagrees with plain attention: {check}")
+    report["maimod"] = {"map": source, "wall_s": wall, "windows": windows, "calls": calls, "suggestions": len(records),
+                        "peak_mem_gb": peak / 2**30, "launches": launches, "check": check,
+                        "report_head": printed.getvalue().splitlines()[:12]}
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def super_timing_phase(tmp: Path, wav: Path, report: dict) -> dict:
+    """``generate`` with ``super_timing=true`` at v32's ``timer_iterations``:
+    the ensemble pools every member's windows into parallel decodes of up to
+    ``max_batch_size`` rows on the graphed step. Every window of every member
+    must come back decoded; random weights may give no usable timing, and
+    the run then falls back to the fixed redline, which is printed."""
+    from mapperatorinator_tpu_torch.infer.processor import Processor
+    from mapperatorinator_tpu_torch.infer.super_timing import SuperTimingGenerator
+    from mapperatorinator_tpu_torch.osu.rendering import Renderer
+
+    windows = {"pooled": 0, "decoded": 0}
+    timing = {"ensemble_events": [], "timing_points": []}  # what the ensemble gave; what each timing became
+    patched = {(Processor, "run_parallel_sessions"): Processor.run_parallel_sessions,
+               (Processor, "consume_parallel_row"): Processor.consume_parallel_row,
+               (SuperTimingGenerator, "generate"): SuperTimingGenerator.generate,
+               (Renderer, "generate_timing"): Renderer.generate_timing}
+
+    def pooled(self, sessions, verbose=True):
+        windows["pooled"] += sum(len(state["windows"]) for state in sessions)
+        return patched[Processor, "run_parallel_sessions"](self, sessions, verbose)
+
+    def decoded(self, state, frame_time, row):
+        windows["decoded"] += 1
+        return patched[Processor, "consume_parallel_row"](self, state, frame_time, row)
+
+    def ensemble(self, *a, **kw):
+        events, times = patched[SuperTimingGenerator, "generate"](self, *a, **kw)
+        timing["ensemble_events"].append(len(events))
+        return events, times
+
+    def timing_points(self, events):
+        points = patched[Renderer, "generate_timing"](self, events)
+        timing["timing_points"].append(len(points))
+        return points
+
+    for (cls, name), fn in zip(patched, (pooled, decoded, ensemble, timing_points)):
+        setattr(cls, name, fn)
+    try:
+        launches = serve("4-super-timing", tmp, wav, ["super_timing=true", f"timer_iterations={TIMER_ITERATIONS}"],
+                         report, check_encoder=False)
+    finally:
+        for (cls, name), fn in patched.items():
+            setattr(cls, name, fn)
+    result = report["requests"][-1]
+    # inference.generate renders the ensemble's events as timing first, when there are any
+    fallback = timing["ensemble_events"] == [0] or timing["timing_points"][:1] == [0]
+    result.update(super_timing={"iterations": TIMER_ITERATIONS, "windows": windows, **timing,
+                                "fallback_redline": fallback})
+    print(f"super-timing: {TIMER_ITERATIONS} members, {windows['pooled']} windows pooled, {windows['decoded']} "
+          f"decoded; decode calls by batch rows: "
+          + ", ".join(f"B {rows}: {c['calls']} calls, {c['steps']} steps, {c['ms_per_step']:.3f} ms a step (host "
+                      "clock, captures included)" for rows, c in sorted(result["decode_rows"].items()))
+          + f"; {result['graphs']['captures']} graphs captured in {result['graphs']['capture_s']:.2f} s, a graph "
+          f"pool of {fmt_bytes(result['graphs']['pool_bytes'])}; the ensemble gave {timing['ensemble_events'][0]} timing events, "
+          + ("no usable timing: the fixed redline" if fallback else f"{timing['timing_points'][0]} timing points")
+          + f"; the .osu has {result['timing_points']} timing points")
+    if windows["pooled"] == 0 or windows["decoded"] != windows["pooled"]:
+        raise AssertionError(f"super-timing decoded {windows['decoded']} of {windows['pooled']} pooled windows")
+    return launches
+
+
+def server_phase(tmp: Path, wav: Path, report: dict) -> dict:
+    """The batching server in this process, serving one engine from its batch
+    thread, and two greedy requests sent at once from two clients in two
+    threads (difficulty 4 and 7). The first batch of more than one row is
+    decoded again by a direct call of the same engine glue: the tokens must
+    be equal. Both .osu files must parse. A request the server keeps failing
+    raises in its thread (the client's RuntimeError) and ends the run."""
+    from mapperatorinator_tpu_torch import inference
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.infer.server import InferenceClient, InferenceServer, make_engine_generate_fn
+    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+
+    out = tmp / "5-server"
+    out.mkdir()
+    args = [load_config("v32", ["model_path=", "seed=0", f"audio_path={wav}", f"output_path={out}", "gamemode=0",
+                                "do_sample=false", f"difficulty={d}", f"title=Request {i}"])
+            for i, d in enumerate((4, 7))]
+    engine, vocab = inference.load_model(args[0])
+    check_full_width(engine.model)
+    glue = make_engine_generate_fn(engine, vocab)
+    rows, recorded = [], {}
+
+    def generate_fn(model_kwargs, generate_kwargs):
+        batch = ({k: v.copy() for k, v in model_kwargs.items()}, dict(generate_kwargs))
+        tokens, stats = glue(model_kwargs, generate_kwargs)
+        rows.append(int(batch[0]["frames"].shape[0]))
+        if rows[-1] > 1 and not recorded:
+            recorded.update(batch=batch, tokens=tokens.copy())
+        return tokens, stats
+
+    # relative to the working directory (the repo root): a Unix socket's path may hold 107 bytes
+    server = InferenceServer(generate_fn, max_batch_size=args[0].max_batch_size,
+                             socket_path=os.path.relpath(OUT_DIR / "server.sock"))
+    results, errors, served = {}, {}, {}
+    start = threading.Barrier(2)
+
+    def request(i):
+        try:
+            client = InferenceClient(socket_path=server.socket_path)
+            served[i] = {"tokens": 0, "seconds": 0.0}
+            call = client.generate
+
+            def counted(model_kwargs, generate_kwargs):
+                tokens = call(model_kwargs, generate_kwargs)
+                served[i]["tokens"] += client.last_generation_stats["generated_tokens"]
+                served[i]["seconds"] += client.last_generation_stats["elapsed_seconds"]
+                return tokens
+
+            client.generate = counted
+            inference.compile_args(args[i], vocab, verbose=False)
+            generation_config, beatmap_config = inference.get_config(args[i])
+            start.wait(timeout=60)
+            results[i] = inference.generate(args[i], generation_config=generation_config,
+                                            beatmap_config=beatmap_config, engine=engine, vocab=vocab,
+                                            verbose=False, client=client)
+            client.close()
+        except BaseException as e:  # handed to the main thread, which raises it
+            errors[i] = e
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_launches()
+    server.start()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVER_JOIN_S)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a request to the server did not return within {SERVER_JOIN_S} s")
+    for e in errors.values():
+        raise e
+    torch.cuda.synchronize()
+    launches = attention_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (text, path) in results.items():
+        beatmap = Beatmap.from_path(path)
+        if beatmap.mode != 0 or beatmap.title != f"Request {i}" or "[HitObjects]" not in text:
+            raise AssertionError(f"server request {i}: {path} does not read back as the requested beatmap")
+    if not recorded:
+        raise AssertionError(f"the batch thread never formed a batch of more than one row: {rows}")
+    direct, _ = glue(*recorded["batch"])
+    equal = bool(np.array_equal(direct, recorded["tokens"]))
+    result = {"wall_s": wall, "batch_rows": rows, "requests": served, "launches": launches, "peak_mem_gb": peak / 2**30,
+              "captures": engine.captures, "capture_s": engine.capture_seconds,
+              "recorded_batch_rows": int(recorded["batch"][0]["frames"].shape[0]), "direct_tokens_equal": equal}
+    report["server"] = result
+    print(f"server: two requests in {wall:.2f} s, {len(rows)} batches by rows {dict(collections.Counter(rows))}, "
+          + ", ".join(f"request {i} {r['tokens']} tokens at {r['tokens'] / r['seconds']:.1f} tok/s"
+                      for i, r in sorted(served.items()))
+          + f"; {engine.captures} graphs captured in {engine.capture_seconds:.2f} s on the batch thread; peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {launches}; the first {result['recorded_batch_rows']}-row batch decoded "
+          f"again by a direct call: tokens {'equal' if equal else 'DIFFERENT'}")
+    if not equal or launches["flash_attention_fwd"] == 0:
+        raise AssertionError(f"the server phase failed its checks: {result}")
+    del engine, glue
+    torch.cuda.empty_cache()
+    return launches
 
 
 OSU_TEMPLATE = """osu file format v14
@@ -1570,12 +1866,17 @@ def main() -> int:
         tokens = [r["tokens"] for r in report["requests"]]
         print(f"serving: the three requests generated {tokens} tokens (seeded random weights, greedy decoding "
               f"with near-ties: a count is a property of the seed and the kernels' rounding)")
+        maimod = maimod_phase(tmp, wav, report["requests"][1]["osu_path"], report)
+        super_timing = super_timing_phase(tmp, wav, report)
+        server = server_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
-    served = {k: first[k] + second[k] + third[k] for k in first}
+    serving_paths = (first, second, third, maimod, super_timing, server)
+    served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training; the gradient check's are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) for k in served}
-    report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third,
+    report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
+                                  "super-timing": super_timing, "server": server,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "gradient check (fp32 and bf16, first batch; not a main path)": checked}
     for entry in kernels:

@@ -1,11 +1,13 @@
 """Resolved configurations, readable without yaml, and the device choice.
 
 ``configs/<name>.json`` is the JAX loader's composition of
-``configs/inference/<name>.yaml`` (the nested training config included), and
-``configs/train_<name>.json`` that of ``configs/train/<name>.yaml``, each
-written out once and checked in; ``tests/test_torch_config.py`` recomposes
-them and fails if they drift apart. :func:`load_config` and
-:func:`load_train_config` turn them into attribute namespaces with the
+``configs/inference/<name>.yaml`` (the nested training config included),
+``configs/train_<name>.json`` that of ``configs/train/<name>.yaml``, and
+``configs/mai_mod.json`` that of ``configs/mai_mod.yaml``, each written out
+once and checked in; ``tests/test_torch_config.py`` and
+``tests/test_torch_configs_more.py`` recompose them and fail if they drift
+apart. :func:`load_config`, :func:`load_train_config` and
+:func:`load_mai_mod_config` turn them into attribute namespaces with the
 ``ContextType`` fields restored, so the host code copied from the JAX package
 (vocabulary, parser, renderer, data pipeline) reads them like the JAX config
 dataclasses. Both take dotted ``key=value`` overrides, as the JAX loader does.
@@ -44,6 +46,18 @@ def load_train_config(name: str = "v32", overrides: Iterable[str] = ()) -> Simpl
     with open(CONFIG_DIR / f"train_{name}.json", encoding="utf-8") as f:
         tree = json.load(f)
     return _train_namespaces(apply_overrides(tree, overrides))
+
+
+def load_mai_mod_config(name: str = "mai_mod", overrides: Iterable[str] = ()) -> SimpleNamespace:
+    """``configs/<name>.json``, a MaiMod config (the JAX ``MaiModConfig``: the
+    paths, ``raw_output`` and ``precision``, and an inference config under
+    ``inference``), with ``overrides`` applied (``inference.*`` for the
+    nested one) -> nested namespaces."""
+    with open(CONFIG_DIR / f"{name}.json", encoding="utf-8") as f:
+        tree = apply_overrides(json.load(f), overrides)
+    args = SimpleNamespace(**{k: v for k, v in tree.items() if k != "inference"})
+    args.inference = _inference_namespaces(tree["inference"])
+    return args
 
 
 def _inference_namespaces(tree: dict) -> SimpleNamespace:

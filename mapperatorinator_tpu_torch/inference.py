@@ -1,8 +1,10 @@
 """Beatmap generation on the PyTorch port: the entry points of the repo's
 ``inference.py`` (``main`` / ``run``, ``load_model``, ``generate`` and the
-argument compilation they need), int8 weights and KV cache included, without
-super-timing, DiT position refinement, LoRA, a separate timing model or the
-batching server (each raises, naming its ROADMAP item).
+argument compilation they need), with int8 weights and KV cache, the
+super-timing ensemble (``super_timing=true``), a separate timing model (the
+base checkpoint beside an auto-selected ``gamemode=N`` fine-tune) and the
+cross-process batching server (``use_server=true``); DiT position refinement
+and LoRA raise, naming their ROADMAP items.
 
 From the command line, on the card unless ``device=cpu`` is given:
 
@@ -36,6 +38,7 @@ import sys
 import uuid
 from functools import reduce
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,6 +46,8 @@ import torch
 from .config import load_config, select_device
 from .decode import DecodeEngine
 from .infer import GenerationConfig, Preprocessor, Processor, generation_config_from_beatmap
+from .infer.server import InferenceClient, InferenceServer, get_server_address, make_engine_generate_fn
+from .infer.super_timing import SuperTimingGenerator
 from .models.io import load_checkpoint, quantize_model
 from .models.lora import resolve_model_checkpoint_path
 from .models.mapperatorinator import build_config, build_model
@@ -115,12 +120,13 @@ def compile_paths(args) -> None:
     elif audio_path and audio_path.exists() and not output_path:
         output_path = audio_path.parent
 
+    valid_ext = {".mp3", ".wav", ".ogg", ".m4a", ".flac"}
     if not audio_path:
         raise ValueError("Audio file path is required.")
     if not audio_path.exists():
         raise ValueError(f"Audio file not found: {audio_path}")
-    if audio_path.suffix.lower() != ".wav":
-        raise ValueError(f"The port reads WAV audio only: {audio_path}")
+    if audio_path.suffix.lower() not in valid_ext:
+        raise ValueError(f"Audio file must have one of: {', '.join(sorted(valid_ext))}: {audio_path}")
 
     args.audio_path = str(audio_path)
     args.output_path = str(output_path) if output_path else ""
@@ -260,22 +266,25 @@ def should_generate_timing_context(args, output_type) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def load_model(args):
+def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
     """(engine, vocab) for ``args.model_path`` (a native checkpoint directory,
-    or its ``gamemode=N`` fine-tune subfolder when one exists), on the device
-    ``args.device`` selects, at the compute dtype ``args.precision`` selects,
-    with int8 weights (``quantized_weights``) and an int8 KV cache
-    (``quantized_kv``) when asked. fp32 runs with TF32 off for matmuls and
-    convolutions."""
+    or its ``gamemode=N`` fine-tune subfolder when one exists and
+    ``auto_select_gamemode_model``, by default ``args.auto_select_gamemode_model``,
+    allows it), on the device ``args.device`` selects, at the compute dtype
+    ``args.precision`` selects, with int8 weights (``quantized_weights``) and
+    an int8 KV cache (``quantized_kv``) when asked. fp32 runs with TF32 off for
+    matmuls and convolutions."""
     if getattr(args, "lora_path", None):
         raise NotImplementedError("lora_path: LoRA waits for ROADMAP queue 1, item 15")
+    if auto_select_gamemode_model is None:
+        auto_select_gamemode_model = getattr(args, "auto_select_gamemode_model", True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = select_device(args)
 
     if args.model_path:
         ckpt_path = resolve_model_checkpoint_path(args.model_path, gamemode=args.gamemode,
-                                                  auto_select_gamemode_model=args.auto_select_gamemode_model)
+                                                  auto_select_gamemode_model=auto_select_gamemode_model)
         if str(ckpt_path) != str(args.model_path):
             print(f"Using gamemode-specific model checkpoint: {ckpt_path}")
         model, vocab = load_checkpoint(ckpt_path)
@@ -320,16 +329,19 @@ def generate(
     audio_path=None,
     beatmap_path=None,
     output_path=None,
+    timing_engine=None,
+    timing_vocab=None,
     verbose=True,
     logger=None,
+    client=None,
 ):
-    """Windowed generation -> .osu text and the path it was written to."""
-    if args.super_timing:
-        raise NotImplementedError("super_timing: ROADMAP queue 1, item 9")
+    """Windowed generation -> .osu text and the path it was written to.
+    Timing comes from the super-timing ensemble (``super_timing``), else from
+    a TIMING pass, on ``timing_engine`` when one is given; ``client`` routes
+    the decode calls (the separate timing model's excepted) to the batching
+    server."""
     if args.generate_positions:
         raise NotImplementedError("generate_positions (DiT refinement): ROADMAP queue 1, item 12")
-    if args.use_server:
-        raise NotImplementedError("use_server: ROADMAP queue 1, item 9")
     audio_path = args.audio_path if audio_path is None else audio_path
     beatmap_path = args.beatmap_path if beatmap_path is None else beatmap_path
     output_path = args.output_path if output_path is None else output_path
@@ -343,17 +355,34 @@ def generate(
         raise ValueError("Output path is required.")
 
     preprocessor = Preprocessor(args, parallel=args.parallel)
-    processor = Processor(args, engine, vocab)
+    processor = Processor(args, engine, vocab, client=client)
     renderer = Renderer(args, logger=logger)
 
     audio = preprocessor.load(audio_path)
     sequences = preprocessor.segment(audio)
     extra_in_context = {}
     output_type = list(args.output_type)
+    timing_engine = engine if timing_engine is None else timing_engine
+    timing_vocab = vocab if timing_vocab is None else timing_vocab
 
     timing_events, timing = None, None
-    if should_generate_timing_context(args, output_type):
-        timing_events, timing_times = Processor(args, engine, vocab).generate(
+    if args.super_timing and (len(args.in_context) == 0 or ContextType.NONE in args.in_context):
+        stg = SuperTimingGenerator(args, timing_engine, timing_vocab)
+        timing_events, _ = stg.generate(audio, generation_config, verbose=verbose)
+        timing = renderer.generate_timing(timing_events) if timing_events else None
+        if timing:
+            extra_in_context[ContextType.TIMING] = timing
+        else:
+            timing = None
+            if verbose:
+                logger.warning("super-timing ensemble produced no usable timing; falling back to the fixed "
+                               "bpm/offset redline")
+        if ContextType.TIMING in output_type:
+            output_type.remove(ContextType.TIMING)
+    elif should_generate_timing_context(args, output_type):
+        timing_processor = Processor(args, timing_engine, timing_vocab,
+                                     client=client if timing_engine is engine else None)
+        timing_events, timing_times = timing_processor.generate(
             sequences=sequences,
             generation_config=generation_config,
             in_context=[ContextType.NONE],
@@ -463,20 +492,39 @@ def warm_engine(engine, train_args) -> None:
 
 
 def run(args):
-    """Everything after the configuration: load the model, compile the
-    arguments, warm the engine when ``precompile`` is set, generate.
-    :func:`generate` refuses super-timing, DiT refinement and the batching
-    server."""
+    """Everything after the configuration: load the model (and the base
+    checkpoint for timing when :func:`should_load_separate_timing_model`
+    says so), compile the arguments, warm the engines when ``precompile`` is
+    set, start or join the batching server when ``use_server`` is set,
+    generate. :func:`generate` refuses DiT refinement."""
     engine, vocab = load_model(args)
     compile_args(args, vocab)
+
+    timing_engine, timing_vocab = None, None
     if should_load_separate_timing_model(args):
-        raise NotImplementedError("a separate timing model (the base checkpoint beside a gamemode=N fine-tune): "
-                                  "ROADMAP queue 1, item 9")
+        print("Using base model for timing generation.")
+        timing_engine, timing_vocab = load_model(args, auto_select_gamemode_model=False)
+
     if getattr(args, "precompile", False):
         warm_engine(engine, args.train)
+        if timing_engine is not None:
+            warm_engine(timing_engine, args.train)
+
+    client = None
+    if args.use_server:
+        # the first process serves its engine from a thread of its own;
+        # further processes of the same model connect to it
+        sock = get_server_address(args.model_path, getattr(args, "lora_path", None), args.gamemode)
+        client = InferenceClient(
+            server_factory=lambda: InferenceServer(make_engine_generate_fn(engine, vocab),
+                                                   max_batch_size=args.max_batch_size, socket_path=sock),
+            socket_path=sock,
+        )
+
     generation_config, beatmap_config = get_config(args)
     return generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
-                    engine=engine, vocab=vocab)
+                    engine=engine, vocab=vocab, client=client, timing_engine=timing_engine,
+                    timing_vocab=timing_vocab)
 
 
 if __name__ == "__main__":

@@ -41,7 +41,6 @@ def test_cli_main_writes_the_api_osu(tiny, tmp_path, int8):  # noqa: F811
 def test_cli_refuses_what_is_not_ported(tiny, tmp_path):  # noqa: F811
     wav = make_wav(tmp_path / "song.wav", seconds=1.0)
     base = [f"model_path={tiny[0]}", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
-    for extra, item in (("super_timing=true", "item 9"), ("generate_positions=true", "item 12"),
-                        ("use_server=true", "item 9"), ("lora_path=adapter", "item 15")):
+    for extra, item in (("generate_positions=true", "item 12"), ("lora_path=adapter", "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             inference.main(["-cn", "v32", *base, extra])

@@ -1,0 +1,134 @@
+"""The port's other checked-in configs against the JAX loader, and v32-mini
+on the port.
+
+``mapperatorinator_tpu_torch/configs/v32-mini.json`` is the JAX composition
+of ``configs/inference/v32-mini.yaml``, ``train_v32-mini.json`` that of
+``configs/train/v32-mini.yaml`` and ``mai_mod.json`` that of
+``configs/mai_mod.yaml`` (``MaiModConfig``, the v32 inference config under
+``inference``), written out as JSON as ``tests/test_torch_config.py`` does for
+the v32 pair. These tests recompose them and fail on any drift; to regenerate
+them: ``JAX_PLATFORMS=cpu python -m tests.test_torch_configs_more``.
+
+v32-mini's backbone is VarWhisper-base: 6 + 6 layers, all attention global.
+On a tiny checkpoint of that depth and layout, at narrow widths, both
+packages' ``generate`` run greedy with ``-cn v32-mini``: the tokens of every
+decode call and the .osu bytes must be equal.
+"""
+
+import dataclasses
+import json
+
+import pytest
+import torch
+
+import inference as jax_inference
+from mapperatorinator_tpu.config import compose, schema
+from mapperatorinator_tpu.models.mapperatorinator import build_config as jax_build_config
+from mapperatorinator_tpu.osu import build_vocabulary as jax_build_vocabulary
+from mapperatorinator_tpu_torch import inference
+from mapperatorinator_tpu_torch.config import CONFIG_DIR, load_config, load_mai_mod_config, load_train_config
+from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
+from mapperatorinator_tpu_torch.osu import build_vocabulary
+from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
+from tests.test_torch_config import plain
+
+torch.set_num_threads(1)
+
+CONFIGS = {  # checked-in file -> (JAX config directory, config name, schema)
+    "v32-mini": ("inference", "v32-mini", schema.InferenceConfig),
+    "train_v32-mini": ("train", "v32-mini", schema.TrainConfig),
+    "mai_mod": ("", "mai_mod", schema.MaiModConfig),
+}
+LOADERS = {"v32-mini": lambda o: load_config("v32-mini", o), "train_v32-mini": lambda o: load_train_config(
+    "v32-mini", o), "mai_mod": lambda o: load_mai_mod_config("mai_mod", o)}
+OVERRIDES = {
+    "v32-mini": ("cfg_scale=2", "train.data.src_seq_len=256", "device=cpu", 'descriptors=["clean"]'),
+    "train_v32-mini": ("optim.batch_size=4", "mixed_precision=no", "model.overwrite.d_model=64"),
+    "mai_mod": ("beatmap_path=map.osu", "raw_output=true", "inference.cfg_scale=2",
+                "inference.train.data.tgt_seq_len=192", "inference.super_timing=true"),
+}
+
+
+def composed(name, overrides=()):
+    directory, config_name, schema_cls = CONFIGS[name]
+    return compose(REPO_ROOT / "configs" / directory, config_name, overrides=list(overrides), schema_cls=schema_cls)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_checked_in_json_is_the_jax_composition(name):
+    with open(CONFIG_DIR / f"{name}.json", encoding="utf-8") as f:
+        assert json.load(f) == plain(composed(name))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("with_overrides", [False, True])
+def test_loaded_namespace_equals_the_jax_config(name, with_overrides):
+    """Every field, with ContextType values restored where the JAX config has
+    them, overrides applied the way the JAX loader applies them."""
+    overrides = OVERRIDES[name] if with_overrides else ()
+    assert plain(LOADERS[name](overrides), keep_enums=True) == plain(composed(name, overrides), keep_enums=True)
+
+
+def test_v32_mini_builds_the_jax_model_config():
+    train = load_config("v32-mini").train
+    got = dataclasses.asdict(build_config(train, build_vocabulary(train)))
+    jax_train = composed("v32-mini").train
+    want = dataclasses.asdict(jax_build_config(jax_train, jax_build_vocabulary(jax_train)))
+    for tree in (got, want):
+        for key in ("dtype", "param_dtype"):
+            tree["backbone"][key] = str(tree["backbone"][key]).split(".")[-1].replace("'>", "")
+    assert got == want
+    b = got["backbone"]
+    assert (b["d_model"], b["encoder_layers"], b["decoder_layers"], b["encoder_heads"], b["encoder_ffn"],
+            b["global_attn_every_n_layers"]) == (512, 6, 6, 8, 2048, 1)
+
+
+def test_v32_mini_greedy_tokens_and_osu_equal_jax(tmp_path):
+    ckpt = make_tiny_checkpoint(tmp_path / "mini", d_model=64, layers=6, heads=4, ffn=128, seed=2)
+    wav = make_wav(tmp_path / "song.wav", seconds=1.0)
+    overrides = [f"model_path={ckpt}", f"audio_path={wav}", "train.data.src_seq_len=256",
+                 "train.data.tgt_seq_len=128", "do_sample=false", "seed=7", "gamemode=0", "difficulty=4.5",
+                 "title=Mini", "artist=pytest", "bpm=120", "offset=0", "device=cpu"]
+    results = []
+    for module in (jax_inference, inference):
+        out = tmp_path / module.__name__
+        out.mkdir()
+        if module is jax_inference:
+            args = compose(REPO_ROOT / "configs" / "inference", "v32-mini", schema_cls=schema.InferenceConfig,
+                           overrides=[*overrides, f"output_path={out}"])
+        else:
+            args = load_config("v32-mini", [*overrides, f"output_path={out}"])
+        engine, vocab = module.load_model(args)
+        b = engine.model.config.backbone if module is jax_inference else engine.model.cfg.backbone
+        assert (b.encoder_layers, b.decoder_layers, b.global_attn_every_n_layers) == (6, 6, 1)
+        decoded = []
+        inner = engine.generate
+
+        def recording(*a, _inner=inner, _decoded=decoded, **kw):
+            tokens, end = _inner(*a, **kw)
+            _decoded.append((tokens.tolist(), int(end)))
+            return tokens, end
+
+        engine.generate = recording
+        module.compile_args(args, vocab, verbose=False)
+        generation_config, beatmap_config = module.get_config(args)
+        text, path = module.generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
+                                     engine=engine, vocab=vocab, verbose=False)
+        results.append((decoded, text, path))
+    (want_tokens, want, want_path), (got_tokens, got, got_path) = results
+    assert len(got_tokens) == len(want_tokens) > 0
+    assert got_tokens == want_tokens
+    assert got == want and got_path.read_bytes() == want_path.read_bytes()
+    assert "Version:Mapperatorinator V32-mini" in got
+
+    # the command line, -cn v32-mini
+    (tmp_path / "cli").mkdir()
+    text, _ = inference.main(["-cn", "v32-mini", *overrides, f"output_path={tmp_path / 'cli'}"])
+    assert text == got
+
+
+if __name__ == "__main__":
+    for name in CONFIGS:
+        with open(CONFIG_DIR / f"{name}.json", "w", encoding="utf-8") as f:
+            json.dump(plain(composed(name)), f, indent=1, sort_keys=True)
+            f.write("\n")

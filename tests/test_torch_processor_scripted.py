@@ -1,0 +1,98 @@
+"""The port's Processor against the JAX one on real maps: each package's
+``inference.generate`` runs with its ``Processor.model_generate`` patched to
+return the same per-window token scripts, built from the fixture maps of
+``tests/test_e2e_osu_parity.py`` as its ``_window_scripts`` builds them. The
+prompts handed to ``model_generate`` (conditional and, under CFG,
+unconditional) must be equal call by call, and the written .osu bytes equal.
+The decode is scripted, so no model runs: this holds the host half of
+generation (windows, prompts, context bookkeeping, timing, resnap, render) on
+maps with hit objects, which random weights never give.
+"""
+
+import numpy as np
+import pytest
+
+import inference as jax_inference
+from mapperatorinator_tpu.config import compose, schema
+from mapperatorinator_tpu.infer.preprocessor import Preprocessor as JaxPreprocessor
+from mapperatorinator_tpu.infer.processor import Processor as JaxProcessor
+from mapperatorinator_tpu.osu import build_vocabulary as jax_build_vocabulary
+from mapperatorinator_tpu.osu.beatmap import Beatmap as JaxBeatmap
+from mapperatorinator_tpu.osu.parsing import BeatmapParser as JaxBeatmapParser
+from mapperatorinator_tpu_torch import inference
+from mapperatorinator_tpu_torch.config import load_config
+from mapperatorinator_tpu_torch.infer.processor import Processor
+from mapperatorinator_tpu_torch.osu import build_vocabulary
+from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_wav
+from tests.test_e2e_osu_parity import FIXTURES, _window_scripts
+
+SRC_LEN, TGT_LEN = 256, 192
+
+
+def overrides(wav, out, gamemode, cfg_scale):
+    o = [f"audio_path={wav}", f"output_path={out}", f"train.data.src_seq_len={SRC_LEN}",
+         f"train.data.tgt_seq_len={TGT_LEN}", f"gamemode={gamemode}", "difficulty=4.5", "seed=7",
+         "do_sample=false", "num_beams=1", f"cfg_scale={cfg_scale}", "parallel=false", "title=ParityFixture",
+         "artist=pytest", "creator=parity", "version=e2e", "tags=parity", "bpm=120", "offset=0", "device=cpu"]
+    if gamemode == 3:
+        o += ["keycount=4", "hold_note_ratio=0.2", "scroll_speed_ratio=0.5"]
+    if cfg_scale > 1:
+        o += ['descriptors=["clean"]', 'negative_descriptors=["messy"]']
+    return o
+
+
+def scripted(calls, scripts, eos_id):
+    counters = {}
+
+    def model_generate(self, frames, cond_prompt, uncond_prompt, model_kwargs, lookback_time=0, lookahead_time=0,
+                       context_type=None):
+        ctx = context_type.value
+        idx = counters.get(ctx, 0)
+        counters[ctx] = idx + 1
+        cond_prompt = np.asarray(cond_prompt)
+        calls.append((ctx, cond_prompt.tolist(), None if uncond_prompt is None else np.asarray(uncond_prompt).tolist()))
+        script = scripts[ctx][idx] if ctx in scripts else np.asarray([eos_id], np.int64)
+        return np.concatenate([cond_prompt, np.repeat(script[None], len(cond_prompt), axis=0)], axis=-1)
+
+    return model_generate
+
+
+@pytest.mark.parametrize("gamemode,cfg_scale", [(0, 1.0), (0, 2.0), (1, 1.0), (2, 1.0), (3, 1.0)],
+                         ids=["std", "std-cfg", "taiko", "catch", "mania"])
+def test_scripted_tokens_give_the_jax_prompts_and_osu(tmp_path, monkeypatch, gamemode, cfg_scale):
+    wav = make_wav(tmp_path / "song.wav", seconds=10.0)
+    for side in ("jax", "torch"):
+        (tmp_path / side).mkdir()
+    jax_args = compose(REPO_ROOT / "configs" / "inference", "v32", schema_cls=schema.InferenceConfig,
+                       overrides=overrides(wav, tmp_path / "jax", gamemode, cfg_scale))
+    args = load_config("v32", overrides(wav, tmp_path / "torch", gamemode, cfg_scale))
+    jax_vocab, vocab = jax_build_vocabulary(jax_args.train), build_vocabulary(args.train)
+    assert vocab.state_dict() == jax_vocab.state_dict()
+
+    pre = JaxPreprocessor(jax_args)
+    frame_times = [int(t) for t in pre.segment(pre.load(str(wav)))[1]]
+    source = JaxBeatmap.from_path(FIXTURES[gamemode](tmp_path / "fixture.osu"))
+    parser = JaxBeatmapParser(jax_args.train, jax_vocab)
+    scripts = {"timing": _window_scripts(*parser.parse_timing(source), jax_vocab, frame_times),
+               "map": _window_scripts(*parser.parse(source), jax_vocab, frame_times)}
+
+    jax_calls, calls = [], []
+    monkeypatch.setattr(JaxProcessor, "model_generate", scripted(jax_calls, scripts, jax_vocab.eos_id))
+    monkeypatch.setattr(Processor, "model_generate", scripted(calls, scripts, vocab.eos_id))
+
+    results = []
+    for module, a, v in ((jax_inference, jax_args, jax_vocab), (inference, args, vocab)):
+        module.compile_args(a, v, verbose=False)
+        generation_config, beatmap_config = module.get_config(a)
+        results.append(module.generate(a, generation_config=generation_config, beatmap_config=beatmap_config,
+                                       engine=None, vocab=v, verbose=False))
+    (want, want_path), (got, got_path) = results
+
+    assert len(calls) == len(jax_calls) > len(frame_times)
+    for i, (call, jax_call) in enumerate(zip(calls, jax_calls)):
+        assert call == jax_call, f"call {i} ({jax_call[0]}): prompts differ"
+    assert (jax_calls[0][2] is not None) == (cfg_scale > 1)
+    assert got_path.read_bytes() == want_path.read_bytes()
+    beatmap = Beatmap.from_path(got_path)
+    assert beatmap.mode == gamemode and len(beatmap.hit_objects()) >= 10
