@@ -81,6 +81,22 @@
    Before them, ``train.main`` trains in fp32 (``mixed_precision=no``, batch
    2, 2 micro-steps), the fp32 pair's training path, which must launch the
    fp32 pair only.
+   Fine-tuning: a base checkpoint of the bf16 v32 training model with
+   seeded random weights, the fused mel in its config, is written under
+   ``base/gamemode=0``, and ``train.main -cn lora_v32`` (rank-64 LoRA on
+   wq/wkv/wqkv/wo, Muon, bf16, batch 32) runs 4 micro-steps at grad_acc 2
+   from it, with a profiler window over micro-steps 2 and 3. Each
+   micro-step must launch the tensor-core pair 36 times each, nothing
+   else of B or C, and A once; the losses must be finite, the base stay
+   bit-equal to the checkpoint, B leave zero at the first update, the
+   trainable count be the sum of r (in + out) over the targets, the Chrome
+   trace name both sm90 kernels and the adapter's config carry
+   ``ckpt_subfolders: ["gamemode=0"]``. Two greedy requests are then
+   served with the adapter (``lora_path``): fp32, and with int8 weights and
+   KV cache; the served weights must be the base with the adapter merged
+   (and then quantized), and the requests must launch the kernels of
+   request 2 (A, B) and of request 3 (B, D) with A. The resolver must skip
+   the adapter at ``gamemode=1``.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -160,6 +176,9 @@ TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS = 32, 2, 6
 # fp32 training (the fp32 pair's training path): cut to batch 2 and 2
 # micro-steps, as the fp32 gradient check's batch
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 2, 2
+# the LoRA fine-tune (lora_v32: batch 32, grad_acc 16, 1000 steps): cut to
+# grad_acc 2 and 4 micro-steps (2 updates); printed with the phase
+LORA_GRAD_ACC, LORA_MICRO_STEPS = 2, 4
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
 TIMER_ITERATIONS = 20  # super-timing: v32's ensemble size; a cut would be printed here
 SERVER_JOIN_S = 600  # the server phase's two requests must return within this
@@ -1824,6 +1843,222 @@ def train_phase(tmp: Path, report: dict) -> dict:
     return launches, fp32_launches, check_launches
 
 
+def trace_kernels(trace: dict, top: int = 6) -> tuple[float, float, list]:
+    """(device ms, span ms, the ``top`` kernels by device time) of a
+    ``torch.profiler`` Chrome trace: the device kernels' summed durations,
+    and the span from the first traced event to the last end."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]][0] += e["dur"]
+            kernels[e["name"]][1] += 1
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    return (sum(us for us, _ in kernels.values()) / 1e3, span / 1e3,
+            [{"kernel": name[:90], "ms": us / 1e3, "calls": n} for name, (us, n) in ranked])
+
+
+def lora_request_checks(base: Path, lora_dir: Path, quantized: bool):
+    """A LoRA request's checks on its engine: the served weights are the base
+    checkpoint's with the adapter merged (``merge_lora`` on the card, as
+    ``load_model`` runs it), every target at base + (alpha / r) (A B)^T and
+    every other weight the base's bits; with int8 weights, they are
+    ``quantize_model`` of that merged model."""
+
+    def checks(engine, args, vocab, first) -> dict:
+        from mapperatorinator_tpu_torch.models.io import load_checkpoint, quantize_model
+        from mapperatorinator_tpu_torch.models.lora import load_lora, merge_lora, merge_lora_into
+
+        model, _ = load_checkpoint(base / "gamemode=0")
+        model = model.to("cuda")
+        adapter, config = load_lora(lora_dir, model)
+        merged = merge_lora(dict(model.named_parameters()), adapter, alpha=config["lora_alpha"])
+        unmerged = {n: t.clone() for n, t in model.state_dict().items()}
+        merge_lora_into(model, adapter, alpha=config["lora_alpha"])
+        want = quantize_model(model).state_dict() if quantized else model.state_dict()
+        got = engine.model.state_dict()
+        differ = sorted(n for n, t in want.items() if not torch.equal(got[n], t))
+        moved = sum(not torch.equal(merged[n], unmerged[n]) for n in merged)
+        n_targets = len(merged)
+        print(f"LoRA request{' (int8)' if quantized else ''}: {n_targets} target weights merged at alpha "
+              f"{config['lora_alpha']:g}, rank {config['r']} ({moved} moved off the base); served state "
+              f"{'equals quantize_model of the merged model' if quantized else 'equals the merged model'}: "
+              f"{not differ} ({len(want)} tensors)")
+        if differ or moved != n_targets or set(got) != set(want):
+            raise AssertionError(f"the served weights are not the merged adapter: {differ[:4]}, {moved} moved")
+        del model, adapter, merged, unmerged, want
+        torch.cuda.empty_cache()
+        return {"lora_targets": n_targets, "weights_equal_merged": True}
+
+    return checks
+
+
+def finetune_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, dict]:
+    """The fine-tune path: ``train.main -cn lora_v32`` from a base checkpoint
+    of seeded random bf16 v32 weights under ``<tmp>/base/gamemode=0``, then
+    two greedy requests served with the adapter it wrote. The base's config
+    carries the fused mel (``spectrogram.implementation=pallas``): a
+    checkpoint's model config, not the request's, picks the mel, so kernel A
+    runs in the micro-steps (once each, on 32 rows) and in both requests.
+    Returns the launches of the LoRA micro-steps (attention and A) and those
+    of the two requests."""
+    from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.models.io import load_checkpoint, save_checkpoint
+    from mapperatorinator_tpu_torch.models.lora import (get_model_checkpoint_subfolder, normalize_targets,
+                                                         resolve_compatible_lora_path, resolve_model_checkpoint_path,
+                                                         target_kernels)
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.train import main as train_main
+    from mapperatorinator_tpu_torch.train.loop import batch_tokens, card_line
+
+    report["finetune"] = out = {}
+    ors = tmp / "ors"  # the training phase's dataset
+    t0 = time.perf_counter()
+    args = load_train_config("lora_v32", data_overrides(ors) + ["pretrained_path=", "dataloader.num_workers=0",
+                                                                "model.spectrogram.implementation=pallas"])
+    model, vocab, _ = train_main.build_model_and_data(args, torch.device("cuda"))
+    check_full_width(model)
+    if model.cfg.backbone.dtype != torch.bfloat16:
+        raise AssertionError(f"the base is not the bf16 training model: {model.cfg.backbone.dtype}")
+    base = tmp / "base"
+    save_checkpoint(base / "gamemode=0", model.cfg, model.state_dict(), vocab)
+    del model
+    torch.cuda.empty_cache()
+    print(f"fine-tune base: seeded random full-width v32 bf16 training weights, the fused mel in its config, saved "
+          f"under {base.name}/gamemode=0 in {time.perf_counter() - t0:.1f} s")
+
+    ckpt, logs = tmp / "lora_ckpt", tmp / "logs_lora"
+    overrides = data_overrides(ors) + [
+        f"pretrained_path={base}", "pretrained_gamemode=0", f"optim.grad_acc={LORA_GRAD_ACC}",
+        f"optim.total_steps={LORA_MICRO_STEPS}", "eval.every_steps=0", "checkpoint.every_steps=1000000",
+        f"checkpoint_path={ckpt}", "logging.every_steps=1", "logging.log_with=none", "profile.do_profile=true",
+        "profile.wait=1", "profile.warmup=1", "profile.active=1", "dataloader.drop_last=true"]
+    print(f"fine-tune cuts: pretrained_path {base.name} (seeded random weights; the published v32 checkpoint is a "
+          f"download), dataset ors on the synthesized tracks (lora_v32 reads a private mmrs set), grad_acc 16 -> "
+          f"{LORA_GRAD_ACC}, {LORA_MICRO_STEPS} micro-steps ({LORA_MICRO_STEPS // LORA_GRAD_ACC} updates) of 1000, "
+          f"no eval, drop_last on (every micro-step 32 rows; the synthesized set's epoch ends in a partial batch); "
+          f"rank, alpha, targets, Muon, bf16 and batch 32 as published; the trace covers micro-steps 2-3")
+
+    def counts() -> dict:
+        return {**attention_launches(), "fused_mel": fused_mel.launches}
+
+    # each micro-step's launches and tokens, the base and the adapter, seen
+    # through the train step main builds
+    per_step, b_moved, step_tokens, seen = [], [], [], {}
+    make_step = train_main.make_lora_train_step
+
+    def recording(model, alpha):
+        step = make_step(model, alpha)
+        seen["base"] = model
+
+        def run(state, batch):
+            before = counts()
+            state, metrics = step(state, batch)
+            after = counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            b_moved.append(all(bool(f.b.detach().abs().sum() > 0) for f in state.model.values()))
+            step_tokens.append(batch_tokens(batch))
+            return state, metrics
+
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_launches()
+    fused_mel.launches = 0
+    train_main.make_lora_train_step = recording
+    try:
+        t0 = time.perf_counter()
+        state = train_main.main(["-cn", "lora_v32", *overrides], log_dir=str(logs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_main.make_lora_train_step = make_step
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    steps = metrics_steps(logs)
+    want_step = {name: 0 for name in launches}
+    want_step["flash_attention_fwd_sm90"] = want_step["flash_attention_bwd_sm90"] = ATTN_PER_STEP
+    want_step["fused_mel"] = 1
+    if len(steps) != LORA_MICRO_STEPS or per_step != [want_step] * LORA_MICRO_STEPS:
+        raise AssertionError(f"the LoRA micro-steps launched {per_step}, not {want_step} each")
+    if not all(math.isfinite(r["train/loss"]) for r in steps):
+        raise AssertionError(f"a LoRA loss is not finite: {[r['train/loss'] for r in steps]}")
+    if b_moved != [False] + [True] * (LORA_MICRO_STEPS - 1):
+        raise AssertionError(f"B should be zero until the first update and nonzero after it: {b_moved}")
+    stored, _ = load_checkpoint(base / "gamemode=0")
+    trained_base = seen["base"].state_dict()
+    frozen = all(torch.equal(t, trained_base[n].cpu()) for n, t in stored.state_dict().items())
+    lora_args = load_train_config("lora_v32", overrides)
+    targets = target_kernels(stored, normalize_targets(lora_args.lora["target_modules"]))
+    rank = lora_args.lora["r"]
+    want_params = sum(rank * (m.in_features + m.out_features) for m in targets.values())
+    n_params = sum(p.numel() for p in state.model.parameters())
+    trace = logs / "profile" / "trace.json"
+    trace_text = trace.read_text() if trace.exists() else ""
+    traced = {name: name in trace_text for name in ("flash_fwd_sm90_kernel", "flash_bwd_sm90_kernel")}
+    traced_ms, span_ms, top = trace_kernels(json.loads(trace_text)) if trace_text else (0.0, 0.0, [])
+    del trace_text
+    lora_config = json.loads((ckpt / "lora" / "lora_config.json").read_text())
+    print(f"fine-tune: {LORA_MICRO_STEPS} micro-steps in {wall:.1f} s (checkpoint load, data, the trace and the "
+          f"adapter's save included), launches {launches} ({ATTN_PER_STEP} + {ATTN_PER_STEP} sm90 and one A a "
+          f"micro-step, nothing else of B or C), base weights after the run bit-equal to the checkpoint: {frozen}, B nonzero "
+          f"after each micro-step {b_moved}, {n_params} trainable parameters over {len(targets)} targets "
+          f"(sum of r (in + out): {want_params}), trace {trace.stat().st_size / 2**20 if trace.exists() else 0:.1f} "
+          f"MiB naming {traced}, lora_config ckpt_subfolders {lora_config['ckpt_subfolders']}")
+    if not frozen or n_params != want_params or not all(traced.values()) \
+            or lora_config["ckpt_subfolders"] != ["gamemode=0"]:
+        raise AssertionError("the fine-tune run failed a check")
+    card = card_line()
+    for r, tokens in zip(steps, step_tokens):
+        print(f"LoRA micro-step {r['step']}{' (traced)' if r['step'] in (2, 3) else ''}: loss {r['train/loss']:.4f}, "
+              f"grad_l2 {r['train/grad_l2']:.4f}, {tokens:.0f} tokens (encoder frames + decoder positions), "
+              f"{r['train/seconds_per_step']:.3f} s/step, {tokens / r['train/seconds_per_step']:.0f} tokens/s, peak "
+              f"{r['train/peak_mem_gib']:.2f} GiB, MFU {r.get('train/mfu', float('nan')):.4f} by the port's "
+              f"numerator, {r.get('train/mfu_jax_numerator', float('nan')):.4f} by the JAX one ({card})")
+    print(f"traced LoRA micro-steps 2-3: {traced_ms / 2:.1f} ms of device kernels a micro-step (the full bf16 "
+          f"micro-step's, profiled above: {report['training']['profiled_device_ms']:.1f} ms); the trace spans "
+          f"{span_ms / 1e3:.3f} s, device idle share {1 - traced_ms / span_ms:.3f} ({card})")
+    for row in top:
+        print(f"  {row['ms'] / 2:9.2f} ms {row['calls'] // 2:5d} calls a micro-step  {row['kernel']}")
+    out.update({"traced_device_ms_per_step": traced_ms / 2, "trace_span_ms": span_ms, "traced_top": top})
+    out.update({"wall_s": wall, "launches": launches, "per_step": per_step, "steps": steps, "peak_mem_gib": peak,
+                "tokens_per_step": step_tokens, "trainable_params": n_params, "targets": len(targets),
+                "trace_bytes": trace.stat().st_size, "b_moved": b_moved, "base_frozen": frozen})
+    del state, stored, trained_base, seen["base"]
+    torch.cuda.empty_cache()
+
+    # serve with the adapter
+    lora_dir = ckpt / "lora"
+    serving = {}
+    for label, extra, quantized in (("lora-greedy-fused-mel", [], False),
+                                    ("lora-int8-fused-mel", ["quantized_weights=true", "quantized_kv=true"], True)):
+        serving[label] = serve(label, tmp, wav, [f"model_path={base}", f"lora_path={lora_dir}",
+                                                           "do_sample=false", *extra],
+                               report, check_encoder=False, after=lora_request_checks(base, lora_dir, quantized))
+    # the kernels of request 2 (A and B) and of request 3 (B and both of D's
+    # paths) with A: as many A launches as request 2, one a window
+    requests = {r["label"]: r["launches"] for r in report["requests"]}
+    mel_launches = requests["2-greedy-fused-mel"]["fused_mel"]
+    for label, like in (("lora-greedy-fused-mel", "2-greedy-fused-mel"), ("lora-int8-fused-mel", "3-int8-checkpoint")):
+        got, want = serving[label], requests[like]
+        if {k for k, v in got.items() if v} != {k for k, v in want.items() if v} | {"fused_mel"} \
+                or got["fused_mel"] != mel_launches:
+            raise AssertionError(f"{label} launched {got}, request {like} {want}")
+    skipped, _ = resolve_compatible_lora_path(
+        lora_dir, get_model_checkpoint_subfolder(resolve_model_checkpoint_path(base, gamemode=1)), verbose=False)
+    kept, _ = resolve_compatible_lora_path(
+        lora_dir, get_model_checkpoint_subfolder(resolve_model_checkpoint_path(base, gamemode=0)), verbose=False)
+    print(f"the resolver at gamemode=1: adapter {'skipped' if skipped is None else 'kept'}; at gamemode=0: "
+          f"{'kept' if kept is not None else 'skipped'}")
+    if skipped is not None or kept is None:
+        raise AssertionError("the resolver does not honour the adapter's ckpt_subfolders")
+    out["serving_launches"] = serving
+    return launches, {k: sum(r[k] for r in serving.values()) for k in next(iter(serving.values()))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -1870,14 +2105,19 @@ def main() -> int:
         super_timing = super_timing_phase(tmp, wav, report)
         server = server_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
-    serving_paths = (first, second, third, maimod, super_timing, server)
+        finetuned, lora_served = finetune_phase(tmp, wav, report)
+    serving_paths = (first, second, third, maimod, super_timing, server, lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
-    # fp32 training, bf16 training; the gradient check's are listed apart
-    launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) for k in served}
+    # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
+    # are listed apart
+    launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
+                for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
+                                  "LoRA serving (two requests)": lora_served,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
+                                  "LoRA fine-tune, bf16 micro-steps": finetuned,
                                   "gradient check (fp32 and bf16, first batch; not a main path)": checked}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

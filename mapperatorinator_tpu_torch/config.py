@@ -2,7 +2,9 @@
 
 ``configs/<name>.json`` is the JAX loader's composition of
 ``configs/inference/<name>.yaml`` (the nested training config included),
-``configs/train_<name>.json`` that of ``configs/train/<name>.yaml``, and
+``configs/train_<name>.json`` that of ``configs/train/<name>.yaml`` (v32,
+v32-mini, and the fine-tune configs ``v32_ft``, ``v32-mini_ft``, ``lora``
+and ``lora_v32``), and
 ``configs/mai_mod.json`` that of ``configs/mai_mod.yaml``, each written out
 once and checked in; ``tests/test_torch_config.py`` and
 ``tests/test_torch_configs_more.py`` recompose them and fail if they drift

@@ -49,7 +49,8 @@ from .infer import GenerationConfig, Preprocessor, Processor, generation_config_
 from .infer.server import InferenceClient, InferenceServer, get_server_address, make_engine_generate_fn
 from .infer.super_timing import SuperTimingGenerator
 from .models.io import load_checkpoint, quantize_model
-from .models.lora import resolve_model_checkpoint_path
+from .models.lora import (get_model_checkpoint_subfolder, load_lora, merge_lora_into, resolve_compatible_lora_path,
+                          resolve_model_checkpoint_path)
 from .models.mapperatorinator import build_config, build_model
 from .models.params import init_params
 from .osu import Beatmap, ContextType, build_vocabulary
@@ -272,10 +273,11 @@ def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
     ``auto_select_gamemode_model``, by default ``args.auto_select_gamemode_model``,
     allows it), on the device ``args.device`` selects, at the compute dtype
     ``args.precision`` selects, with int8 weights (``quantized_weights``) and
-    an int8 KV cache (``quantized_kv``) when asked. fp32 runs with TF32 off for
-    matmuls and convolutions."""
-    if getattr(args, "lora_path", None):
-        raise NotImplementedError("lora_path: LoRA waits for ROADMAP queue 1, item 15")
+    an int8 KV cache (``quantized_kv``) when asked. A LoRA adapter at
+    ``args.lora_path`` whose metadata admits the checkpoint's ``gamemode=N``
+    subfolder is merged into the stored weights first, at its ``lora_alpha``,
+    before any quantization or cast, as in the JAX ``load_model``. fp32 runs
+    with TF32 off for matmuls and convolutions."""
     if auto_select_gamemode_model is None:
         auto_select_gamemode_model = getattr(args, "auto_select_gamemode_model", True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -295,6 +297,14 @@ def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
         model = build_model(build_config(args.train, vocab), device)
         init_params(model, 0 if args.seed is None else args.seed)
         print(f"No model_path: random weights from seed {args.seed}")
+        ckpt_path = None
+
+    lora_path, _ = resolve_compatible_lora_path(getattr(args, "lora_path", None),
+                                                get_model_checkpoint_subfolder(ckpt_path))
+    if lora_path is not None:
+        adapter, lora_config = load_lora(lora_path, model)
+        merge_lora_into(model, adapter, alpha=lora_config.get("lora_alpha", 128.0))
+        print(f"Loaded LoRA weights from {lora_path}")
 
     # int8 weights come from the stored ones, before any cast to the compute
     # dtype; the cast leaves the int8 kernels and their fp32 scales as they are

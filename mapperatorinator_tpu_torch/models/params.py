@@ -20,6 +20,12 @@ thirds along the head axis), so the columns keep their meaning.
 :func:`flax_paths` runs the same table backwards, from a module's parameter
 names to the flax paths the JAX optimizer's masks match against, and
 :func:`flax_layout` moves a tensor between the two layouts.
+
+A LoRA adapter (:mod:`.lora`) holds its factors in the flax layout already,
+keyed by the target kernel's flax path: :func:`lora_from_flax` and
+:func:`lora_to_flax` carry them between the JAX factor tree
+(``<kernel path>/a`` and ``/b``) and the adapter's state dict
+(``<kernel path>.a`` and ``.b``) unchanged.
 """
 
 from __future__ import annotations
@@ -43,6 +49,18 @@ def flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dict, the inverse of :func:`flatten`."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *scope, key = path.split("/")
+        node = tree
+        for part in scope:
+            node = node.setdefault(part, {})
+        node[key] = leaf
+    return tree
+
+
 def torch_name(flax_path: str, qdense: bool = False) -> str:
     """``params/transformer/encoder/layers_0/ffn/fc1/kernel`` ->
     ``transformer.encoder.layers.0.ffn.fc1.weight``. ``qdense``: the leaf
@@ -61,11 +79,15 @@ def flax_paths(model: nn.Module) -> dict[str, str]:
     """{torch state-dict name: flax path} for a port module, the inverse of
     :func:`torch_name` (``params/`` prefix and ``RMSNorm_0`` scope included):
     every parameter, and the int8 kernels and scales a ``QDense`` holds as
-    buffers."""
+    buffers. A LoRA factor's module carries its kernel's ``flax_path``: its
+    ``a`` and ``b`` extend that path."""
     paths = {}
     for name in model.state_dict(keep_vars=True):
         *scope, leaf = name.split(".")
         owner = model.get_submodule(".".join(scope))
+        if hasattr(owner, "flax_path"):
+            paths[name] = f"{owner.flax_path}/{leaf}"
+            continue
         if leaf == "weight":
             if isinstance(owner, nn.Embedding):
                 leaf = "embedding"
@@ -101,6 +123,28 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {name}")
         state[name] = torch.tensor(arr)
     return state
+
+
+def lora_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """A JAX LoRA factor tree (nested dict of numpy arrays) -> the state dict
+    of a :class:`.lora.LoraAdapter`: ``<kernel path>/a`` becomes
+    ``<kernel path>.a``, in the same layout."""
+    state = {}
+    for path, leaf in flatten(tree).items():
+        kernel, factor = path.rsplit("/", 1)
+        state[f"{kernel}.{factor}"] = torch.tensor(np.asarray(leaf))
+    return state
+
+
+def lora_to_flax(adapter: nn.Module) -> dict:
+    """A LoRA adapter -> the JAX factor tree as fp32 numpy arrays, its keys in
+    the order of the JAX ``init_lora_params`` (sorted kernel paths, ``a``
+    before ``b``), so that it serializes to the bytes flax writes."""
+    flat = {}
+    for name, tensor in sorted(adapter.state_dict().items()):
+        kernel, factor = name.rsplit(".", 1)
+        flat[f"{kernel}/{factor}"] = np.ascontiguousarray(tensor.detach().float().cpu().numpy())
+    return unflatten(flat)
 
 
 def init_params(model: nn.Module, seed: int) -> None:

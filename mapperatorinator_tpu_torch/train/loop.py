@@ -3,7 +3,8 @@ needs, in PyTorch.
 
 Streaming-mean logging, per-context eval, checkpoints with total-limit
 retention, a best alias and auto-resume, the FLOPs of a step and the MFU
-gauge against the card's published peak.
+gauge against the card's published peak, and a ``torch.profiler`` trace
+over the window ``profile`` configures.
 """
 
 from __future__ import annotations
@@ -361,15 +362,45 @@ def _attention_flops(batch: dict, backbone) -> float:
     return float(bsz) * per_row
 
 
+def _side_counts(counts) -> tuple[int, int]:
+    """(encoder, decoder-side) totals of (name, count) pairs: a name holding
+    ``encoder`` counts on the encoder side, as in the JAX
+    ``_component_param_counts``."""
+    enc = dec = 0
+    for name, n in counts:
+        if "encoder" in name:
+            enc += n
+        else:
+            dec += n
+    return enc, dec
+
+
 def step_flops(model, batch: dict, backbone=None) -> float:
     """fwd + bwd FLOPs of one step: 6 (N_enc S_enc + N_dec S_dec) for the
     parameterised products, encoder parameters seeing only encoder frames
     and the rest only decoder positions, plus the attention products when
-    ``backbone`` is given (the JAX ``step_flops``)."""
+    ``backbone`` is given (the JAX ``step_flops``). Given a LoRA adapter,
+    this is the JAX figure for a LoRA step, whose parameters are the
+    factors: attention and little else (see :func:`lora_step_flops`)."""
     tok_enc, tok_dec = _batch_token_split(batch)
-    enc = sum(p.numel() for name, p in model.named_parameters() if "encoder" in name)
-    dec = sum(p.numel() for name, p in model.named_parameters() if "encoder" not in name)
+    enc, dec = _side_counts((name, p.numel()) for name, p in model.named_parameters())
     return 6.0 * (enc * tok_enc + dec * tok_dec) + _attention_flops(batch, backbone)
+
+
+def lora_step_flops(model, adapter, batch: dict, backbone=None) -> float:
+    """What the card computes in a LoRA micro-step
+    (:func:`.step.make_lora_train_step`), per token of each side: the frozen
+    base's forward and its input gradients, 4 N_base; the gradient of each
+    merged target weight, 2 N_target, which the merge formulation computes
+    in full and passes to the factors; plus, once a step, each target's
+    merge and its two factor gradients, 6 r N_target; and the attention
+    products as in :func:`step_flops`."""
+    tok_enc, tok_dec = _batch_token_split(batch)
+    enc, dec = _side_counts((name, p.numel()) for name, p in model.named_parameters())
+    t_enc, t_dec = _side_counts((f.flax_path, f.a.shape[0] * f.b.shape[1]) for f in adapter.values())
+    merge = 6.0 * sum(f.a.numel() * f.b.shape[1] for f in adapter.values())
+    return (4.0 * (enc * tok_enc + dec * tok_dec) + 2.0 * (t_enc * tok_enc + t_dec * tok_dec) + merge
+            + _attention_flops(batch, backbone))
 
 
 def device_peak_flops(device) -> float:
@@ -392,53 +423,108 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+class Profile:
+    """A ``torch.profiler`` trace (CPU, and the card's kernels on a CUDA
+    device), written as a Chrome trace ``trace.json`` under ``directory``
+    when it stops."""
+
+    def __init__(self, directory, device: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        self.path = Path(directory) / "trace.json"
+        self.device = device
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def stop(self) -> Path:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.path))
+        return self.path
+
+
 def train(*, train_step: Callable, eval_step: Callable, state, train_batch_factory: Callable[[], Iterable[dict]],
           eval_batch_factory: Optional[Callable[[], Iterable[dict]]] = None, vocab: Vocabulary, args,
-          logger: Optional[MetricsLogger] = None, checkpoints: Optional[CheckpointManager] = None):
+          logger: Optional[MetricsLogger] = None, checkpoints: Optional[CheckpointManager] = None,
+          profile_dir=None, model=None):
     """The main loop (reference: train_utils.py:379-434): runs until
     ``optim.total_steps`` with eval, log and checkpoint hooks at their
     configured intervals, remaking the batch stream each epoch, and saves a
-    checkpoint at the end."""
+    checkpoint at the end.
+
+    ``model`` is the frozen base when ``state.model`` is a LoRA adapter
+    merged into it (its backbone and FLOPs are the base's; the log then
+    carries ``mfu`` by :func:`lora_step_flops` and ``mfu_jax_numerator`` by
+    :func:`step_flops` of the factors, the JAX figure). With
+    ``profile_dir``, a trace starts before the step that begins at
+    ``profile.wait`` completed steps and stops once ``wait + warmup +
+    active`` are complete (the JAX loop's arithmetic, not
+    ``torch.profiler.schedule``'s), and with ``profile.early_stop`` the loop
+    returns there, without the final checkpoint, as the JAX loop does. A
+    trace still open when the loop ends or raises is stopped and written."""
     averager = Averager()
     last_log = time.time()
-    backbone = state.model.cfg.backbone
-    device = next(state.model.parameters()).device
+    base = state.model if model is None else model
+    backbone = base.cfg.backbone
+    device = next(base.parameters()).device
     peak_flops = device_peak_flops(device)
     step = state.step
     last_eval_loss = None
-    while step < args.optim.total_steps:
-        made_progress = False
-        for batch in train_batch_factory():
-            made_progress = True
-            if step >= args.optim.total_steps:
+    profiler, profiled = None, False
+    profile_end = args.profile.wait + args.profile.warmup + args.profile.active
+    try:
+        while step < args.optim.total_steps:
+            made_progress = False
+            for batch in train_batch_factory():
+                made_progress = True
+                if step >= args.optim.total_steps:
+                    break
+                if profile_dir is not None and step == args.profile.wait and not profiled:
+                    profiler, profiled = Profile(profile_dir, device), True
+                state, metrics = train_step(state, batch)
+                step = state.step
+                averager.update(metrics)
+
+                if profiler is not None and step >= profile_end:
+                    profiler.stop()
+                    profiler = None
+                    if args.profile.early_stop:
+                        return state
+
+                if logger is not None and step % args.logging.every_steps == 0:
+                    stats = averager.average()
+                    stats["seconds_per_step"] = (time.time() - last_log) / args.logging.every_steps
+                    if peak_flops and stats["seconds_per_step"] > 0:
+                        peak_work = peak_flops * stats["seconds_per_step"]
+                        if base is state.model:
+                            stats["mfu"] = step_flops(base, batch, backbone) / peak_work
+                        else:
+                            stats["mfu"] = lora_step_flops(base, state.model, batch, backbone) / peak_work
+                            stats["mfu_jax_numerator"] = step_flops(state.model, batch, backbone) / peak_work
+                    if device.type == "cuda":
+                        stats["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+                    last_log = time.time()
+                    logger.log(add_prefix("train", stats), step)
+
+                if eval_batch_factory is not None and step % args.eval.every_steps == 0:
+                    eval_stats = eval_model(eval_step, state.model, eval_batch_factory(), vocab, args,
+                                            max_steps=args.eval.steps)
+                    if "test/loss" in eval_stats:
+                        last_eval_loss = eval_stats["test/loss"]
+                    if logger is not None:
+                        logger.log(eval_stats, step)
+
+                if checkpoints is not None and step % args.checkpoint.every_steps == 0:
+                    checkpoints.save(step, state, metrics=_ckpt_metrics(step, last_eval_loss))
+
+            if not made_progress:
                 break
-            state, metrics = train_step(state, batch)
-            step = state.step
-            averager.update(metrics)
-
-            if logger is not None and step % args.logging.every_steps == 0:
-                stats = averager.average()
-                stats["seconds_per_step"] = (time.time() - last_log) / args.logging.every_steps
-                if peak_flops and stats["seconds_per_step"] > 0:
-                    stats["mfu"] = step_flops(state.model, batch, backbone) / stats["seconds_per_step"] / peak_flops
-                if device.type == "cuda":
-                    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
-                last_log = time.time()
-                logger.log(add_prefix("train", stats), step)
-
-            if eval_batch_factory is not None and step % args.eval.every_steps == 0:
-                eval_stats = eval_model(eval_step, state.model, eval_batch_factory(), vocab, args,
-                                        max_steps=args.eval.steps)
-                if "test/loss" in eval_stats:
-                    last_eval_loss = eval_stats["test/loss"]
-                if logger is not None:
-                    logger.log(eval_stats, step)
-
-            if checkpoints is not None and step % args.checkpoint.every_steps == 0:
-                checkpoints.save(step, state, metrics=_ckpt_metrics(step, last_eval_loss))
-
-        if not made_progress:
-            break
+    finally:
+        if profiler is not None:
+            profiler.stop()
 
     if checkpoints is not None:
         checkpoints.save(step, state, metrics=_ckpt_metrics(step, last_eval_loss))

@@ -3,17 +3,25 @@
     python -m mapperatorinator_tpu_torch.train.main -cn v32 [key=value ...]
 
 Loads ``configs/train_<name>.json`` with the overrides, builds the
-vocabulary, parser, dataset, model (seeded random weights), optimizer and
-checkpoint manager, resumes from the latest checkpoint under
-``checkpoint_path``, saves ``tokenizer.json`` beside the checkpoints and runs
-:func:`.loop.train`. It runs on the first CUDA device unless ``device=cpu``
-is given, and raises without one. Metrics go to ``<log_dir>/metrics.jsonl``
-(``logs/`` under the working directory, as for ``train.py``).
+vocabulary, parser, dataset, model (seeded random weights, or a native
+checkpoint's with ``pretrained_path``), optimizer and checkpoint manager,
+resumes from the latest checkpoint under ``checkpoint_path``, saves
+``tokenizer.json`` beside the checkpoints and runs :func:`.loop.train`. It
+runs on the first CUDA device unless ``device=cpu`` is given, and raises
+without one. Metrics go to ``<log_dir>/metrics.jsonl`` (``logs/`` under the
+working directory, as for ``train.py``), and with ``profile.do_profile`` a
+Chrome trace to ``<log_dir>/profile``.
 
-Not ported yet, each raising and naming ROADMAP queue 1, item 15: LoRA,
-``pretrained_path`` (a msgpack checkpoint), more than one process, tensor
-and FSDP mesh axes, profiling, the ``mmrs`` and ``web`` datasets and
-``adafactor``. v32's ``dataset_type: web`` is therefore overridden to
+``pretrained_path`` (its ``gamemode=N`` subfolder for ``pretrained_gamemode``
+N, where one exists) gives the model, its compute dtype and the vocabulary,
+as in the JAX ``train.py``: the checkpoint's dtype wins over
+``mixed_precision``, and a difference is printed. ``enable_lora`` trains
+LoRA factors (``lora``: rank, alpha, targets; seeded with ``seed``) on that
+frozen base and writes the adapter to ``<checkpoint_path>/lora``.
+
+Not ported yet, each raising and naming ROADMAP queue 1, item 15: more than
+one process, tensor and FSDP mesh axes, the ``mmrs`` and ``web`` datasets
+and ``adafactor``. v32's ``dataset_type: web`` is therefore overridden to
 ``ors``, a local track-folder dataset.
 """
 
@@ -26,6 +34,8 @@ from typing import Optional, Sequence
 import torch
 
 from ..config import load_train_config, select_device
+from ..models.io import load_checkpoint
+from ..models.lora import init_lora_params, resolve_model_checkpoint_path, save_lora
 from ..models.mapperatorinator import Mapperatorinator, build_config
 from ..models.params import init_params
 from ..osu import BeatmapParser, build_vocabulary
@@ -33,7 +43,8 @@ from .data import build_dataset
 from .data.batching import batch_iterator, prefetch_iterator
 from .loop import CheckpointManager, MetricsLogger, card_line, device_peak_flops, train
 from .optim import build_optimizer
-from .step import TrainState, make_eval_step, make_train_step, named_flax_params
+from .step import (TrainState, make_eval_step, make_lora_eval_step, make_lora_train_step, make_train_step,
+                   named_flax_params)
 
 ROADMAP_ITEM = "ROADMAP queue 1, item 15"
 
@@ -55,12 +66,9 @@ def refuse_unported(args) -> None:
     """Raise for the training options the port does not cover yet."""
     p = args.parallel
     refused = {
-        "enable_lora": args.enable_lora,
-        "pretrained_path (a msgpack checkpoint)": args.pretrained_path,
         "parallel.num_processes / coordinator_address (more than one process)":
             (p.num_processes or 1) > 1 or p.coordinator_address,
         "parallel.tensor_axis / fsdp_axis": p.tensor_axis or p.fsdp_axis,
-        "profile.do_profile": args.profile.do_profile,
     }
     for what, on in refused.items():
         if on:
@@ -69,14 +77,27 @@ def refuse_unported(args) -> None:
 
 def build_model_and_data(args, device: torch.device):
     """(model, vocab, make_batches): the model on ``device`` with seeded
-    random fp32 parameters, computing in the ``mixed_precision`` dtype."""
-    vocab = build_vocabulary(args)
-    parser = BeatmapParser(args, vocab)
-    model = Mapperatorinator(build_config(args, vocab)).to(device)
-    init_params(model, args.seed)
+    random fp32 parameters, computing in the ``mixed_precision`` dtype; or,
+    with ``pretrained_path``, the checkpoint's model and vocabulary (the
+    batches still come from the configured vocabulary, as in JAX)."""
+    data_vocab = build_vocabulary(args)
+    parser = BeatmapParser(args, data_vocab)
+    config = build_config(args, data_vocab)
+    if args.pretrained_path:
+        pretrained = resolve_model_checkpoint_path(args.pretrained_path, gamemode=args.pretrained_gamemode)
+        print(f"Loading pretrained weights from {pretrained}")
+        model, vocab = load_checkpoint(pretrained)
+        model, vocab = model.to(device), vocab or data_vocab
+        dtype = model.cfg.backbone.dtype
+        if dtype != config.backbone.dtype:
+            print(f"The checkpoint computes in {dtype}: it wins over mixed_precision={args.mixed_precision!r} "
+                  f"({config.backbone.dtype}), as in the JAX train.py")
+    else:
+        model, vocab = Mapperatorinator(config).to(device), data_vocab
+        init_params(model, args.seed)
 
     def make_batches(test: bool):
-        dataset = build_dataset(args.data, parser, vocab, test=test)
+        dataset = build_dataset(args.data, parser, data_vocab, test=test)
         batches = batch_iterator(
             iter(dataset),
             args.optim.batch_size,
@@ -94,6 +115,8 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
     config_name, overrides = parse_argv(sys.argv[1:] if argv is None else argv)
     args = load_train_config(config_name, overrides)
     refuse_unported(args)
+    if args.enable_lora and not args.pretrained_path:
+        raise ValueError("enable_lora requires pretrained_path (LoRA fine-tunes a base model).")
     device = select_device(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -105,7 +128,17 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
         print("Training on the CPU")
 
     model, vocab, make_batches = build_model_and_data(args, device)
-    state = TrainState(step=0, model=model, optimizer=build_optimizer(args, named_flax_params(model)))
+    if args.enable_lora:
+        lora_cfg = dict(args.lora or {})
+        rank = int(lora_cfg.get("r", 64))
+        lora_alpha = float(lora_cfg.get("lora_alpha", 128))
+        trained = init_lora_params(model, rank=rank, target_modules=lora_cfg.get("target_modules"), seed=args.seed)
+        train_step, eval_step = make_lora_train_step(model, lora_alpha), make_lora_eval_step(model, lora_alpha)
+        print(f"LoRA fine-tuning: rank={rank} alpha={lora_alpha} "
+              f"({sum(p.numel() for p in trained.parameters())} trainable params)")
+    else:
+        trained, train_step, eval_step = model, make_train_step(), make_eval_step()
+    state = TrainState(step=0, model=trained, optimizer=build_optimizer(args, named_flax_params(trained)))
 
     ckpt_dir = Path(args.checkpoint_path or "checkpoints").resolve()
     checkpoints = CheckpointManager(ckpt_dir, total_limit=args.checkpoint.local_total_limit)
@@ -133,8 +166,8 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
     vocab.save_pretrained(ckpt_dir)
     try:
         state = train(
-            train_step=make_train_step(),
-            eval_step=make_eval_step(),
+            train_step=train_step,
+            eval_step=eval_step,
             state=state,
             train_batch_factory=lambda: make_batches(test=False),
             eval_batch_factory=(lambda: make_batches(test=True)) if args.eval.every_steps > 0 else None,
@@ -142,9 +175,16 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
             args=args,
             logger=logger,
             checkpoints=checkpoints,
+            profile_dir=Path(log_dir) / "profile" if args.profile.do_profile else None,
+            model=model,
         )
     finally:
         logger.close()
+    if args.enable_lora:
+        save_lora(ckpt_dir / "lora", state.model, rank=rank, alpha=lora_alpha,
+                  target_modules=lora_cfg.get("target_modules"),
+                  ckpt_subfolders=args.lora_metadata.ckpt_subfolders)
+        print(f"Saved LoRA adapter to {ckpt_dir / 'lora'}")
     return state
 
 

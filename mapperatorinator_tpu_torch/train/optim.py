@@ -209,15 +209,20 @@ def newton_schulz5(g: torch.Tensor, steps: int = 6, eps: float = 1e-7) -> torch.
     JAX ``newton_schulz5``; plain matmuls, as the JAX leaves them to XLA).
 
     Every value is bf16 as in the JAX trace: the coefficients are rounded to
-    bf16 (3.4375, -4.78125, 2.03125), and the norm squares in bf16, sums in
-    fp32 and takes its root in bf16. The iteration magnifies any difference
-    in these roundings (on the CPU this is bit-equal to the JAX function)."""
+    bf16 (3.4375, -4.78125, 2.03125), and the norm sums in fp32 and takes its
+    root in bf16. Its squares are exact, in fp32: the trace squares in bf16
+    and then converts to fp32, and XLA on the CPU folds the pair into one
+    fp32 product, so a bf16 rounding of the squares moves the norm by an ulp
+    now and then (15 of 1400 random matrices). The iteration magnifies any
+    difference in these roundings, by far along the near-null directions of
+    an ill-conditioned gradient such as a LoRA factor's (on the CPU this is
+    bit-equal to the JAX function)."""
     if g.dim() != 2:
         raise ValueError(f"newton_schulz5 takes a matrix, got shape {tuple(g.shape)}")
     bf16 = torch.bfloat16
     a, b, c = (torch.tensor(v, dtype=bf16, device=g.device) for v in (3.4445, -4.7750, 2.0315))
     x = g.to(bf16)
-    x = x / ((x * x).float().sum().to(bf16).sqrt() + torch.tensor(eps, dtype=bf16, device=g.device))
+    x = x / (x.float().square().sum().to(bf16).sqrt() + torch.tensor(eps, dtype=bf16, device=g.device))
     transpose = g.shape[0] > g.shape[1]
     if transpose:
         x = x.T

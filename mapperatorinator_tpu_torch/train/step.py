@@ -6,6 +6,11 @@ inside the optimizer, :class:`..optim.MultiSteps`), and the ``loss`` /
 ``grad_l2`` / ``weights_l2`` metrics. The step counter advances on every
 micro-step, as the JAX ``TrainState.step`` does. Parameters are updated in
 place; the JAX step returns a new state instead.
+
+Under LoRA (:func:`make_lora_train_step`) the state's model is the adapter
+(:class:`..models.lora.LoraAdapter`), the counterpart of the JAX state's
+factor tree: the frozen base runs with the merged weights through
+``torch.func.functional_call``, so the gradient reaches the factors alone.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.lora import merge_lora
 from ..models.params import flax_paths
 from .optim import global_norm
 
@@ -53,14 +59,24 @@ def to_device(batch: dict, device) -> dict:
             for key in BATCH_KEYS if key in batch}
 
 
-def _forward(model, batch: dict):
-    return model(
+def _inputs(batch: dict) -> dict:
+    return dict(
         frames=batch["frames"],
         decoder_input_ids=batch["decoder_input_ids"],
         decoder_attention_mask=batch.get("decoder_attention_mask"),
         labels=batch["labels"],
         sample_weights=batch.get("sample_weights"),
     )
+
+
+def _forward(model, batch: dict):
+    return model(**_inputs(batch))
+
+
+def _merged_forward(model, adapter, alpha: float, batch: dict):
+    """The model's forward with the adapter merged into its target weights."""
+    merged = merge_lora(dict(model.named_parameters()), adapter, alpha)
+    return torch.func.functional_call(model, merged, (), _inputs(batch))
 
 
 def make_train_step():
@@ -91,6 +107,36 @@ def make_train_step():
     return train_step
 
 
+def make_lora_train_step(model: nn.Module, alpha: float = 128.0):
+    """Returns ``train_step(state, batch) -> (state, metrics)`` for a LoRA
+    fine-tune of ``model`` (the JAX ``make_lora_train_step``): ``state.model``
+    is the adapter, and its factors alone are trained. ``model``'s
+    parameters stop requiring gradients here: the backward computes the
+    input gradients through the base, and the gradient of each merged
+    weight, which reaches the factors through the merge. The metrics are
+    ``loss`` and ``grad_l2`` over the factors, as in JAX."""
+    model.requires_grad_(False)
+
+    def train_step(state: TrainState, batch: dict):
+        adapter = state.model
+        batch = to_device(batch, next(adapter.parameters()).device)
+        params = state.params
+        for p in params:
+            p.grad = None
+        model.train()
+        _logits, loss = _merged_forward(model, adapter, alpha, batch)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        metrics = {"loss": loss.detach(), "grad_l2": global_norm(grads)}
+        state.optimizer.step(grads)
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
 def make_eval_step():
     """Returns ``eval_step(model, batch) -> (loss, logits)``, without
     gradients; the host computes the per-context metrics from the logits."""
@@ -100,6 +146,21 @@ def make_eval_step():
         model.eval()
         batch = to_device(batch, next(model.parameters()).device)
         logits, loss = _forward(model, batch)
+        return loss, logits
+
+    return eval_step
+
+
+def make_lora_eval_step(model: nn.Module, alpha: float = 128.0):
+    """Returns ``eval_step(adapter, batch) -> (loss, logits)``: the eval step
+    of ``model`` with the adapter merged (the JAX ``train.py`` wraps its eval
+    step in ``merge_lora`` likewise)."""
+
+    @torch.no_grad()
+    def eval_step(adapter, batch: dict):
+        model.eval()
+        batch = to_device(batch, next(adapter.parameters()).device)
+        logits, loss = _merged_forward(model, adapter, alpha, batch)
         return loss, logits
 
     return eval_step

@@ -2,8 +2,9 @@
 on the port.
 
 ``mapperatorinator_tpu_torch/configs/v32-mini.json`` is the JAX composition
-of ``configs/inference/v32-mini.yaml``, ``train_v32-mini.json`` that of
-``configs/train/v32-mini.yaml`` and ``mai_mod.json`` that of
+of ``configs/inference/v32-mini.yaml``, ``train_<name>.json`` that of
+``configs/train/<name>.yaml`` for v32-mini and the fine-tune configs
+(``lora``, ``lora_v32``, ``v32_ft``, ``v32-mini_ft``), and ``mai_mod.json`` that of
 ``configs/mai_mod.yaml`` (``MaiModConfig``, the v32 inference config under
 ``inference``), written out as JSON as ``tests/test_torch_config.py`` does for
 the v32 pair. These tests recompose them and fail on any drift; to regenerate
@@ -34,16 +35,24 @@ from tests.test_torch_config import plain
 
 torch.set_num_threads(1)
 
+TRAIN_CONFIGS = ("v32-mini", "lora", "lora_v32", "v32_ft", "v32-mini_ft")
 CONFIGS = {  # checked-in file -> (JAX config directory, config name, schema)
     "v32-mini": ("inference", "v32-mini", schema.InferenceConfig),
-    "train_v32-mini": ("train", "v32-mini", schema.TrainConfig),
+    **{f"train_{name}": ("train", name, schema.TrainConfig) for name in TRAIN_CONFIGS},
     "mai_mod": ("", "mai_mod", schema.MaiModConfig),
 }
-LOADERS = {"v32-mini": lambda o: load_config("v32-mini", o), "train_v32-mini": lambda o: load_train_config(
-    "v32-mini", o), "mai_mod": lambda o: load_mai_mod_config("mai_mod", o)}
+LOADERS = {"v32-mini": lambda o: load_config("v32-mini", o),
+           **{f"train_{name}": lambda o, name=name: load_train_config(name, o) for name in TRAIN_CONFIGS},
+           "mai_mod": lambda o: load_mai_mod_config("mai_mod", o)}
 OVERRIDES = {
     "v32-mini": ("cfg_scale=2", "train.data.src_seq_len=256", "device=cpu", 'descriptors=["clean"]'),
     "train_v32-mini": ("optim.batch_size=4", "mixed_precision=no", "model.overwrite.d_model=64"),
+    "train_lora": ("pretrained_path=base", "lora.r=8", "lora.lora_alpha=16", "optim.name=muon"),
+    "train_lora_v32": ("pretrained_path=base", "pretrained_gamemode=1", "data.dataset_type=ors",
+                       "optim.grad_acc=2", "profile.do_profile=true", "profile.wait=1",
+                       'lora_metadata.ckpt_subfolders=["gamemode=1"]'),
+    "train_v32_ft": ("pretrained_path=base", "optim.total_steps=10", "mixed_precision=no"),
+    "train_v32-mini_ft": ("pretrained_path=base", "pretrained_gamemode=0", "optim.grad_acc=1"),
     "mai_mod": ("beatmap_path=map.osu", "raw_output=true", "inference.cfg_scale=2",
                 "inference.train.data.tgt_seq_len=192", "inference.super_timing=true"),
 }

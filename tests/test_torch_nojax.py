@@ -9,7 +9,9 @@ where no card is visible, then, on the CPU by name, builds a tiny
 v32-architecture model with seeded random weights, runs ``load_model`` /
 ``generate`` to a written .osu file, loads the tiny checkpoint (written by the
 JAX package) with int8 weights and KV cache and decodes a few steps from it,
-and runs one step of ``train.main`` on a small ORS dataset.
+runs one step of ``train.main`` on a small ORS dataset, and one step of a
+LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
+quantized.
 
 The drift guard holds each copied file (``osu/``, ``native/``,
 ``csrc/difficulty.cpp``, ``train/data/``, ``audio/io.py``,
@@ -100,8 +102,18 @@ SCRIPT = textwrap.dedent("""
                                    build_logits_pipeline(qvocab, do_sample=False), [qvocab.eos_id], max_length=9)
     assert tokens.shape == (1, 9) and end > 1
 
-    state = train_main.main(sys.argv[6:], log_dir=sys.argv[4])
+    split = sys.argv.index("--")
+    state = train_main.main(sys.argv[6:split], log_dir=sys.argv[4])
     assert state.step == 1
+
+    # a LoRA fine-tune of the checkpoint, its adapter merged at load and quantized
+    lora_state = train_main.main(sys.argv[split + 1:], log_dir=sys.argv[4])
+    assert lora_state.step == 1
+    args = load_config("v32", [f"model_path={sys.argv[5]}", f"lora_path={sys.argv[3]}/lora_ckpt/lora", "device=cpu",
+                               "gamemode=0", "quantized_weights=true", "train.data.src_seq_len=256",
+                               "train.data.tgt_seq_len=256"])
+    lengine, _ = inference.load_model(args)
+    assert sum(isinstance(m, QDense) for m in lengine.model.modules()) == 23
     # not even attempted: an import caught by a try would still be one
     assert not attempts, attempts
     print("MODULES", len(modules))
@@ -117,9 +129,13 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
                   *data_overrides(ors, src=128, tgt=192), *TINY_MODEL, "optim.batch_size=2", "optim.grad_acc=1",
                   "optim.total_steps=1", "dataloader.num_workers=0", "dataloader.balancer_buffer_size=0",
                   "logging.log_with=none", "eval.every_steps=0"]
+    lora_argv = ["-cn", "lora", "device=cpu", f"pretrained_path={ckpt}", f"checkpoint_path={tmp_path / 'lora_ckpt'}",
+                 *data_overrides(ors, src=128, tgt=192), "data.mappers_path=", "data.tags_metadata_path=",
+                 "lora.r=4", "optim.batch_size=2", "optim.total_steps=1", "dataloader.num_workers=0",
+                 "dataloader.balancer_buffer_size=0", "logging.log_with=none", "eval.every_steps=0"]
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), str(ckpt),
-         *train_argv],
+         *train_argv, "--", *lora_argv],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         # the GPU machine sets JAX_PLATFORMS, which makes the JAX package's
         # __init__ import jax
@@ -131,6 +147,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
     beatmap = Beatmap.from_path(lines["WROTE"])
     assert beatmap.mode == 0 and beatmap.title == "Unknown Title"
     assert (tmp_path / "ckpt" / "1" / "state.pt").exists() and (tmp_path / "logs" / "metrics.jsonl").exists()
+    assert (tmp_path / "lora_ckpt" / "lora" / "lora.msgpack").exists()
 
 
 PORT = REPO_ROOT / "mapperatorinator_tpu_torch"
@@ -201,7 +218,9 @@ def test_copies_do_not_drift_from_their_source(copy):
 # (the port's copy, its source, the top-level definitions the copy holds verbatim)
 COPIED_DEFINITIONS = [
     ("models/lora.py", "mapperatorinator_tpu/models/lora.py",
-     ("_GAMEMODE_SUBFOLDER_PATTERN", "get_model_checkpoint_subfolder", "resolve_model_checkpoint_path")),
+     ("LORA_CONFIG_FILENAME", "LORA_WEIGHTS_FILENAME", "_TARGET_ALIASES", "DEFAULT_TARGETS", "normalize_targets",
+      "_GAMEMODE_SUBFOLDER_PATTERN", "get_model_checkpoint_subfolder", "resolve_model_checkpoint_path",
+      "resolve_compatible_lora_path")),
     ("infer/server.py", "mapperatorinator_tpu/infer/server.py",
      ("RETRY_SIGNAL", "InferenceServer", "InferenceClient")),
     ("mai_mod.py", "mai_mod.py",

@@ -31,7 +31,7 @@ from mapperatorinator_tpu.train.step import init_train_state, make_train_step as
 from mapperatorinator_tpu.train.step import wrap_grad_acc
 from mapperatorinator_tpu_torch.config import load_train_config
 from mapperatorinator_tpu_torch.models import Mapperatorinator
-from mapperatorinator_tpu_torch.models.params import flatten, flax_layout, flax_paths, torch_name
+from mapperatorinator_tpu_torch.models.params import flatten, flax_layout, flax_paths, torch_name, unflatten
 from mapperatorinator_tpu_torch.train import optim
 from mapperatorinator_tpu_torch.train.step import TrainState, make_train_step, named_flax_params
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, SRC_SEQ_LEN
@@ -202,17 +202,6 @@ def test_loss_and_gradients_match_jax(tiny):  # noqa: F811
     for path, want in flatten(jax.device_get(want_grads)).items():
         got = flax_layout(grads[torch_name(path)], path).numpy()
         np.testing.assert_allclose(got, np.asarray(want), rtol=MODEL_TOL, atol=MODEL_TOL, err_msg=path)
-
-
-def unflatten(flat: dict) -> dict:
-    tree: dict = {}
-    for path, leaf in flat.items():
-        *scope, key = path.split("/")
-        node = tree
-        for part in scope:
-            node = node.setdefault(part, {})
-        node[key] = leaf
-    return tree
 
 
 @pytest.mark.parametrize("name", ["muon", "adamwscale"])
