@@ -177,8 +177,15 @@ TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS = 32, 2, 6
 # micro-steps, as the fp32 gradient check's batch
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 2, 2
 # the LoRA fine-tune (lora_v32: batch 32, grad_acc 16, 1000 steps): cut to
-# grad_acc 2 and 4 micro-steps (2 updates); printed with the phase
-LORA_GRAD_ACC, LORA_MICRO_STEPS = 2, 4
+# grad_acc 2 and 6 micro-steps (3 updates); printed with the phase. The
+# synthesized set holds 3 batches of 32, so micro-steps 1 and 4 each load an
+# epoch, the trace covers 2-3, and 5-6 (an accumulation and an update) are
+# the steady, untraced pair whose mean is the phase's s per micro-step
+LORA_GRAD_ACC, LORA_MICRO_STEPS = 2, 6
+LORA_TRACED, LORA_STEADY = (2, 3), (5, 6)
+# the LoRA requests' audio: seeded random merged weights never emit EOS, so
+# every window decodes to tgt_seq_len; a short song keeps to a few windows
+LORA_AUDIO_SECONDS = 4.0
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
 TIMER_ITERATIONS = 20  # super-timing: v32's ensemble size; a cut would be printed here
 SERVER_JOIN_S = 600  # the server phase's two requests must return within this
@@ -612,10 +619,11 @@ def check_mel(report: dict) -> dict:
     """Kernel A against both its plain versions (``mel_plain_tf32x3``, which
     rounds as it does, and ``mel_plain``) at ``MEL_TC_TOL`` and at the
     reference's ``MEL_TOL``, with a float64 reference beside them, two calls
-    bit-equal, at one v32 window (request 2's call) and two (CFG, batch 2);
-    each timed beside its plain version, by CUDA events and by the profiler's
-    device kernels, and set against ``fp32_bounds``. Returns the kernels-line
-    entry at one window."""
+    bit-equal, at one v32 window (request 2's call), two (CFG, batch 2) and
+    32 (a LoRA micro-step's call: lora_v32's batch of 32 windows); each timed
+    beside its plain version, by CUDA events and by the profiler's device
+    kernels, and set against ``fp32_bounds``. Returns the kernels-line entry
+    at one window."""
     from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
 
@@ -623,7 +631,7 @@ def check_mel(report: dict) -> dict:
     args = (mel.w_re, mel.w_im, mel.fbanks, True)
     n_fft, n_bins, n_mels = mel.w_re.shape[0], mel.w_re.shape[1], mel.fbanks.shape[1]
     cases = []
-    for batch in (1, 2):
+    for batch in (1, 2, 32):
         frames, padded = mel_frames(batch)
         got = fused_mel(frames, *args)
         want, want3 = mel_plain(frames, *args), mel_plain_tf32x3(frames, *args)
@@ -657,6 +665,7 @@ def check_mel(report: dict) -> dict:
                     device_ms={"kernel": device_ms(lambda: fused_mel(frames, *args)),
                                "plain": device_ms(lambda: mel_plain(frames, *args))},
                     **fp32_bounds(*mel_work(batch, 2048, n_fft, n_bins, n_mels, padded.numel())))
+        del frames, padded, got, want, want3, fd, re, im, truth
         print(f"{label}: kernel {ms:.4f} ms (device {fmt_ms(case['device_ms']['kernel'])}), plain {plain_ms:.4f} ms "
               f"(device {fmt_ms(case['device_ms']['plain'])}); bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
               f"fp32 FMAs {case['fma_ms']:.4f}, three TF32 products {case['tf32x3_ms']:.4f}, bytes "
@@ -670,8 +679,9 @@ def check_mel(report: dict) -> dict:
             "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
             "bound_fma_ms": one["fma_ms"], "bound_tf32x3_ms": one["tf32x3_ms"], "library_ms": None,
             "device_ms": one["device_ms"], "timed_shape": f"N2048 1024->{n_bins}->{n_mels} log1p fp32",
-            "cfg_batch2": {k: cases[1][k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "max_abs_err",
-                                                     "max_abs_err_tf32x3")}}
+            **{key: {k: case[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "max_abs_err",
+                                          "max_abs_err_tf32x3")}
+               for key, case in (("cfg_batch2", cases[1]), ("lora_batch32", cases[2]))}}
 
 
 def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
@@ -1894,10 +1904,11 @@ def lora_request_checks(base: Path, lora_dir: Path, quantized: bool):
     return checks
 
 
-def finetune_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, dict]:
+def finetune_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     """The fine-tune path: ``train.main -cn lora_v32`` from a base checkpoint
     of seeded random bf16 v32 weights under ``<tmp>/base/gamemode=0``, then
-    two greedy requests served with the adapter it wrote. The base's config
+    two greedy requests served with the adapter it wrote, on a song of
+    ``LORA_AUDIO_SECONDS``. The base's config
     carries the fused mel (``spectrogram.implementation=pallas``): a
     checkpoint's model config, not the request's, picks the mel, so kernel A
     runs in the micro-steps (once each, on 32 rows) and in both requests.
@@ -1938,7 +1949,8 @@ def finetune_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, dict]:
           f"download), dataset ors on the synthesized tracks (lora_v32 reads a private mmrs set), grad_acc 16 -> "
           f"{LORA_GRAD_ACC}, {LORA_MICRO_STEPS} micro-steps ({LORA_MICRO_STEPS // LORA_GRAD_ACC} updates) of 1000, "
           f"no eval, drop_last on (every micro-step 32 rows; the synthesized set's epoch ends in a partial batch); "
-          f"rank, alpha, targets, Muon, bf16 and batch 32 as published; the trace covers micro-steps 2-3")
+          f"rank, alpha, targets, Muon, bf16 and batch 32 as published; the trace covers micro-steps "
+          f"{LORA_TRACED[0]}-{LORA_TRACED[-1]}")
 
     def counts() -> dict:
         return {**attention_launches(), "fused_mel": fused_mel.launches}
@@ -2004,8 +2016,8 @@ def finetune_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, dict]:
     lora_config = json.loads((ckpt / "lora" / "lora_config.json").read_text())
     print(f"fine-tune: {LORA_MICRO_STEPS} micro-steps in {wall:.1f} s (checkpoint load, data, the trace and the "
           f"adapter's save included), launches {launches} ({ATTN_PER_STEP} + {ATTN_PER_STEP} sm90 and one A a "
-          f"micro-step, nothing else of B or C), base weights after the run bit-equal to the checkpoint: {frozen}, B nonzero "
-          f"after each micro-step {b_moved}, {n_params} trainable parameters over {len(targets)} targets "
+          f"micro-step, nothing else of B or C), base weights after the run bit-equal to the checkpoint: {frozen}, "
+          f"B nonzero after each micro-step {b_moved}, {n_params} trainable parameters over {len(targets)} targets "
           f"(sum of r (in + out): {want_params}), trace {trace.stat().st_size / 2**20 if trace.exists() else 0:.1f} "
           f"MiB naming {traced}, lora_config ckpt_subfolders {lora_config['ckpt_subfolders']}")
     if not frozen or n_params != want_params or not all(traced.values()) \
@@ -2013,17 +2025,29 @@ def finetune_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, dict]:
         raise AssertionError("the fine-tune run failed a check")
     card = card_line()
     for r, tokens in zip(steps, step_tokens):
-        print(f"LoRA micro-step {r['step']}{' (traced)' if r['step'] in (2, 3) else ''}: loss {r['train/loss']:.4f}, "
-              f"grad_l2 {r['train/grad_l2']:.4f}, {tokens:.0f} tokens (encoder frames + decoder positions), "
+        traced_mark = " (traced)" if r["step"] in LORA_TRACED else ""
+        print(f"LoRA micro-step {r['step']}{traced_mark}: loss {r['train/loss']:.4f}, grad_l2 "
+              f"{r['train/grad_l2']:.4f}, {tokens:.0f} tokens (encoder frames + decoder positions), "
               f"{r['train/seconds_per_step']:.3f} s/step, {tokens / r['train/seconds_per_step']:.0f} tokens/s, peak "
               f"{r['train/peak_mem_gib']:.2f} GiB, MFU {r.get('train/mfu', float('nan')):.4f} by the port's "
               f"numerator, {r.get('train/mfu_jax_numerator', float('nan')):.4f} by the JAX one ({card})")
-    print(f"traced LoRA micro-steps 2-3: {traced_ms / 2:.1f} ms of device kernels a micro-step (the full bf16 "
-          f"micro-step's, profiled above: {report['training']['profiled_device_ms']:.1f} ms); the trace spans "
-          f"{span_ms / 1e3:.3f} s, device idle share {1 - traced_ms / span_ms:.3f} ({card})")
+    steady = [r for r in steps if r["step"] in LORA_STEADY]
+    steady_s = sum(r["train/seconds_per_step"] for r in steady) / len(steady)
+    steady_tokens = sum(step_tokens[r["step"] - 1] for r in steady) / len(steady)
+    steady_mfu = {k: sum(r.get(f"train/{k}", float("nan")) for r in steady) / len(steady)
+                  for k in ("mfu", "mfu_jax_numerator")}
+    print(f"steady LoRA micro-steps {LORA_STEADY} (untraced, mid-epoch, an accumulation and an update): "
+          f"{steady_s:.3f} s a micro-step, {steady_tokens / steady_s:.0f} tokens/s, MFU {steady_mfu['mfu']:.4f} by "
+          f"the port's numerator, {steady_mfu['mfu_jax_numerator']:.4f} by the JAX one ({card})")
+    out["steady"] = {"steps": list(LORA_STEADY), "s_per_step": steady_s, "tokens_per_s": steady_tokens / steady_s,
+                     **steady_mfu}
+    n_traced = len(LORA_TRACED)
+    print(f"traced LoRA micro-steps {LORA_TRACED}: {traced_ms / n_traced:.1f} ms of device kernels a micro-step (the "
+          f"full bf16 micro-step's, profiled above: {report['training']['profiled_device_ms']:.1f} ms); the trace "
+          f"spans {span_ms / 1e3:.3f} s, device idle share {1 - traced_ms / span_ms:.3f} ({card})")
     for row in top:
-        print(f"  {row['ms'] / 2:9.2f} ms {row['calls'] // 2:5d} calls a micro-step  {row['kernel']}")
-    out.update({"traced_device_ms_per_step": traced_ms / 2, "trace_span_ms": span_ms, "traced_top": top})
+        print(f"  {row['ms'] / n_traced:9.2f} ms {row['calls'] // n_traced:5d} calls a micro-step  {row['kernel']}")
+    out.update({"traced_device_ms_per_step": traced_ms / n_traced, "trace_span_ms": span_ms, "traced_top": top})
     out.update({"wall_s": wall, "launches": launches, "per_step": per_step, "steps": steps, "peak_mem_gib": peak,
                 "tokens_per_step": step_tokens, "trainable_params": n_params, "targets": len(targets),
                 "trace_bytes": trace.stat().st_size, "b_moved": b_moved, "base_frozen": frozen})
@@ -2032,21 +2056,25 @@ def finetune_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, dict]:
 
     # serve with the adapter
     lora_dir = ckpt / "lora"
+    wav = write_wav(tmp / "lora_song.wav", LORA_AUDIO_SECONDS)
     serving = {}
     for label, extra, quantized in (("lora-greedy-fused-mel", [], False),
                                     ("lora-int8-fused-mel", ["quantized_weights=true", "quantized_kv=true"], True)):
         serving[label] = serve(label, tmp, wav, [f"model_path={base}", f"lora_path={lora_dir}",
-                                                           "do_sample=false", *extra],
+                                                 "do_sample=false", *extra],
                                report, check_encoder=False, after=lora_request_checks(base, lora_dir, quantized))
     # the kernels of request 2 (A and B) and of request 3 (B and both of D's
-    # paths) with A: as many A launches as request 2, one a window
-    requests = {r["label"]: r["launches"] for r in report["requests"]}
-    mel_launches = requests["2-greedy-fused-mel"]["fused_mel"]
+    # paths) with A; A once a window, as in request 2
+    requests = {r["label"]: r for r in report["requests"]}
     for label, like in (("lora-greedy-fused-mel", "2-greedy-fused-mel"), ("lora-int8-fused-mel", "3-int8-checkpoint")):
-        got, want = serving[label], requests[like]
+        got, want = serving[label], requests[like]["launches"]
         if {k for k, v in got.items() if v} != {k for k, v in want.items() if v} | {"fused_mel"} \
-                or got["fused_mel"] != mel_launches:
-            raise AssertionError(f"{label} launched {got}, request {like} {want}")
+                or got["fused_mel"] != requests[label]["windows"]:
+            raise AssertionError(f"{label} launched {got} over {requests[label]['windows']} windows, request {like} "
+                                 f"{want}")
+    if requests["2-greedy-fused-mel"]["launches"]["fused_mel"] != requests["2-greedy-fused-mel"]["windows"]:
+        raise AssertionError(f"request 2 launched A {requests['2-greedy-fused-mel']['launches']['fused_mel']} "
+                             f"times over {requests['2-greedy-fused-mel']['windows']} windows")
     skipped, _ = resolve_compatible_lora_path(
         lora_dir, get_model_checkpoint_subfolder(resolve_model_checkpoint_path(base, gamemode=1)), verbose=False)
     kept, _ = resolve_compatible_lora_path(
@@ -2105,7 +2133,7 @@ def main() -> int:
         super_timing = super_timing_phase(tmp, wav, report)
         server = server_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
-        finetuned, lora_served = finetune_phase(tmp, wav, report)
+        finetuned, lora_served = finetune_phase(tmp, report)
     serving_paths = (first, second, third, maimod, super_timing, server, lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),

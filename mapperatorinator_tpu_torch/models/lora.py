@@ -91,19 +91,26 @@ def target_kernels(model: nn.Module, targets) -> dict[str, nn.Linear]:
         if isinstance(module, nn.Linear) and name.rsplit(".", 1)[-1] in targets))
 
 
+def zero_adapter(model: nn.Module, rank: int, target_modules=None) -> LoraAdapter:
+    """Zero fp32 factors of rank ``rank`` for every target kernel of
+    ``model``, in path order, on the model's device."""
+    adapter = LoraAdapter()
+    for path, module in target_kernels(model, normalize_targets(target_modules)).items():
+        adapter[path] = LoraFactors(path, module.in_features, module.out_features, rank)
+    return adapter.to(next(model.parameters()).device)
+
+
 def init_lora_params(model: nn.Module, rank: int = 64, target_modules=None, seed: int = 0) -> LoraAdapter:
     """A ~ N(0, 1) / sqrt(rank), B = 0 (the merged delta starts at zero), in
     fp32 on the model's device. The draws come from a CPU ``torch.Generator``
     seeded with ``seed``, target after target in path order, so they do not
     depend on the device."""
     gen = torch.Generator().manual_seed(seed)
-    adapter = LoraAdapter()
-    for path, module in target_kernels(model, normalize_targets(target_modules)).items():
-        factors = LoraFactors(path, module.in_features, module.out_features, rank)
-        with torch.no_grad():
-            factors.a.copy_(torch.randn(module.in_features, rank, generator=gen) / math.sqrt(rank))
-        adapter[path] = factors
-    return adapter.to(next(model.parameters()).device)
+    adapter = zero_adapter(model, rank, target_modules)
+    with torch.no_grad():
+        for factors in adapter.values():
+            factors.a.copy_(torch.randn(factors.a.shape, generator=gen) / math.sqrt(rank))
+    return adapter
 
 
 def merge_lora(weights: Mapping[str, torch.Tensor], adapter: LoraAdapter, alpha: float = 128.0
@@ -155,7 +162,7 @@ def load_lora(directory: Union[str, Path], model: nn.Module) -> tuple[LoraAdapte
     directory = Path(directory)
     with open(directory / LORA_CONFIG_FILENAME, encoding="utf-8") as f:
         config = json.load(f)
-    adapter = init_lora_params(model, rank=config["r"], target_modules=config.get("target_modules"))
+    adapter = zero_adapter(model, config["r"], config.get("target_modules"))
     state = lora_from_flax(flax_msgpack.unpackb((directory / LORA_WEIGHTS_FILENAME).read_bytes()))
     want = {name: tuple(t.shape) for name, t in adapter.state_dict().items()}
     got = {name: tuple(t.shape) for name, t in state.items()}

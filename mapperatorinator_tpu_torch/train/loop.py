@@ -449,16 +449,16 @@ class Profile:
 def train(*, train_step: Callable, eval_step: Callable, state, train_batch_factory: Callable[[], Iterable[dict]],
           eval_batch_factory: Optional[Callable[[], Iterable[dict]]] = None, vocab: Vocabulary, args,
           logger: Optional[MetricsLogger] = None, checkpoints: Optional[CheckpointManager] = None,
-          profile_dir=None, model=None):
+          profile_dir=None, flops: Optional[Callable[[dict], dict]] = None):
     """The main loop (reference: train_utils.py:379-434): runs until
     ``optim.total_steps`` with eval, log and checkpoint hooks at their
     configured intervals, remaking the batch stream each epoch, and saves a
     checkpoint at the end.
 
-    ``model`` is the frozen base when ``state.model`` is a LoRA adapter
-    merged into it (its backbone and FLOPs are the base's; the log then
-    carries ``mfu`` by :func:`lora_step_flops` and ``mfu_jax_numerator`` by
-    :func:`step_flops` of the factors, the JAX figure). With
+    ``flops(batch)`` gives {gauge: FLOPs of a step on ``batch``}; on a card
+    with a published peak each gauge is logged as those FLOPs over the peak
+    times the seconds per step (by default ``mfu``, :func:`step_flops` of
+    ``state.model``). With
     ``profile_dir``, a trace starts before the step that begins at
     ``profile.wait`` completed steps and stops once ``wait + warmup +
     active`` are complete (the JAX loop's arithmetic, not
@@ -467,9 +467,10 @@ def train(*, train_step: Callable, eval_step: Callable, state, train_batch_facto
     trace still open when the loop ends or raises is stopped and written."""
     averager = Averager()
     last_log = time.time()
-    base = state.model if model is None else model
-    backbone = base.cfg.backbone
-    device = next(base.parameters()).device
+    if flops is None:
+        model = state.model
+        flops = lambda batch: {"mfu": step_flops(model, batch, model.cfg.backbone)}  # noqa: E731
+    device = next(state.model.parameters()).device
     peak_flops = device_peak_flops(device)
     step = state.step
     last_eval_loss = None
@@ -499,11 +500,7 @@ def train(*, train_step: Callable, eval_step: Callable, state, train_batch_facto
                     stats["seconds_per_step"] = (time.time() - last_log) / args.logging.every_steps
                     if peak_flops and stats["seconds_per_step"] > 0:
                         peak_work = peak_flops * stats["seconds_per_step"]
-                        if base is state.model:
-                            stats["mfu"] = step_flops(base, batch, backbone) / peak_work
-                        else:
-                            stats["mfu"] = lora_step_flops(base, state.model, batch, backbone) / peak_work
-                            stats["mfu_jax_numerator"] = step_flops(state.model, batch, backbone) / peak_work
+                        stats.update({gauge: n / peak_work for gauge, n in flops(batch).items()})
                     if device.type == "cuda":
                         stats["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
                     last_log = time.time()

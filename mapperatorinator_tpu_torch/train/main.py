@@ -41,7 +41,7 @@ from ..models.params import init_params
 from ..osu import BeatmapParser, build_vocabulary
 from .data import build_dataset
 from .data.batching import batch_iterator, prefetch_iterator
-from .loop import CheckpointManager, MetricsLogger, card_line, device_peak_flops, train
+from .loop import CheckpointManager, MetricsLogger, card_line, device_peak_flops, lora_step_flops, step_flops, train
 from .optim import build_optimizer
 from .step import (TrainState, make_eval_step, make_lora_eval_step, make_lora_train_step, make_train_step,
                    named_flax_params)
@@ -134,10 +134,16 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
         lora_alpha = float(lora_cfg.get("lora_alpha", 128))
         trained = init_lora_params(model, rank=rank, target_modules=lora_cfg.get("target_modules"), seed=args.seed)
         train_step, eval_step = make_lora_train_step(model, lora_alpha), make_lora_eval_step(model, lora_alpha)
+        backbone = model.cfg.backbone
+
+        def flops(batch):
+            # what the card computes, beside the JAX figure (the factors as the model)
+            return {"mfu": lora_step_flops(model, trained, batch, backbone),
+                    "mfu_jax_numerator": step_flops(trained, batch, backbone)}
         print(f"LoRA fine-tuning: rank={rank} alpha={lora_alpha} "
               f"({sum(p.numel() for p in trained.parameters())} trainable params)")
     else:
-        trained, train_step, eval_step = model, make_train_step(), make_eval_step()
+        trained, train_step, eval_step, flops = model, make_train_step(), make_eval_step(), None
     state = TrainState(step=0, model=trained, optimizer=build_optimizer(args, named_flax_params(trained)))
 
     ckpt_dir = Path(args.checkpoint_path or "checkpoints").resolve()
@@ -176,7 +182,7 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
             logger=logger,
             checkpoints=checkpoints,
             profile_dir=Path(log_dir) / "profile" if args.profile.do_profile else None,
-            model=model,
+            flops=flops,
         )
     finally:
         logger.close()

@@ -16,7 +16,8 @@ factor tree: the frozen base runs with the merged weights through
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -73,26 +74,28 @@ def _forward(model, batch: dict):
     return model(**_inputs(batch))
 
 
-def _merged_forward(model, adapter, alpha: float, batch: dict):
-    """The model's forward with the adapter merged into its target weights."""
+def _merged_forward(model, adapter, batch: dict, *, alpha: float):
+    """The model's forward, in the adapter's mode, with the adapter merged
+    into its target weights."""
+    model.train(adapter.training)
     merged = merge_lora(dict(model.named_parameters()), adapter, alpha)
     return torch.func.functional_call(model, merged, (), _inputs(batch))
 
 
-def make_train_step():
+def make_train_step(forward: Callable = _forward, weights_l2: bool = True):
     """Returns ``train_step(state, batch) -> (state, metrics)`` for a
-    collated numpy batch. The metrics are tensors on the device: reading
-    them waits for the step."""
+    collated numpy batch; ``forward(state.model, batch)`` gives (logits,
+    loss). The metrics are tensors on the device: reading them waits for
+    the step."""
 
     def train_step(state: TrainState, batch: dict):
         model = state.model
-        device = next(model.parameters()).device
-        batch = to_device(batch, device)
+        batch = to_device(batch, next(model.parameters()).device)
         params = state.params
         for p in params:
             p.grad = None
         model.train()
-        _logits, loss = _forward(model, batch)
+        _logits, loss = forward(model, batch)
         loss.backward()
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -100,7 +103,8 @@ def make_train_step():
         state.optimizer.step(grads)
         for p in params:
             p.grad = None
-        metrics["weights_l2"] = global_norm([p.detach() for p in params])
+        if weights_l2:
+            metrics["weights_l2"] = global_norm([p.detach() for p in params])
         state.step += 1
         return state, metrics
 
@@ -108,36 +112,18 @@ def make_train_step():
 
 
 def make_lora_train_step(model: nn.Module, alpha: float = 128.0):
-    """Returns ``train_step(state, batch) -> (state, metrics)`` for a LoRA
-    fine-tune of ``model`` (the JAX ``make_lora_train_step``): ``state.model``
-    is the adapter, and its factors alone are trained. ``model``'s
-    parameters stop requiring gradients here: the backward computes the
-    input gradients through the base, and the gradient of each merged
-    weight, which reaches the factors through the merge. The metrics are
-    ``loss`` and ``grad_l2`` over the factors, as in JAX."""
+    """The train step of a LoRA fine-tune of ``model`` (the JAX
+    ``make_lora_train_step``): ``state.model`` is the adapter, and its
+    factors alone are trained. ``model``'s parameters stop requiring
+    gradients here: the backward computes the input gradients through the
+    base, and the gradient of each merged weight, which reaches the factors
+    through the merge. The metrics are ``loss`` and ``grad_l2`` over the
+    factors, as in JAX."""
     model.requires_grad_(False)
-
-    def train_step(state: TrainState, batch: dict):
-        adapter = state.model
-        batch = to_device(batch, next(adapter.parameters()).device)
-        params = state.params
-        for p in params:
-            p.grad = None
-        model.train()
-        _logits, loss = _merged_forward(model, adapter, alpha, batch)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        metrics = {"loss": loss.detach(), "grad_l2": global_norm(grads)}
-        state.optimizer.step(grads)
-        for p in params:
-            p.grad = None
-        state.step += 1
-        return state, metrics
-
-    return train_step
+    return make_train_step(functools.partial(_merged_forward, model, alpha=alpha), weights_l2=False)
 
 
-def make_eval_step():
+def make_eval_step(forward: Callable = _forward):
     """Returns ``eval_step(model, batch) -> (loss, logits)``, without
     gradients; the host computes the per-context metrics from the logits."""
 
@@ -145,7 +131,7 @@ def make_eval_step():
     def eval_step(model, batch: dict):
         model.eval()
         batch = to_device(batch, next(model.parameters()).device)
-        logits, loss = _forward(model, batch)
+        logits, loss = forward(model, batch)
         return loss, logits
 
     return eval_step
@@ -155,12 +141,4 @@ def make_lora_eval_step(model: nn.Module, alpha: float = 128.0):
     """Returns ``eval_step(adapter, batch) -> (loss, logits)``: the eval step
     of ``model`` with the adapter merged (the JAX ``train.py`` wraps its eval
     step in ``merge_lora`` likewise)."""
-
-    @torch.no_grad()
-    def eval_step(adapter, batch: dict):
-        model.eval()
-        batch = to_device(batch, next(adapter.parameters()).device)
-        logits, loss = _merged_forward(model, adapter, alpha, batch)
-        return loss, logits
-
-    return eval_step
+    return make_eval_step(functools.partial(_merged_forward, model, alpha=alpha))

@@ -16,10 +16,13 @@ v32-architecture checkpoint, in fp32.
   ``wait`` completed steps and stops at ``wait + warmup + active``, where
   ``early_stop`` ends the loop;
 * ``step_flops`` under LoRA: the JAX figure (the factors' 6 N and
-  attention) and the port's numerator beside it.
+  attention) and the port's numerator beside it; the loop logs each gauge
+  of the ``flops`` callable ``train.main`` hands it over the peak times the
+  seconds per step.
 """
 
 import json
+import time
 from types import SimpleNamespace
 
 import jax
@@ -280,3 +283,44 @@ def test_step_flops_under_lora(tiny):  # noqa: F811
     assert got == pytest.approx(want, rel=1e-12)
     # the factors are a sliver of the base: the JAX figure is nearly attention alone
     assert attention < want_jax < 1.5 * attention < got
+
+
+class GaugeLogger:
+    """Collects what the loop logs."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log(self, stats, step):
+        self.rows.append((step, stats))
+
+
+@pytest.mark.parametrize("lora_gauges", [False, True])
+def test_the_loop_logs_each_flops_gauge_over_peak_times_seconds(monkeypatch, lora_gauges):
+    """With a published peak, each gauge ``flops(batch)`` names is logged as
+    its FLOPs over the peak times the seconds per step; without ``flops``,
+    ``mfu`` is :func:`loop.step_flops` of ``state.model``."""
+    monkeypatch.setattr(loop, "device_peak_flops", lambda device: 1e12)
+    model = torch.nn.Linear(4, 4)
+    model.cfg = SimpleNamespace(backbone=None)
+    batch = {"decoder_input_ids": np.zeros((2, 8)), "frames": np.zeros((2, 1024))}
+
+    def train_step(state, batch):
+        time.sleep(1e-3)  # a step the host clock sees
+        state.step += 1
+        return state, {"loss": torch.tensor(1.0)}
+
+    gauges = {"mfu": 6e9, "mfu_jax_numerator": 2e9}
+    args = SimpleNamespace(optim=SimpleNamespace(total_steps=2), logging=SimpleNamespace(every_steps=1),
+                           profile=SimpleNamespace(wait=0, warmup=0, active=0, early_stop=False))
+    logger = GaugeLogger()
+    loop.train(train_step=train_step, eval_step=None, state=TrainState(0, model, None),
+               train_batch_factory=lambda: iter([batch] * 4), vocab=None, args=args, logger=logger,
+               flops=(lambda b: gauges) if lora_gauges else None)
+    want = gauges if lora_gauges else {"mfu": loop.step_flops(model, batch)}
+    assert [step for step, _ in logger.rows] == [1, 2]
+    for _, stats in logger.rows:
+        seconds = stats["train/seconds_per_step"]
+        assert {k[len("train/"):] for k in stats if k.startswith("train/mfu")} == set(want)
+        for gauge, n in want.items():
+            assert stats[f"train/{gauge}"] == pytest.approx(n / (1e12 * seconds), rel=1e-12)
