@@ -26,8 +26,13 @@
    device time of each column tile. Kernel A (the fused mel, split-TF32
    tensor-core products) is held against both its plain versions (the one
    that rounds as it does, and fp32) at 1e-4 and at the reference's bar, with
-   a float64 reference beside them and two calls bit-equal, at one v32 window
-   and at two (CFG), each timed beside its plain version and its bounds. A
+   a float64 reference beside them and two calls bit-equal, at one v32 window,
+   at two (CFG), at 32 (a LoRA micro-step) and at one v31 window (4 096
+   frames, 80 mels), each timed beside its plain version and its bounds. B
+   is also held and timed at a v31 encoder window (B 1, T = S = 2 048), and
+   held at v31 MaiMod's decoder shapes (causal self-attention at T 1 010
+   with a key mask, cross-attention at T 1 010 over S 2 048); D's tensor
+   cores at its 2 048-row products. A
    device time is the sum of the profiler's device kernels only
    (``device_kernels``), so a kernel launched through an op counts once.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
@@ -65,7 +70,20 @@
    batching server (``infer/server.py``) in this process, two greedy
    requests from two client threads batched together on its batch thread,
    whose first batch of more than one row must decode to the same tokens
-   when the engine glue is called on it directly.
+   when the engine glue is called on it directly. Then v31 at full width
+   (``v31_phase``: RoPEWhisper-small with the difficulty, mapper and
+   song-position embedders, 4 096 source frames, an 8 192-slot decode
+   buffer, seeded random weights): its defaults (sampled, TIMING + KIAI +
+   MAP + SV) at a set difficulty and mapper, then greedy from a checkpoint
+   of those weights whose config picks the fused mel, with int8 weights
+   and KV (A, B, D) and then ``precompile=true``'s warm-up at the 8 192
+   slots, each request's first window encoded with its conditions through
+   the kernels and held against the plain path (another difficulty must
+   move the states); and MaiMod under the v30 preset on a taiko map, which
+   must fall back to v31 at that checkpoint, through the same checks as
+   v32's MaiMod (``maimod_run``: 36 B launches a batch, the first batch
+   held against plain attention at T up to 1 010 over 2 048 source
+   positions).
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -109,6 +127,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -138,9 +158,12 @@ ENC_TOL = 2e-4  # model-level bar, test_model.py:77
 # qmm: the reference's 1e-5 (test_qmm_kernel.py:30) in fp32, 2e-2 in bf16, each
 # times the largest |reference output|, at least 1
 QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-QMM_SHAPES = [  # (rows, K, N): decode steps; an encoder window's fc1, qkv and out; init_cache; a prefill; ragged
+QMM_SHAPES = [  # (rows, K, N): decode steps; a v32 encoder window's fc1, qkv and out; init_cache; a prefill;
+    # ragged; a v31 encoder window's fc1, qkv and out (2 048 rows, which the JAX gate qmm_supported sends to
+    # the plain expression, in the port too: held here, not on a main path)
     (1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768), (4, 768, 3072), (3, 200, 128),
-    (1024, 768, 3072), (1024, 768, 2304), (1024, 768, 768), (1024, 768, 1536), (256, 3072, 768)]
+    (1024, 768, 3072), (1024, 768, 2304), (1024, 768, 768), (1024, 768, 1536), (256, 3072, 768),
+    (2048, 768, 3072), (2048, 768, 2304), (2048, 768, 768)]
 # a decode step's products on the GEMV path (rows <= 4): self-attention qkv,
 # the 768-wide ones (self out, cross q and out), fc1, fc2; and out with CFG
 QMM_DECODE = [(1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768)]
@@ -189,6 +212,9 @@ LORA_AUDIO_SECONDS = 4.0
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
 TIMER_ITERATIONS = 20  # super-timing: v32's ensemble size; a cut would be printed here
 SERVER_JOIN_S = 600  # the server phase's two requests must return within this
+# the v31 phase's conditions: a set difficulty and a mapper (a user id that
+# datasets/beatmap_users.json holds, so the mapper table's own row)
+V31_DIFFICULTY, V31_MAPPER = 6.5, 101602
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "mapperatorinator_tpu")
 
 
@@ -312,11 +338,14 @@ def fp32_bounds(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if least >= bytes_ms else "bytes"}
 
 
-# the fp32 route's timed calls: (label, B, T, S, causal + key mask); serving
-# is B's only, the three training calls of the fp32 micro-steps both kernels'
-FP32_SHAPES = [("serving encoder", 1, 1024, 1024, False), ("training encoder", FP32_TRAIN_BATCH, 1024, 1024, False),
-               ("training decoder self", FP32_TRAIN_BATCH, 2560, 2560, True),
-               ("training cross", FP32_TRAIN_BATCH, 2560, 1024, False)]
+# the fp32 route's timed calls: (label, B, T, S, causal + key mask, backward
+# too); serving (a v32 and a v31 encoder window) is B's only, the three
+# training calls of the fp32 micro-steps both kernels'
+FP32_SHAPES = [("serving encoder", 1, 1024, 1024, False, False),
+               ("v31 serving encoder", 1, 2048, 2048, False, False),
+               ("training encoder", FP32_TRAIN_BATCH, 1024, 1024, False, True),
+               ("training decoder self", FP32_TRAIN_BATCH, 2560, 2560, True, True),
+               ("training cross", FP32_TRAIN_BATCH, 2560, 1024, False, True)]
 
 
 def attention_cases(gen, B: int):
@@ -327,6 +356,9 @@ def attention_cases(gen, B: int):
     all_masked[0] = False  # every query row of batch 0 sees no key
     return [
         ("encoder self T1024", 1024, 1024, False, 0, None),
+        ("v31 encoder self T2048", 2048, 2048, False, 0, None),
+        ("v31 decoder self T1010 causal keymask", 1010, 1010, True, 0, key_mask[:, :1010]),  # MaiMod's v31 batch
+        ("v31 cross T1010 S2048", 1010, 2048, False, 0, None),
         ("causal T1024", 1024, 1024, True, 0, None),
         ("encoder self T1024 window128 keymask", 1024, 1024, False, 128, key_mask[:, :1024]),
         ("decoder self local T2560 causal window128 keymask", 2560, 2560, True, 128, key_mask),
@@ -394,7 +426,7 @@ def check_attention(report: dict) -> None:
 
 def time_attention_fp32(report: dict) -> list[dict]:
     """Kernels B and C on the fp32 route timed at the calls of their main
-    paths (``FP32_SHAPES``: B at all four, C at the three of training)
+    paths (``FP32_SHAPES``: B at all five, C at the three of training)
     beside the plain version, SDPA in fp32 (TF32 off) and the two bounds,
     which count the (query, key) pairs the masks leave. Returns the two
     kernels-line entries, each at its first shape, with every shape's
@@ -410,7 +442,7 @@ def time_attention_fp32(report: dict) -> list[dict]:
     H, D = 12, 64
     scale = D**-0.5
     shapes = {"fwd": [], "bwd": []}
-    for label, B, T, S, causal in FP32_SHAPES:
+    for label, B, T, S, causal, backward in FP32_SHAPES:
         q, do = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(2))
         k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda") for _ in range(2))
         mask = sdpa_mask = None
@@ -430,7 +462,7 @@ def time_attention_fp32(report: dict) -> list[dict]:
                               qs, ks, vs, attn_mask=sdpa_mask)},
                          # q, k, v in; out and lse out
                          fp32_bounds(4.0 * pairs * D, 4 * (2 * el_q + 2 * el_k) + 4 * B * H * T))}
-        if label != "serving encoder":
+        if backward:
             # q, k, v, O, dO and lse in; dq, dk, dv out
             kinds["bwd"] = ({"plain": lambda: attention_backward_plain(q, k, v, mask, do, causal=causal),
                              "kernel": lambda: flash_bwd_fp32(q, k, v, mask, out, lse, do, causal, 0, scale),
@@ -602,37 +634,44 @@ def mel_work(batch: int, n_frames: int, n_fft: int, n_bins: int, n_mels: int, si
     return flops, 4.0 * (signal + 2 * n_fft * n_bins + n_bins * n_mels + rows * n_mels)
 
 
-def mel_frames(batch: int):
-    """``batch`` items of one v32 window of seeded audio (a 440 Hz tone and
-    noise, 2047 hops of 128 samples) on the card, reflect-padded and framed as
+def mel_frames(batch: int, n_frames: int):
+    """``batch`` items of one window of ``n_frames`` frames (v32 2 048, v31
+    4 096) of seeded audio (a 440 Hz tone and noise, ``n_frames - 1`` hops of
+    128 samples) on the card, reflect-padded and framed as
     ``MelSpectrogram`` frames them: (frames, padded signal)."""
-    n = 2047 * 128
+    n = (n_frames - 1) * 128
     t = np.arange(n) / 16000
     rng = np.random.default_rng(0)
     audio = (0.5 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.standard_normal((batch, n))).astype(np.float32)
     x = torch.from_numpy(audio).cuda()
     padded = torch.nn.functional.pad(x[:, None], (512, 512), mode="reflect")[:, 0]
-    return padded.unfold(1, 1024, 128)[:, :2048], padded
+    return padded.unfold(1, 1024, 128)[:, :n_frames], padded
+
+
+# kernel A's checks: (batch, frames, mels): one v32 window (request 2's call),
+# two (CFG), 32 (a LoRA micro-step: lora_v32's batch), one v31 window (80 mels)
+MEL_CASES = [(1, 2048, 128), (2, 2048, 128), (32, 2048, 128), (1, 4096, 80)]
 
 
 def check_mel(report: dict) -> dict:
     """Kernel A against both its plain versions (``mel_plain_tf32x3``, which
     rounds as it does, and ``mel_plain``) at ``MEL_TC_TOL`` and at the
     reference's ``MEL_TOL``, with a float64 reference beside them, two calls
-    bit-equal, at one v32 window (request 2's call), two (CFG, batch 2) and
-    32 (a LoRA micro-step's call: lora_v32's batch of 32 windows); each timed
-    beside its plain version, by CUDA events and by the profiler's device
-    kernels, and set against ``fp32_bounds``. Returns the kernels-line entry
-    at one window."""
+    bit-equal, at ``MEL_CASES``: one v32 window (request 2's call), two
+    (CFG, batch 2), 32 (a LoRA micro-step's call: lora_v32's batch of 32
+    windows), and one v31 window (4 096 frames, 80 mels: request v31-2's
+    call); each timed beside its plain version, by CUDA events and by the
+    profiler's device kernels, and set against ``fp32_bounds``. Returns the
+    kernels-line entry at one v32 window."""
     from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
 
-    mel = MelSpectrogram("pallas", True, 16000, 1024, 128, 128, 20, 8000, "reflect").cuda()
-    args = (mel.w_re, mel.w_im, mel.fbanks, True)
-    n_fft, n_bins, n_mels = mel.w_re.shape[0], mel.w_re.shape[1], mel.fbanks.shape[1]
     cases = []
-    for batch in (1, 2, 32):
-        frames, padded = mel_frames(batch)
+    for batch, n_frames, n_mels in MEL_CASES:
+        mel = MelSpectrogram("pallas", True, 16000, 1024, n_mels, 128, 20, 8000, "reflect").cuda()
+        args = (mel.w_re, mel.w_im, mel.fbanks, True)
+        n_fft, n_bins = mel.w_re.shape
+        frames, padded = mel_frames(batch, n_frames)
         got = fused_mel(frames, *args)
         want, want3 = mel_plain(frames, *args), mel_plain_tf32x3(frames, *args)
         fd = frames.double()
@@ -643,20 +682,21 @@ def check_mel(report: dict) -> dict:
         def excess(ref, tol):  # the largest |got - ref| - tol |ref|: at most tol passes rtol = atol = tol
             return ((got - ref).abs() - tol * ref.abs()).max().item()
 
-        case = {"batch": batch, "shape": list(got.shape), "max_abs_err": (got - want).abs().max().item(),
+        case = {"batch": batch, "frames": n_frames, "mels": n_mels, "shape": list(got.shape),
+                "max_abs_err": (got - want).abs().max().item(),
                 "max_abs_err_tf32x3": (got - want3).abs().max().item(),
                 "max_abs_err_fp64": {"kernel": (got.double() - truth).abs().max().item(),
                                      "plain": (want.double() - truth).abs().max().item(),
                                      "plain_tf32x3": (want3.double() - truth).abs().max().item()},
                 "repeat_bit_equal": torch.equal(got, fused_mel(frames, *args)),
                 "finite": bool(torch.isfinite(got).all())}
-        label = f"fused_mel batch {batch} x 2048 frames, 1024 -> {n_bins} -> {n_mels}, log1p"
+        label = f"fused_mel batch {batch} x {n_frames} frames, 1024 -> {n_bins} -> {n_mels}, log1p"
         print(f"{label}: max_abs_err {case['max_abs_err']:.3e} against mel_plain, {case['max_abs_err_tf32x3']:.3e} "
               f"against mel_plain_tf32x3 (rtol = atol = {MEL_TC_TOL:g}; the reference's {MEL_TOL:g}); against "
               f"float64: kernel {case['max_abs_err_fp64']['kernel']:.3e}, mel_plain "
               f"{case['max_abs_err_fp64']['plain']:.3e}, mel_plain_tf32x3 {case['max_abs_err_fp64']['plain_tf32x3']:.3e}; "
               f"a second call bit-equal {case['repeat_bit_equal']}")
-        if (got.shape != (batch, 2048, n_mels) or not case["finite"] or not case["repeat_bit_equal"]
+        if (got.shape != (batch, n_frames, n_mels) or not case["finite"] or not case["repeat_bit_equal"]
                 or not excess(want, MEL_TOL) <= MEL_TOL or not excess(want, MEL_TC_TOL) <= MEL_TC_TOL
                 or not excess(want3, MEL_TC_TOL) <= MEL_TC_TOL):
             raise AssertionError(f"{label} disagrees with its plain versions: {case}")
@@ -664,8 +704,8 @@ def check_mel(report: dict) -> dict:
         case.update(ms=ms, plain_ms=plain_ms,
                     device_ms={"kernel": device_ms(lambda: fused_mel(frames, *args)),
                                "plain": device_ms(lambda: mel_plain(frames, *args))},
-                    **fp32_bounds(*mel_work(batch, 2048, n_fft, n_bins, n_mels, padded.numel())))
-        del frames, padded, got, want, want3, fd, re, im, truth
+                    **fp32_bounds(*mel_work(batch, n_frames, n_fft, n_bins, n_mels, padded.numel())))
+        del frames, padded, got, want, want3, fd, re, im, truth, mel
         print(f"{label}: kernel {ms:.4f} ms (device {fmt_ms(case['device_ms']['kernel'])}), plain {plain_ms:.4f} ms "
               f"(device {fmt_ms(case['device_ms']['plain'])}); bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
               f"fp32 FMAs {case['fma_ms']:.4f}, three TF32 products {case['tf32x3_ms']:.4f}, bytes "
@@ -678,10 +718,10 @@ def check_mel(report: dict) -> dict:
             "max_abs_err_tf32x3": one["max_abs_err_tf32x3"], "tol": MEL_TC_TOL, "ms": one["ms"],
             "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
             "bound_fma_ms": one["fma_ms"], "bound_tf32x3_ms": one["tf32x3_ms"], "library_ms": None,
-            "device_ms": one["device_ms"], "timed_shape": f"N2048 1024->{n_bins}->{n_mels} log1p fp32",
-            **{key: {k: case[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "max_abs_err",
+            "device_ms": one["device_ms"], "timed_shape": "N2048 1024->513->128 log1p fp32",
+            **{key: {k: case[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "max_abs_err",
                                           "max_abs_err_tf32x3")}
-               for key, case in (("cfg_batch2", cases[1]), ("lora_batch32", cases[2]))}}
+               for key, case in (("cfg_batch2", cases[1]), ("lora_batch32", cases[2]), ("v31_4096x80", cases[3]))}}
 
 
 def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
@@ -699,7 +739,8 @@ def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
 
 
 def check_qmm(report: dict) -> dict:
-    """Kernel D against its plain version at the v32 shapes in fp32 and bf16;
+    """Kernel D against its plain version at the v32 shapes and a v31
+    encoder window's (``QMM_SHAPES``) in fp32 and bf16;
     on the GEMV path (up to 4 rows) two calls on the same inputs must be
     bit-equal, and the tensor-core path (more rows) is also held against
     ``qmm_plain_tf32x2``, which rounds as it does, and timed beside
@@ -751,8 +792,11 @@ def check_qmm(report: dict) -> dict:
             if got.shape != (rows, n) or got.dtype != dtype or not err <= tol or not case.get("repeat_bit_equal", True):
                 raise AssertionError(f"{label}: error {err} above {tol}, shape {tuple(got.shape)} {got.dtype}, or "
                                      "two calls differ")
+    v31 = {f"N{c['N']}": {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+           for c in report["qmm_cases"] if c["rows"] == 2048 and c["dtype"] == str(torch.float32)}
     return {"name": "qmm_tc", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
-            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "max_abs_err": timed["max_abs_err"],
+            "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80", "v31_rows2048_K768_fp32": v31,
+            "max_abs_err": timed["max_abs_err"],
             "tol": timed["tol"], "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "device_ms": timed["device_ms"],
             "timed_shape": "rows1024 K768 N3072 fp32 (an encoder window's fc1, the tensor-core path)"}
@@ -936,9 +980,10 @@ def fmt_bytes(n: int | None) -> str:
 
 
 def check_full_width(model) -> None:
+    """v32's VarWhisper-small and v31's RoPEWhisper-small share these widths."""
     b = model.cfg.backbone
     if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn) != (768, 12, 12, 12, 3072):
-        raise AssertionError(f"not the full-width v32 backbone: {b}")
+        raise AssertionError(f"not a full-width whisper-small backbone: {b}")
 
 
 def window0(args):
@@ -948,11 +993,45 @@ def window0(args):
     return pre.segment(pre.load(args.audio_path))[0][:1]
 
 
+def check_encoder_states(label: str, engine, frames, cond: dict, positions: int) -> dict:
+    """The request's first window, encoded with its conditions through the
+    kernels (flash attention, and the fused mel where the model's config
+    picks it) against the plain path (plain attention and the FFT mel)
+    within ENC_TOL; with a difficulty among the conditions, another
+    difficulty must move the states (a dead embedder cannot pass)."""
+    model = engine.model
+    with_kernel = engine.encode_with_cond(frames, cond)
+    set_flash(model, False)
+    implementation, model.spectrogram.implementation = model.spectrogram.implementation, "xla"
+    plain = engine.encode_with_cond(frames, cond)
+    set_flash(model, True)
+    model.spectrogram.implementation = implementation
+    torch.cuda.synchronize()
+    err = (with_kernel - plain).abs().max().item()
+    finite = bool(torch.isfinite(with_kernel).all())
+    check = {"shape": list(with_kernel.shape), "conditions": {k: v.tolist() for k, v in cond.items()},
+             "mel": implementation, "max_abs_err": err, "tol": ENC_TOL}
+    moved = None
+    if "difficulty" in cond:
+        other = engine.encode_with_cond(frames, {**cond, "difficulty": cond["difficulty"] + 3.0})
+        moved = check["difficulty_moves_states_by"] = (other - with_kernel).abs().max().item()
+    print(f"request {label}, window 0: encoder states {tuple(with_kernel.shape)} with conditions "
+          f"{check['conditions']} through the kernels ({implementation} mel) vs the plain path: max_abs_err "
+          f"{err:.3e} (tol {ENC_TOL:g})" + ("" if moved is None else
+                                            f"; difficulty + 3 moves the states by up to {moved:.3e}"))
+    d_model = model.cfg.backbone.d_model
+    if with_kernel.shape != (1, positions, d_model) or not finite or not err <= ENC_TOL \
+            or (moved is not None and not moved > 10 * ENC_TOL):
+        raise AssertionError(f"encoder states disagree or ignore the difficulty: {check}")
+    return check
+
+
 def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, check_encoder: bool,
-          after=None) -> dict:
-    """One request; ``after(engine, args, vocab, first)`` runs more checks on
-    the engine before it is freed, ``first`` holding the first decode call's
-    prompt, tokens and end."""
+          after=None, config: str = "v32") -> dict:
+    """One request under ``configs/<config>.json``; ``after(engine, args,
+    vocab, first)`` runs more checks on the engine before it is freed,
+    ``first`` holding the first decode call's prompt, tokens and end and
+    the first encode call's windows and conditions."""
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
@@ -960,10 +1039,13 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
 
     (tmp / label).mkdir()
-    # no model_path: seeded random weights at the v32 shapes
-    args = load_config("v32", ["model_path=", "seed=0", f"audio_path={wav}", f"output_path={tmp / label}",
-                               "gamemode=0", *overrides])
+    # no model_path: seeded random weights at the config's shapes
+    args = load_config(config, ["model_path=", "seed=0", f"audio_path={wav}", f"output_path={tmp / label}",
+                                 "gamemode=0", *overrides])
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold: the peak below is the request's own
     engine, vocab = inference.load_model(args)
     inference.compile_args(args, vocab, verbose=False)
     check_full_width(engine.model)
@@ -977,7 +1059,7 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     def counted(encoder_states, ids, *a, **kw):
         t0 = time.perf_counter()
         tokens, end = inner(encoder_states, ids, *a, **kw)
-        if not first:
+        if "tokens" not in first:
             first.update(ids=ids, tokens=tokens, end=end)
         seconds = time.perf_counter() - t0
         stats["decode_s"] += seconds
@@ -989,7 +1071,14 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         call["s"] += seconds
         return tokens, end
 
-    engine.generate = counted
+    encode = engine.encode_with_cond
+
+    def encoded(frames, cond=None):
+        if "frames" not in first:
+            first.update(frames=np.asarray(frames)[:1], cond={k: np.asarray(v)[:1] for k, v in (cond or {}).items()})
+        return encode(frames, cond)
+
+    engine.generate, engine.encode_with_cond = counted, encoded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_attention_launches()
@@ -1001,8 +1090,8 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     wall = time.perf_counter() - t0
     launches = {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches_gemv,
                 "qmm_tc": qmm.launches_tc}
-    engine.generate = inner
-    peak = torch.cuda.max_memory_allocated()
+    engine.generate, engine.encode_with_cond = inner, encode
+    peak = torch.cuda.max_memory_allocated() - held
     graphs = {"captures": engine.captures, "capture_s": engine.capture_seconds, "pool_bytes": pool_bytes(engine)}
 
     beatmap = Beatmap.from_path(path)
@@ -1012,31 +1101,22 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         "label": label, "wall_s": wall, "decode_s": stats["decode_s"], "windows": stats["windows"],
         "tokens": stats["tokens"], "tok_per_s": stats["tokens"] / wall, "decode_tok_per_s":
         stats["tokens"] / stats["decode_s"] if stats["decode_s"] else 0.0, "peak_mem_gb": peak / 2**30,
+        "held_before_gb": held / 2**30,
         "launches": launches, "hit_objects": len(beatmap.hit_objects()), "timing_points": len(beatmap.timing_points),
         "osu_bytes": len(text.encode()), "osu_path": str(path), "graphs": graphs,
         "decode_rows": {rows: {**c, "ms_per_step": 1e3 * c["s"] / max(c["steps"], 1)} for rows, c in by_rows.items()},
     }
     print(f"request {label}: wall {wall:.2f} s, {stats['windows']} windows, {stats['tokens']} tokens generated, "
           f"{result['tok_per_s']:.1f} tok/s ({result['decode_tok_per_s']:.1f} tok/s in decode), "
-          f"peak memory {result['peak_mem_gb']:.2f} GiB, {result['hit_objects']} hit objects, "
+          f"peak memory {result['peak_mem_gb']:.2f} GiB over the {result['held_before_gb']:.2f} GiB held before, "
+          f"{result['hit_objects']} hit objects, "
           f"{result['timing_points']} timing points, {graphs['captures']} decode graphs captured in "
-          f"{graphs['capture_s']:.2f} s, launches {launches}")
+          f"{graphs['capture_s']:.2f} s (pool {fmt_bytes(graphs['pool_bytes'])} at {engine.max_length} slots), "
+          f"launches {launches}")
 
     if check_encoder:
-        frames = window0(args)
-        with_kernel = engine.encode_with_cond(frames)
-        set_flash(engine.model, False)
-        plain = engine.encode_with_cond(frames)
-        set_flash(engine.model, True)
-        torch.cuda.synchronize()
-        err = (with_kernel - plain).abs().max().item()
-        finite = bool(torch.isfinite(with_kernel).all())
-        print(f"request {label}, window 0: encoder states {tuple(with_kernel.shape)} through the flash kernel vs "
-              f"plain attention: max_abs_err {err:.3e} (tol {ENC_TOL:g})")
-        result["encoder_check"] = {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": ENC_TOL}
-        if with_kernel.shape != (1, 1024, 768) or not finite or not err <= ENC_TOL:
-            raise AssertionError(f"encoder states disagree: shape {tuple(with_kernel.shape)}, finite {finite}, "
-                                 f"error {err}")
+        result["encoder_check"] = check_encoder_states(label, engine, first["frames"], first["cond"],
+                                                       args.train.data.src_seq_len // 2)
     if after is not None:
         result.update(after(engine, args, vocab, first))
     report["requests"].append(result)
@@ -1310,21 +1390,12 @@ def int8_request(tmp: Path, wav: Path, report: dict) -> dict:
 
 def maimod_phase(tmp: Path, wav: Path, osu: str, report: dict) -> dict:
     """MaiMod on request 2's .osu and WAV, with request 2's overrides (the
-    fused mel): ``mai_mod.run_analysis``'s steps, the engine kept for the
-    checks. Random weights may write a map with no timing point, which MaiMod
-    cannot read (its parser asserts one, as the JAX one does); the phase then
-    analyses a dense map instead, a circle every 50 ms over the song (the
-    ``ors`` maps' layout, ``OSU_TEMPLATE``), and prints which. Every batch's
-    encoder and teacher-forced decoder (``forward_stats``: 12 self-attention
-    calls, causal with the key mask, and 12 cross) must launch kernel B, 36
-    launches a batch. On the first batch, ``forward_stats``
-    through the kernel is held against the same call on plain attention:
-    surprisal and entropy within ENC_TOL, argmax ids equal except at near-ties
-    (where the plain logits of the two ids differ by at most twice the largest
-    logit error between the two paths), which are counted."""
-    from mapperatorinator_tpu_torch import inference, mai_mod
+    fused mel). Random weights may write a map with no timing point, which
+    MaiMod cannot read (its parser asserts one, as the JAX one does); the
+    phase then analyses a dense map instead, a circle every 50 ms over the
+    song (the ``ors`` maps' layout, ``OSU_TEMPLATE``), and prints which."""
+    from mapperatorinator_tpu_torch import mai_mod
     from mapperatorinator_tpu_torch.config import load_config
-    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
     from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
 
     written = Beatmap.from_path(osu)
@@ -1339,7 +1410,27 @@ def maimod_phase(tmp: Path, wav: Path, osu: str, report: dict) -> dict:
                   f"{len(written.hit_objects())} hit objects)")
     args = load_config("v32", ["model_path=", "seed=0", f"audio_path={wav}", f"beatmap_path={osu}", "gamemode=0",
                                "do_sample=false", "train.model.spectrogram.implementation=pallas"])
-    args = mai_mod.select_config_for_gamemode(args)
+    launches, report["maimod"] = maimod_run("maimod", mai_mod.select_config_for_gamemode(args), source)
+    return launches
+
+
+def maimod_run(label: str, args, source: str) -> tuple[dict, dict]:
+    """``mai_mod.run_analysis``'s steps on resolved ``args``, the engine
+    kept for the checks; returns the launches and the record. Every batch's
+    encoder and teacher-forced decoder (``forward_stats``: 12 self-attention
+    calls, causal with the key mask, and 12 cross) must launch kernel B, 36
+    launches a batch, and the fused mel must run. On the first batch,
+    ``forward_stats`` through the kernel is held against the same call on
+    plain attention: surprisal and entropy within ENC_TOL, argmax ids equal
+    except at near-ties (where the plain logits of the two ids differ by at
+    most twice the largest logit error between the two paths), which are
+    counted."""
+    from mapperatorinator_tpu_torch import inference, mai_mod
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold: the peak below is the run's own
     engine, vocab = inference.load_model(args)
     check_full_width(engine.model)
     inference.compile_args(args, vocab, verbose=False)
@@ -1367,16 +1458,17 @@ def maimod_phase(tmp: Path, wav: Path, osu: str, report: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**attention_launches(), "fused_mel": fused_mel.launches}
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     engine.forward_stats = forward_stats
     windows = sum(c[0] for c in calls)
-    print(f"maimod on {source}: {windows} windows in {len(calls)} forward_stats calls (B, T) {calls}, {wall:.2f} s, "
-          f"{len(records)} suggestions, peak memory {peak / 2**30:.2f} GiB, launches {launches}")
+    print(f"{label} ({args.version}, gamemode {args.gamemode}) on {source}: {windows} windows in {len(calls)} "
+          f"forward_stats calls (B, T) {calls}, {wall:.2f} s, {len(records)} suggestions, peak memory "
+          f"{peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB held before, launches {launches}")
     b = engine.model.cfg.backbone
     want = {name: 0 for name in attention_launches()}
     want["flash_attention_fwd"] = (b.encoder_layers + 2 * b.decoder_layers) * len(calls)
     if not calls or {k: launches[k] for k in want} != want or launches["fused_mel"] == 0:
-        raise AssertionError(f"maimod launched {launches}, not {want} and the fused mel")
+        raise AssertionError(f"{label} launched {launches}, not {want} and the fused mel")
 
     enc, ids, (sur, ent, arg) = first["enc"], first["ids"], first["out"]
     set_flash(engine.model, False)
@@ -1391,20 +1483,92 @@ def maimod_phase(tmp: Path, wav: Path, osu: str, report: dict) -> dict:
     differ = np.argwhere(arg != p_arg)
     gaps = [float(plain_logits[b, t, p_arg[b, t]] - plain_logits[b, t, arg[b, t]]) for b, t in differ]
     ties = sum(g <= 2 * logit_err for g in gaps)
-    check = {"shape": [int(x) for x in ids.shape], "surprisal_max_err": sur_err, "entropy_max_err": ent_err,
-             "logits_max_err": logit_err, "argmax_differ": len(gaps), "near_ties": ties, "tol": ENC_TOL}
-    print(f"maimod, first batch {tuple(ids.shape)}: forward_stats through kernel B vs plain attention: surprisal "
-          f"max_abs_err {sur_err:.3e}, entropy {ent_err:.3e} (tol {ENC_TOL:g}); argmax ids differ at {len(gaps)} "
-          f"of {arg.size} positions, {ties} of them near-ties (logits max_abs_err {logit_err:.3e})")
+    check = {"shape": [int(x) for x in ids.shape], "source_positions": int(enc.shape[1]),
+             "surprisal_max_err": sur_err, "entropy_max_err": ent_err, "logits_max_err": logit_err,
+             "argmax_differ": len(gaps), "near_ties": ties, "tol": ENC_TOL}
+    print(f"{label}, first batch {tuple(ids.shape)} over {enc.shape[1]} source positions: forward_stats through "
+          f"kernel B vs plain attention: surprisal max_abs_err {sur_err:.3e}, entropy {ent_err:.3e} (tol "
+          f"{ENC_TOL:g}); argmax ids differ at {len(gaps)} of {arg.size} positions, {ties} of them near-ties "
+          f"(logits max_abs_err {logit_err:.3e})")
     if not (np.array_equal(np.isnan(sur), ~scored) and sur_err <= ENC_TOL and ent_err <= ENC_TOL
             and ties == len(gaps) and np.isfinite(ent).all()):
-        raise AssertionError(f"maimod's forward_stats through kernel B disagrees with plain attention: {check}")
-    report["maimod"] = {"map": source, "wall_s": wall, "windows": windows, "calls": calls, "suggestions": len(records),
-                        "peak_mem_gb": peak / 2**30, "launches": launches, "check": check,
-                        "report_head": printed.getvalue().splitlines()[:12]}
-    del engine
+        raise AssertionError(f"{label}'s forward_stats through kernel B disagrees with plain attention: {check}")
+    record = {"map": source, "version": args.version, "gamemode": args.gamemode, "wall_s": wall,
+              "windows": windows, "calls": calls, "suggestions": len(records), "peak_mem_gb": peak / 2**30,
+              "held_before_gb": held / 2**30, "launches": launches, "check": check,
+              "report_head": printed.getvalue().splitlines()[:12]}
+    del engine, enc, first
     torch.cuda.empty_cache()
-    return launches
+    return launches, record
+
+
+def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
+    """v31 at full width (RoPEWhisper-small: 80 mels + 384 condition channels
+    into the stem, 4 096 source frames, an 8 192-slot decode buffer), with
+    the difficulty, mapper and song-position embedders, on the song of the
+    v32 requests (one v31 window):
+
+    * request v31-1: v31's defaults (sampled, temperature 0.9, top-p 0.9,
+      TIMING + KIAI + MAP + SV, fp32, the FFT mel) with seeded random weights,
+      which are then written as a native checkpoint whose config picks the
+      fused mel;
+    * request v31-2: greedy from that checkpoint with int8 weights and KV
+      (kernels A and B at v31's shapes; D's GEMV, and its tiles on the
+      prefills: the JAX gate sends the encoder's 2 048-row products to the
+      plain expression), then ``precompile=true``'s warm-up on its engine;
+    * MaiMod under the v30 preset (gamemodes [0]) on a taiko map, which falls
+      back to v31 with ``inference.model_path`` at the checkpoint.
+
+    Each request's first window is encoded with its conditions through the
+    kernels and held against the plain path (``check_encoder_states``), and
+    another difficulty must move the states; MaiMod's first batch is held
+    against plain attention as in ``maimod_run``."""
+    from mapperatorinator_tpu_torch import inference, mai_mod
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.models.io import save_checkpoint
+
+    cond = [f"difficulty={V31_DIFFICULTY}", f"mapper_id={V31_MAPPER}"]
+    ckpt = tmp / "v31-checkpoint"
+
+    def write_checkpoint(engine, args, vocab, first) -> dict:
+        if vocab.get_mapper_idx(V31_MAPPER) == vocab.num_mapper_classes:
+            raise AssertionError(f"mapper {V31_MAPPER} is not in the v31 vocabulary")
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(engine.model.cfg, spectrogram_implementation="pallas")
+        save_checkpoint(ckpt, cfg, engine.model.state_dict(), vocab)
+        return {"checkpoint_s": time.perf_counter() - t0,
+                "checkpoint_bytes": (ckpt / "params.msgpack").stat().st_size}
+
+    def precompile(engine, args, vocab, first) -> dict:
+        t0 = time.perf_counter()
+        inference.warm_engine(engine, args.train)
+        seconds = time.perf_counter() - t0
+        print(f"request v31-2: precompile=true's warm-up (a conditioned encode, then the prefill of every prompt "
+              f"bucket at B 1 and B 2 into {engine.max_length} slots) in {seconds:.2f} s")
+        return {"precompile_s": seconds}
+
+    first = serve("v31-1-defaults", tmp, wav, cond, report, check_encoder=True, after=write_checkpoint, config="v31")
+    second = serve("v31-2-int8-fused-mel", tmp, wav,
+                   [f"model_path={ckpt}", "quantized_weights=true", "quantized_kv=true", "do_sample=false", *cond],
+                   report, check_encoder=True, after=precompile, config="v31")
+    if first["flash_attention_fwd"] == 0 or first["fused_mel"] != 0 or second["flash_attention_fwd"] == 0 \
+            or second["fused_mel"] == 0 or second["qmm"] == 0:
+        raise AssertionError(f"v31's requests launched {first} and {second}: B on both, A on v31-2 only, D on "
+                             "v31-2's decode steps")
+
+    taiko = tmp / "taiko.osu"
+    rng = np.random.default_rng(1)
+    objects = "\n".join(f"256,192,{500 + k * 125},1,{int(rng.choice([0, 2, 8]))},0:0:0:0:"
+                        for k in range(int((AUDIO_SECONDS - 1) * 8)))
+    taiko.write_text(OSU_TEMPLATE.format(i=1, bid=2, objects=objects).replace("Mode: 0", "Mode: 1"))
+    args = load_config("v30", ["seed=0", f"audio_path={wav}", f"beatmap_path={taiko}", "do_sample=false"])
+    fallback = mai_mod.select_config_for_gamemode(args, overrides=[f"inference.model_path={ckpt}"])
+    if (fallback.version, fallback.gamemode, fallback.model_path) != ("Mapperatorinator V31", 1, str(ckpt)):
+        raise AssertionError(f"MaiMod did not fall back to v31 at the checkpoint: {fallback.version}, "
+                             f"gamemode {fallback.gamemode}, {fallback.model_path}")
+    maimod, record = maimod_run("v31 MaiMod", fallback, "a taiko map under the v30 preset (gamemodes [0])")
+    report["v31"] = {"maimod": record}
+    return {k: first.get(k, 0) + second.get(k, 0) + maimod.get(k, 0) for k in first}
 
 
 def super_timing_phase(tmp: Path, wav: Path, report: dict) -> dict:
@@ -2132,9 +2296,10 @@ def main() -> int:
         maimod = maimod_phase(tmp, wav, report["requests"][1]["osu_path"], report)
         super_timing = super_timing_phase(tmp, wav, report)
         server = server_phase(tmp, wav, report)
+        v31 = v31_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
-    serving_paths = (first, second, third, maimod, super_timing, server, lora_served)
+    serving_paths = (first, second, third, maimod, super_timing, server, v31, lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
@@ -2143,6 +2308,7 @@ def main() -> int:
                 for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
+                                  "v31 (two requests and MaiMod's fallback)": v31,
                                   "LoRA serving (two requests)": lora_served,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,

@@ -53,6 +53,7 @@ from ..models.transformer import decode_read_limit
 from ..ops import launches
 from .logits import LogitsPipeline, LogitsState
 
+COND_IDS = frozenset({"beatmap_idx", "mapper_idx"})  # the conditions that are ids
 NOISE_BLOCK = 8  # steps of sampling noise drawn at a time, outside the step
 SYNC_EVERY = 8  # steps between the host's reads of whether every row has finished
 
@@ -154,13 +155,17 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def encode_with_cond(self, frames, cond: Optional[dict] = None) -> torch.Tensor:
-        """Audio windows (B, n_samples) -> encoder states on the device."""
-        if cond:
-            raise NotImplementedError(
-                f"conditioning inputs {sorted(cond)}: the embedders are not ported yet (ROADMAP queue 1, item 10)"
-            )
+        """Audio windows (B, n_samples) -> encoder states on the device.
+        ``cond`` holds the window conditions the Processor builds
+        (``beatmap_idx``, ``difficulty``, ``mapper_idx``, ``song_position``,
+        one row a window), which go to the device as int64 ids and fp32
+        values; the model uses those its config embeds. The JAX engine pads
+        the batch to a power of two for its compile cache; no row depends on
+        another, so the port encodes the rows it is given."""
         frames = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
-        return self.model.encode(frames)
+        cond = {k: torch.as_tensor(np.asarray(v, np.int64 if k in COND_IDS else np.float32), device=self.device)
+                for k, v in (cond or {}).items()}
+        return self.model.encode(frames, **cond)
 
     @torch.inference_mode()
     def generate(

@@ -145,8 +145,10 @@ class LogitsPipeline:
             return scores / self.temperature
         # keyed on the previous token of the FIRST row, for the whole batch
         # (as the reference's processor reads input_ids[0])
-        prev = state.last_token[0].long()
+        prev = state.last_token[:1].long()
         start = self.vocab_size  # the table's entry for "no previous token"
+        # a one-element index tensor: a 0-d one would be read on the host,
+        # which a CUDA graph's capture refuses
         return scores / consts.temperatures[torch.where((prev >= 0) & (prev < start), prev, start)]
 
     def _conditionals(self):

@@ -321,9 +321,9 @@ def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
         state = model.state_dict()
         model = build_model(cfg, device)
         model.load_state_dict(state)
-    # weights are held at the compute dtype; the mel front end stays fp32
-    model = model.to(dtype=cfg.backbone.dtype).eval()
-    model.spectrogram.float()
+    # weights are held at the compute dtype; the mel front end and the
+    # conditioning embedders stay fp32
+    model = model.to_compute_dtype().eval()
     engine = DecodeEngine(model, max_length=args.train.data.tgt_seq_len, pad_token_id=vocab.pad_id,
                           device=device)
     return engine, vocab
@@ -491,12 +491,20 @@ def should_load_separate_timing_model(args, output_type=None) -> bool:
     return str(current) != str(base)
 
 
+# the conditions a warm-up encodes with: the Processor's defaults (difficulty
+# 5, no mapper) over the whole song; a model uses those its config embeds
+WARM_COND = {"difficulty": np.full(1, 5.0, np.float32), "mapper_idx": np.full(1, -1, np.int32),
+             "song_position": np.array([[0.0, 1.0]], np.float32)}
+
+
 def warm_engine(engine, train_args) -> None:
     """Allocate the engine's decode buffers and run its prompt-bucket prefill
     ladder for the serving batch shapes (B 1, the timing pass; B 2, the CFG
-    pair) ahead of the first request (``precompile=true``)."""
+    pair) ahead of the first request (``precompile=true``). The JAX warm-up
+    encodes with no condition, which a conditioned model (v30, v31) cannot;
+    this one gives it ``WARM_COND``."""
     n = (train_args.data.src_seq_len - 1) * train_args.data.hop_length
-    enc = engine.encode_with_cond(np.zeros((1, n), np.float32))
+    enc = engine.encode_with_cond(np.zeros((1, n), np.float32), WARM_COND)
     engine.precompile(enc)
     engine.precompile(torch.cat([enc, enc]))
 

@@ -10,11 +10,11 @@ command line, on the card unless ``inference.device=cpu`` is given:
         inference.model_path=ckpt/ [raw_output=true]
 
 The configuration is ``configs/mai_mod.json`` (the JAX ``configs/mai_mod.yaml``:
-v32 under ``inference``). The host code is the JAX file's
-(``tests/test_torch_nojax.py`` holds it to its source), except
-:func:`select_config_for_gamemode`: where the beatmap's gamemode is not one
-the config was trained on, the JAX script falls back to the v31 preset, whose
-conditioning embedders the port cannot build yet, so the port raises there.
+v32 under ``inference``). Where the beatmap's gamemode is not one the config
+was trained on, :func:`select_config_for_gamemode` falls back to the v31
+preset (``configs/v31.json``), which covers all four modes. The host code is
+the JAX file's (``tests/test_torch_nojax.py`` holds it to its source), each
+package reading its own resolved configs.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from pathlib import Path
 from string import Template
 from typing import Optional
 
-from .config import load_mai_mod_config
+from .config import load_config, load_mai_mod_config
 from .osu import Beatmap, ContextType, Event, EventType
 from .osu.beatmap import Spinner
 from .osu.streams import Group, get_groups
@@ -451,12 +451,12 @@ def ai_mod(
 
 def select_config_for_gamemode(i_args, fallback: str = "v31", verbose: bool = True,
                                overrides: Optional[list] = None):
-    """``i_args`` when the beatmap's gamemode is among the config's trained
-    gamemodes (or there is no beatmap). Where the JAX script would fall back
-    to the ``fallback`` preset (v31, which covers all four modes), the port
-    raises: v31's conditioning embedders are not ported (ROADMAP queue 1,
-    item 10), and analysing with a config that was not trained on the mode
-    would give wrong suggestions."""
+    """When the beatmap's gamemode is not among the config's trained
+    gamemodes, fall back to the v31 inference preset, which covers all four
+    modes (reference: mai_mod.py:337-360). User-facing paths and the seed
+    carry over, and any explicit ``inference.*`` CLI ``overrides`` are
+    re-applied on the fallback compose; everything else takes the fallback
+    preset's defaults."""
     beatmap_path = i_args.beatmap_path
     if not beatmap_path:
         return i_args
@@ -468,9 +468,16 @@ def select_config_for_gamemode(i_args, fallback: str = "v31", verbose: bool = Tr
     mode = Beatmap.from_path(beatmap_path).mode
     if mode in i_args.train.data.gamemodes:
         return i_args
-    raise NotImplementedError(
-        f"gamemode {mode} is not among the config's gamemodes {list(i_args.train.data.gamemodes)}; the fallback "
-        f"to the {fallback} preset needs its conditioning embedders (ROADMAP queue 1, item 10)")
+    if verbose:
+        print(f"Gamemode {mode} is not supported by the selected config; falling back to {fallback}")
+    inference_overrides = [
+        o.split("inference.", 1)[1] for o in (overrides or []) if o.startswith("inference.")
+    ]
+    new_args = load_config(fallback, inference_overrides)
+    for key in ("beatmap_path", "audio_path", "output_path", "precision", "seed"):
+        setattr(new_args, key, getattr(i_args, key))
+    new_args.gamemode = mode
+    return new_args
 
 
 def run_analysis(i_args, surprisal_threshold: float = 20.0) -> list[dict]:

@@ -1,13 +1,17 @@
 """The Mapperatorinator model (``models/mapperatorinator.py``): mel front end,
-optional encoder projection, decoder token table, the transformer and the
-rhythm-weighted, label-smoothed training loss.
+the conditioning embedders, optional encoder projection, decoder token
+table, the transformer and the rhythm-weighted, label-smoothed training
+loss.
 
-v32 turns every conditioning embedder off, so the embedders are not ported
-yet: a config that enables one raises. Parameters stay in their own dtype
-(fp32 in training) and each layer computes in ``backbone.dtype``, which the
-training config's ``mixed_precision`` sets; the mel stays fp32 until it is
-cast for the encoder, and the loss's log-softmax is fp32, as in the JAX
-model.
+The conditioning embedders (v30 and v31 turn on the difficulty, mapper and
+song-position ones; v32 none) each map a window's condition to a vector,
+which :meth:`Mapperatorinator.encode` broadcasts over the window's frames
+and concatenates after the mel, as the JAX model does. Parameters stay in
+their own dtype (fp32 in training) and each backbone layer computes in
+``backbone.dtype``, which the training config's ``mixed_precision`` sets;
+the mel and the embedders compute in fp32 (the JAX model gives them no
+dtype), the mel is cast to ``backbone.dtype`` before the concatenation,
+which promotes, and the loss's log-softmax is fp32, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -153,14 +157,85 @@ def build_config(train_args, vocab) -> MapperatorinatorConfig:
     )
 
 
+class RBFEmbedder(nn.Module):
+    """Gaussian radial basis of a scalar: ``exp(-(x - c)^2 / (2 w^2))`` over
+    ``num_basis`` learned centres ``c`` and widths ``w``."""
+
+    def __init__(self, num_basis: int):
+        super().__init__()
+        self.basis_centers = nn.Parameter(torch.linspace(0, 1, num_basis))
+        self.basis_widths = nn.Parameter(torch.full((num_basis,), 0.1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(-((x[..., None] - self.basis_centers) ** 2) / (2 * self.basis_widths**2))
+
+
+class DifficultyEmbedder(nn.Module):
+    """(B,) star rating -> (B, hidden): the RBF of ``difficulty / 10``, then
+    Dense, LayerNorm, ReLU, Dropout, Dense, LayerNorm."""
+
+    def __init__(self, hidden_size: int, max_difficulty: float = 10.0, num_basis: int = 8):
+        super().__init__()
+        self.max_difficulty = max_difficulty
+        self.rbf = RBFEmbedder(num_basis)
+        self.proj1 = nn.Linear(num_basis, hidden_size)
+        self.norm1 = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.dropout = nn.Dropout(0.1)
+        self.proj2 = nn.Linear(hidden_size, hidden_size)
+        self.norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
+
+    def forward(self, difficulty: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.norm1(self.proj1(self.rbf(difficulty / self.max_difficulty))))
+        return self.norm2(self.proj2(self.dropout(h)))
+
+
+class MapperStyleEmbedder(nn.Module):
+    """(B,) mapper ids -> (B, dim): id -1 (no mapper) takes the table's last
+    row, ``num_mappers``, and every id is clipped into the table, so an id
+    past it takes that row too; then Dropout and LayerNorm."""
+
+    def __init__(self, num_mappers: int, embedding_dim: int):
+        super().__init__()
+        self.num_mappers = num_mappers
+        self.table = nn.Embedding(num_mappers + 1, embedding_dim)
+        self.dropout = nn.Dropout(0.1)
+        self.norm = nn.LayerNorm(embedding_dim, eps=1e-5)
+
+    def forward(self, mapper_ids: torch.Tensor) -> torch.Tensor:
+        ids = torch.where(mapper_ids == -1, self.num_mappers, mapper_ids).clamp(0, self.num_mappers)
+        return self.norm(self.dropout(self.table(ids.long())))
+
+
+class SongPositionEmbedder(nn.Module):
+    """(B, 2) window start and end as fractions of the song -> (B, hidden):
+    one RBF applied to both ends, concatenated, then Dense(2 hidden),
+    LayerNorm, ReLU, Dropout, Dense, LayerNorm."""
+
+    def __init__(self, hidden_size: int, num_basis: int = 10):
+        super().__init__()
+        self.rbf = RBFEmbedder(num_basis)
+        self.proj1 = nn.Linear(2 * num_basis, 2 * hidden_size)
+        self.norm1 = nn.LayerNorm(2 * hidden_size, eps=1e-5)
+        self.dropout = nn.Dropout(0.1)
+        self.proj2 = nn.Linear(2 * hidden_size, hidden_size)
+        self.norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
+
+    def forward(self, position_range: torch.Tensor) -> torch.Tensor:
+        combined = torch.cat([self.rbf(position_range[:, 0]), self.rbf(position_range[:, 1])], dim=-1)
+        h = torch.relu(self.norm1(self.proj1(combined)))
+        return self.norm2(self.proj2(self.dropout(h)))
+
+
+# the submodules that compute in fp32 whatever ``backbone.dtype`` is
+FP32_MODULES = ("spectrogram", "style_embedder", "difficulty_embedder", "mapper_embedder", "song_pos_embedder")
+
+
 class Mapperatorinator(nn.Module):
     def __init__(self, cfg: MapperatorinatorConfig):
         super().__init__()
-        for flag in ("input_raw_wave", "do_style_embed", "do_difficulty_embed", "do_mapper_embed",
-                     "do_song_position_embed"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"MapperatorinatorConfig.{flag}: not ported yet "
-                                          "(ROADMAP queue 1, item 10)")
+        if cfg.input_raw_wave:
+            raise NotImplementedError("MapperatorinatorConfig.input_raw_wave: not ported yet "
+                                      "(ROADMAP queue 1, item 11)")
         self.cfg = cfg
         b = cfg.backbone
         self.spectrogram = MelSpectrogram(
@@ -175,25 +250,63 @@ class Mapperatorinator(nn.Module):
             pad_mode=cfg.pad_mode,
         )
         self.transformer = OsuTransformer(b, embed_inputs=not cfg.embed_decoder_input)
+        if cfg.do_style_embed:
+            self.style_embedder = nn.Embedding(cfg.num_classes + 1, b.d_model)
+        if cfg.do_difficulty_embed:
+            self.difficulty_embedder = DifficultyEmbedder(cfg.cond_dim)
+        if cfg.do_mapper_embed:
+            self.mapper_embedder = MapperStyleEmbedder(cfg.num_mappers, cfg.cond_dim)
+        if cfg.do_song_position_embed:
+            self.song_pos_embedder = SongPositionEmbedder(cfg.cond_dim)
         if cfg.project_encoder_input:
             self.encoder_embedder = Dense(cfg.n_mels + cfg.cond_size, b.d_model, True, b.dtype)
         if cfg.embed_decoder_input:
             self.decoder_embedder = nn.Embedding(cfg.vocab_size_in, b.d_model)
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """Raw audio samples (B, n_samples) -> encoder states (B, T, D)."""
-        mel = self.spectrogram(frames).to(self.cfg.backbone.dtype)
-        if self.cfg.project_encoder_input:
+    def to_compute_dtype(self) -> "Mapperatorinator":
+        """Every weight held at ``backbone.dtype`` but those of
+        ``FP32_MODULES`` (the mel tables and the embedders), which stay fp32
+        as they compute; int8 kernels and their scales stay as they are."""
+        for name, child in self.named_children():
+            if name not in FP32_MODULES:
+                child.to(dtype=self.cfg.backbone.dtype)
+        return self
+
+    def encode(self, frames: torch.Tensor, beatmap_idx: Optional[torch.Tensor] = None,
+               difficulty: Optional[torch.Tensor] = None, mapper_idx: Optional[torch.Tensor] = None,
+               song_position: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Raw audio samples (B, n_samples) -> encoder states (B, T, D). The
+        conditions the config embeds: ``beatmap_idx`` (B,) style ids (missing:
+        the "no style" row ``num_classes``), ``difficulty`` (B,) star ratings,
+        ``mapper_idx`` (B,) mapper ids (-1: none) and ``song_position`` (B, 2)
+        the window's start and end as fractions of the song."""
+        cfg = self.cfg
+        mel = self.spectrogram(frames).to(cfg.backbone.dtype)
+        conds = []
+        if cfg.do_style_embed:
+            if beatmap_idx is None:
+                beatmap_idx = torch.full((frames.shape[0],), cfg.num_classes, dtype=torch.long, device=frames.device)
+            conds.append(self.style_embedder(beatmap_idx.long()))
+        if cfg.do_difficulty_embed:
+            conds.append(self.difficulty_embedder(_given(difficulty, "difficulty")))
+        if cfg.do_mapper_embed:
+            conds.append(self.mapper_embedder(_given(mapper_idx, "mapper_idx")))
+        if cfg.do_song_position_embed:
+            conds.append(self.song_pos_embedder(_given(song_position, "song_position")))
+        if conds:
+            mel = torch.cat([mel, *(c[:, None, :].expand(-1, mel.shape[1], -1) for c in conds)], dim=-1)
+        if cfg.project_encoder_input:
             mel = self.encoder_embedder(mel)
         return self.transformer.encode(mel)
 
     def forward(self, frames: Optional[torch.Tensor] = None, decoder_input_ids=None,
                 decoder_attention_mask=None, encoder_states=None, labels: Optional[torch.Tensor] = None,
-                sample_weights: Optional[torch.Tensor] = None):
+                sample_weights: Optional[torch.Tensor] = None, beatmap_idx=None, difficulty=None, mapper_idx=None,
+                song_position=None):
         """Teacher-forced forward -> logits (B, T, vocab_size_out), or
         (logits, loss) when ``labels`` are given."""
         if encoder_states is None:
-            encoder_states = self.encode(frames)
+            encoder_states = self.encode(frames, beatmap_idx, difficulty, mapper_idx, song_position)
         logits = self.transformer(
             decoder_inputs_embeds=self.embed_tokens(decoder_input_ids),
             decoder_attention_mask=decoder_attention_mask,
@@ -237,6 +350,12 @@ class Mapperatorinator(nn.Module):
                     limit: Optional[int] = None):
         return self.transformer.decode_step(input_embeds, cache, cache_index, self_mask=self_mask,
                                             positions=positions, limit=limit)
+
+
+def _given(condition: Optional[torch.Tensor], name: str) -> torch.Tensor:
+    if condition is None:
+        raise ValueError(f"the model embeds {name}, and none was given")
+    return condition
 
 
 def build_model(cfg: MapperatorinatorConfig, device) -> Mapperatorinator:

@@ -6,7 +6,7 @@ so the mapping is by rule:
 
 * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
 * Conv ``kernel`` (k, in, out) -> ``nn.Conv1d.weight`` (out, in, k);
-* Embed ``embedding`` and RMSNorm ``scale`` -> ``weight`` (the flax
+* Embed ``embedding``, RMSNorm and LayerNorm ``scale`` -> ``weight`` (the flax
   ``RMSNorm_0`` scope is dropped);
 * a ``QDense`` keeps its leaves: ``kernel_q`` (in, out) int8 in the JAX
   layout, and ``scale``, which a ``kernel_q`` sibling marks as the int8
@@ -93,6 +93,8 @@ def flax_paths(model: nn.Module) -> dict[str, str]:
                 leaf = "embedding"
             elif isinstance(owner, (nn.Linear, nn.Conv1d)):
                 leaf = "kernel"
+            elif isinstance(owner, nn.LayerNorm):  # the conditioning embedders' flax LayerNorm
+                leaf = "scale"
             else:  # RMSNorm: flax nests nn.RMSNorm inside the Norm wrapper
                 scope, leaf = [*scope, "RMSNorm_0"], "scale"
         paths[name] = "/".join(["params", *scope, leaf]).replace("/layers/", "/layers_")
@@ -150,12 +152,17 @@ def lora_to_flax(adapter: nn.Module) -> dict:
 def init_params(model: nn.Module, seed: int) -> None:
     """Seeded random weights, drawn on the model's device: lecun-normal
     matrices and conv kernels, unit-variance embeddings, zero biases, unit
-    norm scales."""
+    norm scales, and an RBF embedder's basis as flax initialises it
+    (centres evenly over [0, 1], widths 0.1)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("bias"):
+            if name.endswith(".basis_centers"):
+                p.copy_(torch.linspace(0, 1, p.numel()))
+            elif name.endswith(".basis_widths"):
+                p.fill_(0.1)
+            elif name.endswith("bias"):
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)

@@ -36,16 +36,20 @@ from tests.test_torch_config import plain
 torch.set_num_threads(1)
 
 TRAIN_CONFIGS = ("v32-mini", "lora", "lora_v32", "v32_ft", "v32-mini_ft")
+INFERENCE_CONFIGS = ("v32-mini", "v31", "v30")
 CONFIGS = {  # checked-in file -> (JAX config directory, config name, schema)
-    "v32-mini": ("inference", "v32-mini", schema.InferenceConfig),
+    **{name: ("inference", name, schema.InferenceConfig) for name in INFERENCE_CONFIGS},
     **{f"train_{name}": ("train", name, schema.TrainConfig) for name in TRAIN_CONFIGS},
     "mai_mod": ("", "mai_mod", schema.MaiModConfig),
 }
-LOADERS = {"v32-mini": lambda o: load_config("v32-mini", o),
+LOADERS = {**{name: lambda o, name=name: load_config(name, o) for name in INFERENCE_CONFIGS},
            **{f"train_{name}": lambda o, name=name: load_train_config(name, o) for name in TRAIN_CONFIGS},
            "mai_mod": lambda o: load_mai_mod_config("mai_mod", o)}
 OVERRIDES = {
     "v32-mini": ("cfg_scale=2", "train.data.src_seq_len=256", "device=cpu", 'descriptors=["clean"]'),
+    "v31": ("mapper_id=1234", "difficulty=6.5", "year=2020", "train.model.spectrogram.implementation=pallas",
+            "quantized_weights=true", 'output_type=["map", "sv"]'),
+    "v30": ("do_sample=false", "train.data.tgt_seq_len=256", "in_context=[]", "precision=bf16"),
     "train_v32-mini": ("optim.batch_size=4", "mixed_precision=no", "model.overwrite.d_model=64"),
     "train_lora": ("pretrained_path=base", "lora.r=8", "lora.lora_alpha=16", "optim.name=muon"),
     "train_lora_v32": ("pretrained_path=base", "pretrained_gamemode=1", "data.dataset_type=ors",
@@ -90,6 +94,30 @@ def test_v32_mini_builds_the_jax_model_config():
     b = got["backbone"]
     assert (b["d_model"], b["encoder_layers"], b["decoder_layers"], b["encoder_heads"], b["encoder_ffn"],
             b["global_attn_every_n_layers"]) == (512, 6, 6, 8, 2048, 1)
+
+
+@pytest.mark.parametrize("name", ["v31", "v30"])
+def test_v31_v30_build_the_jax_model_config(name):
+    """RoPEWhisper-small with the difficulty, mapper and song-position
+    embedders on an 80-mel torchaudio front end, and the JAX vocabulary."""
+    train = load_config(name).train
+    vocab = build_vocabulary(train)
+    got = dataclasses.asdict(build_config(train, vocab))
+    jax_train = composed(name).train
+    jax_vocab = jax_build_vocabulary(jax_train)
+    assert vocab.state_dict() == jax_vocab.state_dict()
+    want = dataclasses.asdict(jax_build_config(jax_train, jax_vocab))
+    for tree in (got, want):
+        for key in ("dtype", "param_dtype"):
+            tree["backbone"][key] = str(tree["backbone"][key]).split(".")[-1].replace("'>", "")
+    assert {k: v for k, v in got.items() if k != "backbone"} == {k: v for k, v in want.items() if k != "backbone"}
+    assert {k: want["backbone"][k] for k in got["backbone"]} == got["backbone"]
+    b = got["backbone"]
+    assert (b["d_model"], b["encoder_layers"], b["decoder_layers"], b["encoder_heads"], b["encoder_ffn"],
+            b["num_mel_bins"], b["max_source_positions"]) == (768, 12, 12, 12, 3072, 80 + 384, 2048)
+    assert (got["do_difficulty_embed"], got["do_mapper_embed"], got["do_song_position_embed"],
+            got["do_style_embed"], got["cond_size"], got["n_mels"], got["pad_mode"]) == (
+        True, True, True, False, 384, 80, "reflect")
 
 
 def test_v32_mini_greedy_tokens_and_osu_equal_jax(tmp_path):

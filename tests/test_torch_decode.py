@@ -154,8 +154,18 @@ def test_sampled_processed_logits_match_jax(tiny):  # noqa: F811
 
 
 def test_unported_engine_paths_raise(tiny):  # noqa: F811
-    """The conditioning embedders are not ported (v32 has none): an encode
-    that asks for one raises."""
-    _, teng, _ = engines(tiny)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.encode_with_cond(audio(1), {"difficulty": np.full((1,), 4.5, np.float32)})
+    """A condition the model does not embed is ignored, as the JAX encode
+    ignores it (v32 embeds none); a model that embeds one raises when it is
+    missing, where the JAX model fails on ``None``."""
+    jeng, teng, _ = engines(tiny)
+    frames = audio(1)
+    cond = {"difficulty": np.full((1,), 4.5, np.float32)}
+    plain = teng.encode_with_cond(frames)
+    assert torch.equal(teng.encode_with_cond(frames, cond), plain)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(jeng.encode_with_cond(frames, cond)), rtol=0,
+                               atol=LOGITS_TOL)
+    model = teng.model
+    # v32 projects the mel and its conditions onto d_model, so the stem is unchanged
+    conditioned = type(model)(dataclasses.replace(model.cfg, do_difficulty_embed=True, cond_size=model.cfg.cond_dim))
+    with pytest.raises(ValueError, match="difficulty"):
+        DecodeEngine(conditioned.eval(), MAX_LEN, 0, device="cpu").encode_with_cond(frames)

@@ -67,6 +67,9 @@ CASES = [  # t, s, causal, window, key mask
     (64, 64, False, 0, "all-in-row-0"),
     (1024, 1024, False, 128, "some"),
     (300, 1024, False, 0, "some"),
+    (2048, 2048, False, 0, "none"),  # a v31 encoder window
+    (1010, 1010, True, 0, "some"),  # MaiMod's teacher-forced v31 decoder: self, then cross
+    (1010, 2048, False, 0, "none"),
 ]
 
 
@@ -329,6 +332,7 @@ def mel_frames(device, batch, n_frames, n_fft=1024, hop=128, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n_frames,n_mels,log_scale,n_fft,hop", [
     (1, 2048, 128, True, 1024, 128),   # one v32 window
+    (1, 4096, 80, True, 1024, 128),    # one v31 window: 4 096 frames, 80 mels
     (2, 2048, 128, True, 1024, 128),   # two windows (CFG)
     (2, 2047, 128, True, 1024, 128),   # the last tile of item 0 is short: tiles stop at the batch boundary
     (1, 2048, 128, False, 1024, 128),
@@ -400,6 +404,8 @@ def quantized(k, n, device, seed=0):
     (5, 128, 512), (70, 200, 128), (70, 201, 144), (256, 3072, 768), (1024, 768, 3072),
     # the tensor-core path at the encoder's and init_cache's widths, ragged rows and K
     *itertools.product((5, 64, 65, 70, 256, 1024), (200, 768), (768, 1536, 2304, 3072)),
+    # a v31 encoder window's fc1, qkv and out
+    (2048, 768, 3072), (2048, 768, 2304), (2048, 768, 768),
 ])
 def test_qmm_kernel_matches_plain(cuda, dtype, rows, k, n):
     """Both of kernel D's paths (a GEMV up to 4 rows with K split across a
@@ -545,17 +551,21 @@ def tiny_engine(device, int8: bool, bucket: int = 16, max_length: int = 96):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("types_first", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("rows,cfg_scale,sampled", [(1, 1.0, False), (1, 1.0, True), (2, 2.0, True)])
-def test_graphed_generate_equals_eager_generate(cuda, int8, rows, cfg_scale, sampled):
+def test_graphed_generate_equals_eager_generate(cuda, int8, rows, cfg_scale, sampled, types_first):
     """A tiny engine's ``generate`` replaying CUDA graphs (one a bucket)
     against the same engine stepping eagerly: the same tokens and end, with
-    kernel D launched inside the replays where the weights are int8."""
+    kernel D launched inside the replays where the weights are int8; with
+    ``types_first`` (v31's chain), the temperature read from a table by the
+    previous token inside the graph."""
     from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline
     from mapperatorinator_tpu_torch.osu import EventType
 
     engine, vocab = tiny_engine(cuda, int8)
-    pipeline = build_logits_pipeline(vocab, do_sample=sampled, temperature=0.9, top_p=0.9)
+    pipeline = build_logits_pipeline(vocab, do_sample=sampled, temperature=0.9, top_p=0.9, types_first=types_first,
+                                     timing_temperature=0.1, mania_column_temperature=0.5, taiko_hit_temperature=0.5)
     frames = torch.randn((1, 255 * 128), generator=torch.Generator().manual_seed(0)).numpy() * 0.1
     enc = engine.encode_with_cond(frames)
     if cfg_scale > 1:

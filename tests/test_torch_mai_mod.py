@@ -7,8 +7,8 @@ with equal argmax ids; per analysed event, the relative surprisals must agree
 at that bar and the expected events and rendered strings must be equal. Then
 ``run_analysis`` (the MaiMod entry point of the web UIs) in each package:
 equal suggestion records, surprisals within the bar. The port's command line
-runs on the same inputs, and the gamemode fallback raises rather than
-analysing with a config that does not cover the mode.
+runs on the same inputs. A map whose mode the config does not cover falls
+back to v31, with the JAX arguments and the JAX records.
 """
 
 import numpy as np
@@ -28,6 +28,9 @@ from mapperatorinator_tpu_torch.infer import Preprocessor, Processor
 from mapperatorinator_tpu_torch.infer.processor import GenerationConfig
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, SRC_SEQ_LEN, TGT_SEQ_LEN, make_tiny_checkpoint, make_wav
 from tests.test_beatmap import SIMPLE_OSU
+from tests.test_torch_cond import TGT_SEQ_LEN as COND_TGT_SEQ_LEN
+from tests.test_torch_cond import jax_loads_cond, make_tiny_cond_checkpoint  # noqa: F401  (fixture)
+from tests.test_torch_config import plain as config_plain
 
 torch.set_num_threads(1)
 TOL = 2e-4
@@ -136,16 +139,60 @@ def test_run_analysis_records_match_jax(inputs, capsys):
     assert f"Found {sum(r['surprisal'] >= 2.0 for r in got)} suggestions:" in reports[1][1]
 
 
-def test_gamemode_fallback_raises_naming_item_10(tmp_path):
+def fallback_case(tmp_path, side: str, precision: str = "bf16"):
+    """A taiko map under the v30 preset (gamemodes [0]), with the paths,
+    precision and seed given: the arguments of ``select_config_for_gamemode``."""
     taiko = tmp_path / "taiko.osu"
     taiko.write_text(SIMPLE_OSU.replace("Mode: 0", "Mode: 1"))
-    args = load_config("v32", [f"beatmap_path={taiko}"])
-    args.train.data.gamemodes = [0]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mai_mod.select_config_for_gamemode(args, verbose=False)
-    # the JAX script falls back to v31 there; a mode the config covers is analysed as it is
-    jargs = jax_args([f"beatmap_path={taiko}"])
-    jargs.train.data.gamemodes = [0]
-    assert jax_mai_mod.select_config_for_gamemode(jargs, verbose=False) is not jargs
-    args = load_config("v32", [f"beatmap_path={taiko}"])
-    assert 1 in args.train.data.gamemodes and mai_mod.select_config_for_gamemode(args) is args
+    o = [f"beatmap_path={taiko}", f"audio_path={tmp_path / 'song.wav'}", f"output_path={tmp_path / 'out'}",
+         f"precision={precision}", "seed=11", "cfg_scale=1.5"]
+    if side == "jax":
+        return compose(REPO_ROOT / "configs" / "inference", "v30", overrides=o, schema_cls=schema.InferenceConfig)
+    return load_config("v30", o)
+
+
+def test_gamemode_fallback_composes_the_jax_arguments(tmp_path):
+    """The fallback to v31: the preset's gamemodes, the map's mode, the
+    paths, precision and seed carried over, the command line's
+    ``inference.*`` overrides re-applied and every other field v31's own,
+    as the JAX function composes them; a mode the config covers keeps the
+    arguments as they are."""
+    overrides = ["inference.temperature=0.7", "inference.max_batch_size=2", "beatmap_path=ignored.osu"]
+    want = jax_mai_mod.select_config_for_gamemode(fallback_case(tmp_path, "jax"), verbose=False, overrides=overrides)
+    args = fallback_case(tmp_path, "torch")
+    assert list(args.train.data.gamemodes) == [0]
+    got = mai_mod.select_config_for_gamemode(args, verbose=False, overrides=overrides)
+    assert got is not args
+    assert config_plain(got, keep_enums=True) == config_plain(want, keep_enums=True)
+    assert list(got.train.data.gamemodes) == [0, 1, 2, 3] and got.gamemode == 1
+    assert (got.beatmap_path, got.precision, got.seed) == (args.beatmap_path, "bf16", 11)
+    assert (got.temperature, got.max_batch_size, got.cfg_scale, got.version) == (0.7, 2, 1.0, "Mapperatorinator V31")
+    covered = load_config("v32", [f"beatmap_path={args.beatmap_path}"])
+    assert mai_mod.select_config_for_gamemode(covered, verbose=False) is covered
+
+
+def test_run_analysis_falls_back_to_v31_with_the_jax_records(tmp_path, monkeypatch, jax_loads_cond):  # noqa: F811
+    """``run_analysis`` on a taiko map under v30 composes v31 (the command
+    line's ``inference.*`` overrides point it at a tiny v31 checkpoint and
+    the CPU) and analyses the map with it: the JAX records, surprisals
+    within the bar (in fp32: the precision carries over)."""
+    ckpt = make_tiny_cond_checkpoint(tmp_path / "v31")
+    make_wav(tmp_path / "song.wav", seconds=4.0)
+    overrides = [f"inference.model_path={ckpt}", "inference.device=cpu",
+                 f"inference.train.data.src_seq_len={SRC_SEQ_LEN}", f"inference.train.data.tgt_seq_len={COND_TGT_SEQ_LEN}"]
+    records, fallbacks = [], []
+    for module, side in ((jax_mai_mod, "jax"), (mai_mod, "torch")):
+        select = module.select_config_for_gamemode
+
+        def recorded(i_args, _select=select, **kw):
+            fallbacks.append(_select(i_args, overrides=overrides, **kw))
+            return fallbacks[-1]
+
+        monkeypatch.setattr(module, "select_config_for_gamemode", recorded)
+        records.append(module.run_analysis(fallback_case(tmp_path, side, "fp32"), surprisal_threshold=0.0))
+    assert [(f.version, f.gamemode, f.model_path) for f in fallbacks] == [("Mapperatorinator V31", 1, str(ckpt))] * 2
+    want, got = records
+    assert len(got) == len(want) > 5
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "surprisal"} == {k: v for k, v in w.items() if k != "surprisal"}
+        assert g["surprisal"] == pytest.approx(w["surprisal"], abs=TOL, rel=TOL)

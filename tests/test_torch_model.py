@@ -156,4 +156,4 @@ def test_unported_families_raise(tiny):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Mapperatorinator(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Mapperatorinator(dataclasses.replace(tmodel.cfg, do_difficulty_embed=True))
+        Mapperatorinator(dataclasses.replace(tmodel.cfg, input_raw_wave=True))

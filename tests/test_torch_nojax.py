@@ -226,14 +226,19 @@ COPIED_DEFINITIONS = [
     ("mai_mod.py", "mai_mod.py",
      ("MOD_EXPLANATIONS", "POSITION_TYPES", "ANCHOR_TYPES", "HS_TYPES", "TIMING_TYPES_", "HITOBJECT_TYPES",
       "Suggestion", "type_to_str", "_GroupIndex", "_worth_reporting", "_combo_positions", "_attach_editor_locations",
-      "_mmssms", "_edit_address", "_SURPRISAL_TIERS", "_surprisal_text", "_categorize", "ai_mod", "run_analysis",
-      "main")),
+      "_mmssms", "_edit_address", "_SURPRISAL_TIERS", "_surprisal_text", "_categorize", "ai_mod",
+      "select_config_for_gamemode", "run_analysis", "main")),
 ]
-# (copy, name) -> [(source text, the copy's text)]: the port's MaiMod reads its own resolved config
+# (copy, name) -> [(source text, the copy's text)]: the port's MaiMod reads its own resolved configs
 DEFINITION_REPLACED = {
     ("mai_mod.py", "main"): [
         ('    args = compose(REPO_ROOT / "configs", config_name, overrides=overrides, schema_cls=schema.MaiModConfig)\n',
          "    args = load_mai_mod_config(config_name, overrides)\n"),
+    ],
+    ("mai_mod.py", "select_config_for_gamemode"): [
+        ('    new_args = compose(\n        REPO_ROOT / "configs" / "inference", fallback,\n'
+         '        overrides=inference_overrides, schema_cls=schema.InferenceConfig,\n    )\n',
+         "    new_args = load_config(fallback, inference_overrides)\n"),
     ],
 }
 

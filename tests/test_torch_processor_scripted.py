@@ -6,8 +6,12 @@ prompts handed to ``model_generate`` (conditional and, under CFG,
 unconditional) must be equal call by call, and the written .osu bytes equal.
 The decode is scripted, so no model runs: this holds the host half of
 generation (windows, prompts, context bookkeeping, timing, resnap, render) on
-maps with hit objects, which random weights never give.
+maps with hit objects, which random weights never give. Under ``-cn v31``
+and ``-cn v30`` the window conditions handed to ``model_generate`` (the
+difficulty, mapper and song position the embedders read) must be equal too.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -30,8 +34,8 @@ from tests.test_e2e_osu_parity import FIXTURES, _window_scripts
 SRC_LEN, TGT_LEN = 256, 192
 
 
-def overrides(wav, out, gamemode, cfg_scale):
-    o = [f"audio_path={wav}", f"output_path={out}", f"train.data.src_seq_len={SRC_LEN}",
+def overrides(wav, gamemode, cfg_scale):
+    o = [f"audio_path={wav}", f"train.data.src_seq_len={SRC_LEN}",
          f"train.data.tgt_seq_len={TGT_LEN}", f"gamemode={gamemode}", "difficulty=4.5", "seed=7",
          "do_sample=false", "num_beams=1", f"cfg_scale={cfg_scale}", "parallel=false", "title=ParityFixture",
          "artist=pytest", "creator=parity", "version=e2e", "tags=parity", "bpm=120", "offset=0", "device=cpu"]
@@ -51,7 +55,8 @@ def scripted(calls, scripts, eos_id):
         idx = counters.get(ctx, 0)
         counters[ctx] = idx + 1
         cond_prompt = np.asarray(cond_prompt)
-        calls.append((ctx, cond_prompt.tolist(), None if uncond_prompt is None else np.asarray(uncond_prompt).tolist()))
+        calls.append((ctx, cond_prompt.tolist(), None if uncond_prompt is None else np.asarray(uncond_prompt).tolist(),
+                      {k: (np.asarray(v).dtype.kind, np.asarray(v).tolist()) for k, v in model_kwargs.items()}))
         script = scripts[ctx][idx] if ctx in scripts else np.asarray([eos_id], np.int64)
         return np.concatenate([cond_prompt, np.repeat(script[None], len(cond_prompt), axis=0)], axis=-1)
 
@@ -61,12 +66,46 @@ def scripted(calls, scripts, eos_id):
 @pytest.mark.parametrize("gamemode,cfg_scale", [(0, 1.0), (0, 2.0), (1, 1.0), (2, 1.0), (3, 1.0)],
                          ids=["std", "std-cfg", "taiko", "catch", "mania"])
 def test_scripted_tokens_give_the_jax_prompts_and_osu(tmp_path, monkeypatch, gamemode, cfg_scale):
+    calls, windows = run_scripted(tmp_path, monkeypatch, "v32", gamemode,
+                                  overrides(tmp_path / "song.wav", gamemode, cfg_scale))
+    assert len(calls) > windows  # a timing pass, then a map pass over the windows
+
+
+# v31: descriptors, year, hitsounded, circle size and keycount tokens, types first,
+# a pass each of TIMING, KIAI, MAP and SV (SV in mania only), each window conditioned
+# on the difficulty, the mapper and its place in the song; v30: timing interwoven
+# with MAP in one pass, no context
+CONDITIONED = {
+    "v31-std": ("v31", 0, ["year=2023", 'descriptors=["clean", "tech"]', "mapper_id=101602", "circle_size=4.2"]),
+    "v31-mania": ("v31", 3, ["year=2016", "mapper_id=-5", "hitsounded=false"]),
+    "v30-std": ("v30", 0, ["mapper_id=101602"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONDITIONED))
+def test_scripted_tokens_give_the_jax_prompts_conditions_and_osu_of_v31_v30(tmp_path, monkeypatch, case):
+    name, gamemode, extra = CONDITIONED[case]
+    calls, windows = run_scripted(tmp_path, monkeypatch, name, gamemode,
+                                  [*overrides(tmp_path / "song.wav", gamemode, 1.0), *extra])
+    passes = collections.Counter(call[0] for call in calls)
+    want = ["map"] if name == "v30" else ["timing", "kiai", "map"] + (["sv"] if gamemode == 3 else [])
+    assert passes == dict.fromkeys(want, windows)  # every pass decodes every window once
+    assert all(set(call[3]) == {"difficulty", "mapper_idx", "song_position"} for call in calls)
+    positions = [call[3]["song_position"][1][0] for call in calls if call[0] == calls[-1][0]]
+    assert positions[0][0] == 0.0 and positions == sorted(positions)
+    assert calls[0][3]["difficulty"] == ("f", [4.5])
+
+
+def run_scripted(tmp_path, monkeypatch, name, gamemode, given):
+    """Both packages' ``inference.generate`` under ``-cn name`` with the same
+    scripted tokens: the prompts and conditions of every call equal, the
+    .osu bytes equal. Returns the calls and the song's window count."""
     wav = make_wav(tmp_path / "song.wav", seconds=10.0)
     for side in ("jax", "torch"):
         (tmp_path / side).mkdir()
-    jax_args = compose(REPO_ROOT / "configs" / "inference", "v32", schema_cls=schema.InferenceConfig,
-                       overrides=overrides(wav, tmp_path / "jax", gamemode, cfg_scale))
-    args = load_config("v32", overrides(wav, tmp_path / "torch", gamemode, cfg_scale))
+    jax_args = compose(REPO_ROOT / "configs" / "inference", name, schema_cls=schema.InferenceConfig,
+                       overrides=[*given, f"output_path={tmp_path / 'jax'}"])
+    args = load_config(name, [*given, f"output_path={tmp_path / 'torch'}"])
     jax_vocab, vocab = jax_build_vocabulary(jax_args.train), build_vocabulary(args.train)
     assert vocab.state_dict() == jax_vocab.state_dict()
 
@@ -89,10 +128,11 @@ def test_scripted_tokens_give_the_jax_prompts_and_osu(tmp_path, monkeypatch, gam
                                        engine=None, vocab=v, verbose=False))
     (want, want_path), (got, got_path) = results
 
-    assert len(calls) == len(jax_calls) > len(frame_times)
+    assert len(calls) == len(jax_calls)
     for i, (call, jax_call) in enumerate(zip(calls, jax_calls)):
-        assert call == jax_call, f"call {i} ({jax_call[0]}): prompts differ"
-    assert (jax_calls[0][2] is not None) == (cfg_scale > 1)
+        assert call == jax_call, f"call {i} ({jax_call[0]}): prompts or conditions differ"
+    assert (jax_calls[0][2] is not None) == (args.cfg_scale > 1)
     assert got_path.read_bytes() == want_path.read_bytes()
     beatmap = Beatmap.from_path(got_path)
     assert beatmap.mode == gamemode and len(beatmap.hit_objects()) >= 10
+    return calls, len(frame_times)
