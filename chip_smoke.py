@@ -83,7 +83,23 @@
    must fall back to v31 at that checkpoint, through the same checks as
    v32's MaiMod (``maimod_run``: 36 B launches a batch, the first batch
    held against plain attention at T up to 1 010 over 2 048 source
-   positions).
+   positions). Then DiT position refinement at full width (``dit_phase``:
+   DiT-B of ``configs/diffusion/v1.yaml``, 48 classes, every tensor drawn
+   from a seeded N(0, 0.02), written as a diffusion and a refine bundle and
+   loaded with ``load_diffusion_model``): kernel B at the DiT's calls (a
+   1 024-row bucket with the band |q - k| <= 128 and a key mask over its
+   padding, and a refine chunk's unbucketed length) against both plain
+   versions and timed beside SDPA with the same mask; a DiT forward and a
+   ``p_sample`` step through the kernel against the plain path; the
+   pipeline on a synthesized song of 1 500 hit objects with sliders of
+   four curve types, parsed as v31 writes positions (DISTANCE, POS_X,
+   POS_Y) and sampled under v32's schedule (two chunks, the slider ends
+   in-painted on the host each step, 100 DDPM and 10 refine steps a
+   chunk), 12 forward launches a DiT forward and nothing else of B, C or
+   D, its positions finite and written into the events, then again through
+   the plain path, the difference printed; one sampling step profiled for
+   its device time, idle share and host geometry; and a v32 request
+   through ``inference.run`` with ``generate_positions=true``.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -215,6 +231,16 @@ SERVER_JOIN_S = 600  # the server phase's two requests must return within this
 # the v31 phase's conditions: a set difficulty and a mapper (a user id that
 # datasets/beatmap_users.json holds, so the mapper table's own row)
 V31_DIFFICULTY, V31_MAPPER = 6.5, 101602
+# the DiT phase: DiT-B (configs/diffusion/v1.yaml) under v32's diffusion
+# settings (100 respaced steps of 1 000, band 128, 1 024-row chunks with
+# 128-row overlaps, refine_iters 10; v31 shares all but the steps, and
+# writes positions as DISTANCE and POS_X / POS_Y events, which the pipeline
+# replaces, where v32's POS tokens stay as generated) on a synthesized song of DIT_OBJECTS hit
+# objects, a slider every DIT_SLIDER_EVERY-th (curve types in turn), which
+# the pipeline cuts into two chunks; every DiT tensor is drawn from
+# N(0, DIT_WEIGHT_STD) (flax's zero adaLN would make every block the identity)
+DIT_OBJECTS, DIT_SLIDER_EVERY, DIT_WEIGHT_STD = 1500, 50, 0.02
+DIT_TOL = 1e-4  # a DiT forward and a p_sample step through kernel B against the plain path
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "mapperatorinator_tpu")
 
 
@@ -291,14 +317,18 @@ def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def attended_pairs(B: int, T: int, S: int, causal: bool, mask) -> float:
+def attended_pairs(B: int, T: int, S: int, causal: bool, mask, window: int = 0) -> float:
     """The (query, key) pairs of one head that the function needs: those the
-    causal and key masks leave, in each row with a live key; a row with none
-    averages v over all S keys. The masked pairs that a kernel computes
-    anyway are wasted work, not throughput."""
+    causal mask, the band |q - k| <= window // 2 and the key mask leave, in
+    each row with a live key; a row with none averages v over all S keys.
+    The masked pairs that a kernel computes anyway are wasted work, not
+    throughput."""
+    q, k = torch.arange(T, device="cuda")[:, None], torch.arange(S, device="cuda")[None]
     live = torch.ones((T, S), dtype=torch.bool, device="cuda")
     if causal:
-        live = live.tril()
+        live = live & (k <= q)
+    if window:
+        live = live & ((q - k).abs() <= window // 2)
     live = live[None].expand(B, T, S) if mask is None else live[None] & mask[:, None, :].bool()
     per_row = live.sum(-1)
     return float(torch.where(per_row > 0, per_row, S).sum().item())
@@ -960,10 +990,11 @@ def write_wav(path: Path, seconds: float, sr: int = 16000, seed: int = 0, freq: 
 
 
 def set_flash(model, on: bool) -> None:
+    from mapperatorinator_tpu_torch.models.dit import DiTBlock
     from mapperatorinator_tpu_torch.models.transformer import Attention
 
     for m in model.modules():
-        if isinstance(m, Attention):
+        if isinstance(m, (Attention, DiTBlock)):
             m.use_flash = on
 
 
@@ -1569,6 +1600,393 @@ def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
     maimod, record = maimod_run("v31 MaiMod", fallback, "a taiko map under the v30 preset (gamemodes [0])")
     report["v31"] = {"maimod": record}
     return {k: first.get(k, 0) + second.get(k, 0) + maimod.get(k, 0) for k in first}
+
+
+def dense_dit_map(path: Path) -> Path:
+    """``DIT_OBJECTS`` hit objects 150 ms apart at random positions:
+    circles, and every ``DIT_SLIDER_EVERY``-th a slider (Bezier, perfect,
+    linear, Catmull in turn) under a greenline of its own SV."""
+    rng = np.random.default_rng(2)
+    objects, greens = [], []
+    for i in range(DIT_OBJECTS):
+        x, y, time_ms = int(rng.integers(32, 480)), int(rng.integers(32, 352)), 500 + 150 * i
+        if i % DIT_SLIDER_EVERY:
+            objects.append(f"{x},{y},{time_ms},{5 if i % 8 == 0 else 1},0,0:0:0:0:")
+            continue
+        kind = "BPLC"[(i // DIT_SLIDER_EVERY) % 4]
+        points = "|".join(f"{int(np.clip(x + rng.integers(-60, 60), 0, 512))}:"
+                          f"{int(np.clip(y + rng.integers(-60, 60), 0, 384))}"
+                          for _ in range({"B": 3, "P": 2, "L": 1, "C": 3}[kind]))
+        greens.append(f"{time_ms},{-100 / float(rng.choice([0.75, 1.0, 1.5])):.4f},4,2,0,60,0,0")
+        objects.append(f"{x},{y},{time_ms},6,0,{kind}|{points},1,{int(rng.integers(40, 90))}")
+    text = OSU_TEMPLATE.format(i=0, bid=1, objects="\n".join(objects))
+    path.write_text(text.replace("500,500,4,2,0,70,1,0\n", "500,500,4,2,0,70,1,0\n" + "\n".join(greens) + "\n"))
+    return path
+
+
+def dit_attention(report: dict, bucket: int, t_len: int, band: int) -> list[dict]:
+    """Kernel B as the DiT calls it (B 2, H 12, D 64, fp32, window 2 * band,
+    no log-sum-exp): on a chunk's power-of-two bucket with the key mask
+    ``arange(bucket) < t_len``, and on the refine steps' unbucketed chunk of
+    ``t_len`` rows with no key mask. Each against both plain versions within
+    2e-5, then timed beside the plain version, SDPA with the same boolean
+    mask (TF32 off; a row with no live key gives NaN there, the mean of v
+    here) and the bound, whose pairs count the band."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, attention_plain_fp32_tc, flash_fwd_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    H, D, B, window, tol = 12, 64, 2, 2 * band, ATTN_TOL[torch.float32]
+    scale = D**-0.5
+    rows = []
+    for label, T, live in (("DiT chunk, bucket with key mask", bucket, t_len), ("DiT refine, unbucketed", t_len, None)):
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(3))
+        mask = None if live is None else (torch.arange(T, device="cuda") < live).expand(B, T).contiguous()
+        out = flash_fwd_fp32(q, k, v, mask, False, window, scale, False)[0]
+        err = {name: (out - fn(q, k, v, mask, window=window)).abs().max().item()
+               for name, fn in (("tc", attention_plain_fp32_tc), ("fp32", attention_plain))}
+        idx = torch.arange(T, device="cuda")
+        sdpa_mask = ((idx[:, None] - idx[None]).abs() <= band)[None, None]
+        if mask is not None:
+            sdpa_mask = sdpa_mask & mask[:, None, None, :]
+        qs, ks, vs = sdpa_layout(q, k, v)
+        pairs = H * attended_pairs(B, T, T, False, mask, window)
+        bounds = fp32_bounds(4.0 * pairs * D, 4 * 4 * B * T * H * D)  # q, k, v in; out
+        times = in_turns({"plain": lambda: attention_plain(q, k, v, mask, window=window),
+                          "kernel": lambda: flash_fwd_fp32(q, k, v, mask, False, window, scale, False),
+                          "library": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                                                             attn_mask=sdpa_mask)})
+        row = {"label": label, "shape": f"B{B} T{T} S{T} H{H} D{D} fp32 window{window}"
+                                        + ("" if live is None else f" key mask {live} of {T}"),
+               "ms": times["kernel"], "plain_ms": times["plain"], "library_ms": times["library"], **bounds,
+               "pairs_share": pairs / (B * H * T * T), "useful_tflops": bounds["flops"] / times["kernel"] / 1e9,
+               "max_abs_err": err, "tol": tol}
+        rows.append(row)
+        print(f"flash_attention_fwd fp32 {label} {row['shape']}: max_abs_err {err['tc']:.3e} against the plain "
+              f"version that splits as the kernel does, {err['fp32']:.3e} against the fp32 one (tol {tol:g}); kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.2f}x); bound {row['bound_ms']:.4f} ms "
+              f"(three TF32 products {row['tf32x3_ms']:.4f}, fp32 FMAs {row['fma_ms']:.4f}, bytes "
+              f"{row['bytes_ms']:.4f}); the band and key mask leave {row['pairs_share']:.4f} of T x S: "
+              f"{row['useful_tflops']:.1f} useful TFLOP/s")
+        if not all(e <= tol for e in err.values()):
+            raise AssertionError(f"flash_attention fp32 {label}: {err} above {tol}")
+        del q, k, v, qs, ks, vs, out, sdpa_mask
+    torch.cuda.empty_cache()
+    report["attention_dit"] = rows
+    return rows
+
+
+def written_positions(events, refined, full: np.ndarray, seq_indices: dict) -> tuple[int, bool]:
+    """The POS_X / POS_Y values that ``refined`` holds, against the sampled
+    coordinates (the first of the CFG pair, in pixels, rounded) at the rows
+    of ``events``' DISTANCE and POS_X / POS_Y events, in order; no DISTANCE
+    may remain. Returns how many were written and whether all agree."""
+    from mapperatorinator_tpu_torch.osu.events import EventType
+
+    pixels = (full[0] + 1) / 2 * np.array([512.0, 384.0])
+    want = {axis: [int(round(float(pixels[seq_indices[i], col]))) for i, e in enumerate(events)
+                   if e.type in (EventType.DISTANCE, pos)]
+            for axis, col, pos in (("x", 0, EventType.POS_X), ("y", 1, EventType.POS_Y))}
+    got = {axis: [e.value for e in refined if e.type == pos]
+           for axis, pos in (("x", EventType.POS_X), ("y", EventType.POS_Y))}
+    ok = got == want and len(want["x"]) > 0 and not any(e.type == EventType.DISTANCE for e in refined)
+    return len(got["x"]), ok
+
+
+def dit_step_profile(pipe, diffusion, model_fn, x, t_len: int, noise, reps: int = 10) -> dict:
+    """One DDPM step on the last chunk's bucket with its slider in-paint, as
+    ``_sample_part`` runs it (``pipe``'s last chunk's sliders): the step's
+    wall time (host clock, the card synchronized after ``reps`` steps) and
+    the pieces of its in-paint (the wait for the step's queued device work,
+    the copy out, the host geometry ``_slider_recompute_host`` on the
+    step's own prediction, the copy in); the same step without the
+    in-paint; the card's share (the profiler's device kernels) and its idle
+    share."""
+    mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    mask[:, :t_len] = True
+    step = torch.full((x.shape[0],), diffusion.num_timesteps - 1, dtype=torch.int64, device=x.device)
+    parts = dict.fromkeys(("wait", "copy_out", "geometry", "copy_in"), 0.0)
+
+    def in_painted(xx):
+        # DiffusionPipeline._slider_in_paint, its pieces timed apart
+        xx = torch.where(mask, xx, x)
+        t = [time.perf_counter()]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        x_np = xx.cpu().numpy()
+        t.append(time.perf_counter())
+        y = pipe._slider_recompute_host(x_np)
+        t.append(time.perf_counter())
+        out = torch.from_numpy(y).to(xx.device)
+        t.append(time.perf_counter())
+        for k, t0, t1 in zip(parts, t, t[1:]):
+            parts[k] += t1 - t0
+        return out
+
+    def step_fn(denoised):
+        return lambda: diffusion.p_sample(model_fn, x, step, lambda shape: noise, clip_denoised=True,
+                                          denoised_fn=denoised)
+
+    def wall_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        parts.update(dict.fromkeys(parts, 0.0))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    with torch.no_grad():
+        full = step_fn(in_painted)
+        bare_wall = wall_ms(step_fn(lambda xx: torch.where(mask, xx, x)))
+        wall = wall_ms(full)
+        pieces = {f"{k}_ms": v * 1e3 / reps for k, v in parts.items()}
+        device = device_ms(full, reps)
+        forward = device_ms(lambda: model_fn(x, diffusion._map_t(step)), reps)
+    out = {"sliders": len(pipe._cb_sliders), "wall_ms": wall, **pieces, "bare_wall_ms": bare_wall,
+           "device_ms": device, "forward_device_ms": forward, "idle": None if device is None else 1 - device / wall}
+    idle = "not measured" if device is None else f"{out['idle']:.3f}"
+    print(f"DiT step (the last chunk's bucket, {out['sliders']} sliders): {wall:.3f} ms a step with the slider "
+          f"in-paint, of it the wait for the card {pieces['wait_ms']:.3f}, the copy out {pieces['copy_out_ms']:.3f}, "
+          f"the host geometry {pieces['geometry_ms']:.3f} and the copy in {pieces['copy_in_ms']:.3f} ms; "
+          f"{bare_wall:.3f} ms without the in-paint; the card's share {fmt_ms(device)} (the DiT forward "
+          f"{fmt_ms(forward)}), idle share {idle}")
+    return out
+
+
+def dit_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, list[dict]]:
+    """DiT position refinement at full width (DiT-B: depth 12, hidden 768,
+    12 heads, context 272, 48 classes; about 130 M parameters) with seeded
+    random weights, written as a diffusion bundle and a refine bundle with
+    the port's msgpack writer and loaded with ``load_diffusion_model``:
+
+    * kernel B at the DiT's shapes (``dit_attention``), and one DiT forward
+      and one ``p_sample`` step on the last chunk's padded bucket through
+      the kernel against the plain path, same weights and noise, within
+      ``DIT_TOL``;
+    * (a) the pipeline on a dense synthesized song (``dense_dit_map``)
+      parsed under v31, whose DISTANCE and POS_X / POS_Y events the
+      pipeline replaces, at v32's 100 respaced steps (v31's other
+      diffusion settings are v32's): two chunks (the second overlap
+      re-noised), the slider ends in-painted on the host each step, 100
+      DDPM steps and 10 refine steps a chunk, each DiT forward 12 launches
+      of the fp32 forward kernel and nothing else of B, C or D, the
+      positions written into the events those of the sampled sequence;
+      then the same run through the plain path, whose difference is
+      printed, not held (the loop grows one-step differences). The host's
+      wait for the card at each in-paint is timed apart from the round
+      trip itself, and ``dit_step_profile`` profiles one sampling step;
+    * (b) one v32 request through ``inference.run`` with
+      ``generate_positions=true`` and both bundles.
+
+    Returns the launches of (a) and (b) and B's rows at the DiT shapes."""
+    from mapperatorinator_tpu_torch import inference
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.diffusion.vocab import DiffusionVocab
+    from mapperatorinator_tpu_torch.infer import GenerationConfig
+    from mapperatorinator_tpu_torch.infer.diffusion_pipeline import DiffusionPipeline, _bucket_len
+    from mapperatorinator_tpu_torch.models.dit import DiT, DiTConfig
+    from mapperatorinator_tpu_torch.models.io import save_dit_bundle
+    from mapperatorinator_tpu_torch.models.params import init_dit_params
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+    from mapperatorinator_tpu_torch.osu.parsing import BeatmapParser
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda = torch.device("cuda")
+    v32_steps = ",".join(str(n) for n in load_config("v32").timesteps)
+    args = load_config("v31", ["seed=0", f"timesteps=[{v32_steps}]"])
+    d = args.diffusion
+    cfg = DiTConfig.from_name(d.model.model, context_size=d.model.context_size,
+                              class_size=DiffusionVocab.from_args(d).num_tokens)
+    if (cfg.depth, cfg.hidden_size, cfg.num_heads, cfg.context_size, cfg.class_size) != (12, 768, 12, 272, 48):
+        raise AssertionError(f"not DiT-B at v1's context and classes: {cfg}")
+    t0 = time.perf_counter()
+    for name, seed in (("dit", 0), ("dit_refine", 1)):
+        model = DiT(cfg).to(cuda)
+        init_dit_params(model, seed, std=DIT_WEIGHT_STD)
+        save_dit_bundle(tmp / name, model)
+        del model
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dit = inference.load_diffusion_model(tmp / "dit", cuda)
+    refine = inference.load_diffusion_model(tmp / "dit_refine", cuda)
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in dit.parameters())
+    bundle_bytes = (tmp / "dit" / "params.msgpack").stat().st_size
+    print(f"DiT: {d.model.model} ({n_params / 1e6:.1f} M parameters, bundle {bundle_bytes / 1e6:.0f} MB), two bundles "
+          f"written in {write_s:.2f} s and loaded in {load_s:.2f} s")
+
+    beatmap = Beatmap.from_path(dense_dit_map(tmp / "dit_dense.osu"))
+    events, _ = BeatmapParser(args.train, build_vocabulary(args.train)).parse(beatmap)
+    timing = [tp for tp in beatmap.timing_points if tp.parent is None]
+    generation_config = GenerationConfig(difficulty=5.0, circle_size=4.0)
+    pipe = DiffusionPipeline(args, dit, refine)
+    seq_x, _, seq_c, seq_len, seq_indices, sliders = pipe.events_to_sequence(events, timing,
+                                                                             beatmap.slider_multiplier)
+    ob, band = args.overlap_buffer, d.data.seq_len
+    starts = list(range(0, max(seq_len - 2 * ob, 1), args.max_seq_len - 2 * ob))
+    last, t_len = starts[-1], seq_len - starts[-1]
+    bucket = _bucket_len(t_len)
+    if len(starts) != 2 or not t_len < bucket or t_len % 64 == 0 or not sliders:
+        raise AssertionError(f"the dense song gives {len(starts)} chunks, a last chunk of {t_len} rows in "
+                             f"{bucket}, {len(sliders)} sliders: not two chunks, a padded bucket and sliders")
+    rows = dit_attention(report, bucket, t_len, band)
+
+    # one forward and one p_sample step on the last chunk's bucket, kernel against plain
+    diffusion = pipe._get_diffusion()
+    x = torch.zeros((2, bucket, 2), device=cuda)
+    x[:, :t_len] = torch.as_tensor(seq_x[last:], dtype=torch.float32, device=cuda)
+    c = torch.zeros((2, bucket, seq_c.shape[1]), device=cuda)
+    c[:, :t_len] = torch.as_tensor(seq_c[last:], device=cuda)
+    null = dataclasses.replace(generation_config, descriptors=generation_config.negative_descriptors)
+    y = torch.as_tensor(np.stack([pipe.get_class_vector(generation_config), pipe.get_class_vector(null)]),
+                        device=cuda)
+    key_valid = torch.arange(bucket, device=cuda) < t_len
+    step = torch.full((2,), diffusion.num_timesteps - 1, dtype=torch.int64, device=cuda)
+    noise = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+
+    def model_fn(xx, tt):
+        return dit.forward_with_cfg(xx, tt, c, y, args.diff_cfg_scale, band=band, key_valid=key_valid)
+
+    outs = {}
+    with torch.no_grad():
+        for path, on in (("kernel", True), ("plain", False)):
+            set_flash(dit, on)
+            outs[path] = (model_fn(x, diffusion._map_t(step)),
+                          diffusion.p_sample(model_fn, x, step, lambda shape: noise)["sample"])
+    set_flash(dit, True)
+    fwd_err = (outs["kernel"][0] - outs["plain"][0]).abs().max().item()
+    step_err = (outs["kernel"][1] - outs["plain"][1]).abs().max().item()
+    print(f"DiT forward (CFG pair, {bucket} rows, {t_len} real) through kernel B vs the plain path: max_abs_err "
+          f"{fwd_err:.3e}; one p_sample step at t {diffusion.timestep_map[-1]}: {step_err:.3e} (tol {DIT_TOL:g})")
+    if not (fwd_err <= DIT_TOL and step_err <= DIT_TOL):
+        raise AssertionError(f"the DiT through kernel B disagrees with the plain path: {fwd_err}, {step_err}")
+    del outs
+
+    # (a) the dense song through the pipeline, through the kernel and then the plain path
+    forwards = collections.Counter()
+    hooks = [m.register_forward_hook(lambda *_, name=name: forwards.update([name]))
+             for name, m in (("dit", dit), ("refine", refine))]
+    runs = {}
+    for path, on in (("kernel", True), ("plain", False)):
+        set_flash(dit, on)
+        set_flash(refine, on)
+        pipe = DiffusionPipeline(args, dit, refine)
+        fulls, waited = [], {"wait_s": 0.0, "in_paint_s": 0.0}
+        to_positions, in_paint = pipe._to_positions, pipe._slider_in_paint
+        pipe._to_positions = lambda full: (fulls.append(np.array(full)), to_positions(full))[1]
+
+        def timed_in_paint(xx, in_paint=in_paint, waited=waited):
+            # the wait for the step's queued device work, apart from the
+            # round trip (copy out, host geometry, copy in) itself
+            t_ = time.perf_counter()
+            torch.cuda.synchronize()
+            t_w = time.perf_counter()
+            out = in_paint(xx)
+            waited["wait_s"] += t_w - t_
+            waited["in_paint_s"] += time.perf_counter() - t_w
+            return out
+
+        pipe._slider_in_paint = timed_in_paint
+        reset_attention_launches()
+        fused_mel.launches = qmm.launches = qmm.launches_gemv = qmm.launches_tc = 0
+        forwards.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined = pipe.generate(events, generation_config, timing)
+        torch.cuda.synchronize()
+        runs[path] = {"wall_s": time.perf_counter() - t0, "full": fulls[0], **waited, "refined": refined,
+                      "forwards": dict(forwards), "events": len(refined),
+                      "launches": {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches_gemv,
+                                   "qmm_tc": qmm.launches_tc}}
+    set_flash(dit, True)
+    set_flash(refine, True)
+    for hook in hooks:
+        hook.remove()
+    kernel, plain = runs["kernel"], runs["plain"]
+    steps, refine_iters = diffusion.num_timesteps, args.refine_iters
+    want_forwards = {"dit": steps * len(starts), "refine": refine_iters * len(starts)}
+    want_launches = 12 * sum(want_forwards.values())
+    launched = kernel["launches"]
+    drift = float(np.abs(kernel["full"] - plain["full"]).max())
+    finite = bool(np.isfinite(kernel["full"]).all())
+    moved = float(np.abs(kernel["full"][0] - seq_x).max())
+    n_written, written_ok = written_positions(events, kernel.pop("refined"), kernel["full"], seq_indices)
+    plain.pop("refined")
+    print(f"DiT (a): {seq_len} rows from {DIT_OBJECTS} hit objects ({len(sliders)} sliders in-painted), "
+          f"{len(starts)} chunks (the last {t_len} rows in a bucket of {bucket}), {steps} DDPM steps and "
+          f"{refine_iters} refine steps a chunk, band {band}: {kernel['wall_s']:.2f} s through the kernel, "
+          f"{kernel['in_paint_s']:.2f} s of it in the slider in-paint's host round trips and {kernel['wait_s']:.2f} s "
+          f"waiting for the card before them; {plain['wall_s']:.2f} s through the plain path "
+          f"({plain['in_paint_s']:.2f} and {plain['wait_s']:.2f} s); DiT forwards {kernel['forwards']}; launches "
+          f"{launched}; positions finite {finite}, moved up to {moved:.3f} from the song's; {n_written} positions "
+          f"written into the events, those of the sampled sequence {written_ok}; the whole loop through the kernel "
+          f"vs the plain path differs by up to {drift:.3e} ({drift * 256:.3f} px; printed, not held)")
+    if kernel["forwards"] != want_forwards or launched["flash_attention_fwd"] != want_launches \
+            or any(launched[k] for k in launched if k != "flash_attention_fwd") or not finite or not written_ok:
+        raise AssertionError(f"DiT (a): forwards {kernel['forwards']} (want {want_forwards}), launches {launched} "
+                             f"(want {want_launches} of flash_attention_fwd and nothing else), finite {finite}, "
+                             f"positions written {written_ok}")
+    step_profile = dit_step_profile(pipe, diffusion, model_fn, x, t_len, noise)
+
+    # (b) one v32 request with generate_positions, through inference.run
+    (tmp / "dit-request").mkdir()
+    rargs = load_config("v32", ["model_path=", "seed=0", f"audio_path={wav}", f"output_path={tmp / 'dit-request'}",
+                                "gamemode=0", "generate_positions=true", f"diff_ckpt={tmp / 'dit'}",
+                                f"diff_refine_ckpt={tmp / 'dit_refine'}"])
+    request_forwards = collections.Counter()
+    load_diffusion_model = inference.load_diffusion_model
+
+    def counted_load(path, device):
+        model = load_diffusion_model(path, device)
+        model.register_forward_hook(lambda *_, name=Path(path).name: request_forwards.update([name]))
+        return model
+
+    inference.load_diffusion_model = counted_load
+    reset_attention_launches()
+    fused_mel.launches = qmm.launches = qmm.launches_gemv = qmm.launches_tc = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text, osu_path = inference.run(rargs)
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    finally:
+        inference.load_diffusion_model = load_diffusion_model
+    request_launches = {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches_gemv,
+                        "qmm_tc": qmm.launches_tc}
+    written = Beatmap.from_path(osu_path)
+    print(f"DiT (b): a v32 request with generate_positions=true through inference.run: {request_s:.2f} s (model "
+          f"and bundles loaded), {len(written.hit_objects())} hit objects written, DiT forwards "
+          f"{dict(request_forwards)}, launches {request_launches} (v32 writes positions as POS tokens, which the "
+          f"pipeline, as the JAX one, leaves as generated)")
+    if not request_forwards.get("dit") or request_launches["flash_attention_fwd"] < 12 * sum(request_forwards.values()):
+        raise AssertionError(f"DiT (b): the request ran the DiT {dict(request_forwards)} times, launching "
+                             f"{request_launches}")
+
+    seconds = time.perf_counter() - started
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"DiT phase: {seconds:.1f} s, peak memory {peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB held "
+          f"before")
+    report["dit"] = {"parameters": n_params, "bundle_bytes": bundle_bytes, "write_s": write_s, "load_s": load_s,
+                     "seq_len": seq_len, "sliders": len(sliders), "chunks": len(starts), "last_chunk": t_len,
+                     "bucket": bucket, "forward_err": fwd_err, "p_sample_err": step_err, "tol": DIT_TOL,
+                     "a": {path: {k: v for k, v in run.items() if k != "full"} for path, run in runs.items()},
+                     "a_drift": drift, "a_moved": moved, "a_written": n_written, "step": step_profile,
+                     "b": {"seconds": request_s, "forwards": dict(request_forwards), "launches": request_launches,
+                           "hit_objects": len(written.hit_objects())},
+                     "seconds": seconds, "peak_gb": peak / 2**30, "held_before_gb": held / 2**30}
+    del dit, refine, pipe
+    torch.cuda.empty_cache()
+    return {k: launched[k] + request_launches[k] for k in launched}, rows
 
 
 def super_timing_phase(tmp: Path, wav: Path, report: dict) -> dict:
@@ -2297,9 +2715,14 @@ def main() -> int:
         super_timing = super_timing_phase(tmp, wav, report)
         server = server_phase(tmp, wav, report)
         v31 = v31_phase(tmp, wav, report)
+        dit, dit_rows = dit_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
-    serving_paths = (first, second, third, maimod, super_timing, server, v31, lora_served)
+    # kernel B's entry gains the DiT's shapes and their errors
+    fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
+    fwd["shapes"] += dit_rows
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows for e in row["max_abs_err"].values()))
+    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
@@ -2309,6 +2732,7 @@ def main() -> int:
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
+                                  "DiT refinement (the dense song and a v32 request)": dit,
                                   "LoRA serving (two requests)": lora_served,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,

@@ -6,9 +6,10 @@
 v32-mini, and the fine-tune configs ``v32_ft``, ``v32-mini_ft``, ``lora``
 and ``lora_v32``), and
 ``configs/mai_mod.json`` that of ``configs/mai_mod.yaml``, each written out
-once and checked in; ``tests/test_torch_config.py`` and
-``tests/test_torch_configs_more.py`` recompose them and fail if they drift
-apart. :func:`load_config`, :func:`load_train_config` and
+once and checked in (a DiT's diffusion config, ``configs/diffusion/v1.yaml``,
+is the ``diffusion`` node of ``v32.json``: :func:`load_diffusion_config`);
+``tests/test_torch_config.py`` and ``tests/test_torch_configs_more.py``
+recompose them and fail if they drift apart. :func:`load_config`, :func:`load_train_config` and
 :func:`load_mai_mod_config` turn them into attribute namespaces with the
 ``ContextType`` fields restored, so the host code copied from the JAX package
 (vocabulary, parser, renderer, data pipeline) reads them like the JAX config
@@ -60,6 +61,22 @@ def load_mai_mod_config(name: str = "mai_mod", overrides: Iterable[str] = ()) ->
     args = SimpleNamespace(**{k: v for k, v in tree.items() if k != "inference"})
     args.inference = _inference_namespaces(tree["inference"])
     return args
+
+
+# configs/diffusion/<name>.yaml -> the resolved inference config whose
+# ``diffusion`` node composes it
+DIFFUSION_CONFIGS = {"v1": "v32"}
+
+
+def load_diffusion_config(name: str = "v1", overrides: Iterable[str] = ()) -> SimpleNamespace:
+    """``configs/diffusion/<name>.yaml`` as the JAX loader composes it (the
+    ``DiffusionTrainConfig`` a DiT was trained with), with ``overrides``
+    applied -> nested namespaces."""
+    if name not in DIFFUSION_CONFIGS:
+        raise ValueError(f"no resolved diffusion config {name!r}: the port has {sorted(DIFFUSION_CONFIGS)}")
+    with open(CONFIG_DIR / f"{DIFFUSION_CONFIGS[name]}.json", encoding="utf-8") as f:
+        tree = json.load(f)["diffusion"]
+    return _namespace(apply_overrides(tree, overrides), "", frozenset())
 
 
 def _inference_namespaces(tree: dict) -> SimpleNamespace:

@@ -3,8 +3,10 @@
 argument compilation they need), with int8 weights and KV cache, the
 super-timing ensemble (``super_timing=true``), a separate timing model (the
 base checkpoint beside an auto-selected ``gamemode=N`` fine-tune) and the
-cross-process batching server (``use_server=true``); DiT position refinement
-and LoRA raise, naming their ROADMAP items.
+cross-process batching server (``use_server=true``), a LoRA adapter merged
+at load (``lora_path``) and DiT position refinement (``generate_positions=true``
+with ``diff_ckpt`` and, optionally, ``diff_refine_ckpt``: bundles of
+``dit_config.json`` and ``params.msgpack``, see :func:`load_diffusion_model`).
 
 From the command line, on the card unless ``device=cpu`` is given:
 
@@ -46,9 +48,10 @@ import torch
 from .config import load_config, select_device
 from .decode import DecodeEngine
 from .infer import GenerationConfig, Preprocessor, Processor, generation_config_from_beatmap
+from .infer.diffusion_pipeline import DiffusionPipeline
 from .infer.server import InferenceClient, InferenceServer, get_server_address, make_engine_generate_fn
 from .infer.super_timing import SuperTimingGenerator
-from .models.io import load_checkpoint, quantize_model
+from .models.io import load_checkpoint, load_dit_bundle, quantize_model
 from .models.lora import (get_model_checkpoint_subfolder, load_lora, merge_lora_into, resolve_compatible_lora_path,
                           resolve_model_checkpoint_path)
 from .models.mapperatorinator import build_config, build_model
@@ -344,14 +347,18 @@ def generate(
     verbose=True,
     logger=None,
     client=None,
+    diff_model=None,
+    refine_model=None,
 ):
     """Windowed generation -> .osu text and the path it was written to.
     Timing comes from the super-timing ensemble (``super_timing``), else from
     a TIMING pass, on ``timing_engine`` when one is given; ``client`` routes
     the decode calls (the separate timing model's excepted) to the batching
-    server."""
-    if args.generate_positions:
-        raise NotImplementedError("generate_positions (DiT refinement): ROADMAP queue 1, item 12")
+    server. With ``generate_positions``, a MAP output in gamemode 0 or 2 and
+    a DiT ``diff_model`` (:func:`load_diffusion_model`), the hit objects'
+    positions are then sampled anew by the diffusion pipeline (whose class
+    vocabulary is that of ``args.diffusion``), refined by ``refine_model``
+    where one is given."""
     audio_path = args.audio_path if audio_path is None else audio_path
     beatmap_path = args.beatmap_path if beatmap_path is None else beatmap_path
     output_path = args.output_path if output_path is None else output_path
@@ -434,6 +441,11 @@ def generate(
     else:
         events = timing_events
 
+    if (args.generate_positions and args.gamemode in (0, 2) and ContextType.MAP in output_type
+            and diff_model is not None):
+        pipeline = DiffusionPipeline(args, diff_model, refine_model)
+        events = pipeline.generate(events=events, generation_config=generation_config, timing=timing, verbose=verbose)
+
     result_str = renderer.generate(events=events, beatmap_config=beatmap_config, timing=timing)
     if args.add_to_beatmap:
         result_str = renderer.add_to_beatmap(result_str, beatmap_path)
@@ -456,6 +468,17 @@ def generate(
         if verbose:
             logger.info(f"Generated beatmap saved to {result_path}")
     return result_str, result_path
+
+
+def load_diffusion_model(ckpt_path, device) -> Optional[torch.nn.Module]:
+    """The DiT of a bundle that the JAX ``diffusion_train.py`` exports (or
+    :func:`.models.io.save_dit_bundle` writes): ``dit_config.json`` and
+    ``params.msgpack``, in fp32 on ``device``; None when ``ckpt_path`` is
+    empty or holds no ``params.msgpack``, as in JAX."""
+    path = Path(ckpt_path) if ckpt_path else None
+    if path is None or not (path / "params.msgpack").exists():
+        return None
+    return load_dit_bundle(path).to(device).eval()
 
 
 def main(argv=None):
@@ -513,8 +536,8 @@ def run(args):
     """Everything after the configuration: load the model (and the base
     checkpoint for timing when :func:`should_load_separate_timing_model`
     says so), compile the arguments, warm the engines when ``precompile`` is
-    set, start or join the batching server when ``use_server`` is set,
-    generate. :func:`generate` refuses DiT refinement."""
+    set, start or join the batching server when ``use_server`` is set, load
+    the DiT bundles when ``generate_positions`` is set, generate."""
     engine, vocab = load_model(args)
     compile_args(args, vocab)
 
@@ -539,10 +562,18 @@ def run(args):
             socket_path=sock,
         )
 
+    diff_model, refine_model = None, None
+    if args.generate_positions:
+        device = select_device(args)
+        diff_model = load_diffusion_model(args.diff_ckpt, device)
+        refine_model = load_diffusion_model(args.diff_refine_ckpt, device)
+        if diff_model is None:
+            print(f"diffusion checkpoint {args.diff_ckpt!r} not found; positions stay as generated")
+
     generation_config, beatmap_config = get_config(args)
     return generate(args, generation_config=generation_config, beatmap_config=beatmap_config,
                     engine=engine, vocab=vocab, client=client, timing_engine=timing_engine,
-                    timing_vocab=timing_vocab)
+                    timing_vocab=timing_vocab, diff_model=diff_model, refine_model=refine_model)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,11 @@
 
 A native checkpoint is a directory holding ``model_config.json`` (the
 MapperatorinatorConfig tree), ``params.msgpack`` (flax-serialized params) and
-``tokenizer.json`` (the Vocabulary state). The msgpack file is read and
-written by :mod:`.flax_msgpack`, in pure Python: the port needs no
-``msgpack`` package.
+``tokenizer.json`` (the Vocabulary state). A DiT bundle, as the JAX
+``diffusion_train.py`` exports one, holds ``dit_config.json`` (the DiTConfig
+fields but the dtype) and ``params.msgpack`` (the EMA params). The msgpack
+files are read and written by :mod:`.flax_msgpack`, in pure Python: the port
+needs no ``msgpack`` package.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import torch
 
 from ..osu.vocab import Vocabulary
 from . import flax_msgpack
+from .dit import DiT, DiTConfig
 from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig, build_model
-from .params import flax_layout, flax_paths, params_from_flax
+from .params import dit_params_from_flax, dit_params_to_flax, flax_layout, flax_paths, params_from_flax
 from .transformer import TransformerConfig, quantize_weight
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -130,3 +133,22 @@ def load_checkpoint(directory: Union[str, Path]) -> tuple[Mapperatorinator, Opti
     model = Mapperatorinator(config)
     model.load_state_dict(params_from_flax(read_flax_msgpack(directory / "params.msgpack")))
     return model, vocab
+
+
+def save_dit_bundle(directory: Union[str, Path], model: DiT) -> None:
+    """A DiT bundle: ``dit_config.json`` and ``params.msgpack`` (fp32, flax
+    layout), which the JAX ``load_diffusion_model`` reads too."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "dit_config.json", "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(model.cfg), f)
+    (directory / "params.msgpack").write_bytes(flax_msgpack.packb(dit_params_to_flax(model.state_dict())))
+
+
+def load_dit_bundle(directory: Union[str, Path]) -> DiT:
+    """The DiT of a bundle, on the CPU in fp32."""
+    directory = Path(directory)
+    with open(directory / "dit_config.json", encoding="utf-8") as f:
+        model = DiT(DiTConfig(**json.load(f)))
+    model.load_state_dict(dit_params_from_flax(read_flax_msgpack(directory / "params.msgpack")))
+    return model

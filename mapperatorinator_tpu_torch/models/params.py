@@ -21,6 +21,11 @@ thirds along the head axis), so the columns keep their meaning.
 names to the flax paths the JAX optimizer's masks match against, and
 :func:`flax_layout` moves a tensor between the two layouts.
 
+The DiT (:mod:`.dit`) has its own table, :func:`dit_params_from_flax` and
+:func:`dit_params_to_flax`: ``blocks_3`` becomes ``blocks.3``, a Dense
+``kernel`` a Linear ``weight``; its LayerNorms hold no parameters.
+:func:`init_dit_params` seeds it.
+
 A LoRA adapter (:mod:`.lora`) holds its factors in the flax layout already,
 keyed by the target kernel's flax path: :func:`lora_from_flax` and
 :func:`lora_to_flax` carry them between the JAX factor tree
@@ -171,3 +176,48 @@ def init_params(model: nn.Module, seed: int) -> None:
             else:
                 fan_in = p[0].numel()
                 p.normal_(0.0, fan_in**-0.5, generator=gen)
+
+
+def dit_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """A DiT's flax params (``{"params": {...}}`` or the inner tree, numpy
+    leaves) -> the state dict of :class:`.dit.DiT`:
+    ``params/blocks_3/qkv/kernel`` (in, out) becomes ``blocks.3.qkv.weight``
+    (out, in); ``context_embedder/proj``, ``t_embedder/fc1``,
+    ``final_layer/adaln`` and the rest keep their names."""
+    tree = tree.get("params", tree)
+    state = {}
+    for path, leaf in flatten(tree).items():
+        arr = np.asarray(leaf)
+        *scope, name = path.split("/")
+        if name == "kernel":
+            arr, name = arr.T, "weight"
+        scope = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", part) for part in scope]
+        state[".".join([*scope, name])] = torch.tensor(np.ascontiguousarray(arr))
+    return state
+
+
+def dit_params_to_flax(state: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`dit_params_from_flax`: a DiT's state dict ->
+    ``{"params": {...}}`` of fp32 numpy arrays in the flax layout."""
+    flat = {}
+    for name, tensor in state.items():
+        *scope, leaf = name.split(".")
+        path = "/".join(scope).replace("blocks/", "blocks_")
+        arr = tensor.detach().float().cpu().numpy()
+        if leaf == "weight":
+            arr, leaf = arr.T, "kernel"
+        flat[f"{path}/{leaf}"] = np.ascontiguousarray(arr)
+    return {"params": unflatten(flat)}
+
+
+def init_dit_params(model: nn.Module, seed: int, std: float) -> None:
+    """Seeded weights for a :class:`.dit.DiT`, drawn on its device: every
+    tensor from N(0, std), biases included. (flax zeroes every adaLN
+    modulation and the final projection, so a model initialised as flax
+    does returns eps = 0 and each block is the identity: it would exercise
+    nothing.)"""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, std, generator=gen)

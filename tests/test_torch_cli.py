@@ -2,7 +2,8 @@
 ``main`` on the tiny checkpoint and a synthesized WAV writes the .osu of the
 API path (``load_model`` / ``generate``), with fp32 and with int8 weights and
 KV cache, and refuses what is not ported, naming its ROADMAP item (LoRA
-adapters, ``lora_path``, are covered by ``tests/test_torch_lora.py``).
+adapters, ``lora_path``, are covered by ``tests/test_torch_lora.py``);
+``generate_positions=true`` with no DiT bundle on disk writes the same .osu.
 """
 
 import pytest
@@ -39,8 +40,29 @@ def test_cli_main_writes_the_api_osu(tiny, tmp_path, int8):  # noqa: F811
     assert text == want and path.read_bytes() == want_path.read_bytes()
 
 
-def test_cli_refuses_what_is_not_ported(tiny, tmp_path):  # noqa: F811
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    """A backbone of another family (v28's whisper-base): ROADMAP queue 1,
+    item 11. (DiT refinement, which this refused before, is ported:
+    ``tests/test_torch_diffusion_generate.py``.)"""
     wav = make_wav(tmp_path / "song.wav", seconds=1.0)
-    base = [f"model_path={tiny[0]}", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        inference.main(["-cn", "v32", *base, "generate_positions=true"])
+    base = ["model_path=", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
+    with pytest.raises(NotImplementedError, match="item 11"):
+        inference.main(["-cn", "v32", *base, "train.model.name=openai/whisper-base"])
+
+
+def test_cli_generate_positions_without_a_bundle_keeps_the_positions(tiny, tmp_path, capsys):  # noqa: F811
+    """``generate_positions=true`` with ``diff_ckpt`` naming no bundle (v32's
+    default names the published one, which is not on disk): the message of
+    the JAX ``inference.py``, and the .osu of a run without the option."""
+    wav = make_wav(tmp_path / "song.wav", seconds=3.0)
+    base = [f"model_path={tiny[0]}", f"audio_path={wav}", f"train.data.src_seq_len={SRC_SEQ_LEN}",
+            f"train.data.tgt_seq_len={TGT_SEQ_LEN}", "do_sample=false", "seed=7", "gamemode=0", "device=cpu",
+            "title=TinyFixture", "bpm=120", "offset=0"]
+    texts = []
+    for option in ("false", "true"):
+        (tmp_path / option).mkdir()
+        texts.append(inference.main(["-cn", "v32", *base, f"output_path={tmp_path / option}",
+                                     f"generate_positions={option}"])[0])
+    assert "diffusion checkpoint 'OliBomby/osu-diffusion-v2' not found; positions stay as generated" \
+        in capsys.readouterr().out
+    assert texts[1] == texts[0] and "[HitObjects]" in texts[0]

@@ -6,7 +6,9 @@ test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py,
 test_torch_mel_tc.py, test_torch_qmm.py and test_torch_qmm_tc.py).
 Attention is checked on both routes: the fp32 kernels (split-TF32 products, against both the plain
 versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
-the bf16 pair (D 64); qmm on both of its paths (its GEMV path also for
+the bf16 pair (D 64), and the fp32 forward as the DiT calls it (the band
+as ``window`` 256, a key mask over a bucket's padding) and one DiT-B block
+through it; qmm on both of its paths (its GEMV path also for
 bit-equal repeats and a refused launch); the fused mel against both its
 plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
 on the frame layouts it takes and refuses. CUDA graphs: the GEMV captured
@@ -603,3 +605,47 @@ def test_noise_drawn_a_block_at_a_time_samples_what_multinomial_samples(cuda):
     for row in noise:
         row.exponential_(generator=gen)
     assert torch.equal((probs / noise).argmax(dim=-1), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,t_len", [(1024, 700), (1024, 1024), (732, 732)],
+                         ids=["bucket-keymask", "bucket-full", "refine-unbucketed"])
+def test_fp32_kernels_at_the_dit_band_and_key_mask(cuda, t, t_len):
+    """Kernel B as the DiT calls it (``models/dit.py``): B 2, H 12, D 64,
+    fp32, the band |q - k| <= 128 as ``window`` 256, and on a power-of-two
+    bucket the key mask ``arange(bucket) < t_len`` (its padded query rows far
+    from every real key average v over all keys); the refine steps' chunk
+    unbucketed, with no key mask. Both plain versions, at 2e-5."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, t, 12, 64), generator=gen).to(cuda) for _ in range(3))
+    kvm = (torch.arange(t, device=cuda) < t_len).expand(2, t) if t_len < t else None
+    before = launches()
+    got = flash_attention(q, k, v, kvm, window=256)
+    assert launches() == added(before, route_step(torch.float32))
+    for plain in (attention_plain, attention_plain_fp32_tc):
+        torch.testing.assert_close(got, plain(q, k, v, kvm, window=256), rtol=0, atol=ATTN_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_a_dit_b_block_through_the_kernel_matches_the_plain_path(cuda):
+    """One DiT-B block (hidden 768, 12 heads) with every weight drawn from
+    N(0, 0.02), on a padded bucket of 1 024 rows with 700 real, through
+    kernel B and through the plain version: within 1e-4, one launch."""
+    from mapperatorinator_tpu_torch.models.dit import DiT, DiTConfig
+    from mapperatorinator_tpu_torch.models.params import init_dit_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = DiT(DiTConfig.from_name("DiT-B", depth=1, class_size=48)).to(cuda)
+    init_dit_params(model, 0, std=0.02)
+    block = model.blocks[0]
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 1024, 768), generator=gen).to(cuda)
+    cond = torch.randn((2, 768), generator=gen).to(cuda)
+    valid = (torch.arange(1024, device=cuda) < 700).expand(2, 1024).contiguous()
+    with torch.no_grad():
+        before = launches()
+        got = block(x, cond, 128, valid)
+        assert launches() == added(before, route_step(torch.float32))
+        block.use_flash = False
+        want = block(x, cond, 128, valid)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -11,16 +11,19 @@ v32-architecture model with seeded random weights, runs ``load_model`` /
 JAX package) with int8 weights and KV cache and decodes a few steps from it,
 runs one step of ``train.main`` on a small ORS dataset, and one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
-quantized.
+quantized, and writes a tiny DiT bundle, loads it with
+``load_diffusion_model`` and refines the positions of a few events with it.
 
 The drift guard holds each copied file (``osu/``, ``native/``,
-``csrc/difficulty.cpp``, ``train/data/``, ``audio/io.py``,
+``csrc/difficulty.cpp``, ``train/data/``, ``diffusion/{vocab,data,export}.py``,
+``audio/io.py``,
 ``infer/super_timing.py``, and ``infer/processor.py``, whose CFG folds use
 ``torch.cat``) to its source: equal but for imports and the module
 docstring, and, where named below, the lines that point the copy at the
 port's own build or engine; and each copied definition of
-``models/lora.py``, ``infer/server.py`` and ``mai_mod.py`` (the top-level
-script's) to the JAX one, imports inside it aside.
+``models/lora.py``, ``infer/server.py``, ``mai_mod.py`` (the top-level
+script's) and the host code of ``infer/diffusion_pipeline.py`` (methods of
+its pipeline class too) to the JAX one, imports inside it aside.
 """
 
 import ast
@@ -114,6 +117,24 @@ SCRIPT = textwrap.dedent("""
                                "train.data.tgt_seq_len=256"])
     lengine, _ = inference.load_model(args)
     assert sum(isinstance(m, QDense) for m in lengine.model.modules()) == 23
+
+    # DiT refinement: a bundle written and read without msgpack, sampled on the CPU
+    from mapperatorinator_tpu_torch.infer import GenerationConfig
+    from mapperatorinator_tpu_torch.infer.diffusion_pipeline import DiffusionPipeline
+    from mapperatorinator_tpu_torch.models.dit import DiT, DiTConfig
+    from mapperatorinator_tpu_torch.models.io import save_dit_bundle
+    from mapperatorinator_tpu_torch.models.params import init_dit_params
+    from mapperatorinator_tpu_torch.osu.events import Event, EventType
+
+    dit = DiT(DiTConfig(hidden_size=32, depth=1, num_heads=2, class_size=48))
+    init_dit_params(dit, 0, std=0.02)
+    save_dit_bundle(f"{sys.argv[3]}/dit", dit)
+    dit = inference.load_diffusion_model(f"{sys.argv[3]}/dit", torch.device("cpu"))
+    args = load_config("v32", ["device=cpu", "seed=0", "timesteps=[2,0,0,0,0,0,0,0,0,0]", "refine_iters=1"])
+    events = [Event(EventType.TIME_SHIFT, 1000 + 500 * i) if k == 0 else
+              Event(EventType.DISTANCE, 80) if k == 1 else Event(EventType.CIRCLE) for i in range(3) for k in range(3)]
+    refined = DiffusionPipeline(args, dit, dit).generate(events, GenerationConfig(), timing=None)
+    assert [e.type for e in refined].count(EventType.POS_X) == 3
     # not even attempted: an import caught by a try would still be one
     assert not attempts, attempts
     print("MODULES", len(modules))
@@ -157,6 +178,7 @@ COPIES = {
     "audio/io.py": "mapperatorinator_tpu/audio/io.py",
     "infer/processor.py": "mapperatorinator_tpu/infer/processor.py",
     "infer/super_timing.py": "mapperatorinator_tpu/infer/super_timing.py",
+    **{f"diffusion/{name}.py": f"mapperatorinator_tpu/diffusion/{name}.py" for name in ("vocab", "data", "export")},
     "native/__init__.py": "mapperatorinator_tpu/native/__init__.py",
     "native/difficulty.py": "mapperatorinator_tpu/native/difficulty.py",
     "csrc/difficulty.cpp": "native/difficulty.cpp",
@@ -223,14 +245,26 @@ COPIED_DEFINITIONS = [
       "resolve_compatible_lora_path")),
     ("infer/server.py", "mapperatorinator_tpu/infer/server.py",
      ("RETRY_SIGNAL", "InferenceServer", "InferenceClient")),
+    ("infer/diffusion_pipeline.py", "mapperatorinator_tpu/infer/diffusion_pipeline.py",
+     ("repeat_type", "DiffusionSlider", "PLAYFIELD", "_bucket_len", "DiffusionPipeline.get_class_vector",
+      "DiffusionPipeline.EVENT_INDEX", "DiffusionPipeline.NC_TYPES", "DiffusionPipeline.events_to_sequence",
+      "DiffusionPipeline._timing_point_at", "DiffusionPipeline._to_positions",
+      "DiffusionPipeline._slider_recompute_host", "DiffusionPipeline.events_with_pos")),
     ("mai_mod.py", "mai_mod.py",
      ("MOD_EXPLANATIONS", "POSITION_TYPES", "ANCHOR_TYPES", "HS_TYPES", "TIMING_TYPES_", "HITOBJECT_TYPES",
       "Suggestion", "type_to_str", "_GroupIndex", "_worth_reporting", "_combo_positions", "_attach_editor_locations",
       "_mmssms", "_edit_address", "_SURPRISAL_TIERS", "_surprisal_text", "_categorize", "ai_mod",
       "select_config_for_gamemode", "run_analysis", "main")),
 ]
-# (copy, name) -> [(source text, the copy's text)]: the port's MaiMod reads its own resolved configs
+# (copy, name) -> [(source text, the copy's text)]: the port's MaiMod reads its own resolved configs; the
+# diffusion pipeline embeds the context's times with the port's timestep embedding
 DEFINITION_REPLACED = {
+    ("infer/diffusion_pipeline.py", "DiffusionPipeline.events_to_sequence"): [
+        ("                np.asarray(timestep_embedding(jnp.asarray(seq_o * 0.1), 128)),\n"
+         "                np.asarray(timestep_embedding(jnp.asarray(seq_d), 128)),\n",
+         "                timestep_embedding(torch.as_tensor(seq_o * 0.1), 128).numpy(),\n"
+         "                timestep_embedding(torch.as_tensor(seq_d), 128).numpy(),\n"),
+    ],
     ("mai_mod.py", "main"): [
         ('    args = compose(REPO_ROOT / "configs", config_name, overrides=overrides, schema_cls=schema.MaiModConfig)\n',
          "    args = load_mai_mod_config(config_name, overrides)\n"),
@@ -245,20 +279,28 @@ DEFINITION_REPLACED = {
 
 def definitions(text: str) -> dict[str, str]:
     """{name: source} of a module's top-level functions, classes and
-    assignments, without the import statements inside them."""
+    assignments, and of each class's own (as ``Class.name``, decorators
+    included), without the import statements inside them."""
     lines = text.splitlines(keepends=True)
     out = {}
-    for node in ast.parse(text).body:
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            names = [node.name]
-        elif isinstance(node, ast.Assign):
-            names = [target.id for target in node.targets if isinstance(target, ast.Name)]
-        else:
-            continue
-        drop = {i for n in ast.walk(node) if isinstance(n, (ast.Import, ast.ImportFrom))
-                for i in range(n.lineno, n.end_lineno + 1)}
-        segment = "".join(lines[i - 1] for i in range(node.lineno, node.end_lineno + 1) if i not in drop)
-        out.update(dict.fromkeys(names, segment))
+
+    def collect(body, prefix):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names = [node.name]
+            elif isinstance(node, ast.Assign):
+                names = [target.id for target in node.targets if isinstance(target, ast.Name)]
+            else:
+                continue
+            first = min([node.lineno, *(d.lineno for d in getattr(node, "decorator_list", []))])
+            drop = {i for n in ast.walk(node) if isinstance(n, (ast.Import, ast.ImportFrom))
+                    for i in range(n.lineno, n.end_lineno + 1)}
+            segment = "".join(lines[i - 1] for i in range(first, node.end_lineno + 1) if i not in drop)
+            out.update(dict.fromkeys([prefix + name for name in names], segment))
+            if isinstance(node, ast.ClassDef) and not prefix:
+                collect(node.body, f"{node.name}.")
+
+    collect(ast.parse(text).body, "")
     return out
 
 
