@@ -99,7 +99,20 @@
    D, its positions finite and written into the events, then again through
    the plain path, the difference printed; one sampling step profiled for
    its device time, idle share and host geometry; and a v32 request
-   through ``inference.run`` with ``generate_positions=true``.
+   through ``inference.run`` with ``generate_positions=true``. Then the
+   whisper_abs family from published (HF-format) checkpoints that the
+   script writes with seeded random weights (``whisper_phase``): kernel B
+   at a whisper encoder window (B 1, T = S = 512, D 64, H 12 and H 8)
+   against both plain versions and timed beside SDPA, kernel D at v28's
+   shapes against its plain versions, each with its own kernels-line
+   entry; v29 (whisper-small at full width) from a fp32
+   ``model.safetensors`` written by the script's own writer, one request
+   at the v29 preset with ``super_timing=false`` (its first window's
+   encoder states through B held against the plain path); v28
+   (whisper-base) from ``pytorch_model.bin``, one greedy request with int8
+   weights and KV (its first window's teacher-forced logits through D held
+   against the plain version); each writes a readable .osu, B launches in
+   both and D's two paths in v28's.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -134,7 +147,8 @@
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
-   if jax, flax, yaml, optax, msgpack or the JAX package was imported.
+   if jax, flax, yaml, optax, msgpack, safetensors, transformers or the JAX
+   package was imported.
 
 Details (compiler logs, all numbers) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -179,12 +193,18 @@ QMM_SHAPES = [  # (rows, K, N): decode steps; a v32 encoder window's fc1, qkv an
     # the plain expression, in the port too: held here, not on a main path)
     (1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768), (4, 768, 3072), (3, 200, 128),
     (1024, 768, 3072), (1024, 768, 2304), (1024, 768, 768), (1024, 768, 1536), (256, 3072, 768),
-    (2048, 768, 3072), (2048, 768, 2304), (2048, 768, 768)]
+    (2048, 768, 3072), (2048, 768, 2304), (2048, 768, 768),
+    # v28 (whisper-base, d 512): a decode step's qkv, out / cross q, fc1, fc2 and out with CFG; an encoder
+    # window's (512 rows) qkv, out, fc1, fc2 and cross k/v; a prefill's qkv
+    (1, 512, 1536), (1, 512, 512), (1, 512, 2048), (1, 2048, 512), (2, 512, 512),
+    (512, 512, 1536), (512, 512, 512), (512, 512, 2048), (512, 2048, 512), (512, 512, 1024), (64, 512, 1536)]
 # a decode step's products on the GEMV path (rows <= 4): self-attention qkv,
 # the 768-wide ones (self out, cross q and out), fc1, fc2; and out with CFG
-QMM_DECODE = [(1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768)]
+QMM_DECODE = [(1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768),
+              (1, 512, 2048)]  # and v28's fc1
 QMM_TIMED = {"qmm": (1, 768, 3072),  # the GEMV path at a decode step's fc1, cold L2
              "qmm_tc": (1024, 768, 3072)}  # the tensor-core path at an encoder window's fc1
+QMM_TIMED_V28 = {"qmm": (1, 512, 2048), "qmm_tc": (512, 512, 2048)}  # the same at v28's widths
 # cold L2: a decode step streams every decoder layer's weights (about 99 MB of
 # int8), twice the 50 MB L2, so each timed GEMV call reads the next of enough
 # weight copies to hold together at least this many bytes
@@ -240,8 +260,14 @@ V31_DIFFICULTY, V31_MAPPER = 6.5, 101602
 # the pipeline cuts into two chunks; every DiT tensor is drawn from
 # N(0, DIT_WEIGHT_STD) (flax's zero adaLN would make every block the identity)
 DIT_OBJECTS, DIT_SLIDER_EVERY, DIT_WEIGHT_STD = 1500, 50, 0.02
+# the whisper phase (v29: whisper-small, v28: whisper-base, both whisper_abs):
+# a 4 s song, one window a pass (1 024 mel frames span 8.2 s), so a request
+# decodes a window a pass (TIMING, KIAI, MAP) of up to 2 048 tokens on
+# seeded random weights
+WHISPER_AUDIO_SECONDS = 4.0
 DIT_TOL = 1e-4  # a DiT forward and a p_sample step through kernel B against the plain path
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "mapperatorinator_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "safetensors", "transformers",
+           "mapperatorinator_tpu")
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -769,8 +795,8 @@ def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
 
 
 def check_qmm(report: dict) -> dict:
-    """Kernel D against its plain version at the v32 shapes and a v31
-    encoder window's (``QMM_SHAPES``) in fp32 and bf16;
+    """Kernel D against its plain version at the v32 shapes, a v31 encoder
+    window's and v28's (``QMM_SHAPES``) in fp32 and bf16;
     on the GEMV path (up to 4 rows) two calls on the same inputs must be
     bit-equal, and the tensor-core path (more rows) is also held against
     ``qmm_plain_tf32x2``, which rounds as it does, and timed beside
@@ -1010,11 +1036,16 @@ def fmt_bytes(n: int | None) -> str:
     return "not measured" if n is None else f"{n / 2**20:.1f} MiB"
 
 
-def check_full_width(model) -> None:
-    """v32's VarWhisper-small and v31's RoPEWhisper-small share these widths."""
+# (d_model, encoder layers, decoder layers, heads, ffn) of the whisper sizes
+WHISPER_SMALL, WHISPER_BASE = (768, 12, 12, 12, 3072), (512, 6, 6, 8, 2048)
+
+
+def check_full_width(model, widths=WHISPER_SMALL) -> None:
+    """v32's VarWhisper-small, v31's RoPEWhisper-small and v29's whisper-small
+    share these widths; v28's whisper-base has its own."""
     b = model.cfg.backbone
-    if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn) != (768, 12, 12, 12, 3072):
-        raise AssertionError(f"not a full-width whisper-small backbone: {b}")
+    if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn) != widths:
+        raise AssertionError(f"not a full-width {widths} backbone: {b}")
 
 
 def window0(args):
@@ -1058,11 +1089,12 @@ def check_encoder_states(label: str, engine, frames, cond: dict, positions: int)
 
 
 def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, check_encoder: bool,
-          after=None, config: str = "v32") -> dict:
-    """One request under ``configs/<config>.json``; ``after(engine, args,
-    vocab, first)`` runs more checks on the engine before it is freed,
-    ``first`` holding the first decode call's prompt, tokens and end and
-    the first encode call's windows and conditions."""
+          after=None, config: str = "v32", widths=WHISPER_SMALL) -> dict:
+    """One request under ``configs/<config>.json`` on a full-width model of
+    ``widths``; ``after(engine, args, vocab, first)`` runs more checks on the
+    engine before it is freed, ``first`` holding the first decode call's
+    prompt, tokens and end and the first encode call's windows and
+    conditions. The model's load time (``load_model``) is recorded."""
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
@@ -1077,9 +1109,12 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold: the peak below is the request's own
+    t0 = time.perf_counter()
     engine, vocab = inference.load_model(args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     inference.compile_args(args, vocab, verbose=False)
-    check_full_width(engine.model)
+    check_full_width(engine.model, widths)
     generation_config, beatmap_config = inference.get_config(args)
 
     stats = {"tokens": 0, "decode_s": 0.0, "windows": 0}
@@ -1129,7 +1164,7 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     if beatmap.mode != args.gamemode or beatmap.title != args.title or "[HitObjects]" not in text:
         raise AssertionError(f"{label}: {path} does not read back as the requested beatmap")
     result = {
-        "label": label, "wall_s": wall, "decode_s": stats["decode_s"], "windows": stats["windows"],
+        "label": label, "load_s": load_s, "wall_s": wall, "decode_s": stats["decode_s"], "windows": stats["windows"],
         "tokens": stats["tokens"], "tok_per_s": stats["tokens"] / wall, "decode_tok_per_s":
         stats["tokens"] / stats["decode_s"] if stats["decode_s"] else 0.0, "peak_mem_gb": peak / 2**30,
         "held_before_gb": held / 2**30,
@@ -1137,7 +1172,8 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
         "osu_bytes": len(text.encode()), "osu_path": str(path), "graphs": graphs,
         "decode_rows": {rows: {**c, "ms_per_step": 1e3 * c["s"] / max(c["steps"], 1)} for rows, c in by_rows.items()},
     }
-    print(f"request {label}: wall {wall:.2f} s, {stats['windows']} windows, {stats['tokens']} tokens generated, "
+    print(f"request {label}: model loaded in {load_s:.2f} s; wall {wall:.2f} s, {stats['windows']} windows, "
+          f"{stats['tokens']} tokens generated, "
           f"{result['tok_per_s']:.1f} tok/s ({result['decode_tok_per_s']:.1f} tok/s in decode), "
           f"peak memory {result['peak_mem_gb']:.2f} GiB over the {result['held_before_gb']:.2f} GiB held before, "
           f"{result['hit_objects']} hit objects, "
@@ -1275,6 +1311,27 @@ def decode_graphs(engines: dict, encs: dict, ids, args, vocab) -> dict:
     return out
 
 
+def check_qmm_logits(label: str, engine, enc, seq) -> tuple[dict, np.ndarray]:
+    """Teacher-forced logits of ``seq`` on an int8 engine through kernel D
+    against ``qmm_plain``, within ENC_TOL times the largest |logit|. Returns
+    the check and the logits through the kernel."""
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
+
+    before = qmm.launches
+    with_kernel = engine.forward(enc, seq)
+    if qmm.launches == before:
+        raise AssertionError(f"request {label}: the teacher-forced check did not run kernel D")
+    set_qmm(engine.model, False)
+    plain = engine.forward(enc, seq)
+    set_qmm(engine.model, True)
+    err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
+    print(f"request {label}, window 0: teacher-forced logits {with_kernel.shape} through kernel D vs qmm_plain: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e} = {ENC_TOL:g} x the largest |logit|)")
+    if not (np.isfinite(with_kernel).all() and err <= tol):
+        raise AssertionError(f"request {label}: logits through kernel D disagree with qmm_plain: {err} above {tol}")
+    return {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol}, with_kernel
+
+
 def int8_checks(ckpt: Path):
     """Request 3's checks on its int8 engine, window 0."""
 
@@ -1284,7 +1341,6 @@ def int8_checks(ckpt: Path):
         from mapperatorinator_tpu_torch.decode.engine import _bucket
         from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline, get_eos_token_ids
         from mapperatorinator_tpu_torch.models.transformer import QDense
-        from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
 
         model, out = engine.model, {}
         n_qdense = sum(isinstance(m, QDense) for m in model.modules())
@@ -1296,19 +1352,7 @@ def int8_checks(ckpt: Path):
         # the first prompt with the tokens it generated, teacher-forced: 512 rows
         # keep every decoder QDense but fc2 under the qmm gate
         seq = first["tokens"][:1, :min(int(first["end"]), 512)]
-        before = qmm.launches
-        with_kernel = engine.forward(enc, seq)
-        if qmm.launches == before:
-            raise AssertionError("the teacher-forced check did not run kernel D")
-        set_qmm(model, False)
-        plain = engine.forward(enc, seq)
-        set_qmm(model, True)
-        err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
-        print(f"request 3, window 0: teacher-forced logits {with_kernel.shape} through kernel D vs qmm_plain: "
-              f"max_abs_err {err:.3e} (tol {tol:.3e} = {ENC_TOL:g} x the largest |logit|)")
-        out["qmm_logits_check"] = {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol}
-        if not (np.isfinite(with_kernel).all() and err <= tol):
-            raise AssertionError(f"logits through kernel D disagree with qmm_plain: {err} above {tol}")
+        out["qmm_logits_check"], with_kernel = check_qmm_logits("3", engine, enc, seq)
 
         # the fp model from the same checkpoint
         fp_engine, _ = inference.load_model(load_config("v32", ["seed=0", "gamemode=0", f"model_path={ckpt}"]))
@@ -1600,6 +1644,209 @@ def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
     maimod, record = maimod_run("v31 MaiMod", fallback, "a taiko map under the v30 preset (gamemodes [0])")
     report["v31"] = {"maimod": record}
     return {k: first.get(k, 0) + second.get(k, 0) + maimod.get(k, 0) for k in first}
+
+
+def whisper_kernels(report: dict) -> list[dict]:
+    """Kernels B and D at the whisper_abs shapes, each with its own
+    kernels-line entry (its launches filled in from the requests): B (fp32
+    route) at a whisper encoder window, B 1, T = S = 512, D 64, no mask,
+    with H 12 (v29) and H 8 (v28), against both plain versions within 2e-5
+    and timed beside SDPA and its bound; D's two paths at v28's fc1
+    (``QMM_TIMED_V28``), as ``check_qmm`` held them (every v28 shape of
+    ``QMM_SHAPES``) and ``check_qmm`` / ``time_qmm_cold`` timed them."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, attention_plain_fp32_tc, flash_fwd_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    entries, tol = [], ATTN_TOL[torch.float32]
+    for size, H in (("small", 12), ("base", 8)):
+        B, T, D = 1, 512, 64
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(3))
+        out = flash_fwd_fp32(q, k, v, None, False, 0, D**-0.5, False)[0]
+        err = {name: (out - fn(q, k, v, None)).abs().max().item()
+               for name, fn in (("tc", attention_plain_fp32_tc), ("fp32", attention_plain))}
+        qs, ks, vs = sdpa_layout(q, k, v)
+        bounds = fp32_bounds(4.0 * H * T * T * D * B, 4 * 4 * B * T * H * D)  # q, k, v in; out
+        t_ = in_turns({"plain": lambda: attention_plain(q, k, v, None),
+                       "kernel": lambda: flash_fwd_fp32(q, k, v, None, False, 0, D**-0.5, False),
+                       "library": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+        shape = f"B{B} T{T} S{T} H{H} D{D} fp32"
+        print(f"flash_attention_fwd fp32 whisper-{size} encoder {shape}: max_abs_err {err['tc']:.3e} against the "
+              f"plain version that splits as the kernel does, {err['fp32']:.3e} against the fp32 one (tol {tol:g}); "
+              f"kernel {t_['kernel']:.4f} ms, plain {t_['plain']:.4f} ms, scaled_dot_product_attention "
+              f"{t_['library']:.4f} ms ({t_['kernel'] / t_['library']:.2f}x); bound {bounds['bound_ms']:.4f} ms "
+              f"(three TF32 products {bounds['tf32x3_ms']:.4f}, fp32 FMAs {bounds['fma_ms']:.4f}, bytes "
+              f"{bounds['bytes_ms']:.4f})")
+        if not all(e <= tol for e in err.values()):
+            raise AssertionError(f"flash_attention fp32 whisper-{size} {shape}: {err} above {tol}")
+        entries.append({"name": f"flash_attention_fwd_whisper_{size}", "route": "cuda",
+                        "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:88", "max_abs_err": max(err.values()),
+                        "tol": "2e-5", "ms": t_["kernel"], "plain_ms": t_["plain"], "bound_ms": bounds["bound_ms"],
+                        "bound_by": bounds["bound_by"], "library_ms": t_["library"],
+                        "timed_shape": f"{shape} (a whisper-{size} encoder window)", "bounds": bounds})
+        del q, k, v, qs, ks, vs, out
+    torch.cuda.empty_cache()
+
+    fp32 = str(torch.float32)
+    v28 = [c for c in report["qmm_cases"] if c["dtype"] == fp32 and (c["K"], c["N"]) in
+           ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 1024))]
+    for path, cases, what in (("qmm", report["qmm_cold_cases"], "a decode step's fc1, the GEMV path, cold L2"),
+                              ("qmm_tc", report["qmm_cases"], "an encoder window's fc1, the tensor-core path")):
+        rows, k, n = QMM_TIMED_V28[path]
+        timed = next(c for c in cases if c["dtype"] == fp32 and (c["rows"], c["K"], c["N"]) == (rows, k, n))
+        held = [c for c in v28 if c["path"] == path]
+        entries.append({"name": f"{path}_whisper_base", "route": "cuda",
+                        "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
+                        "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80",
+                        "max_abs_err": max(c["max_abs_err"] for c in held),
+                        "tol": f"{QMM_TOL[torch.float32]:g} x max(1, max |reference output|)",
+                        "held_shapes": [[c["rows"], c["K"], c["N"]] for c in held], "ms": timed["ms"],
+                        "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                        "library_ms": timed["library_ms"], "device_ms": timed.get("device_ms"),
+                        "timed_shape": f"rows{rows} K{k} N{n} fp32 ({what}; v28)"})
+    return entries
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A safetensors file of fp32 tensors: the header length, the JSON header
+    (padded to 8 bytes), the tensors' bytes end to end."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + 4 * t.numel()]}
+        offset += 4 * t.numel()
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text)
+        for t in tensors.values():
+            f.write(t.float().contiguous().cpu().numpy().data)
+
+
+def write_whisper_checkpoint(directory: Path, config: str, fmt: str, seed: int) -> dict:
+    """A published (HF-format) checkpoint of ``-cn config``'s stock whisper
+    model at full width with seeded random weights, as the reference's
+    state dict names them: ``config.json``, ``tokenizer.json`` and
+    ``model.safetensors`` (``fmt`` "safetensors", through
+    :func:`write_safetensors`) or ``pytorch_model.bin`` (``torch.save``)."""
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+
+    t0 = time.perf_counter()
+    args = load_config(config)
+    vocab = build_vocabulary(args.train)
+    cfg = build_config(args.train, vocab)
+    b = cfg.backbone
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, sd = b.d_model, {}
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).cpu()
+
+    def linear(key, out, inp, bias=True):
+        sd[f"{key}.weight"] = rand(out, inp, std=inp**-0.5)
+        if bias:
+            sd[f"{key}.bias"] = rand(out, std=0.02)
+
+    def norm(key):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = rand(d, std=0.02, mean=1.0), rand(d, std=0.02)
+
+    t = "transformer.model"
+    for conv, inp in (("conv1", b.num_mel_bins), ("conv2", d)):
+        sd[f"{t}.encoder.{conv}.weight"] = rand(d, inp, 3, std=(3 * inp) ** -0.5)
+        sd[f"{t}.encoder.{conv}.bias"] = rand(d, std=0.02)
+    sd[f"{t}.decoder.embed_tokens.weight"] = rand(cfg.vocab_size_out, d)
+    sd[f"{t}.decoder.embed_positions.weight"] = rand(b.max_target_positions, d)
+    for side, n, ffn in (("encoder", b.encoder_layers, b.encoder_ffn), ("decoder", b.decoder_layers, b.decoder_ffn)):
+        for i in range(n):
+            p = f"{t}.{side}.layers.{i}"
+            for attn in ("self_attn", "encoder_attn") if side == "decoder" else ("self_attn",):
+                for proj in ("q", "k", "v", "out"):
+                    linear(f"{p}.{attn}.{proj}_proj", d, d, bias=proj != "k")  # k_proj has no bias
+                norm(f"{p}.{attn}_layer_norm")
+            norm(f"{p}.final_layer_norm")
+            linear(f"{p}.fc1", ffn, d)
+            linear(f"{p}.fc2", d, ffn)
+        norm(f"{t}.{side}.layer_norm")
+    linear("transformer.proj_out", cfg.vocab_size_out, d, bias=False)
+    sd["decoder_embedder.weight"] = rand(cfg.vocab_size_in, d)
+    linear("encoder_embedder", d, cfg.n_mels + cfg.cond_size)
+
+    hf_cfg = {"backbone_model_name": args.train.model.name, "vocab_size": cfg.vocab_size_out,
+              "backbone_config": {"d_model": d, "encoder_layers": b.encoder_layers, "decoder_layers": b.decoder_layers,
+                                  "encoder_attention_heads": b.encoder_heads,
+                                  "decoder_attention_heads": b.decoder_heads, "encoder_ffn_dim": b.encoder_ffn,
+                                  "decoder_ffn_dim": b.decoder_ffn, "max_source_positions": b.max_source_positions,
+                                  "max_target_positions": b.max_target_positions, "num_mel_bins": b.num_mel_bins,
+                                  "tie_word_embeddings": b.tie_word_embeddings},
+              **{k: getattr(cfg, k) for k in (
+                  "vocab_size_in", "num_classes", "num_mappers", "input_features", "project_encoder_input",
+                  "embed_decoder_input", "cond_dim", "cond_size", "spectrogram_log_scale", "sample_rate", "n_fft",
+                  "n_mels", "hop_length", "f_min", "f_max", "pad_mode", "rhythm_token_start", "rhythm_token_end",
+                  "max_target_positions")}}
+    directory.mkdir(parents=True)
+    (directory / "config.json").write_text(json.dumps(hf_cfg))
+    vocab.save_pretrained(directory)
+    if fmt == "safetensors":
+        write_safetensors(directory / "model.safetensors", sd)
+    else:
+        torch.save(sd, directory / "pytorch_model.bin")
+    weights = next(directory.glob("model.safetensors" if fmt == "safetensors" else "pytorch_model.bin"))
+    record = {"config": config, "backbone": args.train.model.name, "file": weights.name,
+              "bytes": weights.stat().st_size, "tensors": len(sd), "write_s": time.perf_counter() - t0}
+    print(f"{config}: seeded random {args.train.model.name} weights written as a published checkpoint, "
+          f"{weights.name} ({record['bytes'] / 2**20:.1f} MiB, {len(sd)} tensors) in {record['write_s']:.2f} s")
+    return record
+
+
+def whisper_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
+    """The whisper_abs family at full width from published (HF-format)
+    checkpoints the script writes (``write_whisper_checkpoint``), on a
+    ``WHISPER_AUDIO_SECONDS`` song:
+
+    * kernels B and D at the family's shapes (``whisper_kernels``);
+    * v29 (``openai/whisper-small``: d_model 768, 12 + 12 layers, 12 heads,
+      ffn 3 072, 1 024 mel frames -> 512 source positions, 2 048 target
+      positions) from a fp32 ``model.safetensors``: one request through
+      ``load_model`` / ``generate`` at the v29 preset (sampled at
+      temperature 0.9 and top-p 0.9) with ``super_timing=false`` (the
+      preset's 20-member ensemble took 52.5 s on v32, PERF.md section 5);
+      its first window's encoder states through B held against the plain
+      path;
+    * v28 (``openai/whisper-base``: d_model 512, 6 + 6 layers, 8 heads, ffn
+      2 048) from ``pytorch_model.bin``: one greedy request with int8
+      weights and KV, ``super_timing=false``; its first window's
+      teacher-forced logits through D held against the plain version.
+
+    Each must write a .osu that the port's parser reads; B must launch in
+    both, D in v28's. Returns the requests' launches and the four
+    kernels-line entries with their launches filled in."""
+    entries = whisper_kernels(report)
+    wav = write_wav(tmp / "whisper.wav", WHISPER_AUDIO_SECONDS, seed=2)
+    records = {"v29": write_whisper_checkpoint(tmp / "v29-hf", "v29", "safetensors", seed=29),
+               "v28": write_whisper_checkpoint(tmp / "v28-hf", "v28", "bin", seed=28)}
+
+    def qmm_logits(engine, args, vocab, first) -> dict:
+        frames = window0(args)
+        enc = engine.encode_with_cond(frames)
+        seq = first["tokens"][:1, :min(int(first["end"]), 512)]
+        return {"qmm_logits_check": check_qmm_logits("whisper-v28", engine, enc, seq)[0]}
+
+    small = serve("whisper-v29", tmp, wav, [f"model_path={tmp / 'v29-hf'}", "super_timing=false"], report,
+                  check_encoder=True, config="v29")
+    base = serve("whisper-v28-int8", tmp, wav, [f"model_path={tmp / 'v28-hf'}", "super_timing=false",
+                                                 "quantized_weights=true", "quantized_kv=true", "do_sample=false"],
+                 report, check_encoder=False, after=qmm_logits, config="v28", widths=WHISPER_BASE)
+    if small["flash_attention_fwd"] == 0 or base["flash_attention_fwd"] == 0 or base["qmm"] == 0 \
+            or base["qmm_tc"] == 0:
+        raise AssertionError(f"the whisper requests launched {small} and {base}: B in both, D's two paths in v28's")
+    launches = {"flash_attention_fwd_whisper_small": small["flash_attention_fwd"],
+                "flash_attention_fwd_whisper_base": base["flash_attention_fwd"],
+                "qmm_whisper_base": base["qmm"], "qmm_tc_whisper_base": base["qmm_tc"]}
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+    report["whisper_checkpoints"] = records
+    return {k: small.get(k, 0) + base.get(k, 0) for k in small}, entries
 
 
 def dense_dit_map(path: Path) -> Path:
@@ -2716,13 +2963,14 @@ def main() -> int:
         server = server_phase(tmp, wav, report)
         v31 = v31_phase(tmp, wav, report)
         dit, dit_rows = dit_phase(tmp, wav, report)
+        whisper, whisper_entries = whisper_phase(tmp, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
     # kernel B's entry gains the DiT's shapes and their errors
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
     fwd["shapes"] += dit_rows
     fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows for e in row["max_abs_err"].values()))
-    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, lora_served)
+    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, whisper, lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
@@ -2733,6 +2981,7 @@ def main() -> int:
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
                                   "DiT refinement (the dense song and a v32 request)": dit,
+                                  "whisper_abs (a v29 and an int8 v28 request)": whisper,
                                   "LoRA serving (two requests)": lora_served,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,
@@ -2743,6 +2992,8 @@ def main() -> int:
             entry["gradient_check_launches"] = checked[entry["name"]]
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never launched on the paths it serves: {report['launches_by_path']}")
+    # B and D at the whisper shapes: their launches are the whisper requests'
+    kernels += whisper_entries
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
     if loaded:

@@ -1,7 +1,8 @@
 """Resolved configurations, readable without yaml, and the device choice.
 
 ``configs/<name>.json`` is the JAX loader's composition of
-``configs/inference/<name>.yaml`` (the nested training config included),
+``configs/inference/<name>.yaml`` (the nested training config included;
+v32, v32-mini, v31, v30, v29 and v28),
 ``configs/train_<name>.json`` that of ``configs/train/<name>.yaml`` (v32,
 v32-mini, and the fine-tune configs ``v32_ft``, ``v32-mini_ft``, ``lora``
 and ``lora_v32``), and

@@ -186,8 +186,9 @@ class DecodeEngine:
         buffer, right-padded with pad, and the position at which the JAX loop
         stops: the first step after which every row had finished, else
         ``max_length``. A list passed as ``step_logits`` receives the
-        processed scores of each step up to there."""
-        max_length = max_length or self.max_length
+        processed scores of each step up to there. A model with a learned
+        position table stops the loop at its end (:meth:`_cap`)."""
+        max_length = self._cap(max_length or self.max_length)
         B, P_orig = decoder_input_ids.shape
         if P_orig >= max_length:
             raise ValueError(f"prompt length {P_orig} >= max_length {max_length}")
@@ -222,6 +223,16 @@ class DecodeEngine:
         if step_logits is not None:
             del step_logits[first_logits + end - P_orig:]
         return state.tokens.cpu().numpy(), end
+
+    def _cap(self, max_length: int) -> int:
+        """``max_length`` within a learned position table's reach. A step
+        feeds the token at slot ``cur_len - 1`` at its logical position, at
+        most ``max_length - 2``, so a table of N rows serves a buffer of
+        N + 1 slots; one position past it would be an out-of-range lookup,
+        which JAX's gather fills with NaN and a CUDA gather asserts on.
+        RoPE models have no table and keep ``max_length``."""
+        table = self.model.transformer.position_table
+        return max_length if table is None else min(max_length, table + 1)
 
     def _state(self, batch: int, max_length: int, encoder_states: torch.Tensor) -> _DecodeState:
         key = (batch, max_length, tuple(encoder_states.shape[1:]), encoder_states.dtype)
@@ -365,8 +376,12 @@ class DecodeEngine:
         ids = torch.as_tensor(np.asarray(decoder_input_ids), dtype=torch.long, device=dev)
         mask = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
         enc = encoder_states
+        table = self.model.transformer.position_table
+        if table is not None and T > table:
+            raise ValueError(f"{T} tokens: the model's position table has {table} rows")
         Tb = _bucket(T)
-        limit = self.model.cfg.max_target_positions
+        limit = self.model.cfg.max_target_positions  # padded positions are looked up too
+        limit = limit if table is None else min(limit, table)
         if Tb > limit:
             Tb = limit if limit >= T else T
         if Tb != T:
@@ -466,6 +481,8 @@ class DecodeEngine:
             decoder_attention_mask = decoder_input_ids != self.pad_token_id
         ids = torch.as_tensor(np.asarray(decoder_input_ids), dtype=torch.long, device=dev)
         mask = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
+        if self._cap(P + T) < P + T:
+            raise ValueError(f"{P} prompt and {T} forced tokens: past the model's position table")
         cache, attn, n_valid, logits = self._prefill(encoder_states, ids, mask, P + T)
         last = logits[:, -1].float()
         lstate = pipeline.init_state(half, dev)
@@ -515,7 +532,7 @@ class DecodeEngine:
         negative half's rows. Returns the best hypothesis per row, right-padded
         to P + max_length, and its logical length."""
         model, dev, pad_id = self.model, self.device, self.pad_token_id
-        max_length = max_length or self.max_length
+        max_length = self._cap(max_length or self.max_length)
         use_cfg = cfg_scale > 1.0
         B_rows, P_orig = decoder_input_ids.shape
         if use_cfg and B_rows % 2:

@@ -27,8 +27,12 @@ From Python:
         args, generation_config=generation_config, beatmap_config=beatmap_config,
         engine=engine, vocab=vocab)
 
-An empty ``model_path`` builds the model from ``args.train`` with seeded
-random weights (``args.seed``): the output is a valid but meaningless map.
+``model_path`` names a native checkpoint or a published (HF-format) one:
+``config.json`` with ``model.safetensors`` or ``pytorch_model*.bin``, as
+the presets' repositories hold them (``-cn v29`` and ``-cn v28`` serve the
+stock whisper models). An empty ``model_path`` builds the model from
+``args.train`` with seeded random weights (``args.seed``): the output is a
+valid but meaningless map.
 """
 
 from __future__ import annotations
@@ -271,8 +275,9 @@ def should_generate_timing_context(args, output_type) -> bool:
 
 
 def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
-    """(engine, vocab) for ``args.model_path`` (a native checkpoint directory,
-    or its ``gamemode=N`` fine-tune subfolder when one exists and
+    """(engine, vocab) for ``args.model_path`` (a native or a published
+    HF-format checkpoint directory, :func:`.models.io.load_checkpoint`, or
+    its ``gamemode=N`` fine-tune subfolder when one exists and
     ``auto_select_gamemode_model``, by default ``args.auto_select_gamemode_model``,
     allows it), on the device ``args.device`` selects, at the compute dtype
     ``args.precision`` selects, with int8 weights (``quantized_weights``) and

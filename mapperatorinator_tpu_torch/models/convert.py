@@ -1,0 +1,312 @@
+"""Published (HF-format) checkpoints: the JAX ``models/convert.py`` for the
+backbone families the port builds.
+
+A published checkpoint directory holds ``config.json`` (the HF
+``MapperatorinatorConfig``: ``backbone_model_name``, ``backbone_config`` and
+the wrapper's fields) and the torch state dict of the reference model, as
+``model.safetensors`` or ``pytorch_model*.bin`` (:mod:`.safetensors`). The
+state dict maps onto the port's own module names by rule, with no flax tree
+between:
+
+* VarWhisper (v32): fused ``Wqkv`` / ``Wkv``, RMSNorm;
+* stock whisper (v28, v29): split ``q_proj`` / ``k_proj`` / ``v_proj``,
+  LayerNorm, the learned decoder position table;
+* RoPEWhisper (v30, v31): split projections, RMSNorm, RoPE.
+
+An ``nn.Linear`` weight is (out, in) in both, so the split projections are
+concatenated along the output rows into the port's fused ``wqkv`` (q, k, v)
+and ``wkv`` (k, v); ``k_proj`` has no bias, so its slot of the fused bias is
+0, which computes the same. The whisper encoder's frozen sinusoid table is
+dropped (the port computes it), and so is the HF decoder's token table where
+the port's decoder has none (a wrapper that embeds its own ids with an untied
+head). NWhisper, T5 and moonshine raise (ROADMAP queue 1, item 11).
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Union
+
+import torch
+
+from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig
+from .safetensors import read_torch_weights
+from .transformer import TransformerConfig
+
+UNPORTED_FAMILIES = ("nwhisper", "moonshine", "t5")
+
+
+def backbone_family(backbone_model_name: str) -> str:
+    """The reference's ``backbone_model_name`` -> converter family key."""
+    name = backbone_model_name.lower()
+    if "varwhisper" in name:
+        return "varwhisper"
+    if "ropewhisper" in name:
+        return "ropewhisper"
+    if "nwhisper" in name:
+        return "nwhisper"
+    if "moonshine" in name:
+        return "moonshine"
+    if name.startswith("google/t5") or "t5" in name:
+        return "t5"
+    if "whisper" in name:
+        return "whisper"
+    raise NotImplementedError(f"unknown backbone family: {backbone_model_name}")
+
+
+def _backbone_config_from_hf(hf_cfg: dict) -> tuple[str, TransformerConfig]:
+    """A checkpoint's ``config.json`` -> (family, TransformerConfig), with
+    every default of the JAX ``_backbone_config_from_hf``."""
+    name = hf_cfg.get("backbone_model_name", "OliBomby/varwhisper-small")
+    family = backbone_family(name)
+    if family in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"backbone {name!r} ({family}): not ported yet (ROADMAP queue 1, item 11)")
+    bc = dict(hf_cfg.get("backbone_config", {}) or {})
+    common = dict(
+        vocab_size=hf_cfg.get("vocab_size", bc.get("vocab_size")),
+        d_model=bc.get("d_model", 768),
+        encoder_layers=bc.get("encoder_layers", 12),
+        decoder_layers=bc.get("decoder_layers", 12),
+        encoder_heads=bc.get("encoder_attention_heads", 12),
+        decoder_heads=bc.get("decoder_attention_heads", 12),
+        encoder_ffn=bc.get("encoder_ffn_dim", 3072),
+        decoder_ffn=bc.get("decoder_ffn_dim", 3072),
+        activation=bc.get("activation_function", "gelu"),
+        max_source_positions=bc.get("max_source_positions", 1024),
+        max_target_positions=bc.get("max_target_positions", 2560),
+        num_mel_bins=bc.get("num_mel_bins", 128),
+        scale_embedding=bc.get("scale_embedding", False),
+        tie_word_embeddings=bc.get("tie_word_embeddings", True),
+    )
+    if family == "varwhisper":
+        cfg = TransformerConfig(
+            position_scheme="rope", norm="rms",
+            rope_global_theta=bc.get("global_rope_theta", 10000),
+            rope_local_theta=bc.get("local_rope_theta", 10000),
+            global_attn_every_n_layers=bc.get("global_attn_every_n_layers", 1),
+            local_attention=bc.get("local_attention", 128),
+            attention_bias=bc.get("attention_bias", True),
+            **common,
+        )
+    elif family == "ropewhisper":
+        cfg = TransformerConfig(
+            position_scheme="rope", norm="rms",
+            rope_type=bc.get("rope_type", "default"),
+            rope_encoder_scaling_factor=bc.get("rope_encoder_scaling_factor", 1.0),
+            rope_decoder_scaling_factor=bc.get("rope_decoder_scaling_factor", 1.0),
+            **common,
+        )
+    else:  # stock whisper
+        cfg = TransformerConfig(position_scheme="whisper_abs", norm="layer", **common)
+    return family, cfg
+
+
+def config_from_hf(hf_cfg: dict) -> tuple[str, MapperatorinatorConfig]:
+    """A checkpoint's ``config.json`` -> (family, MapperatorinatorConfig), as
+    the JAX ``load_hf_checkpoint`` builds it: every wrapper field from the
+    file or its default there, and the FFT mel (``"xla"``) whatever the file
+    says."""
+    family, backbone = _backbone_config_from_hf(hf_cfg)
+    return family, MapperatorinatorConfig(
+        backbone=backbone,
+        vocab_size_in=hf_cfg.get("vocab_size_in"),
+        vocab_size_out=hf_cfg.get("vocab_size", backbone.vocab_size),
+        num_classes=hf_cfg.get("num_classes", 0),
+        num_mappers=hf_cfg.get("num_mappers", 3731),
+        input_features=hf_cfg.get("input_features", True),
+        input_raw_wave=hf_cfg.get("input_raw_wave", False),
+        project_encoder_input=hf_cfg.get("project_encoder_input", False),
+        embed_decoder_input=hf_cfg.get("embed_decoder_input", True),
+        do_style_embed=hf_cfg.get("do_style_embed", False),
+        do_difficulty_embed=hf_cfg.get("do_difficulty_embed", False),
+        do_mapper_embed=hf_cfg.get("do_mapper_embed", False),
+        do_song_position_embed=hf_cfg.get("do_song_position_embed", False),
+        cond_dim=hf_cfg.get("cond_dim", 128),
+        cond_size=hf_cfg.get("cond_size", 0),
+        spectrogram_implementation="xla",
+        spectrogram_log_scale=hf_cfg.get("spectrogram_log_scale", False),
+        sample_rate=hf_cfg.get("sample_rate", 16000),
+        n_fft=hf_cfg.get("n_fft", 1024),
+        n_mels=hf_cfg.get("n_mels", 388),
+        hop_length=hf_cfg.get("hop_length", 128),
+        f_min=hf_cfg.get("f_min", 0),
+        f_max=hf_cfg.get("f_max", 8000),
+        pad_mode=hf_cfg.get("pad_mode", "constant"),
+        rhythm_token_start=hf_cfg.get("rhythm_token_start", 17),
+        rhythm_token_end=hf_cfg.get("rhythm_token_end", 836),
+        max_target_positions=hf_cfg.get("max_target_positions", backbone.max_target_positions),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the backbone: HF names -> the port's, relative to ``transformer.``
+# ---------------------------------------------------------------------------
+
+
+def _linear(out: dict, sd: dict, theirs: str, ours: str) -> None:
+    out[f"{ours}.weight"] = sd[f"{theirs}.weight"]
+    if f"{theirs}.bias" in sd:
+        out[f"{ours}.bias"] = sd[f"{theirs}.bias"]
+
+
+def _norm(out: dict, sd: dict, theirs: str, ours: str, kind: str) -> None:
+    out[f"{ours}.weight"] = sd[f"{theirs}.weight"]
+    if kind == "layer":
+        out[f"{ours}.bias"] = sd[f"{theirs}.bias"]
+
+
+def _fused_attn(out: dict, sd: dict, theirs: str, ours: str, cross: bool) -> None:
+    """VarWhisper's ``Wqkv`` / ``Wq`` + ``Wkv`` / ``Wo``."""
+    _linear(out, sd, f"{theirs}.Wo", f"{ours}.wo")
+    if cross:
+        _linear(out, sd, f"{theirs}.Wq", f"{ours}.wq")
+        _linear(out, sd, f"{theirs}.Wkv", f"{ours}.wkv")
+    else:
+        _linear(out, sd, f"{theirs}.Wqkv", f"{ours}.wqkv")
+
+
+def _split_attn(out: dict, sd: dict, theirs: str, ours: str, cross: bool) -> None:
+    """Whisper's ``q_proj`` / ``k_proj`` / ``v_proj`` / ``out_proj`` -> the
+    fused layout; the k bias slot is 0."""
+    q, k, v = (sd[f"{theirs}.{p}_proj.weight"] for p in "qkv")
+    _linear(out, sd, f"{theirs}.out_proj", f"{ours}.wo")
+    has_bias = f"{theirs}.q_proj.bias" in sd
+    if has_bias:
+        qb, vb = sd[f"{theirs}.q_proj.bias"], sd[f"{theirs}.v_proj.bias"]
+    if cross:
+        out[f"{ours}.wq.weight"] = q
+        out[f"{ours}.wkv.weight"] = torch.cat([k, v])
+        if has_bias:
+            out[f"{ours}.wq.bias"] = qb
+            out[f"{ours}.wkv.bias"] = torch.cat([torch.zeros_like(vb), vb])
+    else:
+        out[f"{ours}.wqkv.weight"] = torch.cat([q, k, v])
+        if has_bias:
+            out[f"{ours}.wqkv.bias"] = torch.cat([qb, torch.zeros_like(qb), vb])
+
+
+def _ffn(out: dict, sd: dict, theirs: str, ours: str) -> None:
+    _linear(out, sd, f"{theirs}.fc1", f"{ours}.fc1")
+    _linear(out, sd, f"{theirs}.fc2", f"{ours}.fc2")
+
+
+def _convert_backbone(sd: dict, encoder_layers: int, decoder_layers: int, tied_head: bool, *, fused: bool,
+                      norm: str, learned_decoder_positions: bool) -> dict[str, torch.Tensor]:
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    attn = _fused_attn if fused else _split_attn
+    cross_name = "cross_attn" if fused else "encoder_attn"
+    out: dict[str, torch.Tensor] = {}
+    for conv in ("conv1", "conv2"):
+        _linear(out, sd, f"encoder.{conv}", f"encoder.{conv}")
+    _norm(out, sd, "encoder.layer_norm", "encoder.norm", norm)
+    for i in range(encoder_layers):
+        p = f"encoder.layers.{i}"
+        attn(out, sd, f"{p}.self_attn", f"{p}.self_attn", cross=False)
+        _norm(out, sd, f"{p}.self_attn_layer_norm", f"{p}.self_attn_norm", norm)
+        _norm(out, sd, f"{p}.final_layer_norm", f"{p}.final_norm", norm)
+        _ffn(out, sd, p, f"{p}.ffn")
+    out["decoder.embed_tokens.weight"] = sd["decoder.embed_tokens.weight"]
+    _norm(out, sd, "decoder.layer_norm", "decoder.norm", norm)
+    if learned_decoder_positions and "decoder.embed_positions.weight" in sd:
+        out["decoder.embed_positions.weight"] = sd["decoder.embed_positions.weight"]
+    for i in range(decoder_layers):
+        p = f"decoder.layers.{i}"
+        attn(out, sd, f"{p}.self_attn", f"{p}.self_attn", cross=False)
+        _norm(out, sd, f"{p}.self_attn_layer_norm", f"{p}.self_attn_norm", norm)
+        attn(out, sd, f"{p}.{cross_name}", f"{p}.cross_attn", cross=True)
+        _norm(out, sd, f"{p}.{cross_name}_layer_norm", f"{p}.cross_attn_norm", norm)
+        _norm(out, sd, f"{p}.final_layer_norm", f"{p}.final_norm", norm)
+        _ffn(out, sd, p, f"{p}.ffn")
+    if not tied_head and "proj_out.weight" in sd:
+        out["proj_out.weight"] = sd["proj_out.weight"]
+    return out
+
+
+def convert_varwhisper_state_dict(sd: dict, encoder_layers: int, decoder_layers: int,
+                                  tied_head: bool) -> dict[str, torch.Tensor]:
+    """A VarWhisperForConditionalGeneration state dict -> the port's
+    ``OsuTransformer`` state dict."""
+    return _convert_backbone(sd, encoder_layers, decoder_layers, tied_head, fused=True, norm="rms",
+                             learned_decoder_positions=False)
+
+
+def convert_whisper_state_dict(sd: dict, encoder_layers: int, decoder_layers: int, tied_head: bool,
+                               norm: str = "layer", learned_decoder_positions: bool = True) -> dict[str, torch.Tensor]:
+    """A stock HF whisper state dict (LayerNorm, learned decoder positions;
+    v28, v29) or, with ``norm="rms"`` and no learned positions, a
+    RoPEWhisper one (v30, v31) -> the port's ``OsuTransformer`` state dict."""
+    return _convert_backbone(sd, encoder_layers, decoder_layers, tied_head, fused=False, norm=norm,
+                             learned_decoder_positions=learned_decoder_positions)
+
+
+def convert_ropewhisper_state_dict(sd: dict, encoder_layers: int, decoder_layers: int,
+                                   tied_head: bool) -> dict[str, torch.Tensor]:
+    return convert_whisper_state_dict(sd, encoder_layers, decoder_layers, tied_head, norm="rms",
+                                      learned_decoder_positions=False)
+
+
+_BACKBONE_CONVERTERS = {
+    "varwhisper": convert_varwhisper_state_dict,
+    "whisper": convert_whisper_state_dict,
+    "ropewhisper": convert_ropewhisper_state_dict,
+}
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+def _mlp_embedder(out: dict, sd: dict, prefix: str, proj: str) -> None:
+    """RBF + [Linear, LayerNorm, ReLU, Dropout, Linear, LayerNorm]: the torch
+    Sequential's indices 0 / 1 / 4 / 5 are the port's proj1 / norm1 / proj2 /
+    norm2."""
+    out[f"{prefix}.rbf.basis_centers"] = sd[f"{prefix}.basis_centers"]
+    out[f"{prefix}.rbf.basis_widths"] = sd[f"{prefix}.basis_widths"]
+    for index, ours in ((0, "proj1"), (1, "norm1"), (4, "proj2"), (5, "norm2")):
+        for leaf in ("weight", "bias"):
+            out[f"{prefix}.{ours}.{leaf}"] = sd[f"{prefix}.{proj}.{index}.{leaf}"]
+
+
+def convert_mapperatorinator_state_dict(sd: dict, config: MapperatorinatorConfig,
+                                        family: str = "varwhisper") -> dict[str, torch.Tensor]:
+    """A reference Mapperatorinator state dict -> the port's
+    ``Mapperatorinator`` state dict, every conditioning embedder included."""
+    b = config.backbone
+    transformer_sd = {k.removeprefix("transformer."): v for k, v in sd.items() if k.startswith("transformer.")}
+    backbone = _BACKBONE_CONVERTERS[family](transformer_sd, b.encoder_layers, b.decoder_layers,
+                                            b.tie_word_embeddings)
+    if config.embed_decoder_input and not b.tie_word_embeddings:
+        del backbone["decoder.embed_tokens.weight"]  # the port's decoder has no token table to fill
+    out = {f"transformer.{k}": v for k, v in backbone.items()}
+    if config.embed_decoder_input and "decoder_embedder.weight" in sd:
+        out["decoder_embedder.weight"] = sd["decoder_embedder.weight"]
+    if config.project_encoder_input and "encoder_embedder.weight" in sd:
+        out["encoder_embedder.weight"] = sd["encoder_embedder.weight"]
+        out["encoder_embedder.bias"] = sd["encoder_embedder.bias"]
+    if config.do_style_embed and "style_embedder.embedding_table.weight" in sd:
+        out["style_embedder.weight"] = sd["style_embedder.embedding_table.weight"]
+    if config.do_difficulty_embed and "difficulty_embedder.basis_centers" in sd:
+        _mlp_embedder(out, sd, "difficulty_embedder", "difficulty_proj")
+    if config.do_mapper_embed and "mapper_embedder.embedding.weight" in sd:
+        out["mapper_embedder.table.weight"] = sd["mapper_embedder.embedding.weight"]
+        out["mapper_embedder.norm.weight"] = sd["mapper_embedder.layer_norm.weight"]
+        out["mapper_embedder.norm.bias"] = sd["mapper_embedder.layer_norm.bias"]
+    if config.do_song_position_embed and "song_pos_embedder.basis_centers" in sd:
+        _mlp_embedder(out, sd, "song_pos_embedder", "position_proj")
+    return out
+
+
+def load_hf_checkpoint(directory: Union[str, Path]) -> Mapperatorinator:
+    """The model of a published checkpoint directory (``config.json`` +
+    ``model.safetensors`` or ``pytorch_model*.bin``), on the CPU with its
+    parameters in fp32 (a bf16 or fp16 file is cast on load)."""
+    directory = Path(directory)
+    with open(directory / "config.json", encoding="utf-8") as f:
+        hf_cfg = json.load(f)
+    family, config = config_from_hf(hf_cfg)
+    state = convert_mapperatorinator_state_dict(read_torch_weights(directory), config, family)
+    model = Mapperatorinator(config)
+    model.load_state_dict(state)
+    return model

@@ -1,8 +1,10 @@
-"""Native checkpoints (``models/io.py``) and int8 weight quantization.
+"""Checkpoints (``models/io.py``) and int8 weight quantization.
 
 A native checkpoint is a directory holding ``model_config.json`` (the
 MapperatorinatorConfig tree), ``params.msgpack`` (flax-serialized params) and
-``tokenizer.json`` (the Vocabulary state). A DiT bundle, as the JAX
+``tokenizer.json`` (the Vocabulary state). :func:`load_checkpoint` also reads
+a published one (``config.json`` and the reference's torch weights,
+:mod:`.convert`). A DiT bundle, as the JAX
 ``diffusion_train.py`` exports one, holds ``dit_config.json`` (the DiTConfig
 fields but the dtype) and ``params.msgpack`` (the EMA params). The msgpack
 files are read and written by :mod:`.flax_msgpack`, in pure Python: the port
@@ -21,6 +23,7 @@ import torch
 
 from ..osu.vocab import Vocabulary
 from . import flax_msgpack
+from .convert import load_hf_checkpoint
 from .dit import DiT, DiTConfig
 from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig, build_model
 from .params import dit_params_from_flax, dit_params_to_flax, flax_layout, flax_paths, params_from_flax
@@ -120,19 +123,35 @@ def quantize_model(model: Mapperatorinator) -> Mapperatorinator:
     return qmodel.train(model.training)
 
 
-def load_checkpoint(directory: Union[str, Path]) -> tuple[Mapperatorinator, Optional[Vocabulary]]:
-    """Returns (model on the CPU with the checkpoint's weights, vocab or None)."""
+def is_legacy_checkpoint(directory: Union[str, Path]) -> bool:
+    """An accelerate training checkpoint (the JAX ``is_legacy_checkpoint``):
+    ``custom_checkpoint_0.pkl`` beside ``pytorch_model.bin`` or a
+    ``model*.safetensors``."""
     directory = Path(directory)
-    if not (directory / "model_config.json").exists():
-        raise FileNotFoundError(
-            f"no native checkpoint at {directory} (HF and legacy formats: ROADMAP queue 1, item 16)"
-        )
+    return (directory / "custom_checkpoint_0.pkl").is_file() and (
+        (directory / "pytorch_model.bin").is_file() or any(directory.glob("model*.safetensors")))
+
+
+def load_checkpoint(directory: Union[str, Path]) -> tuple[Mapperatorinator, Optional[Vocabulary]]:
+    """Returns (model on the CPU with the checkpoint's weights, vocab or None),
+    dispatching on the directory's files as the JAX ``load_checkpoint`` does:
+    ``model_config.json`` is a native checkpoint, ``config.json`` a published
+    (HF-format) one (:func:`.convert.load_hf_checkpoint`); the vocabulary is
+    read from ``tokenizer.json`` where there is one."""
+    directory = Path(directory)
     vocab = Vocabulary.from_pretrained(directory) if (directory / "tokenizer.json").exists() else None
-    with open(directory / "model_config.json", encoding="utf-8") as f:
-        config = config_from_dict(json.load(f))
-    model = Mapperatorinator(config)
-    model.load_state_dict(params_from_flax(read_flax_msgpack(directory / "params.msgpack")))
-    return model, vocab
+    if (directory / "model_config.json").exists():
+        with open(directory / "model_config.json", encoding="utf-8") as f:
+            config = config_from_dict(json.load(f))
+        model = Mapperatorinator(config)
+        model.load_state_dict(params_from_flax(read_flax_msgpack(directory / "params.msgpack")))
+        return model, vocab
+    if (directory / "config.json").exists():
+        return load_hf_checkpoint(directory), vocab
+    if is_legacy_checkpoint(directory):
+        raise NotImplementedError(f"{directory} is a legacy accelerate checkpoint: not ported yet "
+                                  "(ROADMAP queue 1, item 16 (b))")
+    raise FileNotFoundError(f"no recognizable checkpoint at {directory}")
 
 
 def save_dit_bundle(directory: Union[str, Path], model: DiT) -> None:

@@ -79,12 +79,19 @@ class MapperatorinatorConfig:
 
 def build_config(train_args, vocab) -> MapperatorinatorConfig:
     """A MapperatorinatorConfig from a training config and a Vocabulary, for
-    the RoPE + RMSNorm whisper backbones (VarWhisper, RoPEWhisper)."""
+    the whisper backbones the port builds: RoPE + RMSNorm (VarWhisper,
+    RoPEWhisper) and stock whisper (``openai/whisper-*``: absolute positions
+    + LayerNorm), as the JAX ``build_config`` dispatches on the name."""
     m = train_args.model
     name = m.name
-    if not (name.startswith("OliBomby/varwhisper") or name.startswith("Tiger14n/ropewhisper")):
-        raise NotImplementedError(f"backbone {name!r}: the port builds VarWhisper / RoPEWhisper only "
-                                  "(other families: ROADMAP queue 1, item 11)")
+    unported = ("OliBomby/nwhisper", "olibomby/nwhisper", "google/t5", "UsefulSensors/moonshine")
+    if name.startswith("OliBomby/varwhisper") or name.startswith("Tiger14n/ropewhisper"):
+        position_scheme, norm = "rope", "rms"
+    elif "whisper" in name and not name.startswith(unported):
+        position_scheme, norm = "whisper_abs", "layer"
+    else:
+        raise NotImplementedError(f"backbone {name!r}: the port builds VarWhisper, RoPEWhisper and stock whisper "
+                                  "only (other families: ROADMAP queue 1, item 11)")
     dims = next((d for key, d in WHISPER_DIMS.items() if name.endswith(key)), None)
     if dims is None:
         raise ValueError(f"unknown whisper size in backbone name: {name}")
@@ -107,7 +114,7 @@ def build_config(train_args, vocab) -> MapperatorinatorConfig:
         max_source_positions=train_args.data.src_seq_len // 2,
         max_target_positions=train_args.data.tgt_seq_len,
         num_mel_bins=dims["d_model"] if m.project_encoder_input else m.spectrogram.n_mels + m.cond_size,
-        position_scheme="rope",
+        position_scheme=position_scheme,
         rope_global_theta=m.global_rope_theta,
         rope_local_theta=m.local_rope_theta,
         rope_type=getattr(m, "rope_type", "default"),
@@ -115,7 +122,7 @@ def build_config(train_args, vocab) -> MapperatorinatorConfig:
         rope_decoder_scaling_factor=getattr(m, "rope_decoder_scaling_factor", 1.0),
         global_attn_every_n_layers=m.global_attn_every_n_layers,
         local_attention=m.local_attention,
-        norm="rms",
+        norm=norm,
         remat=bool(getattr(getattr(train_args, "parallel", None), "remat", False)),
         remat_policy=getattr(getattr(train_args, "parallel", None), "remat_policy", "full"),
         attention_bias=m.attention_bias,

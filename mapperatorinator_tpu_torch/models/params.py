@@ -6,8 +6,10 @@ so the mapping is by rule:
 
 * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
 * Conv ``kernel`` (k, in, out) -> ``nn.Conv1d.weight`` (out, in, k);
-* Embed ``embedding``, RMSNorm and LayerNorm ``scale`` -> ``weight`` (the flax
-  ``RMSNorm_0`` scope is dropped);
+* Embed ``embedding``, RMSNorm and LayerNorm ``scale`` -> ``weight`` (the
+  ``RMSNorm_0`` / ``LayerNorm_0`` scope that the JAX ``Norm`` wrapper nests
+  its norm in is dropped; the conditioning embedders' flax LayerNorms are
+  named directly, with no such scope);
 * a ``QDense`` keeps its leaves: ``kernel_q`` (in, out) int8 in the JAX
   layout, and ``scale``, which a ``kernel_q`` sibling marks as the int8
   kernel's and not an RMSNorm's;
@@ -66,6 +68,10 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
+# the scopes the JAX ``Norm`` wrapper nests its norm in
+NORM_SCOPES = ("RMSNorm_0", "LayerNorm_0")
+
+
 def torch_name(flax_path: str, qdense: bool = False) -> str:
     """``params/transformer/encoder/layers_0/ffn/fc1/kernel`` ->
     ``transformer.encoder.layers.0.ffn.fc1.weight``. ``qdense``: the leaf
@@ -73,7 +79,7 @@ def torch_name(flax_path: str, qdense: bool = False) -> str:
     parts = flax_path.split("/")
     if parts[0] == "params":
         parts = parts[1:]
-    parts = [p for p in parts if p != "RMSNorm_0"]
+    parts = [p for p in parts if p not in NORM_SCOPES]
     parts = [re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in parts]
     if parts[-1] in ("kernel", "embedding") or (parts[-1] == "scale" and not qdense):
         parts[-1] = "weight"
@@ -82,10 +88,11 @@ def torch_name(flax_path: str, qdense: bool = False) -> str:
 
 def flax_paths(model: nn.Module) -> dict[str, str]:
     """{torch state-dict name: flax path} for a port module, the inverse of
-    :func:`torch_name` (``params/`` prefix and ``RMSNorm_0`` scope included):
-    every parameter, and the int8 kernels and scales a ``QDense`` holds as
-    buffers. A LoRA factor's module carries its kernel's ``flax_path``: its
-    ``a`` and ``b`` extend that path."""
+    :func:`torch_name` (``params/`` prefix and a backbone norm's
+    ``RMSNorm_0`` or ``LayerNorm_0`` scope included, which the module names
+    as its ``flax_scope``): every parameter, and the int8 kernels and scales
+    a ``QDense`` holds as buffers. A LoRA factor's module carries its
+    kernel's ``flax_path``: its ``a`` and ``b`` extend that path."""
     paths = {}
     for name in model.state_dict(keep_vars=True):
         *scope, leaf = name.split(".")
@@ -93,15 +100,15 @@ def flax_paths(model: nn.Module) -> dict[str, str]:
         if hasattr(owner, "flax_path"):
             paths[name] = f"{owner.flax_path}/{leaf}"
             continue
-        if leaf == "weight":
+        if hasattr(owner, "flax_scope"):  # a backbone norm: flax nests it inside the Norm wrapper
+            scope, leaf = [*scope, owner.flax_scope], "scale" if leaf == "weight" else leaf
+        elif leaf == "weight":
             if isinstance(owner, nn.Embedding):
                 leaf = "embedding"
             elif isinstance(owner, (nn.Linear, nn.Conv1d)):
                 leaf = "kernel"
             elif isinstance(owner, nn.LayerNorm):  # the conditioning embedders' flax LayerNorm
                 leaf = "scale"
-            else:  # RMSNorm: flax nests nn.RMSNorm inside the Norm wrapper
-                scope, leaf = [*scope, "RMSNorm_0"], "scale"
         paths[name] = "/".join(["params", *scope, leaf]).replace("/layers/", "/layers_")
     return paths
 
@@ -156,9 +163,10 @@ def lora_to_flax(adapter: nn.Module) -> dict:
 
 def init_params(model: nn.Module, seed: int) -> None:
     """Seeded random weights, drawn on the model's device: lecun-normal
-    matrices and conv kernels, unit-variance embeddings, zero biases, unit
-    norm scales, and an RBF embedder's basis as flax initialises it
-    (centres evenly over [0, 1], widths 0.1)."""
+    matrices and conv kernels, unit-variance embeddings (the learned decoder
+    position table too), zero biases (a LayerNorm's too), unit norm scales,
+    and an RBF embedder's basis as flax initialises it (centres evenly over
+    [0, 1], widths 0.1)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():

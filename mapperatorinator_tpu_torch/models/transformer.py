@@ -1,15 +1,23 @@
-"""The seq2seq transformer, VarWhisper family (``models/transformer.py``).
+"""The seq2seq transformer (``models/transformer.py``): the whisper families.
 
-The v32 backbone: a whisper conv stem, RoPE (rotate-half, fp32, with the
-dynamic-NTK base), RMSNorm, pre-norm blocks, alternating local/global
-self-attention, exact-erf GELU feed-forwards, fused ``wqkv`` / ``wkv``
-projections. Every other family of the JAX ``TransformerConfig`` raises.
+Two position schemes of the JAX ``TransformerConfig`` are ported. ``rope``
+(VarWhisper, v32; RoPEWhisper, v30 and v31): rotate-half RoPE in fp32 with
+the dynamic-NTK base, RMSNorm, alternating local/global self-attention.
+``whisper_abs`` (stock whisper, v28 and v29): fixed sinusoids added after
+the encoder's conv stem, a learned decoder position table
+(``embed_positions``, indexed by each token's logical position) and
+LayerNorm, with no rotation. Both are pre-norm with exact-erf GELU
+feed-forwards, a whisper conv stem and fused ``wqkv`` / ``wkv`` projections
+(an HF checkpoint's split q / k / v are concatenated on load,
+:mod:`.convert`). Every other family (``t5_relpos``, ``ngpt``, moonshine)
+raises.
 
 Dtypes follow the flax modules op by op rather than ``torch.autocast``: the
 projections and the conv stem compute in ``cfg.dtype`` whatever the dtype of
 their parameters (flax's ``dtype`` / ``param_dtype``: bf16 mixed-precision
-training keeps fp32 parameters), while RoPE, RMSNorm and the softmax compute
-in fp32 and cast back.
+training keeps fp32 parameters), while RoPE, RMSNorm, LayerNorm (flax's
+statistics: ``E[x^2] - E[x]^2``, clipped at 0) and the softmax compute in
+fp32 and cast back.
 
 Attention follows the JAX routing. A call that is structurally eligible for
 the flash kernel (no cache, no position bias, scaled, at most a key-padding
@@ -111,32 +119,34 @@ class TransformerConfig:
         return self.d_model // self.decoder_heads
 
 
-# (field, value the port supports, ROADMAP queue 1 item that ports the rest)
+# (field, values the port supports, ROADMAP queue 1 item that ports the rest)
 _SUPPORTED = (
-    ("position_scheme", "rope", 11),
-    ("norm", "rms", 11),
-    ("norm_scheme", "prenorm", 11),
-    ("stem_type", "whisper", 11),
-    ("conv_stem", True, 11),
-    ("rope_partial_factor", 1.0, 11),
-    ("activation", "gelu", 11),
-    ("decoder_activation", None, 11),
-    ("ffn_gated", False, 11),
-    ("decoder_ffn_gated_concat", False, 11),
-    ("attention_scale", True, 11),
-    ("scale_embedding", False, 11),
-    ("head_dim_override", None, 11),
-    ("banded_local_attention", False, 11),
+    ("position_scheme", ("rope", "whisper_abs"), 11),
+    ("norm", ("rms", "layer"), 11),
+    ("norm_scheme", ("prenorm",), 11),
+    ("stem_type", ("whisper",), 11),
+    ("conv_stem", (True,), 11),
+    ("rope_partial_factor", (1.0,), 11),
+    ("activation", ("gelu",), 11),
+    ("decoder_activation", (None,), 11),
+    ("ffn_gated", (False,), 11),
+    ("decoder_ffn_gated_concat", (False,), 11),
+    ("attention_scale", (True,), 11),
+    ("scale_embedding", (False,), 11),
+    ("head_dim_override", (None,), 11),
+    ("banded_local_attention", (False,), 11),
 )
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """The port covers the VarWhisper (v32) family; raise for the rest."""
-    for field, value, item in _SUPPORTED:
-        if getattr(cfg, field) != value:
+    """The port covers the whisper families with RoPE and RMSNorm (VarWhisper,
+    RoPEWhisper) and with absolute positions and LayerNorm (stock whisper);
+    raise for the rest."""
+    for field, values, item in _SUPPORTED:
+        if getattr(cfg, field) not in values:
             raise NotImplementedError(
                 f"TransformerConfig.{field}={getattr(cfg, field)!r}: the port supports only "
-                f"{value!r} so far (ROADMAP queue 1, item {item})"
+                f"{' or '.join(map(repr, values))} so far (ROADMAP queue 1, item {item})"
             )
 
 
@@ -242,7 +252,10 @@ class Conv1d(nn.Conv1d):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm computed in fp32; default eps matches torch.nn.RMSNorm on fp32."""
+    """RMSNorm computed in fp32; default eps matches torch.nn.RMSNorm on fp32.
+    flax nests it in the ``Norm`` wrapper as ``RMSNorm_0``."""
+
+    flax_scope = "RMSNorm_0"
 
     def __init__(self, dim: int, eps: Optional[float]):
         super().__init__()
@@ -253,6 +266,45 @@ class RMSNorm(nn.Module):
         xf = x.float()
         y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
         return (y * self.weight.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """The flax ``nn.LayerNorm`` of the JAX ``Norm``: statistics in fp32 with
+    the fast variance ``E[x^2] - E[x]^2`` clipped at 0, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast back; default
+    eps 1e-5. flax nests it in the ``Norm`` wrapper as ``LayerNorm_0``."""
+
+    flax_scope = "LayerNorm_0"
+
+    def __init__(self, dim: int, eps: Optional[float], bias: bool = True):
+        super().__init__()
+        self.eps = eps if eps is not None else 1e-5
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp(min=0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+def norm_layer(cfg: TransformerConfig) -> nn.Module:
+    """The JAX ``Norm`` for ``cfg.norm``."""
+    if cfg.norm == "rms":
+        return RMSNorm(cfg.d_model, cfg.norm_eps)
+    return LayerNorm(cfg.d_model, cfg.norm_eps, cfg.norm_bias)
+
+
+def whisper_sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal positions (length, channels), in fp32."""
+    log_timescale = math.log(10000) / (channels // 2 - 1)
+    inv_timescales = torch.exp(-log_timescale * torch.arange(channels // 2, dtype=torch.float32, device=device))
+    scaled = torch.arange(length, dtype=torch.float32, device=device)[:, None] * inv_timescales[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -300,8 +352,9 @@ def attend(q, k, v, mask: Optional[torch.Tensor], dtype: torch.dtype) -> torch.T
 
 
 class Attention(nn.Module):
-    """Self or cross attention with RoPE, causal and sliding-window masks and
-    a preallocated cache for step-by-step decode."""
+    """Self or cross attention with RoPE (under ``position_scheme="rope"``),
+    causal and sliding-window masks and a preallocated cache for step-by-step
+    decode."""
 
     def __init__(self, cfg: TransformerConfig, num_heads: int, is_cross: bool = False,
                  is_causal: bool = False, is_decoder: bool = False, layer_idx: int = 0):
@@ -367,16 +420,17 @@ class Attention(nn.Module):
 
         qkv = self.wqkv(x).view(b, t, 3 * h, -1)
         q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
-        theta = self.rope_theta
-        if cfg.rope_type == "dynamic":
-            seq_len = cache["k"].shape[1] if cache is not None else t
-            max_pos = cfg.max_target_positions if self.is_decoder else cfg.max_source_positions
-            factor = cfg.rope_decoder_scaling_factor if self.is_decoder else cfg.rope_encoder_scaling_factor
-            theta = dynamic_ntk_theta(theta, cfg.head_dim, seq_len, max_pos, factor)
         if positions is None:
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        if cfg.position_scheme == "rope":
+            theta = self.rope_theta
+            if cfg.rope_type == "dynamic":
+                seq_len = cache["k"].shape[1] if cache is not None else t
+                max_pos = cfg.max_target_positions if self.is_decoder else cfg.max_source_positions
+                factor = cfg.rope_decoder_scaling_factor if self.is_decoder else cfg.rope_encoder_scaling_factor
+                theta = dynamic_ntk_theta(theta, cfg.head_dim, seq_len, max_pos, factor)
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
 
         if cache is not None:
             # keys past the last written slot are causally masked for every
@@ -441,8 +495,8 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = Attention(cfg, cfg.encoder_heads, layer_idx=layer_idx)
         self.ffn = FeedForward(cfg, cfg.encoder_ffn)
-        self.self_attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
+        self.self_attn_norm = norm_layer(cfg)
+        self.final_norm = norm_layer(cfg)
 
     def forward(self, x, positions, attn_mask=None):
         x = x + self.self_attn(self.self_attn_norm(x), positions=positions, attn_mask=attn_mask)[0]
@@ -455,9 +509,9 @@ class DecoderLayer(nn.Module):
         self.self_attn = Attention(cfg, cfg.decoder_heads, is_causal=True, is_decoder=True, layer_idx=layer_idx)
         self.cross_attn = Attention(cfg, cfg.decoder_heads, is_cross=True)
         self.ffn = FeedForward(cfg, cfg.decoder_ffn)
-        self.self_attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.cross_attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
+        self.self_attn_norm = norm_layer(cfg)
+        self.cross_attn_norm = norm_layer(cfg)
+        self.final_norm = norm_layer(cfg)
 
     def forward(self, x, encoder_states, positions, self_mask=None, cross_mask=None,
                 cache: Optional[dict] = None, cache_index=None, limit: Optional[int] = None):
@@ -481,14 +535,19 @@ class Encoder(nn.Module):
         self.conv1 = Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1, compute_dtype=cfg.dtype)
         self.conv2 = Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1, compute_dtype=cfg.dtype)
         self.layers = nn.ModuleList(EncoderLayer(cfg, i) for i in range(cfg.encoder_layers))
-        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
+        self.norm = norm_layer(cfg)
 
     def forward(self, features: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, num_mel_bins) -> (B, ceil(T / 2), D)."""
-        x = features.to(self.cfg.dtype).transpose(1, 2)
+        cfg = self.cfg
+        x = features.to(cfg.dtype).transpose(1, 2)
         x = F.gelu(self.conv1(x))
         x = F.gelu(self.conv2(x)).transpose(1, 2)
         b, t, _ = x.shape
+        if cfg.position_scheme == "whisper_abs":
+            if t > cfg.max_source_positions:
+                raise ValueError(f"{t} source positions: the model has {cfg.max_source_positions}")
+            x = x + whisper_sinusoids(t, cfg.d_model, x.device).to(cfg.dtype)
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         for layer in self.layers:
             x = layer(x, positions, attn_mask)
@@ -501,15 +560,27 @@ class Decoder(nn.Module):
         self.cfg = cfg
         if embed_inputs or cfg.tie_word_embeddings:
             self.embed_tokens = nn.Embedding(cfg.input_vocab_size or cfg.vocab_size, cfg.d_model)
+        if cfg.position_scheme == "whisper_abs":
+            self.embed_positions = nn.Embedding(cfg.max_target_positions, cfg.d_model)
         self.layers = nn.ModuleList(DecoderLayer(cfg, i) for i in range(cfg.decoder_layers))
-        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
+        self.norm = norm_layer(cfg)
 
     def forward(self, inputs_embeds, encoder_states, positions=None, self_mask=None,
                 cross_mask=None, cache: Optional[list] = None, cache_index=None, limit: Optional[int] = None):
-        x = inputs_embeds.to(self.cfg.dtype)
+        """``positions`` (B, t): each token's logical position, the RoPE
+        position or the row of the learned position table (default: 0 ..
+        t - 1). A table lookup past its last row fails (on a card, as a device
+        assert), so the callers keep positions below ``max_target_positions``
+        (:attr:`OsuTransformer.position_table`)."""
+        cfg = self.cfg
+        x = inputs_embeds.to(cfg.dtype)
         b, t, _ = x.shape
         if positions is None:
+            if cfg.position_scheme == "whisper_abs" and t > cfg.max_target_positions:
+                raise ValueError(f"{t} target positions: the model has {cfg.max_target_positions}")
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        if cfg.position_scheme == "whisper_abs":
+            x = x + self.embed_positions(positions).to(cfg.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, encoder_states, positions, self_mask, cross_mask,
                       cache[i] if cache is not None else None, cache_index, limit)
@@ -531,6 +602,13 @@ class OsuTransformer(nn.Module):
         if not cfg.tie_word_embeddings:
             head = QDense if cfg.quantized_weights else Dense
             self.proj_out = head(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
+
+    @property
+    def position_table(self) -> Optional[int]:
+        """Rows of the learned decoder position table (``whisper_abs``), the
+        logical positions a decode can reach; None where positions are
+        unbounded (RoPE)."""
+        return self.cfg.max_target_positions if self.cfg.position_scheme == "whisper_abs" else None
 
     def lm_head(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
@@ -590,7 +668,7 @@ class OsuTransformer(nn.Module):
         are written at cache slots ``cache_index .. cache_index + t``
         (``cache_index`` a Python int, or a 0-d long tensor on the device);
         self attention reads the first ``limit`` slots (:class:`Attention`);
-        ``positions`` (B, t) are the RoPE positions (default: the slots).
+        ``positions`` (B, t) are the logical positions (default: the slots).
         Returns (logits, cache)."""
         b, t, _ = input_embeds.shape
         if positions is None:

@@ -41,13 +41,15 @@ def test_cli_main_writes_the_api_osu(tiny, tmp_path, int8):  # noqa: F811
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """A backbone of another family (v28's whisper-base): ROADMAP queue 1,
-    item 11. (DiT refinement, which this refused before, is ported:
-    ``tests/test_torch_diffusion_generate.py``.)"""
+    """A backbone of another family (nwhisper-base, T5): ROADMAP queue 1,
+    item 11. (DiT refinement and v28's whisper-base, which this refused
+    before, are ported: ``tests/test_torch_diffusion_generate.py``,
+    ``tests/test_torch_whisper_abs_serving.py``.)"""
     wav = make_wav(tmp_path / "song.wav", seconds=1.0)
     base = ["model_path=", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        inference.main(["-cn", "v32", *base, "train.model.name=openai/whisper-base"])
+    for name in ("OliBomby/nwhisper-base", "google/t5-v1_1-small"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            inference.main(["-cn", "v32", *base, f"train.model.name={name}"])
 
 
 def test_cli_generate_positions_without_a_bundle_keeps_the_positions(tiny, tmp_path, capsys):  # noqa: F811

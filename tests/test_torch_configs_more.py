@@ -2,7 +2,8 @@
 on the port.
 
 ``mapperatorinator_tpu_torch/configs/v32-mini.json`` is the JAX composition
-of ``configs/inference/v32-mini.yaml``, ``train_<name>.json`` that of
+of ``configs/inference/v32-mini.yaml`` (``v31``, ``v30``, ``v29`` and
+``v28.json`` likewise), ``train_<name>.json`` that of
 ``configs/train/<name>.yaml`` for v32-mini and the fine-tune configs
 (``lora``, ``lora_v32``, ``v32_ft``, ``v32-mini_ft``), and ``mai_mod.json`` that of
 ``configs/mai_mod.yaml`` (``MaiModConfig``, the v32 inference config under
@@ -36,7 +37,7 @@ from tests.test_torch_config import plain
 torch.set_num_threads(1)
 
 TRAIN_CONFIGS = ("v32-mini", "lora", "lora_v32", "v32_ft", "v32-mini_ft")
-INFERENCE_CONFIGS = ("v32-mini", "v31", "v30")
+INFERENCE_CONFIGS = ("v32-mini", "v31", "v30", "v29", "v28")
 CONFIGS = {  # checked-in file -> (JAX config directory, config name, schema)
     **{name: ("inference", name, schema.InferenceConfig) for name in INFERENCE_CONFIGS},
     **{f"train_{name}": ("train", name, schema.TrainConfig) for name in TRAIN_CONFIGS},
@@ -50,6 +51,8 @@ OVERRIDES = {
     "v31": ("mapper_id=1234", "difficulty=6.5", "year=2020", "train.model.spectrogram.implementation=pallas",
             "quantized_weights=true", 'output_type=["map", "sv"]'),
     "v30": ("do_sample=false", "train.data.tgt_seq_len=256", "in_context=[]", "precision=bf16"),
+    "v29": ("super_timing=false", "temperature=0.7", "train.model.overwrite.d_model=64", "generate_positions=false"),
+    "v28": ("timer_iterations=2", "year=2019", 'descriptors=["clean"]', "quantized_kv=true"),
     "train_v32-mini": ("optim.batch_size=4", "mixed_precision=no", "model.overwrite.d_model=64"),
     "train_lora": ("pretrained_path=base", "lora.r=8", "lora.lora_alpha=16", "optim.name=muon"),
     "train_lora_v32": ("pretrained_path=base", "pretrained_gamemode=1", "data.dataset_type=ors",
@@ -118,6 +121,29 @@ def test_v31_v30_build_the_jax_model_config(name):
     assert (got["do_difficulty_embed"], got["do_mapper_embed"], got["do_song_position_embed"],
             got["do_style_embed"], got["cond_size"], got["n_mels"], got["pad_mode"]) == (
         True, True, True, False, 384, 80, "reflect")
+
+
+@pytest.mark.parametrize("name", ["v29", "v28"])
+def test_v29_v28_build_the_jax_model_config(name):
+    """Stock whisper (small, base): absolute positions and LayerNorm, the
+    mels projected to d_model, no embedder, and the JAX vocabulary."""
+    train = load_config(name).train
+    vocab = build_vocabulary(train)
+    got = dataclasses.asdict(build_config(train, vocab))
+    jax_train = composed(name).train
+    jax_vocab = jax_build_vocabulary(jax_train)
+    assert vocab.state_dict() == jax_vocab.state_dict()
+    want = dataclasses.asdict(jax_build_config(jax_train, jax_vocab))
+    for tree in (got, want):
+        for key in ("dtype", "param_dtype"):
+            tree["backbone"][key] = str(tree["backbone"][key]).split(".")[-1].replace("'>", "")
+    assert got == want
+    b = got["backbone"]
+    widths = {"v29": (768, 12, 12, 3072), "v28": (512, 6, 8, 2048)}[name]
+    assert (b["d_model"], b["encoder_layers"], b["encoder_heads"], b["encoder_ffn"]) == widths
+    assert (b["position_scheme"], b["norm"], b["num_mel_bins"], b["max_source_positions"], b["max_target_positions"],
+            b["tie_word_embeddings"]) == ("whisper_abs", "layer", widths[0], 512, 2048, False)
+    assert (got["project_encoder_input"], got["do_difficulty_embed"], got["n_mels"]) == (True, False, 388)
 
 
 def test_v32_mini_greedy_tokens_and_osu_equal_jax(tmp_path):

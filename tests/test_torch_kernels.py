@@ -649,3 +649,43 @@ def test_a_dit_b_block_through_the_kernel_matches_the_plain_path(cuda):
         block.use_flash = False
         want = block(x, cond, 128, valid)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [12, 8], ids=["v29-H12", "v28-H8"])
+def test_fp32_forward_at_a_whisper_encoder_window(cuda, h):
+    """Kernel B as a whisper_abs encoder layer calls it (v29: whisper-small,
+    v28: whisper-base): B 1, T = S = 512, D 64, fp32, no mask; both plain
+    versions at 2e-5, one launch."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, 512, h, 64), generator=gen).to(cuda) for _ in range(3))
+    before = launches()
+    got = flash_attention(q, k, v, None)
+    assert launches() == added(before, route_step(torch.float32))
+    for plain in (attention_plain, attention_plain_fp32_tc):
+        torch.testing.assert_close(got, plain(q, k, v, None), rtol=0, atol=ATTN_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [
+    # v28 (whisper-base, d 512): a decode step's qkv, out / cross q, fc1, fc2 on the GEMV path; an
+    # encoder window's (512 rows) and a prefill's (64 rows) on the tensor cores, cross k/v included
+    (1, 512, 1536), (1, 512, 512), (1, 512, 2048), (1, 2048, 512), (2, 512, 512),
+    (512, 512, 1536), (512, 512, 512), (512, 512, 2048), (512, 2048, 512), (512, 512, 1024), (64, 512, 1536),
+])
+def test_qmm_kernel_at_the_v28_shapes(cuda, dtype, rows, k, n):
+    """Kernel D at K 512 (and fc2's K 2 048), both paths against qmm_plain,
+    the tensor cores also against the plain version that rounds as they do."""
+    wq, scale = quantized(k, n, cuda)
+    x = torch.randn((rows, k), generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    tc = rows > GEMV_ROWS
+    before = qmm.launches_gemv, qmm.launches_tc
+    got = qmm(x, wq, scale)
+    assert (qmm.launches_gemv, qmm.launches_tc) == (before[0] + (not tc), before[1] + tc)
+    want = qmm_plain(x, wq, scale)
+    scale_out = max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=QMM_TOL[dtype] * scale_out)
+    if tc:
+        torch.testing.assert_close(got.float(), qmm_plain_tf32x2(x, wq, scale).float(), rtol=0,
+                                   atol=QMM_TC_TOL[dtype] * scale_out)

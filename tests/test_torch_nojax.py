@@ -1,5 +1,5 @@
-"""The port runs where jax, flax, optax, yaml, msgpack and the JAX package
-cannot be imported, and its copies of the JAX package's host code stay the
+"""The port runs where jax, flax, optax, yaml, msgpack, safetensors,
+transformers and the JAX package cannot be imported, and its copies of the JAX package's host code stay the
 JAX package's code.
 
 A subprocess installs an import hook that refuses those packages (the JAX
@@ -9,6 +9,8 @@ where no card is visible, then, on the CPU by name, builds a tiny
 v32-architecture model with seeded random weights, runs ``load_model`` /
 ``generate`` to a written .osu file, loads the tiny checkpoint (written by the
 JAX package) with int8 weights and KV cache and decodes a few steps from it,
+loads a published (HF-format) v28 checkpoint from its ``model.safetensors``
+and decodes from it,
 runs one step of ``train.main`` on a small ORS dataset, and one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
 quantized, and writes a tiny DiT bundle, loads it with
@@ -36,12 +38,14 @@ import pytest
 
 from mapperatorinator_tpu.osu.beatmap import Beatmap
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
+from tests.test_torch_convert import write_hf_checkpoint
 from tests.test_torch_data import TINY_MODEL, data_overrides, write_ors
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "mapperatorinator_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "safetensors", "transformers",
+               "mapperatorinator_tpu"}
     attempts = []
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -105,8 +109,18 @@ SCRIPT = textwrap.dedent("""
                                    build_logits_pipeline(qvocab, do_sample=False), [qvocab.eos_id], max_length=9)
     assert tokens.shape == (1, 9) and end > 1
 
+    # a published (HF-format) v28 checkpoint, its model.safetensors read without safetensors
+    args = load_config("v28", [f"model_path={sys.argv[6]}", "device=cpu", "train.data.src_seq_len=256",
+                               "train.data.tgt_seq_len=128"])
+    hengine, hvocab = inference.load_model(args)
+    assert hengine.model.cfg.backbone.position_scheme == "whisper_abs"
+    enc = hengine.encode_with_cond(np.zeros((1, 255 * 128), np.float32))
+    tokens, end = hengine.generate(enc, np.full((1, 1), hvocab.sos_id, np.int32),
+                                   build_logits_pipeline(hvocab, do_sample=False), [hvocab.eos_id], max_length=9)
+    assert tokens.shape == (1, 9) and end > 1
+
     split = sys.argv.index("--")
-    state = train_main.main(sys.argv[6:split], log_dir=sys.argv[4])
+    state = train_main.main(sys.argv[7:split], log_dir=sys.argv[4])
     assert state.step == 1
 
     # a LoRA fine-tune of the checkpoint, its adapter merged at load and quantized
@@ -146,6 +160,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
     wav = make_wav(tmp_path / "song.wav", seconds=3.0)
     ors = write_ors(tmp_path / "ors", tracks=2, seconds=4.0, maps=1)
     ckpt = make_tiny_checkpoint(tmp_path / "tiny", d_model=128, heads=4, ffn=256)
+    hf, _, _ = write_hf_checkpoint(tmp_path / "hf", "v28")
     train_argv = ["-cn", "v32", "device=cpu", "mixed_precision=no", f"checkpoint_path={tmp_path / 'ckpt'}",
                   *data_overrides(ors, src=128, tgt=192), *TINY_MODEL, "optim.batch_size=2", "optim.grad_acc=1",
                   "optim.total_steps=1", "dataloader.num_workers=0", "dataloader.balancer_buffer_size=0",
@@ -156,7 +171,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
                  "dataloader.balancer_buffer_size=0", "logging.log_with=none", "eval.every_steps=0"]
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), str(ckpt),
-         *train_argv, "--", *lora_argv],
+         str(hf), *train_argv, "--", *lora_argv],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         # the GPU machine sets JAX_PLATFORMS, which makes the JAX package's
         # __init__ import jax

@@ -96,6 +96,34 @@ def test_scripted_tokens_give_the_jax_prompts_conditions_and_osu_of_v31_v30(tmp_
     assert calls[0][3]["difficulty"] == ("f", [4.5])
 
 
+# v28 and v29: no embedder, every condition a prompt token (gamemode, style,
+# difficulty, mapper, year, hitsounded, song length, global SV, circle size,
+# descriptors), out context types, types first, the kiai special token (v28
+# only); super-timing off, so that each pass decodes its windows once
+UNCONDITIONED = {
+    "v28-std": ("v28", 0, ["beatmap_id=1234567", "year=2019", 'descriptors=["clean", "tech"]', "mapper_id=101602",
+                           "circle_size=4.2", "slider_multiplier=1.6"]),
+    "v29-taiko": ("v29", 1, ["beatmap_id=42", "year=2012", 'descriptors=["streams"]', "mapper_id=-5",
+                             "hitsounded=false"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNCONDITIONED))
+def test_scripted_tokens_give_the_jax_prompts_and_osu_of_v28_v29(tmp_path, monkeypatch, case):
+    name, gamemode, extra = UNCONDITIONED[case]
+    given = [*overrides(tmp_path / "song.wav", gamemode, 1.0), "super_timing=false", *extra]
+    calls, windows = run_scripted(tmp_path, monkeypatch, name, gamemode, given)
+    passes = collections.Counter(call[0] for call in calls)
+    assert {"timing", "kiai", "map"} <= set(passes) and set(passes.values()) == {windows}
+    assert all(call[3] == {} for call in calls)  # no embedder: the prompt carries every condition
+    args = load_config(name, given)
+    vocab = build_vocabulary(args.train)
+    prompt = calls[-1][1][0]
+    want = [vocab.encode_gamemode(gamemode), vocab.encode_diff(4.5), vocab.encode_year(args.year),
+            vocab.encode_mapper_id(args.mapper_id), *(vocab.encode_descriptor_name(d) for d in args.descriptors)]
+    assert all(token in prompt for token in want), (want, prompt)
+
+
 def run_scripted(tmp_path, monkeypatch, name, gamemode, given):
     """Both packages' ``inference.generate`` under ``-cn name`` with the same
     scripted tokens: the prompts and conditions of every call equal, the
