@@ -112,7 +112,22 @@
    (whisper-base) from ``pytorch_model.bin``, one greedy request with int8
    weights and KV (its first window's teacher-forced logits through D held
    against the plain version); each writes a readable .osu, B launches in
-   both and D's two paths in v28's.
+   both and D's two paths in v28's. Then T5 v1.1-base (``t5_phase``,
+   ``t5_relpos``: relative-position bias, unscaled attention, gated GELU,
+   no conv stem) from one set of seeded weights, drawn as HF initialises
+   T5, written as a published checkpoint (``model.safetensors``) and as a
+   legacy accelerate one (``pytorch_model.bin`` and a tokenizer pickled
+   under a reference module path), whose two loads must give equal
+   parameters: a ``-cn v32`` request from the published one (its first
+   window's encoder states and teacher-forced logits through B, unscaled
+   at the cross attention, held against the plain path), MaiMod on its
+   .osu or a dense map (T5's cross attention takes B there, 12 launches a
+   batch), and a greedy request from the legacy one with
+   ``configs/train_t5_base.json`` and the fused mel, int8 weights and KV
+   (A and D; its teacher-forced logits through D held); B unscaled at the
+   cross attention's own q, k and v on both routes against both plain
+   versions and float64, A at 388 mels and D at T5-base's products, each
+   with its own kernels-line entry.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -197,14 +212,24 @@ QMM_SHAPES = [  # (rows, K, N): decode steps; a v32 encoder window's fc1, qkv an
     # v28 (whisper-base, d 512): a decode step's qkv, out / cross q, fc1, fc2 and out with CFG; an encoder
     # window's (512 rows) qkv, out, fc1, fc2 and cross k/v; a prefill's qkv
     (1, 512, 1536), (1, 512, 512), (1, 512, 2048), (1, 2048, 512), (2, 512, 512),
-    (512, 512, 1536), (512, 512, 512), (512, 512, 2048), (512, 2048, 512), (512, 512, 1024), (64, 512, 1536)]
+    (512, 512, 1536), (512, 512, 512), (512, 512, 2048), (512, 2048, 512), (512, 512, 1024), (64, 512, 1536),
+    # T5 v1.1-base (d 768, 12 heads of 64, gated ffn 2 048): a decode step's fc1 / fc1_gate and fc2 (its qkv,
+    # out / cross q and CFG out are v32's above); a 512-frame encoder window's qkv, out, fc1 / fc1_gate and fc2,
+    # and init_cache's cross k/v
+    (1, 768, 2048), (1, 2048, 768), (512, 768, 2304), (512, 768, 768), (512, 768, 2048), (512, 2048, 768),
+    (512, 768, 1536)]
 # a decode step's products on the GEMV path (rows <= 4): self-attention qkv,
 # the 768-wide ones (self out, cross q and out), fc1, fc2; and out with CFG
 QMM_DECODE = [(1, 768, 2304), (1, 768, 768), (1, 768, 3072), (1, 3072, 768), (2, 768, 768),
-              (1, 512, 2048)]  # and v28's fc1
+              (1, 512, 2048),  # and v28's fc1
+              (1, 768, 2048), (1, 2048, 768)]  # and T5-base's fc1 / fc1_gate and fc2
 QMM_TIMED = {"qmm": (1, 768, 3072),  # the GEMV path at a decode step's fc1, cold L2
              "qmm_tc": (1024, 768, 3072)}  # the tensor-core path at an encoder window's fc1
 QMM_TIMED_V28 = {"qmm": (1, 512, 2048), "qmm_tc": (512, 512, 2048)}  # the same at v28's widths
+QMM_TIMED_T5 = {"qmm": (1, 768, 2048), "qmm_tc": (512, 768, 2048)}  # and at T5-base's fc1
+# T5-base's products: a decode step's (with CFG's out), a 512-frame window's and its cross k/v
+T5_QMM = {(1, 768, 2304), (1, 768, 768), (2, 768, 768), (1, 768, 2048), (1, 2048, 768), (512, 768, 2304),
+          (512, 768, 768), (512, 768, 2048), (512, 2048, 768), (512, 768, 1536)}
 # cold L2: a decode step streams every decoder layer's weights (about 99 MB of
 # int8), twice the 50 MB L2, so each timed GEMV call reads the next of enough
 # weight copies to hold together at least this many bytes
@@ -266,6 +291,14 @@ DIT_OBJECTS, DIT_SLIDER_EVERY, DIT_WEIGHT_STD = 1500, 50, 0.02
 # seeded random weights
 WHISPER_AUDIO_SECONDS = 4.0
 DIT_TOL = 1e-4  # a DiT forward and a p_sample step through kernel B against the plain path
+# the T5 phase (T5 v1.1-base, t5_relpos): the same 4 s song. Request (a) serves the published checkpoint under
+# -cn v32 (2 048-frame windows, 2 560 target slots); request (b) the legacy checkpoint under its training
+# config's windows (configs/train_t5_base.json: 512 frames, 384 target slots), with the fused mel that config
+# then asks for. The legacy tokenizer is pickled under this reference module path.
+T5_AUDIO_SECONDS = 4.0
+T5_LEGACY_TRAIN = ("model.spectrogram.implementation=pallas",)
+T5_LEGACY_SERVE = ("train.data.src_seq_len=512", "train.data.tgt_seq_len=384")
+REFERENCE_EVENTS = "osuT5.osuT5.event"
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "safetensors", "transformers",
            "mapperatorinator_tpu")
 
@@ -709,6 +742,60 @@ def mel_frames(batch: int, n_frames: int):
 MEL_CASES = [(1, 2048, 128), (2, 2048, 128), (32, 2048, 128), (1, 4096, 80)]
 
 
+def mel_case(mel, batch: int, n_frames: int) -> dict:
+    """Kernel A at one shape, with ``mel``'s (a ``MelSpectrogram`` on the
+    card) DFT tables, filterbank and log scale: against both its plain
+    versions at ``MEL_TC_TOL`` and ``MEL_TOL``, a float64 reference beside
+    them, two calls bit-equal; timed beside its plain version by CUDA events
+    and the profiler, and set against ``fp32_bounds``."""
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
+
+    log_scale = mel.log_scale
+    args = (mel.w_re, mel.w_im, mel.fbanks, log_scale)
+    n_fft, n_bins = mel.w_re.shape
+    n_mels = mel.fbanks.shape[1]
+    frames, padded = mel_frames(batch, n_frames)
+    got = fused_mel(frames, *args)
+    want, want3 = mel_plain(frames, *args), mel_plain_tf32x3(frames, *args)
+    fd = frames.double()
+    re, im = fd @ mel.w_re.double(), fd @ mel.w_im.double()
+    truth = (re * re + im * im) @ mel.fbanks.double()
+    truth = torch.log1p(truth) if log_scale else truth
+    torch.cuda.synchronize()
+
+    def excess(ref, tol):  # the largest |got - ref| - tol |ref|: at most tol passes rtol = atol = tol
+        return ((got - ref).abs() - tol * ref.abs()).max().item()
+
+    case = {"batch": batch, "frames": n_frames, "mels": n_mels, "log_scale": log_scale, "shape": list(got.shape),
+            "max_abs_err": (got - want).abs().max().item(),
+            "max_abs_err_tf32x3": (got - want3).abs().max().item(),
+            "max_abs_err_fp64": {"kernel": (got.double() - truth).abs().max().item(),
+                                 "plain": (want.double() - truth).abs().max().item(),
+                                 "plain_tf32x3": (want3.double() - truth).abs().max().item()},
+            "repeat_bit_equal": torch.equal(got, fused_mel(frames, *args)),
+            "finite": bool(torch.isfinite(got).all())}
+    label = f"fused_mel batch {batch} x {n_frames} frames, 1024 -> {n_bins} -> {n_mels}{', log1p' if log_scale else ''}"
+    print(f"{label}: max_abs_err {case['max_abs_err']:.3e} against mel_plain, {case['max_abs_err_tf32x3']:.3e} "
+          f"against mel_plain_tf32x3 (rtol = atol = {MEL_TC_TOL:g}; the reference's {MEL_TOL:g}); against "
+          f"float64: kernel {case['max_abs_err_fp64']['kernel']:.3e}, mel_plain "
+          f"{case['max_abs_err_fp64']['plain']:.3e}, mel_plain_tf32x3 {case['max_abs_err_fp64']['plain_tf32x3']:.3e}; "
+          f"a second call bit-equal {case['repeat_bit_equal']}")
+    if (got.shape != (batch, n_frames, n_mels) or not case["finite"] or not case["repeat_bit_equal"]
+            or not excess(want, MEL_TOL) <= MEL_TOL or not excess(want, MEL_TC_TOL) <= MEL_TC_TOL
+            or not excess(want3, MEL_TC_TOL) <= MEL_TC_TOL):
+        raise AssertionError(f"{label} disagrees with its plain versions: {case}")
+    ms, plain_ms, _ = paired_ms(lambda: fused_mel(frames, *args), lambda: mel_plain(frames, *args))
+    case.update(ms=ms, plain_ms=plain_ms,
+                device_ms={"kernel": device_ms(lambda: fused_mel(frames, *args)),
+                           "plain": device_ms(lambda: mel_plain(frames, *args))},
+                **fp32_bounds(*mel_work(batch, n_frames, n_fft, n_bins, n_mels, padded.numel())))
+    print(f"{label}: kernel {ms:.4f} ms (device {fmt_ms(case['device_ms']['kernel'])}), plain {plain_ms:.4f} ms "
+          f"(device {fmt_ms(case['device_ms']['plain'])}); bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
+          f"fp32 FMAs {case['fma_ms']:.4f}, three TF32 products {case['tf32x3_ms']:.4f}, bytes "
+          f"{case['bytes_ms']:.4f}); no single PyTorch call computes the mel")
+    return case
+
+
 def check_mel(report: dict) -> dict:
     """Kernel A against both its plain versions (``mel_plain_tf32x3``, which
     rounds as it does, and ``mel_plain``) at ``MEL_TC_TOL`` and at the
@@ -720,53 +807,9 @@ def check_mel(report: dict) -> dict:
     profiler's device kernels, and set against ``fp32_bounds``. Returns the
     kernels-line entry at one v32 window."""
     from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
-    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
 
-    cases = []
-    for batch, n_frames, n_mels in MEL_CASES:
-        mel = MelSpectrogram("pallas", True, 16000, 1024, n_mels, 128, 20, 8000, "reflect").cuda()
-        args = (mel.w_re, mel.w_im, mel.fbanks, True)
-        n_fft, n_bins = mel.w_re.shape
-        frames, padded = mel_frames(batch, n_frames)
-        got = fused_mel(frames, *args)
-        want, want3 = mel_plain(frames, *args), mel_plain_tf32x3(frames, *args)
-        fd = frames.double()
-        re, im = fd @ mel.w_re.double(), fd @ mel.w_im.double()
-        truth = torch.log1p((re * re + im * im) @ mel.fbanks.double())
-        torch.cuda.synchronize()
-
-        def excess(ref, tol):  # the largest |got - ref| - tol |ref|: at most tol passes rtol = atol = tol
-            return ((got - ref).abs() - tol * ref.abs()).max().item()
-
-        case = {"batch": batch, "frames": n_frames, "mels": n_mels, "shape": list(got.shape),
-                "max_abs_err": (got - want).abs().max().item(),
-                "max_abs_err_tf32x3": (got - want3).abs().max().item(),
-                "max_abs_err_fp64": {"kernel": (got.double() - truth).abs().max().item(),
-                                     "plain": (want.double() - truth).abs().max().item(),
-                                     "plain_tf32x3": (want3.double() - truth).abs().max().item()},
-                "repeat_bit_equal": torch.equal(got, fused_mel(frames, *args)),
-                "finite": bool(torch.isfinite(got).all())}
-        label = f"fused_mel batch {batch} x {n_frames} frames, 1024 -> {n_bins} -> {n_mels}, log1p"
-        print(f"{label}: max_abs_err {case['max_abs_err']:.3e} against mel_plain, {case['max_abs_err_tf32x3']:.3e} "
-              f"against mel_plain_tf32x3 (rtol = atol = {MEL_TC_TOL:g}; the reference's {MEL_TOL:g}); against "
-              f"float64: kernel {case['max_abs_err_fp64']['kernel']:.3e}, mel_plain "
-              f"{case['max_abs_err_fp64']['plain']:.3e}, mel_plain_tf32x3 {case['max_abs_err_fp64']['plain_tf32x3']:.3e}; "
-              f"a second call bit-equal {case['repeat_bit_equal']}")
-        if (got.shape != (batch, n_frames, n_mels) or not case["finite"] or not case["repeat_bit_equal"]
-                or not excess(want, MEL_TOL) <= MEL_TOL or not excess(want, MEL_TC_TOL) <= MEL_TC_TOL
-                or not excess(want3, MEL_TC_TOL) <= MEL_TC_TOL):
-            raise AssertionError(f"{label} disagrees with its plain versions: {case}")
-        ms, plain_ms, _ = paired_ms(lambda: fused_mel(frames, *args), lambda: mel_plain(frames, *args))
-        case.update(ms=ms, plain_ms=plain_ms,
-                    device_ms={"kernel": device_ms(lambda: fused_mel(frames, *args)),
-                               "plain": device_ms(lambda: mel_plain(frames, *args))},
-                    **fp32_bounds(*mel_work(batch, n_frames, n_fft, n_bins, n_mels, padded.numel())))
-        del frames, padded, got, want, want3, fd, re, im, truth, mel
-        print(f"{label}: kernel {ms:.4f} ms (device {fmt_ms(case['device_ms']['kernel'])}), plain {plain_ms:.4f} ms "
-              f"(device {fmt_ms(case['device_ms']['plain'])}); bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
-              f"fp32 FMAs {case['fma_ms']:.4f}, three TF32 products {case['tf32x3_ms']:.4f}, bytes "
-              f"{case['bytes_ms']:.4f}); no single PyTorch call computes the mel")
-        cases.append(case)
+    cases = [mel_case(MelSpectrogram("pallas", True, 16000, 1024, n_mels, 128, 20, 8000, "reflect").cuda(), batch,
+                      n_frames) for batch, n_frames, n_mels in MEL_CASES]
     report["mel_cases"] = cases
     one = cases[0]
     return {"name": "fused_mel", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/fused_mel.cu",
@@ -1036,13 +1079,14 @@ def fmt_bytes(n: int | None) -> str:
     return "not measured" if n is None else f"{n / 2**20:.1f} MiB"
 
 
-# (d_model, encoder layers, decoder layers, heads, ffn) of the whisper sizes
+# (d_model, encoder layers, decoder layers, heads, ffn) of the whisper sizes, and of T5 v1.1-base
 WHISPER_SMALL, WHISPER_BASE = (768, 12, 12, 12, 3072), (512, 6, 6, 8, 2048)
+T5_BASE = (768, 12, 12, 12, 2048)
 
 
 def check_full_width(model, widths=WHISPER_SMALL) -> None:
     """v32's VarWhisper-small, v31's RoPEWhisper-small and v29's whisper-small
-    share these widths; v28's whisper-base has its own."""
+    share these widths; v28's whisper-base and T5 v1.1-base have their own."""
     b = model.cfg.backbone
     if (b.d_model, b.encoder_layers, b.decoder_layers, b.decoder_heads, b.encoder_ffn) != widths:
         raise AssertionError(f"not a full-width {widths} backbone: {b}")
@@ -1089,12 +1133,13 @@ def check_encoder_states(label: str, engine, frames, cond: dict, positions: int)
 
 
 def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, check_encoder: bool,
-          after=None, config: str = "v32", widths=WHISPER_SMALL) -> dict:
+          after=None, config: str = "v32", widths=WHISPER_SMALL, load=None) -> dict:
     """One request under ``configs/<config>.json`` on a full-width model of
     ``widths``; ``after(engine, args, vocab, first)`` runs more checks on the
     engine before it is freed, ``first`` holding the first decode call's
     prompt, tokens and end and the first encode call's windows and
-    conditions. The model's load time (``load_model``) is recorded."""
+    conditions. The model's load time (``load(args)``, by default
+    ``load_model``) is recorded."""
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config
     from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
@@ -1110,7 +1155,7 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold: the peak below is the request's own
     t0 = time.perf_counter()
-    engine, vocab = inference.load_model(args)
+    engine, vocab = (load or inference.load_model)(args)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     inference.compile_args(args, vocab, verbose=False)
@@ -1181,9 +1226,10 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
           f"{graphs['capture_s']:.2f} s (pool {fmt_bytes(graphs['pool_bytes'])} at {engine.max_length} slots), "
           f"launches {launches}")
 
-    if check_encoder:
+    if check_encoder:  # a conv stem halves the frames
+        stride = 2 if engine.model.cfg.backbone.conv_stem else 1
         result["encoder_check"] = check_encoder_states(label, engine, first["frames"], first["cond"],
-                                                       args.train.data.src_seq_len // 2)
+                                                       args.train.data.src_seq_len // stride)
     if after is not None:
         result.update(after(engine, args, vocab, first))
     report["requests"].append(result)
@@ -1471,30 +1517,41 @@ def maimod_phase(tmp: Path, wav: Path, osu: str, report: dict) -> dict:
     song (the ``ors`` maps' layout, ``OSU_TEMPLATE``), and prints which."""
     from mapperatorinator_tpu_torch import mai_mod
     from mapperatorinator_tpu_torch.config import load_config
-    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
 
-    written = Beatmap.from_path(osu)
-    source = "request 2's .osu"
-    if not (written.timing_points and written.hit_objects()):
-        rng = np.random.default_rng(0)
-        objects = "\n".join(f"{int(rng.integers(50, 450))},{int(rng.integers(50, 330))},{500 + k * 50},"
-                            f"{5 if k % 8 == 0 else 1},0,0:0:0:0:" for k in range(int((AUDIO_SECONDS - 1) * 20)))
-        osu = tmp / "dense.osu"
-        osu.write_text(OSU_TEMPLATE.format(i=0, bid=1, objects=objects))
-        source = (f"a dense map (request 2's has {len(written.timing_points)} timing points and "
-                  f"{len(written.hit_objects())} hit objects)")
+    osu, source = maimod_map(tmp, osu, "request 2", AUDIO_SECONDS)
     args = load_config("v32", ["model_path=", "seed=0", f"audio_path={wav}", f"beatmap_path={osu}", "gamemode=0",
                                "do_sample=false", "train.model.spectrogram.implementation=pallas"])
     launches, report["maimod"] = maimod_run("maimod", mai_mod.select_config_for_gamemode(args), source)
     return launches
 
 
-def maimod_run(label: str, args, source: str) -> tuple[dict, dict]:
-    """``mai_mod.run_analysis``'s steps on resolved ``args``, the engine
-    kept for the checks; returns the launches and the record. Every batch's
-    encoder and teacher-forced decoder (``forward_stats``: 12 self-attention
-    calls, causal with the key mask, and 12 cross) must launch kernel B, 36
-    launches a batch, and the fused mel must run. On the first batch,
+def maimod_map(tmp: Path, osu: str, request: str, seconds: float) -> tuple[str, str]:
+    """(the map MaiMod analyses, what it is): ``osu``, the .osu a request
+    wrote, where it has a timing point and hit objects, else a dense map of
+    a circle every 50 ms over a song of ``seconds``."""
+    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+
+    written = Beatmap.from_path(osu)
+    if written.timing_points and written.hit_objects():
+        return osu, f"{request}'s .osu"
+    rng = np.random.default_rng(0)
+    objects = "\n".join(f"{int(rng.integers(50, 450))},{int(rng.integers(50, 330))},{500 + k * 50},"
+                        f"{5 if k % 8 == 0 else 1},0,0:0:0:0:" for k in range(int((seconds - 1) * 20)))
+    dense = tmp / f"dense-{request.replace(' ', '-')}.osu"
+    dense.write_text(OSU_TEMPLATE.format(i=0, bid=1, objects=objects))
+    return str(dense), (f"a dense map ({request}'s has {len(written.timing_points)} timing points and "
+                        f"{len(written.hit_objects())} hit objects)")
+
+
+def maimod_run(label: str, args, source: str, widths=WHISPER_SMALL) -> tuple[dict, dict]:
+    """``mai_mod.run_analysis``'s steps on resolved ``args`` (a full-width
+    model of ``widths``), the engine kept for the checks; returns the
+    launches and the record. Every batch's encoder and teacher-forced decoder
+    (``forward_stats``: 12 self-attention calls, causal with the key mask,
+    and 12 cross) must launch kernel B, 36 launches a batch (a T5 model's
+    self-attention carries its position bias and runs plain: its 12 cross
+    calls a batch), and the fused mel must run where the model's config picks
+    it. On the first batch,
     ``forward_stats`` through the kernel is held against the same call on
     plain attention: surprisal and entropy within ENC_TOL, argmax ids equal
     except at near-ties (where the plain logits of the two ids differ by at
@@ -1507,7 +1564,7 @@ def maimod_run(label: str, args, source: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold: the peak below is the run's own
     engine, vocab = inference.load_model(args)
-    check_full_width(engine.model)
+    check_full_width(engine.model, widths)
     inference.compile_args(args, vocab, verbose=False)
     generation_config, _ = inference.get_config(args)
 
@@ -1541,9 +1598,11 @@ def maimod_run(label: str, args, source: str) -> tuple[dict, dict]:
           f"{peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB held before, launches {launches}")
     b = engine.model.cfg.backbone
     want = {name: 0 for name in attention_launches()}
-    want["flash_attention_fwd"] = (b.encoder_layers + 2 * b.decoder_layers) * len(calls)
-    if not calls or {k: launches[k] for k in want} != want or launches["fused_mel"] == 0:
-        raise AssertionError(f"{label} launched {launches}, not {want} and the fused mel")
+    per_call = b.decoder_layers if b.position_scheme == "t5_relpos" else b.encoder_layers + 2 * b.decoder_layers
+    want["flash_attention_fwd"] = per_call * len(calls)
+    fused = engine.model.spectrogram.implementation == "pallas"
+    if not calls or {k: launches[k] for k in want} != want or (launches["fused_mel"] > 0) != fused:
+        raise AssertionError(f"{label} launched {launches}, not {want} and the fused mel ({fused})")
 
     enc, ids, (sur, ent, arg) = first["enc"], first["ids"], first["out"]
     set_flash(engine.model, False)
@@ -1847,6 +1906,374 @@ def whisper_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
         entry["launches"] = launches[entry["name"]]
     report["whisper_checkpoints"] = records
     return {k: small.get(k, 0) + base.get(k, 0) for k in small}, entries
+
+
+def t5_reference_state(cfg, seed: int) -> dict:
+    """The reference's state dict of ``cfg``'s model at full width: a T5 v1.1
+    backbone under ``transformer.`` by ``T5ForConditionalGeneration``'s
+    names, drawn as HF's T5 initialises one (factor 1: q from N(0, (d_model
+    d_kv)^-0.5), k and v from N(0, d_model^-0.5), o from N(0, (heads
+    d_kv)^-0.5), the relative-position tables from N(0, d_model^-0.5), wi_0
+    and wi_1 from N(0, d_model^-0.5), wo from N(0, d_ff^-0.5), the shared
+    token table from N(0, 1), RMSNorm scales 1), so that its unscaled
+    attention sees logits of the size a T5 model has; then the wrapper's
+    decoder token table, its encoder projection (the mels and the style
+    embedding) and its style table."""
+    from mapperatorinator_tpu_torch.models.mapperatorinator import encoder_input_width
+
+    b = cfg.backbone
+    d, h, dkv, ffn = b.d_model, b.decoder_heads, b.head_dim, b.encoder_ffn
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+
+    def rand(*shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).cpu()
+
+    def attn(p):
+        sd[f"{p}.q.weight"] = rand(h * dkv, d, std=(d * dkv) ** -0.5)
+        sd[f"{p}.k.weight"], sd[f"{p}.v.weight"] = rand(h * dkv, d, std=d**-0.5), rand(h * dkv, d, std=d**-0.5)
+        sd[f"{p}.o.weight"] = rand(d, h * dkv, std=(h * dkv) ** -0.5)
+
+    for side, n in (("encoder", b.encoder_layers), ("decoder", b.decoder_layers)):
+        t = f"transformer.{side}"
+        sd[f"{t}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = rand(
+            b.relative_attention_num_buckets, h, std=d**-0.5)
+        for i in range(n):
+            p = f"{t}.block.{i}.layer"
+            attn(f"{p}.0.SelfAttention")
+            if side == "decoder":
+                attn(f"{p}.1.EncDecAttention")
+            ff = 2 if side == "decoder" else 1
+            for j in range(ff + 1):
+                sd[f"{p}.{j}.layer_norm.weight"] = torch.ones(d)
+            sd[f"{p}.{ff}.DenseReluDense.wi_0.weight"] = rand(ffn, d, std=d**-0.5)
+            sd[f"{p}.{ff}.DenseReluDense.wi_1.weight"] = rand(ffn, d, std=d**-0.5)
+            sd[f"{p}.{ff}.DenseReluDense.wo.weight"] = rand(d, ffn, std=ffn**-0.5)
+        sd[f"{t}.final_layer_norm.weight"] = torch.ones(d)
+    sd["transformer.shared.weight"] = rand(cfg.vocab_size_out, d, std=1.0)
+    if not b.tie_word_embeddings:
+        sd["transformer.lm_head.weight"] = rand(cfg.vocab_size_out, d, std=1.0)
+    sd["decoder_embedder.weight"] = rand(cfg.vocab_size_in, d, std=1.0)
+    width = encoder_input_width(cfg)
+    sd["encoder_embedder.weight"], sd["encoder_embedder.bias"] = rand(d, width, std=width**-0.5), rand(d, std=0.02)
+    if cfg.do_style_embed:
+        sd["style_embedder.embedding_table.weight"] = rand(cfg.num_classes + 1, d, std=1.0)
+    return sd
+
+
+def reference_event_module():
+    """A stand-in for the reference's ``osuT5.osuT5.event`` module: the
+    port's event and context types and ``EventRange`` as classes of that
+    module, so that a tokenizer state pickles under the reference's path, as
+    the osuT5 releases' ``custom_checkpoint_0.pkl`` did."""
+    import enum
+    import types
+
+    from mapperatorinator_tpu_torch.osu.events import ContextType, EventType
+
+    mod = types.ModuleType(REFERENCE_EVENTS)
+    mod.EventType = enum.Enum("EventType", [(m.name, m.value) for m in EventType], module=REFERENCE_EVENTS)
+    mod.ContextType = enum.Enum("ContextType", [(m.name, m.value) for m in ContextType], module=REFERENCE_EVENTS)
+    mod.EventRange = dataclasses.make_dataclass("EventRange", [("type", object), ("min_value", int),
+                                                               ("max_value", int)], module=REFERENCE_EVENTS)
+    return mod
+
+
+def write_legacy_tokenizer(path: Path, vocab) -> None:
+    """``vocab``'s state with its enum keys and event ranges as instances of
+    :func:`reference_event_module`'s classes, written with ``torch.save``;
+    the stand-in module is importable only while it is written."""
+    mod = reference_event_module()
+    sd = vocab.state_dict()
+
+    def er(x):
+        return mod.EventRange(mod.EventType(x["type"]), x["min_value"], x["max_value"])
+
+    state = dict(sd, event_ranges=[er(x) for x in sd["event_ranges"]],
+                 input_event_ranges=[er(x) for x in sd["input_event_ranges"]],
+                 event_range={mod.EventType(k): er(x) for k, x in sd["event_range"].items()},
+                 **{field: {cls(k): v for k, v in sd[field].items()} for field, cls in (
+                     ("context_sos", mod.ContextType), ("context_eos", mod.ContextType),
+                     ("event_start", mod.EventType), ("event_end", mod.EventType))})
+    names = ("osuT5", "osuT5.osuT5", REFERENCE_EVENTS)
+    sys.modules.update({"osuT5": type(mod)("osuT5"), "osuT5.osuT5": type(mod)("osuT5.osuT5"), REFERENCE_EVENTS: mod})
+    try:
+        torch.save(state, path)
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+
+
+def write_t5_checkpoints(directory: Path, seed: int):
+    """One set of seeded T5 v1.1-base weights at full width
+    (:func:`t5_reference_state`), of the model ``configs/train_t5_base.json``
+    builds with v32's vocabulary (so that ``-cn v32`` serves it), written in
+    two forms: a published (HF-format) directory (``config.json`` with
+    ``backbone_model_name`` google/t5-v1_1-base and T5Config's names,
+    ``tokenizer.json``, ``model.safetensors`` through
+    :func:`write_safetensors`) and a legacy accelerate directory
+    (``pytorch_model.bin`` and the pickled tokenizer,
+    :func:`write_legacy_tokenizer`). Returns (the HF directory, the legacy
+    one, the training config, the record)."""
+    from mapperatorinator_tpu_torch.config import load_config, load_train_config
+    from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+
+    t0 = time.perf_counter()
+    train = load_train_config("t5_base", T5_LEGACY_TRAIN)
+    vocab = build_vocabulary(load_config("v32").train)
+    cfg = build_config(train, vocab)
+    b = cfg.backbone
+    sd = t5_reference_state(cfg, seed)
+    hf_cfg = {"backbone_model_name": train.model.name, "vocab_size": cfg.vocab_size_out,
+              "max_source_positions": b.max_source_positions,
+              "backbone_config": {"d_model": b.d_model, "num_layers": b.encoder_layers,
+                                  "num_decoder_layers": b.decoder_layers, "num_heads": b.decoder_heads,
+                                  "d_ff": b.encoder_ffn, "d_kv": b.head_dim, "feed_forward_proj": "gated-gelu",
+                                  "relative_attention_num_buckets": b.relative_attention_num_buckets,
+                                  "relative_attention_max_distance": b.relative_attention_max_distance,
+                                  "layer_norm_epsilon": b.norm_eps, "tie_word_embeddings": b.tie_word_embeddings},
+              **{k: getattr(cfg, k) for k in (
+                  "vocab_size_in", "num_classes", "num_mappers", "input_features", "project_encoder_input",
+                  "embed_decoder_input", "do_style_embed", "do_difficulty_embed", "do_mapper_embed",
+                  "do_song_position_embed", "cond_dim", "cond_size", "spectrogram_log_scale", "sample_rate", "n_fft",
+                  "n_mels", "hop_length", "f_min", "f_max", "pad_mode", "rhythm_token_start", "rhythm_token_end",
+                  "max_target_positions")}}
+    hf, legacy = directory / "hf", directory / "legacy"
+    hf.mkdir(parents=True)
+    (hf / "config.json").write_text(json.dumps(hf_cfg))
+    vocab.save_pretrained(hf)
+    write_safetensors(hf / "model.safetensors", sd)
+    legacy.mkdir()
+    torch.save(sd, legacy / "pytorch_model.bin")
+    write_legacy_tokenizer(legacy / "custom_checkpoint_0.pkl", vocab)
+    record = {"backbone": train.model.name, "tensors": len(sd), "parameters": sum(t.numel() for t in sd.values()),
+              "safetensors_bytes": (hf / "model.safetensors").stat().st_size,
+              "bin_bytes": (legacy / "pytorch_model.bin").stat().st_size, "write_s": time.perf_counter() - t0}
+    print(f"T5: seeded {train.model.name} weights ({record['parameters'] / 1e6:.1f} M parameters, {len(sd)} "
+          f"tensors) written as a published checkpoint ({record['safetensors_bytes'] / 2**20:.1f} MiB "
+          f"model.safetensors) and a legacy one ({record['bin_bytes'] / 2**20:.1f} MiB pytorch_model.bin and "
+          f"the tokenizer pickled under {REFERENCE_EVENTS}) in {record['write_s']:.2f} s")
+    return hf, legacy, train, record
+
+
+def t5_cross_attention(q, k, v, report: dict) -> dict:
+    """Kernel B as T5's cross attention calls it, unscaled (``sm_scale``
+    1.0), on the q, k and v that request (a)'s model computed in its first
+    decoder layer (so at a T5 model's own activations: logits of std ~1, and
+    values as large as the encoder states make them): each route against
+    both its plain versions. An attention output's rounding error grows with
+    its values and the keys it sums over, so each route's tolerance is its
+    bar (2e-5 fp32, 2e-2 bf16) or three times the distance of its
+    rounding-faithful plain version from a float64 evaluation on the same
+    inputs, whichever is larger: the kernel may be no less accurate than
+    the plain version by more than that, and is held to float64 at the
+    same tolerance. The fp32 route is timed beside
+    SDPA at ``scale=1.0`` and its bound. Returns the kernels-line entry, its
+    launches filled in by the caller."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (attention_plain, attention_plain_bf16_tc,
+                                                                 attention_plain_fp32_tc, flash_fwd_fp32,
+                                                                 flash_fwd_sm90)
+
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    (B, T, H, D), S = q.shape, k.shape[1]
+
+    def dist(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    routes = {}
+    for route, dtype, faithful, bar in (("fp32", torch.float32, attention_plain_fp32_tc, ATTN_TOL[torch.float32]),
+                                        ("sm90", torch.bfloat16, attention_plain_bf16_tc, ATTN_TOL[torch.bfloat16])):
+        xs = [x.to(dtype) for x in (q, k, v)]
+        launch = flash_fwd_fp32 if route == "fp32" else flash_fwd_sm90
+        out = launch(*xs, None, False, 0, 1.0, False)[0]
+        plain, rounded = attention_plain(*xs, None, sm_scale=1.0), faithful(*xs, None, sm_scale=1.0)
+        qd, kd, vd = (x.double() for x in xs)  # the same inputs, evaluated in float64
+        truth = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qd, kd), -1), vd)
+        tol = max(bar, 3 * dist(rounded, truth))
+        routes[route] = {"max_abs_err": {"tc": dist(out, rounded), "fp32": dist(out, plain)}, "tol": tol,
+                         "bar": bar, "fp64": {"kernel": dist(out, truth), "plain": dist(plain, truth),
+                                              "plain_rounded": dist(rounded, truth)},
+                         "max_abs_out": truth.abs().max().item()}
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    qs, ks, vs = sdpa_layout(q, k, v)
+    bounds = fp32_bounds(4.0 * B * H * T * S * D, 4 * 2 * B * H * D * (T + S))  # q, out; k, v
+    t_ = in_turns({"plain": lambda: attention_plain(q, k, v, None, sm_scale=1.0),
+                   "kernel": lambda: flash_fwd_fp32(q, k, v, None, False, 0, 1.0, False),
+                   "library": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=1.0)})
+    shape = f"B{B} T{T} S{S} H{H} D{D} fp32 sm_scale 1.0"
+    f32, b16 = routes["fp32"], routes["sm90"]
+    print(f"flash_attention_fwd T5-base cross attention {shape} (the model's q, k, v: logits std "
+          f"{logits.std().item():.3f}, max |logit| {logits.abs().max().item():.2f}, max |out| "
+          f"{f32['max_abs_out']:.2f}): fp32 route max_abs_err {f32['max_abs_err']['tc']:.3e} against the plain "
+          f"version that splits as it does, {f32['max_abs_err']['fp32']:.3e} against the fp32 one (tol "
+          f"{f32['tol']:.3e}); from float64: kernel {f32['fp64']['kernel']:.3e}, plain {f32['fp64']['plain']:.3e}, "
+          f"split plain {f32['fp64']['plain_rounded']:.3e}; bf16 route max_abs_err {b16['max_abs_err']['tc']:.3e} "
+          f"and {b16['max_abs_err']['fp32']:.3e} (tol {b16['tol']:.3e}); from float64: kernel "
+          f"{b16['fp64']['kernel']:.3e}, plain {b16['fp64']['plain']:.3e}, rounding plain "
+          f"{b16['fp64']['plain_rounded']:.3e}")
+    print(f"flash_attention_fwd T5-base cross attention {shape}: kernel {t_['kernel']:.4f} ms, plain "
+          f"{t_['plain']:.4f} ms, scaled_dot_product_attention(scale=1.0) {t_['library']:.4f} ms "
+          f"({t_['kernel'] / t_['library']:.2f}x); bound {bounds['bound_ms']:.4f} ms (three TF32 products "
+          f"{bounds['tf32x3_ms']:.4f}, fp32 FMAs {bounds['fma_ms']:.4f}, bytes {bounds['bytes_ms']:.4f})")
+    check = {"shape": shape, "routes": routes, "logits_std": logits.std().item(),
+             "logits_max_abs": logits.abs().max().item()}
+    report["t5_cross_attention"] = check
+    if not all(e <= r["tol"] for r in routes.values() for e in (*r["max_abs_err"].values(), r["fp64"]["kernel"])):
+        raise AssertionError(f"kernel B at T5's unscaled cross attention disagrees with its plain versions: {check}")
+    return {"name": "flash_attention_fwd_t5_cross", "route": "cuda",
+            "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:88",
+            "max_abs_err": max(f32["max_abs_err"].values()), "tol": f32["tol"], "ms": t_["kernel"],
+            "plain_ms": t_["plain"], "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"],
+            "library_ms": t_["library"], "bounds": bounds, "fp64": f32["fp64"], "sm90": b16,
+            "timed_shape": f"{shape} (T5-base's cross attention, request (a)'s model)"}
+
+
+def t5_kernels(report: dict) -> list[dict]:
+    """Kernels A and D at the T5 shapes, each with its own kernels-line entry
+    (launches filled in from request (b)): A at the legacy model's mel (388
+    mels, no log, 512 frames a window) through :func:`mel_case`; D's two
+    paths at T5-base's fc1 (``QMM_TIMED_T5``), as ``check_qmm`` held them
+    (every T5 shape of ``QMM_SHAPES``) and ``check_qmm`` / ``time_qmm_cold``
+    timed them."""
+    from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
+
+    mel = mel_case(MelSpectrogram("pallas", False, 16000, 1024, 388, 128, 0, 8000, "constant").cuda(), 1, 512)
+    report["t5_mel_case"] = mel
+    entries = [{"name": "fused_mel_t5", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/fused_mel.cu",
+                "replaces": "mapperatorinator_tpu/ops/mel_kernel.py:72", "max_abs_err": mel["max_abs_err"],
+                "max_abs_err_tf32x3": mel["max_abs_err_tf32x3"], "tol": MEL_TC_TOL, "ms": mel["ms"],
+                "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"], "bound_by": mel["bound_by"],
+                "library_ms": None, "device_ms": mel["device_ms"],
+                "timed_shape": "N512 1024->513->388 fp32, no log (the legacy T5 model's mel)"}]
+    fp32 = str(torch.float32)
+    t5 = [c for c in report["qmm_cases"] if c["dtype"] == fp32 and (c["rows"], c["K"], c["N"]) in T5_QMM]
+    for path, cases, what in (("qmm", report["qmm_cold_cases"], "a decode step's fc1, the GEMV path, cold L2"),
+                              ("qmm_tc", report["qmm_cases"], "an encoder window's fc1, the tensor-core path")):
+        rows, k, n = QMM_TIMED_T5[path]
+        timed = next(c for c in cases if c["dtype"] == fp32 and (c["rows"], c["K"], c["N"]) == (rows, k, n))
+        held = [c for c in t5 if c["path"] == path]
+        entries.append({"name": f"{path}_t5_base", "route": "cuda", "source": "mapperatorinator_tpu_torch/csrc/qmm.cu",
+                        "replaces": "mapperatorinator_tpu/ops/qmm_kernel.py:80",
+                        "max_abs_err": max(c["max_abs_err"] for c in held),
+                        "tol": f"{QMM_TOL[torch.float32]:g} x max(1, max |reference output|)",
+                        "held_shapes": [[c["rows"], c["K"], c["N"]] for c in held], "ms": timed["ms"],
+                        "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                        "library_ms": timed["library_ms"], "device_ms": timed.get("device_ms"),
+                        "timed_shape": f"rows{rows} K{k} N{n} fp32 ({what}; T5-base)"})
+    return entries
+
+
+def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
+    """The T5 v1.1 family (``t5_relpos``) at full width, T5-base (d_model
+    768, 12 + 12 layers, 12 heads of d_kv 64, gated tanh-GELU ffn 2 048, no
+    conv stem), from one set of seeded weights written as a published and
+    as a legacy checkpoint (:func:`write_t5_checkpoints`), whose two loads
+    must give equal parameters; on a ``T5_AUDIO_SECONDS`` song:
+
+    * request (a): the published directory through ``load_model`` /
+      ``generate`` at ``-cn v32`` (fp32, sampled, ``super_timing=false``),
+      its first window's encoder states and one teacher-forced logits pass
+      (B at sm_scale 1.0 in every decoder layer's cross attention) held
+      against the plain path, the first cross call's q, k and v kept for
+      :func:`t5_cross_attention`;
+    * MaiMod on request (a)'s .osu (or a dense map) with that checkpoint:
+      its teacher-forced analysis is where T5's cross attention takes B (a
+      decode reads the cross k/v from the cache through plain attention, in
+      every family, as in the JAX package; T5's self-attention carries its
+      position bias and runs plain), 12 launches a batch, held against the
+      plain path;
+    * request (b): the legacy directory through ``load_legacy_checkpoint``
+      with ``configs/train_t5_base.json`` and the fused mel, served with
+      int8 weights and KV (``inference.serving_engine``) at that config's
+      windows, greedy: A and D; its first window's teacher-forced logits
+      through D held against the plain version.
+
+    Each must write a .osu that the port's parser reads. Returns the
+    launches and the kernels-line entries of B, A and D at T5's shapes."""
+    from mapperatorinator_tpu_torch import inference, mai_mod
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.models import transformer
+    from mapperatorinator_tpu_torch.models.io import load_checkpoint
+    from mapperatorinator_tpu_torch.models.legacy import load_legacy_checkpoint
+
+    started = time.perf_counter()
+    wav = write_wav(tmp / "t5.wav", T5_AUDIO_SECONDS, seed=5)
+    hf, legacy, train, record = write_t5_checkpoints(tmp / "t5", seed=5)
+    t0 = time.perf_counter()
+    from_hf, _ = load_checkpoint(hf)
+    record["hf_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_legacy, _ = load_legacy_checkpoint(legacy, train)
+    record["legacy_load_s"] = time.perf_counter() - t0
+    a, b = from_hf.state_dict(), from_legacy.state_dict()
+    equal = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"T5: the published checkpoint loaded in {record['hf_load_s']:.2f} s, the legacy one in "
+          f"{record['legacy_load_s']:.2f} s; {len(a)} parameters, all equal: {equal}")
+    if not equal:
+        raise AssertionError("the published and the legacy T5 checkpoints load to different parameters")
+    del from_hf, from_legacy, a, b
+
+    captured = {}
+
+    def teacher_forced(engine, args, vocab, first) -> dict:
+        enc = engine.encode_with_cond(window0(args))
+        seq = first["tokens"][:1, :min(int(first["end"]), 512)]
+        flash = transformer.flash_attention
+
+        def capture(q, k, v, *a, **kw):
+            captured.setdefault("qkv", (q.clone(), k.clone(), v.clone()))
+            return flash(q, k, v, *a, **kw)
+
+        transformer.flash_attention = capture
+        try:
+            with_kernel = engine.forward(enc, seq)
+        finally:
+            transformer.flash_attention = flash
+        set_flash(engine.model, False)
+        plain = engine.forward(enc, seq)
+        set_flash(engine.model, True)
+        err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
+        print(f"request t5-a, window 0: teacher-forced logits {with_kernel.shape} through kernel B (cross attention, "
+              f"sm_scale 1.0) vs plain attention: max_abs_err {err:.3e} (tol {tol:.3e} = {ENC_TOL:g} x the largest "
+              f"|logit|)")
+        if "qkv" not in captured or not (np.isfinite(with_kernel).all() and err <= tol):
+            raise AssertionError(f"request t5-a: teacher-forced logits through B disagree: {err} above {tol}")
+        return {"teacher_forced_check": {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol}}
+
+    first = serve("t5-a-hf", tmp, wav, [f"model_path={hf}", "super_timing=false"], report, check_encoder=True,
+                  after=teacher_forced, widths=T5_BASE)
+    osu, source = maimod_map(tmp, report["requests"][-1]["osu_path"], "request t5-a", T5_AUDIO_SECONDS)
+    args = load_config("v32", [f"model_path={hf}", "seed=0", f"audio_path={wav}", f"beatmap_path={osu}",
+                               "gamemode=0", "do_sample=false"])
+    maimod, report["t5_maimod"] = maimod_run("t5 MaiMod", mai_mod.select_config_for_gamemode(args), source,
+                                             widths=T5_BASE)
+
+    def legacy_engine(args):
+        model, vocab = load_legacy_checkpoint(legacy, train)
+        return inference.serving_engine(model, vocab, args, torch.device("cuda"))
+
+    def qmm_logits(engine, args, vocab, first) -> dict:
+        enc = engine.encode_with_cond(window0(args))
+        return {"qmm_logits_check": check_qmm_logits("t5-b", engine, enc, first["tokens"][:1, :int(first["end"])])[0]}
+
+    second = serve("t5-b-legacy-int8", tmp, wav, ["do_sample=false", "quantized_weights=true", "quantized_kv=true",
+                                                  "super_timing=false", *T5_LEGACY_SERVE],
+                   report, check_encoder=False, after=qmm_logits, widths=T5_BASE, load=legacy_engine)
+    if maimod["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 or second["qmm"] == 0 or second["qmm_tc"] == 0:
+        raise AssertionError(f"the T5 phase launched {first}, {maimod} and {second}: B in MaiMod's analysis, A and "
+                             "D's two paths in request (b)")
+    entries = [t5_cross_attention(*captured["qkv"], report), *t5_kernels(report)]
+    launches = {"flash_attention_fwd_t5_cross": first["flash_attention_fwd"] + maimod["flash_attention_fwd"]
+                + second["flash_attention_fwd"], "fused_mel_t5": second["fused_mel"],
+                "qmm_t5_base": second["qmm"], "qmm_tc_t5_base": second["qmm_tc"]}
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+    record["phase_s"] = time.perf_counter() - started
+    report["t5"] = record
+    print(f"T5 phase: {record['phase_s']:.1f} s, launches {launches}")
+    return {k: first.get(k, 0) + maimod.get(k, 0) + second.get(k, 0) for k in first}, entries
 
 
 def dense_dit_map(path: Path) -> Path:
@@ -2964,13 +3391,14 @@ def main() -> int:
         v31 = v31_phase(tmp, wav, report)
         dit, dit_rows = dit_phase(tmp, wav, report)
         whisper, whisper_entries = whisper_phase(tmp, report)
+        t5, t5_entries = t5_phase(tmp, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
     # kernel B's entry gains the DiT's shapes and their errors
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
     fwd["shapes"] += dit_rows
     fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows for e in row["max_abs_err"].values()))
-    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, whisper, lora_served)
+    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, whisper, t5, lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
@@ -2982,6 +3410,7 @@ def main() -> int:
                                   "v31 (two requests and MaiMod's fallback)": v31,
                                   "DiT refinement (the dense song and a v32 request)": dit,
                                   "whisper_abs (a v29 and an int8 v28 request)": whisper,
+                                  "T5 (a published checkpoint's request and MaiMod, an int8 legacy one)": t5,
                                   "LoRA serving (two requests)": lora_served,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,
@@ -2992,8 +3421,8 @@ def main() -> int:
             entry["gradient_check_launches"] = checked[entry["name"]]
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never launched on the paths it serves: {report['launches_by_path']}")
-    # B and D at the whisper shapes: their launches are the whisper requests'
-    kernels += whisper_entries
+    # B and D at the whisper shapes, and B, A and D at T5's: their launches are those phases'
+    kernels += whisper_entries + t5_entries
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
     if loaded:

@@ -24,7 +24,13 @@ warm-up, and replayed once a token; ``use_graphs = False`` runs the same
 step eagerly instead (to hold the two against each other), as the CPU always
 does. The host counts the write position itself, picks each step's bucket
 and reads whether every row has finished once every ``sync_every`` steps;
-steps past the stop write pad.
+steps past the stop write pad. Each cached path also hands the model the
+logical position of every cache slot (``k_positions``, which a T5
+relative-position bias reads), as the JAX engine builds it: the prompt's
+pad-free rank, then each row's logical length onward (in ``generate``, a
+static buffer written before any step, so a graph reads it); the slot less
+the row's left pads (``generate_forced``, ``generate_beams``). The
+teacher-forced paths take the model's default, as in JAX.
 
 Sampling is the exponential race of ``torch.multinomial``: the argmax of
 ``probs / noise`` with ``Exp(1)`` noise, drawn outside the step from a
@@ -101,6 +107,9 @@ class _DecodeState:
         self.tokens = torch.full((batch, max_length), pad_id, dtype=torch.long, device=dev)
         self.attn = torch.zeros((batch, max_length), dtype=torch.bool, device=dev)
         self.n_valid = torch.zeros(batch, dtype=torch.long, device=dev)  # logical (pad-free) lengths
+        # the logical position of each slot, which a relative-position bias
+        # reads: written once a decode, before any step (or its graph) runs
+        self.k_positions = torch.zeros((batch, max_length), dtype=torch.long, device=dev)
         self.cur_len = torch.zeros((), dtype=torch.long, device=dev)  # the next write slot
         self.start = torch.zeros((), dtype=torch.long, device=dev)  # the prompt's length
         self.finished = torch.zeros(batch, dtype=torch.bool, device=dev)
@@ -259,7 +268,14 @@ class DecodeEngine:
             for name, x in cross.items():
                 layer["cross"][name].copy_(x)
         s.attn.zero_()
-        n_valid, _ = self._write_prompt(s.cache, s.attn, ids, mask)
+        s.attn[:, :P] = mask
+        # the prompt's slots keep their pad-free rank (pads clamp to 0 and are
+        # masked), each generated slot follows its row's logical length: the
+        # JAX prefill's and decode loop's k_positions
+        rank = (torch.cumsum(s.attn.long(), dim=1) - 1).clamp(min=0)
+        n_valid, _ = self._write_prompt(s.cache, s.attn, ids, mask, rank)
+        slot = torch.arange(max_length, device=dev)[None]
+        s.k_positions.copy_(torch.where(slot < P_orig, rank, n_valid[:, None] + slot - P_orig))
         s.n_valid.copy_(n_valid)
         s.tokens.fill_(pad_id)
         s.tokens[:, :P] = ids
@@ -287,7 +303,7 @@ class DecodeEngine:
         index = s.cur_len - 1
         last = s.tokens.index_select(1, index.view(1))
         logits, _ = model.decode_step(model.embed_tokens(last), s.cache, index, self_mask=s.attn[:, None, None, :],
-                                      positions=(s.n_valid - 1)[:, None], limit=limit)
+                                      positions=(s.n_valid - 1)[:, None], limit=limit, k_positions=s.k_positions)
         scores = logits[:, -1].float()
         if use_cfg:
             neg, pos = scores[:half], scores[half:]
@@ -443,23 +459,32 @@ class DecodeEngine:
         return tuple(x[:H, :T].cpu().numpy() for x in (surprisal, entropy, argmax))
 
     def _prefill(self, encoder_states, ids, mask, buffer_len: int):
-        """A new cache of ``buffer_len`` slots holding the prompt (B, P)
-        (:meth:`_write_prompt`). Returns (cache, attention mask over the
-        buffer, logical lengths, the prompt's logits)."""
-        B = ids.shape[0]
+        """A new cache of ``buffer_len`` slots holding the left-padded prompt
+        (B, P) (:meth:`_write_prompt`). Returns (cache, attention mask over
+        the buffer, each slot's logical position, logical lengths, the
+        prompt's logits). A slot's position is its index less the row's
+        pads, clamped at 0: the JAX ``k_positions`` of the stepwise paths
+        (``generate_forced``, ``generate_beams``), fixed for the decode."""
+        B, P = ids.shape
         cache = self.model.init_cache(B, buffer_len, encoder_states)
         attn = torch.zeros((B, buffer_len), dtype=torch.bool, device=self.device)
-        return cache, attn, *self._write_prompt(cache, attn, ids, mask)
+        pads = P - mask.sum(dim=1)
+        k_positions = (torch.arange(buffer_len, device=self.device)[None] - pads[:, None]).clamp(min=0)
+        return cache, attn, k_positions, *self._write_prompt(cache, attn, ids, mask, k_positions)
 
-    def _write_prompt(self, cache, attn, ids, mask):
+    def _write_prompt(self, cache, attn, ids, mask, k_positions=None):
         """Write the prompt (B, P) into ``cache`` in one chunk at slot 0, at
-        RoPE positions that skip its pads, and its mask into ``attn``.
+        logical positions that skip its pads, and its mask into ``attn``.
+        ``k_positions`` (B, buffer slots) are the slots' logical positions
+        (default: the pad-free rank over ``attn``, the JAX prefill's).
         Returns (logical lengths, the prompt's logits)."""
         model = self.model
         attn[:, :ids.shape[1]] = mask
         positions = (torch.cumsum(mask.long(), dim=1) - 1).clamp(min=0)
+        if k_positions is None:
+            k_positions = (torch.cumsum(attn.long(), dim=1) - 1).clamp(min=0)
         logits, _ = model.decode_step(model.embed_tokens(ids), cache, 0, self_mask=attn[:, None, None, :],
-                                      positions=positions)
+                                      positions=positions, k_positions=k_positions)
         return mask.sum(dim=1), logits
 
     @torch.inference_mode()
@@ -483,7 +508,7 @@ class DecodeEngine:
         mask = torch.as_tensor(np.asarray(decoder_attention_mask, bool), device=dev)
         if self._cap(P + T) < P + T:
             raise ValueError(f"{P} prompt and {T} forced tokens: past the model's position table")
-        cache, attn, n_valid, logits = self._prefill(encoder_states, ids, mask, P + T)
+        cache, attn, k_positions, n_valid, logits = self._prefill(encoder_states, ids, mask, P + T)
         last = logits[:, -1].float()
         lstate = pipeline.init_state(half, dev)
         scores_all = []
@@ -499,7 +524,8 @@ class DecodeEngine:
             written = torch.cat([forced[:, t], forced[:, t]]) if use_cfg else forced[:, t]
             attn[:, P + t] = True
             logits, _ = model.decode_step(model.embed_tokens(written[:, None]), cache, P + t,
-                                          self_mask=attn[:, None, None, :], positions=n_valid[:, None])
+                                          self_mask=attn[:, None, None, :], positions=n_valid[:, None],
+                                          k_positions=k_positions)
             n_valid = n_valid + 1
             last = logits[:, -1].float()
         return torch.stack(scores_all, dim=1).cpu().numpy()
@@ -566,7 +592,8 @@ class DecodeEngine:
             return logp
 
         ids_bn, mask_bn = expand(ids), expand(mask)
-        cache, attn, n_valid, logits = self._prefill(expand(encoder_states), ids_bn, mask_bn, buffer_len)
+        cache, attn, k_positions, n_valid, logits = self._prefill(expand(encoder_states), ids_bn, mask_bn,
+                                                                  buffer_len)
         tokens = torch.full((ids_bn.shape[0], buffer_len), pad_id, dtype=torch.long, device=dev)
         tokens[:, :P] = ids_bn
         lstate = pipeline.init_state(BN, dev)
@@ -631,7 +658,8 @@ class DecodeEngine:
                 break
             last = tokens[:, cur_len - 1:cur_len]
             logits, _ = model.decode_step(model.embed_tokens(last), cache, cur_len - 1,
-                                          self_mask=attn[:, None, None, :], positions=(n_valid - 1)[:, None])
+                                          self_mask=attn[:, None, None, :], positions=(n_valid - 1)[:, None],
+                                          k_positions=k_positions)
             step_logits = fold(logits[:, -1].float())
 
         # live beams compete with the finished hypotheses

@@ -284,12 +284,10 @@ def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
     an int8 KV cache (``quantized_kv``) when asked. A LoRA adapter at
     ``args.lora_path`` whose metadata admits the checkpoint's ``gamemode=N``
     subfolder is merged into the stored weights first, at its ``lora_alpha``,
-    before any quantization or cast, as in the JAX ``load_model``. fp32 runs
-    with TF32 off for matmuls and convolutions."""
+    before any quantization or cast, as in the JAX ``load_model``; then
+    :func:`serving_engine`."""
     if auto_select_gamemode_model is None:
         auto_select_gamemode_model = getattr(args, "auto_select_gamemode_model", True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     device = select_device(args)
 
     if args.model_path:
@@ -313,7 +311,21 @@ def load_model(args, auto_select_gamemode_model: Optional[bool] = None):
         adapter, lora_config = load_lora(lora_path, model)
         merge_lora_into(model, adapter, alpha=lora_config.get("lora_alpha", 128.0))
         print(f"Loaded LoRA weights from {lora_path}")
+    return serving_engine(model, vocab, args, device)
 
+
+def serving_engine(model, vocab, args, device: torch.device):
+    """(engine, vocab) serving ``model`` on ``device`` as :func:`load_model`
+    serves a checkpoint's: int8 weights (``quantized_weights``) and KV cache
+    (``quantized_kv``) when ``args`` ask, the compute dtype of
+    ``args.precision`` (default: the model's), the decode buffer of
+    ``args.train.data.tgt_seq_len``. A model loaded another way (a legacy
+    accelerate checkpoint, :func:`.models.legacy.load_legacy_checkpoint`)
+    is served through it too. fp32 runs with TF32 off for matmuls and
+    convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = model.to(device)
     # int8 weights come from the stored ones, before any cast to the compute
     # dtype; the cast leaves the int8 kernels and their fp32 scales as they are
     if getattr(args, "quantized_weights", False):

@@ -11,7 +11,12 @@ between:
 * VarWhisper (v32): fused ``Wqkv`` / ``Wkv``, RMSNorm;
 * stock whisper (v28, v29): split ``q_proj`` / ``k_proj`` / ``v_proj``,
   LayerNorm, the learned decoder position table;
-* RoPEWhisper (v30, v31): split projections, RMSNorm, RoPE.
+* RoPEWhisper (v30, v31): split projections, RMSNorm, RoPE;
+* T5 (``T5ForConditionalGeneration``, the legacy osuT5 backbone): ``block.N.
+  layer.M`` sub-layers, split ``q`` / ``k`` / ``v`` / ``o`` with no biases,
+  ``DenseReluDense.wi_0`` / ``wi_1`` / ``wo`` (the gate ``wi_1`` is the
+  port's ``fc1_gate``; a v1.0 ``wi`` is ``fc1``), RMSNorm, and one
+  ``relative_attention_bias`` a stack, read from block 0.
 
 An ``nn.Linear`` weight is (out, in) in both, so the split projections are
 concatenated along the output rows into the port's fused ``wqkv`` (q, k, v)
@@ -19,7 +24,7 @@ and ``wkv`` (k, v); ``k_proj`` has no bias, so its slot of the fused bias is
 0, which computes the same. The whisper encoder's frozen sinusoid table is
 dropped (the port computes it), and so is the HF decoder's token table where
 the port's decoder has none (a wrapper that embeds its own ids with an untied
-head). NWhisper, T5 and moonshine raise (ROADMAP queue 1, item 11).
+head). NWhisper and moonshine raise (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig
 from .safetensors import read_torch_weights
 from .transformer import TransformerConfig
 
-UNPORTED_FAMILIES = ("nwhisper", "moonshine", "t5")
+UNPORTED_FAMILIES = ("nwhisper", "moonshine")
 
 
 def backbone_family(backbone_model_name: str) -> str:
@@ -63,6 +68,33 @@ def _backbone_config_from_hf(hf_cfg: dict) -> tuple[str, TransformerConfig]:
     if family in UNPORTED_FAMILIES:
         raise NotImplementedError(f"backbone {name!r} ({family}): not ported yet (ROADMAP queue 1, item 11)")
     bc = dict(hf_cfg.get("backbone_config", {}) or {})
+    if family == "t5":
+        return family, TransformerConfig(
+            vocab_size=hf_cfg.get("vocab_size", bc.get("vocab_size")),
+            d_model=bc.get("d_model", 512),
+            encoder_layers=bc.get("num_layers", 8),
+            decoder_layers=bc.get("num_decoder_layers", bc.get("num_layers", 8)),
+            encoder_heads=bc.get("num_heads", 6),
+            decoder_heads=bc.get("num_heads", 6),
+            encoder_ffn=bc.get("d_ff", 1024),
+            decoder_ffn=bc.get("d_ff", 1024),
+            head_dim_override=bc.get("d_kv", 64),
+            activation="gelu_tanh" if "gelu" in bc.get("feed_forward_proj", "gated-gelu") else "relu",
+            ffn_gated="gated" in bc.get("feed_forward_proj", "gated-gelu"),
+            max_source_positions=hf_cfg.get("max_source_positions", 1024),
+            max_target_positions=hf_cfg.get("max_target_positions", 2048),
+            num_mel_bins=hf_cfg.get("n_mels", 388),
+            position_scheme="t5_relpos",
+            relative_attention_num_buckets=bc.get("relative_attention_num_buckets", 32),
+            relative_attention_max_distance=bc.get("relative_attention_max_distance", 128),
+            norm="rms",
+            norm_eps=bc.get("layer_norm_epsilon", 1e-6),
+            attention_bias=False,
+            attention_scale=False,
+            mlp_bias=False,
+            conv_stem=False,
+            tie_word_embeddings=bc.get("tie_word_embeddings", False),
+        )
     common = dict(
         vocab_size=hf_cfg.get("vocab_size", bc.get("vocab_size")),
         d_model=bc.get("d_model", 768),
@@ -246,10 +278,63 @@ def convert_ropewhisper_state_dict(sd: dict, encoder_layers: int, decoder_layers
                                       learned_decoder_positions=False)
 
 
+def _t5_attn(out: dict, sd: dict, theirs: str, ours: str, cross: bool) -> None:
+    """T5's ``q`` / ``k`` / ``v`` / ``o`` (no biases) -> the fused layout."""
+    q, k, v = (sd[f"{theirs}.{p}.weight"] for p in "qkv")
+    out[f"{ours}.wo.weight"] = sd[f"{theirs}.o.weight"]
+    if cross:
+        out[f"{ours}.wq.weight"] = q
+        out[f"{ours}.wkv.weight"] = torch.cat([k, v])
+    else:
+        out[f"{ours}.wqkv.weight"] = torch.cat([q, k, v])
+
+
+def _t5_ffn(out: dict, sd: dict, theirs: str, ours: str) -> None:
+    """``wi_0`` / ``wi_1`` / ``wo`` (v1.1, gated) or ``wi`` / ``wo``."""
+    out[f"{ours}.fc2.weight"] = sd[f"{theirs}.wo.weight"]
+    if f"{theirs}.wi_0.weight" in sd:
+        out[f"{ours}.fc1.weight"] = sd[f"{theirs}.wi_0.weight"]
+        out[f"{ours}.fc1_gate.weight"] = sd[f"{theirs}.wi_1.weight"]
+    else:
+        out[f"{ours}.fc1.weight"] = sd[f"{theirs}.wi.weight"]
+
+
+def convert_t5_state_dict(sd: dict, encoder_layers: int, decoder_layers: int,
+                          tied_head: bool) -> dict[str, torch.Tensor]:
+    """An HF T5 state dict -> the port's ``OsuTransformer`` state dict. Each
+    stack's relative-position bias is block 0's (HF T5 shares it, as the
+    port's per-stack ``rel_bias`` does); the decoder's token table is
+    ``decoder.embed_tokens`` or else ``shared``, where the file has one."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {}
+    for side, n in (("encoder", encoder_layers), ("decoder", decoder_layers)):
+        out[f"{side}.norm.weight"] = sd[f"{side}.final_layer_norm.weight"]
+        out[f"{side}.rel_bias.embedding.weight"] = sd[
+            f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"]
+        for i in range(n):
+            theirs, ours = f"{side}.block.{i}.layer", f"{side}.layers.{i}"
+            _t5_attn(out, sd, f"{theirs}.0.SelfAttention", f"{ours}.self_attn", cross=False)
+            out[f"{ours}.self_attn_norm.weight"] = sd[f"{theirs}.0.layer_norm.weight"]
+            if side == "decoder":
+                _t5_attn(out, sd, f"{theirs}.1.EncDecAttention", f"{ours}.cross_attn", cross=True)
+                out[f"{ours}.cross_attn_norm.weight"] = sd[f"{theirs}.1.layer_norm.weight"]
+            ffn = 2 if side == "decoder" else 1
+            _t5_ffn(out, sd, f"{theirs}.{ffn}.DenseReluDense", f"{ours}.ffn")
+            out[f"{ours}.final_norm.weight"] = sd[f"{theirs}.{ffn}.layer_norm.weight"]
+    for key in ("decoder.embed_tokens.weight", "shared.weight"):
+        if key in sd:
+            out["decoder.embed_tokens.weight"] = sd[key]
+            break
+    if not tied_head and "lm_head.weight" in sd:
+        out["proj_out.weight"] = sd["lm_head.weight"]
+    return out
+
+
 _BACKBONE_CONVERTERS = {
     "varwhisper": convert_varwhisper_state_dict,
     "whisper": convert_whisper_state_dict,
     "ropewhisper": convert_ropewhisper_state_dict,
+    "t5": convert_t5_state_dict,
 }
 
 
@@ -278,7 +363,7 @@ def convert_mapperatorinator_state_dict(sd: dict, config: MapperatorinatorConfig
     backbone = _BACKBONE_CONVERTERS[family](transformer_sd, b.encoder_layers, b.decoder_layers,
                                             b.tie_word_embeddings)
     if config.embed_decoder_input and not b.tie_word_embeddings:
-        del backbone["decoder.embed_tokens.weight"]  # the port's decoder has no token table to fill
+        backbone.pop("decoder.embed_tokens.weight", None)  # the port's decoder has no token table to fill
     out = {f"transformer.{k}": v for k, v in backbone.items()}
     if config.embed_decoder_input and "decoder_embedder.weight" in sd:
         out["decoder_embedder.weight"] = sd["decoder_embedder.weight"]

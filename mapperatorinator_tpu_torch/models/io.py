@@ -24,6 +24,7 @@ import torch
 from ..osu.vocab import Vocabulary
 from . import flax_msgpack
 from .convert import load_hf_checkpoint
+from .legacy import is_legacy_checkpoint
 from .dit import DiT, DiTConfig
 from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig, build_model
 from .params import dit_params_from_flax, dit_params_to_flax, flax_layout, flax_paths, params_from_flax
@@ -123,21 +124,15 @@ def quantize_model(model: Mapperatorinator) -> Mapperatorinator:
     return qmodel.train(model.training)
 
 
-def is_legacy_checkpoint(directory: Union[str, Path]) -> bool:
-    """An accelerate training checkpoint (the JAX ``is_legacy_checkpoint``):
-    ``custom_checkpoint_0.pkl`` beside ``pytorch_model.bin`` or a
-    ``model*.safetensors``."""
-    directory = Path(directory)
-    return (directory / "custom_checkpoint_0.pkl").is_file() and (
-        (directory / "pytorch_model.bin").is_file() or any(directory.glob("model*.safetensors")))
-
-
 def load_checkpoint(directory: Union[str, Path]) -> tuple[Mapperatorinator, Optional[Vocabulary]]:
     """Returns (model on the CPU with the checkpoint's weights, vocab or None),
     dispatching on the directory's files as the JAX ``load_checkpoint`` does:
     ``model_config.json`` is a native checkpoint, ``config.json`` a published
     (HF-format) one (:func:`.convert.load_hf_checkpoint`); the vocabulary is
-    read from ``tokenizer.json`` where there is one."""
+    read from ``tokenizer.json`` where there is one. A legacy accelerate
+    checkpoint holds no model config: it raises ``ValueError`` naming
+    :func:`.legacy.load_legacy_checkpoint`, which takes the training config
+    too."""
     directory = Path(directory)
     vocab = Vocabulary.from_pretrained(directory) if (directory / "tokenizer.json").exists() else None
     if (directory / "model_config.json").exists():
@@ -149,8 +144,11 @@ def load_checkpoint(directory: Union[str, Path]) -> tuple[Mapperatorinator, Opti
     if (directory / "config.json").exists():
         return load_hf_checkpoint(directory), vocab
     if is_legacy_checkpoint(directory):
-        raise NotImplementedError(f"{directory} is a legacy accelerate checkpoint: not ported yet "
-                                  "(ROADMAP queue 1, item 16 (b))")
+        raise ValueError(
+            f"{directory} is a legacy accelerate checkpoint; load it with "
+            "mapperatorinator_tpu_torch.models.legacy.load_legacy_checkpoint(dir, train_args) "
+            "(it carries no model config, so the training config is required)"
+        )
     raise FileNotFoundError(f"no recognizable checkpoint at {directory}")
 
 

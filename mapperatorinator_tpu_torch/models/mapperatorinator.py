@@ -37,6 +37,12 @@ WHISPER_DIMS = {
     "medium": dict(d_model=1024, layers=24, heads=16, ffn=4096),
 }
 
+# T5 v1.1 sizes (HF google/t5-v1_1-*): d_kv stays 64 while heads * 64 != d_model
+T5_DIMS = {
+    "small": dict(d_model=512, layers=8, heads=6, ffn=1024, head_dim=64),
+    "base": dict(d_model=768, layers=12, heads=12, ffn=2048, head_dim=64),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class MapperatorinatorConfig:
@@ -77,24 +83,47 @@ class MapperatorinatorConfig:
     max_target_positions: int = 2048
 
 
+def _size(table: dict, family: str, name: str) -> dict:
+    for key, dims in table.items():
+        if name.endswith(key):
+            return dims
+    raise ValueError(f"unknown {family} size in backbone name: {name}")
+
+
+def _t5_size(name: str) -> dict:
+    return _size(T5_DIMS, "t5", name)
+
+
 def build_config(train_args, vocab) -> MapperatorinatorConfig:
     """A MapperatorinatorConfig from a training config and a Vocabulary, for
-    the whisper backbones the port builds: RoPE + RMSNorm (VarWhisper,
-    RoPEWhisper) and stock whisper (``openai/whisper-*``: absolute positions
-    + LayerNorm), as the JAX ``build_config`` dispatches on the name."""
+    the backbones the port builds: RoPE + RMSNorm (VarWhisper, RoPEWhisper),
+    stock whisper (``openai/whisper-*``: absolute positions + LayerNorm) and
+    T5 v1.1 (``google/t5-v1_1-*``: relative positions, RMSNorm at eps 1e-6,
+    gated tanh-GELU, unscaled bias-free attention of 64-wide heads, no conv
+    stem), in the JAX ``build_config``'s dispatch order and with its
+    defaults."""
     m = train_args.model
     name = m.name
-    unported = ("OliBomby/nwhisper", "olibomby/nwhisper", "google/t5", "UsefulSensors/moonshine")
-    if name.startswith("OliBomby/varwhisper") or name.startswith("Tiger14n/ropewhisper"):
+    t5, attention_bias = {}, m.attention_bias
+    if name.startswith(("OliBomby/nwhisper", "olibomby/nwhisper")):
+        raise NotImplementedError(f"backbone {name!r} (nwhisper): not ported yet (ROADMAP queue 1, item 11)")
+    if name.startswith("google/t5"):
+        dims = _t5_size(name)
+        position_scheme, norm = "t5_relpos", "rms"
+        attention_bias = False
+        t5 = dict(head_dim_override=dims["head_dim"], attention_scale=False, ffn_gated=True, mlp_bias=False,
+                  conv_stem=False, norm_eps=1e-6, activation="gelu_tanh")
+    elif name.startswith(("OliBomby/varwhisper", "Tiger14n/ropewhisper")):
+        dims = _size(WHISPER_DIMS, "whisper", name)
         position_scheme, norm = "rope", "rms"
-    elif "whisper" in name and not name.startswith(unported):
+    elif name.startswith("UsefulSensors/moonshine"):
+        raise NotImplementedError(f"backbone {name!r} (moonshine): not ported yet (ROADMAP queue 1, item 11)")
+    elif "whisper" in name:
+        dims = _size(WHISPER_DIMS, "whisper", name)
         position_scheme, norm = "whisper_abs", "layer"
     else:
-        raise NotImplementedError(f"backbone {name!r}: the port builds VarWhisper, RoPEWhisper and stock whisper "
-                                  "only (other families: ROADMAP queue 1, item 11)")
-    dims = next((d for key, d in WHISPER_DIMS.items() if name.endswith(key)), None)
-    if dims is None:
-        raise ValueError(f"unknown whisper size in backbone name: {name}")
+        raise NotImplementedError(f"backbone {name!r}: the port builds VarWhisper, RoPEWhisper, stock whisper and "
+                                  "T5 v1.1 only (other families: ROADMAP queue 1, item 11)")
     overwrite = dict(m.overwrite or {})
     tie = overwrite.pop("tie_word_embeddings", True)
     dropout = overwrite.pop("dropout", 0.0)
@@ -125,10 +154,11 @@ def build_config(train_args, vocab) -> MapperatorinatorConfig:
         norm=norm,
         remat=bool(getattr(getattr(train_args, "parallel", None), "remat", False)),
         remat_policy=getattr(getattr(train_args, "parallel", None), "remat_policy", "full"),
-        attention_bias=m.attention_bias,
+        attention_bias=attention_bias,
         tie_word_embeddings=tie,
         pad_token_id=0,
         dtype=compute_dtype,
+        **t5,
     )
     rhythm_start, rhythm_end = vocab.event_type_range(EventType.TIME_SHIFT)
     return MapperatorinatorConfig(
@@ -233,6 +263,17 @@ class SongPositionEmbedder(nn.Module):
         return self.norm2(self.proj2(self.dropout(h)))
 
 
+def encoder_input_width(cfg: MapperatorinatorConfig) -> int:
+    """The features :meth:`Mapperatorinator.encode` hands the encoder
+    projection: the mels, then each embedded condition, as flax infers the
+    JAX ``encoder_embedder``'s input width from them. It is ``n_mels +
+    cond_size`` where ``cond_size`` counts the conditions; a style embedding
+    adds ``d_model`` (the default model config embeds styles with
+    ``cond_size`` 0)."""
+    conds = cfg.do_difficulty_embed + cfg.do_mapper_embed + cfg.do_song_position_embed
+    return cfg.n_mels + cfg.do_style_embed * cfg.backbone.d_model + conds * cfg.cond_dim
+
+
 # the submodules that compute in fp32 whatever ``backbone.dtype`` is
 FP32_MODULES = ("spectrogram", "style_embedder", "difficulty_embedder", "mapper_embedder", "song_pos_embedder")
 
@@ -266,7 +307,7 @@ class Mapperatorinator(nn.Module):
         if cfg.do_song_position_embed:
             self.song_pos_embedder = SongPositionEmbedder(cfg.cond_dim)
         if cfg.project_encoder_input:
-            self.encoder_embedder = Dense(cfg.n_mels + cfg.cond_size, b.d_model, True, b.dtype)
+            self.encoder_embedder = Dense(encoder_input_width(cfg), b.d_model, True, b.dtype)
         if cfg.embed_decoder_input:
             self.decoder_embedder = nn.Embedding(cfg.vocab_size_in, b.d_model)
 
@@ -354,9 +395,9 @@ class Mapperatorinator(nn.Module):
         return self.transformer.cross_cache(encoder_states)
 
     def decode_step(self, input_embeds, cache, cache_index, self_mask=None, positions=None,
-                    limit: Optional[int] = None):
+                    limit: Optional[int] = None, k_positions: Optional[torch.Tensor] = None):
         return self.transformer.decode_step(input_embeds, cache, cache_index, self_mask=self_mask,
-                                            positions=positions, limit=limit)
+                                            positions=positions, limit=limit, k_positions=k_positions)
 
 
 def _given(condition: Optional[torch.Tensor], name: str) -> torch.Tensor:

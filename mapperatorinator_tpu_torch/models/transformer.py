@@ -1,6 +1,7 @@
-"""The seq2seq transformer (``models/transformer.py``): the whisper families.
+"""The seq2seq transformer (``models/transformer.py``): the whisper and T5
+families.
 
-Two position schemes of the JAX ``TransformerConfig`` are ported. ``rope``
+Three position schemes of the JAX ``TransformerConfig`` are ported. ``rope``
 (VarWhisper, v32; RoPEWhisper, v30 and v31): rotate-half RoPE in fp32 with
 the dynamic-NTK base, RMSNorm, alternating local/global self-attention.
 ``whisper_abs`` (stock whisper, v28 and v29): fixed sinusoids added after
@@ -9,8 +10,12 @@ the encoder's conv stem, a learned decoder position table
 LayerNorm, with no rotation. Both are pre-norm with exact-erf GELU
 feed-forwards, a whisper conv stem and fused ``wqkv`` / ``wkv`` projections
 (an HF checkpoint's split q / k / v are concatenated on load,
-:mod:`.convert`). Every other family (``t5_relpos``, ``ngpt``, moonshine)
-raises.
+:mod:`.convert`). ``t5_relpos`` (T5 v1.1, the legacy osuT5 backbone): no
+conv stem, a learned relative-position bias per stack
+(:class:`RelativePositionBias`) added to every self-attention's logits,
+unscaled and bias-free attention of ``head_dim_override`` wide heads, and a
+gated tanh-GELU (or ReLU) feed-forward with no biases, RMSNorm at eps 1e-6.
+The other families (``ngpt``, moonshine) raise.
 
 Dtypes follow the flax modules op by op rather than ``torch.autocast``: the
 projections and the conv stem compute in ``cfg.dtype`` whatever the dtype of
@@ -20,14 +25,20 @@ statistics: ``E[x^2] - E[x]^2``, clipped at 0) and the softmax compute in
 fp32 and cast back.
 
 Attention follows the JAX routing. A call that is structurally eligible for
-the flash kernel (no cache, no position bias, scaled, at most a key-padding
-mask) goes to :func:`..ops.attention_kernel.flash_attention`, for every shape:
-the JAX package's ``flash_min_logits`` gate is a TPU v5e measurement and is
-not carried over. Cached decode attention is plain PyTorch over a static
-prefix of the cache: the end of the ``decode_attend_bucket`` bucket that
-holds the write slot, which the caller passes as ``limit``, so that a step
-indexed by a device tensor has static shapes and can be captured in a CUDA
-graph. The KV cache is preallocated and updated in place (the JAX package
+the flash kernel (no cache, no position bias, at most a key-padding mask)
+goes to :func:`..ops.attention_kernel.flash_attention`, for every shape, at
+``sm_scale`` 1.0 where the config's attention is unscaled (T5's cross
+attention; the JAX package sends that call to its plain ``_attend`` only
+because its TPU gate refuses unscaled calls, and both compute the same
+function): the JAX package's ``flash_min_logits`` gate is a TPU v5e
+measurement and is not carried over. A call with a position bias (T5's
+self-attention) is plain :func:`attend`. On a CUDA tensor a head width the
+kernels refuse raises at the call, as for every family; the config itself
+takes any ``head_dim_override``. Cached decode attention is plain PyTorch
+over a static prefix of the cache: the end of the ``decode_attend_bucket``
+bucket that holds the write slot, which the caller passes as ``limit``, so
+that a step indexed by a device tensor has static shapes and can be
+captured in a CUDA graph. The KV cache is preallocated and updated in place (the JAX package
 returns a new cache; the dicts returned here are the same objects that were
 passed in).
 
@@ -42,6 +53,7 @@ dequantized in ``cfg.dtype`` on read.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -121,27 +133,27 @@ class TransformerConfig:
 
 # (field, values the port supports, ROADMAP queue 1 item that ports the rest)
 _SUPPORTED = (
-    ("position_scheme", ("rope", "whisper_abs"), 11),
+    ("position_scheme", ("rope", "whisper_abs", "t5_relpos"), 11),
     ("norm", ("rms", "layer"), 11),
     ("norm_scheme", ("prenorm",), 11),
     ("stem_type", ("whisper",), 11),
-    ("conv_stem", (True,), 11),
     ("rope_partial_factor", (1.0,), 11),
-    ("activation", ("gelu",), 11),
+    ("activation", ("gelu", "gelu_tanh", "relu"), 11),
     ("decoder_activation", (None,), 11),
-    ("ffn_gated", (False,), 11),
     ("decoder_ffn_gated_concat", (False,), 11),
-    ("attention_scale", (True,), 11),
     ("scale_embedding", (False,), 11),
-    ("head_dim_override", (None,), 11),
     ("banded_local_attention", (False,), 11),
 )
+
+# the feed-forward activations: torch's exact-erf GELU, the tanh form (HF's
+# gelu_new, T5 v1.1's gated-gelu) and ReLU
+ACTIVATIONS = {"gelu": F.gelu, "gelu_tanh": functools.partial(F.gelu, approximate="tanh"), "relu": F.relu}
 
 
 def check_supported(cfg: TransformerConfig) -> None:
     """The port covers the whisper families with RoPE and RMSNorm (VarWhisper,
-    RoPEWhisper) and with absolute positions and LayerNorm (stock whisper);
-    raise for the rest."""
+    RoPEWhisper) and with absolute positions and LayerNorm (stock whisper),
+    and T5 v1.1 (relative positions); raise for the rest."""
     for field, values, item in _SUPPORTED:
         if getattr(cfg, field) not in values:
             raise NotImplementedError(
@@ -307,6 +319,62 @@ def whisper_sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
+def relative_position_bucket(relative_position: torch.Tensor, bidirectional: bool, num_buckets: int = 32,
+                             max_distance: int = 128) -> torch.Tensor:
+    """T5's bucket of each ``key - query`` distance (int64): exact below
+    ``max_exact``, log-spaced up to ``max_distance``, then the last bucket;
+    the JAX ``relative_position_bucket`` op for op (an fp32 ``log``,
+    truncated toward zero). :class:`RelativePositionBias` evaluates it once,
+    on the CPU, where its values are held to the JAX package's."""
+    ret = torch.zeros_like(relative_position)
+    n = -relative_position
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).to(ret.dtype) * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp(min=0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.float() / max_exact + 1e-6) / math.log(max_distance / max_exact) * (num_buckets - max_exact)
+    ).to(ret.dtype)
+    val_if_large = val_if_large.clamp(max=num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+class RelativePositionBias(nn.Module):
+    """One stack's T5 position bias (the JAX ``RelativePositionBias``, flax
+    ``rel_bias/embedding``): a (num_buckets, H) table indexed by each (query,
+    key) distance's bucket. The bucket of every distance is computed once,
+    on the CPU, into ``buckets``, an int table over the distances
+    -``span`` .. ``span``; past ``max_distance`` every distance shares the
+    last bucket of its sign, so a distance is clamped into that span and
+    the table is gathered on the device. No ``log`` is evaluated there: an
+    fp32 ``log`` on the card may differ from XLA's by an ulp, which moves a
+    distance at a bucket boundary into the next bucket."""
+
+    def __init__(self, cfg: TransformerConfig, num_heads: int, bidirectional: bool):
+        super().__init__()
+        self.embedding = nn.Embedding(cfg.relative_attention_num_buckets, num_heads)
+        self.span = cfg.relative_attention_max_distance + 1
+        distances = torch.arange(-self.span, self.span + 1, device="cpu")
+        self.register_buffer("buckets", relative_position_bucket(
+            distances, bidirectional, cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance),
+            persistent=False)
+
+    def forward(self, q_pos: torch.Tensor, k_pos: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """1-D positions -> (1, H, Tq, Tk); per-row (B, Tq) and (B, Tk) ->
+        (B, H, Tq, Tk). The table is read in ``dtype`` (flax ``Embed``'s
+        compute dtype, so a bf16 model's bias is rounded to bf16)."""
+        if q_pos.dim() == 2:
+            rel = k_pos[:, None, :] - q_pos[:, :, None]
+        else:
+            rel = (k_pos[None, :] - q_pos[:, None])[None]
+        buckets = self.buckets[rel.clamp(-self.span, self.span) + self.span]
+        return F.embedding(buckets, self.embedding.weight.to(dtype)).permute(0, 3, 1, 2)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotate-half RoPE in fp32. x: (B, T, H, D); positions: (B, T)."""
     d = x.shape[-1]
@@ -341,10 +409,17 @@ def sliding_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -
     return (q_pos[:, None] - k_pos[None, :]).abs() <= window // 2
 
 
-def attend(q, k, v, mask: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
-    """(B, Tq, H, D) x (B, Tk, H, D) -> (B, Tq, H, D); scaled, softmax in fp32,
-    masked logits at finfo(fp32).min (the JAX ``_attend``)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * q.shape[-1] ** -0.5
+def attend(q, k, v, mask: Optional[torch.Tensor], dtype: torch.dtype, bias: Optional[torch.Tensor] = None,
+           scaled: bool = True) -> torch.Tensor:
+    """(B, Tq, H, D) x (B, Tk, H, D) -> (B, Tq, H, D), the JAX ``_attend``:
+    logits in fp32, scaled by D^-0.5 where ``scaled``, plus ``bias`` (cast to
+    fp32, broadcast over (B, H, Tq, Tk)), masked at finfo(fp32).min, softmax
+    in fp32."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    if scaled:
+        logits = logits * q.shape[-1] ** -0.5
+    if bias is not None:
+        logits = logits + bias.float()
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dtype)
@@ -352,9 +427,9 @@ def attend(q, k, v, mask: Optional[torch.Tensor], dtype: torch.dtype) -> torch.T
 
 
 class Attention(nn.Module):
-    """Self or cross attention with RoPE (under ``position_scheme="rope"``),
-    causal and sliding-window masks and a preallocated cache for step-by-step
-    decode."""
+    """Self or cross attention with RoPE (under ``position_scheme="rope"``) or
+    a position bias (``t5_relpos``), causal and sliding-window masks and a
+    preallocated cache for step-by-step decode."""
 
     def __init__(self, cfg: TransformerConfig, num_heads: int, is_cross: bool = False,
                  is_causal: bool = False, is_decoder: bool = False, layer_idx: int = 0):
@@ -368,7 +443,7 @@ class Attention(nn.Module):
         # attention calls that the flash kernel covers go to it; cleared, they
         # take the plain path (chip_smoke.py holds the two against each other)
         self.use_flash = cfg.use_flash_attention
-        inner = num_heads * (cfg.d_model // num_heads)
+        inner = num_heads * (cfg.head_dim_override or cfg.d_model // num_heads)
         bias, dt = cfg.attention_bias, cfg.dtype
         dense = QDense if cfg.quantized_weights else Dense
         if is_cross:
@@ -391,6 +466,7 @@ class Attention(nn.Module):
         cache: Optional[dict] = None,
         cache_index=None,
         limit: Optional[int] = None,
+        pos_bias: Optional[torch.Tensor] = None,
     ):
         """Returns (out, cache). ``cache`` holds (B, max_len, H, D) k/v written
         in place at ``cache_index`` (int8 with (B, max_len, H) ``k_scale`` /
@@ -399,10 +475,13 @@ class Attention(nn.Module):
         slots, a static length past the last slot written (default: that
         slot, which needs an int index); masked slots add exactly 0. Cross
         attention reads its k/v from the cache when one is given.
-        ``attn_mask`` is a (B, 1, 1, S) key mask."""
+        ``attn_mask`` is a (B, 1, 1, S) key mask; ``pos_bias`` a (B | 1, H,
+        t, keys) position bias over the keys read (the first ``limit`` slots
+        with a cache)."""
         cfg = self.cfg
         b, t, _ = x.shape
         h = self.num_heads
+        scale = None if cfg.attention_scale else 1.0  # flash_attention's sm_scale
 
         if self.is_cross:
             q = self.wq(x).view(b, t, h, -1)
@@ -413,9 +492,9 @@ class Attention(nn.Module):
                 kv = kv.view(b, kv.shape[1], 2 * h, -1)
                 k, v = kv[:, :, :h], kv[:, :, h:]
             if cache is None and self.use_flash and _key_mask_only(attn_mask):
-                out = flash_attention(q, k, v, _key_mask(attn_mask))
+                out = flash_attention(q, k, v, _key_mask(attn_mask), sm_scale=scale)
             else:
-                out = attend(q, k, v, attn_mask, cfg.dtype)
+                out = attend(q, k, v, attn_mask, cfg.dtype, scaled=cfg.attention_scale)
             return self.wo(out.reshape(b, t, -1)), cache
 
         qkv = self.wqkv(x).view(b, t, 3 * h, -1)
@@ -451,12 +530,13 @@ class Attention(nn.Module):
             mask = mask[None, None]
             if attn_mask is not None:
                 mask = mask & attn_mask[..., :limit]
-            out = attend(q, k, v, mask, cfg.dtype)
-        elif self.use_flash and _key_mask_only(attn_mask):
+            out = attend(q, k, v, mask, cfg.dtype, pos_bias, cfg.attention_scale)
+        elif pos_bias is None and self.use_flash and _key_mask_only(attn_mask):
             out = flash_attention(
                 q, k, v, _key_mask(attn_mask),
                 causal=self.is_causal,
                 window=cfg.local_attention if self.is_local else 0,
+                sm_scale=scale,
             )
         else:
             pos = positions[0]
@@ -467,7 +547,7 @@ class Attention(nn.Module):
             if self.is_local:
                 band = sliding_window_mask(pos, pos, cfg.local_attention)[None, None]
                 mask = band if mask is None else mask & band
-            out = attend(q, k, v, mask, cfg.dtype)
+            out = attend(q, k, v, mask, cfg.dtype, pos_bias, cfg.attention_scale)
         return self.wo(out.reshape(b, t, -1)), cache
 
 
@@ -480,14 +560,23 @@ def _key_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 class FeedForward(nn.Module):
+    """``fc2(act(fc1(x)))``, or under ``ffn_gated`` (T5 v1.1)
+    ``fc2(act(fc1(x)) * fc1_gate(x))``: the JAX ``FeedForward``."""
+
     def __init__(self, cfg: TransformerConfig, ffn_dim: int):
         super().__init__()
         dense = QDense if cfg.quantized_weights else Dense
+        self.act = ACTIVATIONS[cfg.activation]
         self.fc1 = dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
+        if cfg.ffn_gated:
+            self.fc1_gate = dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
         self.fc2 = dense(ffn_dim, cfg.d_model, cfg.mlp_bias, cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        h = self.act(self.fc1(x))
+        if hasattr(self, "fc1_gate"):
+            h = h * self.fc1_gate(x)
+        return self.fc2(h)
 
 
 class EncoderLayer(nn.Module):
@@ -498,8 +587,9 @@ class EncoderLayer(nn.Module):
         self.self_attn_norm = norm_layer(cfg)
         self.final_norm = norm_layer(cfg)
 
-    def forward(self, x, positions, attn_mask=None):
-        x = x + self.self_attn(self.self_attn_norm(x), positions=positions, attn_mask=attn_mask)[0]
+    def forward(self, x, positions, attn_mask=None, pos_bias=None):
+        x = x + self.self_attn(self.self_attn_norm(x), positions=positions, attn_mask=attn_mask,
+                               pos_bias=pos_bias)[0]
         return x + self.ffn(self.final_norm(x))
 
 
@@ -514,10 +604,11 @@ class DecoderLayer(nn.Module):
         self.final_norm = norm_layer(cfg)
 
     def forward(self, x, encoder_states, positions, self_mask=None, cross_mask=None,
-                cache: Optional[dict] = None, cache_index=None, limit: Optional[int] = None):
+                cache: Optional[dict] = None, cache_index=None, limit: Optional[int] = None, pos_bias=None):
         attn_out, _ = self.self_attn(
             self.self_attn_norm(x), positions=positions, attn_mask=self_mask,
             cache=cache["self"] if cache is not None else None, cache_index=cache_index, limit=limit,
+            pos_bias=pos_bias,
         )
         x = x + attn_out
         cross_out, _ = self.cross_attn(
@@ -532,25 +623,33 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.conv1 = Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1, compute_dtype=cfg.dtype)
-        self.conv2 = Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1, compute_dtype=cfg.dtype)
+        if cfg.conv_stem:
+            self.conv1 = Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1, compute_dtype=cfg.dtype)
+            self.conv2 = Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1, compute_dtype=cfg.dtype)
+        if cfg.position_scheme == "t5_relpos":
+            self.rel_bias = RelativePositionBias(cfg, cfg.encoder_heads, bidirectional=True)
         self.layers = nn.ModuleList(EncoderLayer(cfg, i) for i in range(cfg.encoder_layers))
         self.norm = norm_layer(cfg)
 
     def forward(self, features: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, T, num_mel_bins) -> (B, ceil(T / 2), D)."""
+        """(B, T, num_mel_bins) -> (B, ceil(T / 2), D) through the conv stem,
+        (B, T, D) from (B, T, D) features without one."""
         cfg = self.cfg
-        x = features.to(cfg.dtype).transpose(1, 2)
-        x = F.gelu(self.conv1(x))
-        x = F.gelu(self.conv2(x)).transpose(1, 2)
+        x = features.to(cfg.dtype)
+        if cfg.conv_stem:
+            x = F.gelu(self.conv1(x.transpose(1, 2)))
+            x = F.gelu(self.conv2(x)).transpose(1, 2)
         b, t, _ = x.shape
         if cfg.position_scheme == "whisper_abs":
             if t > cfg.max_source_positions:
                 raise ValueError(f"{t} source positions: the model has {cfg.max_source_positions}")
             x = x + whisper_sinusoids(t, cfg.d_model, x.device).to(cfg.dtype)
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        pos_bias = None
+        if cfg.position_scheme == "t5_relpos":  # one table for the stack, shared by every layer
+            pos_bias = self.rel_bias(positions[0], positions[0], cfg.dtype)
         for layer in self.layers:
-            x = layer(x, positions, attn_mask)
+            x = layer(x, positions, attn_mask, pos_bias)
         return self.norm(x)
 
 
@@ -562,16 +661,24 @@ class Decoder(nn.Module):
             self.embed_tokens = nn.Embedding(cfg.input_vocab_size or cfg.vocab_size, cfg.d_model)
         if cfg.position_scheme == "whisper_abs":
             self.embed_positions = nn.Embedding(cfg.max_target_positions, cfg.d_model)
+        if cfg.position_scheme == "t5_relpos":
+            self.rel_bias = RelativePositionBias(cfg, cfg.decoder_heads, bidirectional=False)
         self.layers = nn.ModuleList(DecoderLayer(cfg, i) for i in range(cfg.decoder_layers))
         self.norm = norm_layer(cfg)
 
     def forward(self, inputs_embeds, encoder_states, positions=None, self_mask=None,
-                cross_mask=None, cache: Optional[list] = None, cache_index=None, limit: Optional[int] = None):
+                cross_mask=None, cache: Optional[list] = None, cache_index=None, limit: Optional[int] = None,
+                k_positions: Optional[torch.Tensor] = None):
         """``positions`` (B, t): each token's logical position, the RoPE
         position or the row of the learned position table (default: 0 ..
         t - 1). A table lookup past its last row fails (on a card, as a device
         assert), so the callers keep positions below ``max_target_positions``
-        (:attr:`OsuTransformer.position_table`)."""
+        (:attr:`OsuTransformer.position_table`). Under ``t5_relpos`` the
+        position bias is computed once for every layer, from ``positions``
+        to ``k_positions`` (B, buffer slots), the logical position of each
+        cache slot, over the slots the self-attention reads (``limit``);
+        without ``k_positions`` from the first row's positions to the slot
+        indices, as the JAX decoder does."""
         cfg = self.cfg
         x = inputs_embeds.to(cfg.dtype)
         b, t, _ = x.shape
@@ -581,9 +688,18 @@ class Decoder(nn.Module):
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
         if cfg.position_scheme == "whisper_abs":
             x = x + self.embed_positions(positions).to(cfg.dtype)
+        pos_bias = None
+        if cfg.position_scheme == "t5_relpos":
+            if cache is not None and limit is None:
+                limit = cache_index + t
+            keys = t if cache is None else limit
+            if k_positions is not None:
+                pos_bias = self.rel_bias(positions, k_positions[:, :keys], cfg.dtype)
+            else:
+                pos_bias = self.rel_bias(positions[0], torch.arange(keys, device=x.device), cfg.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, encoder_states, positions, self_mask, cross_mask,
-                      cache[i] if cache is not None else None, cache_index, limit)
+                      cache[i] if cache is not None else None, cache_index, limit, pos_bias)
         return self.norm(x)
 
 
@@ -663,16 +779,20 @@ class OsuTransformer(nn.Module):
         return out
 
     def decode_step(self, input_embeds, cache: list, cache_index, self_mask=None,
-                    cross_mask=None, positions=None, limit: Optional[int] = None):
+                    cross_mask=None, positions=None, limit: Optional[int] = None,
+                    k_positions: Optional[torch.Tensor] = None):
         """One step (or a chunk) of cached decode: ``input_embeds`` (B, t, D)
         are written at cache slots ``cache_index .. cache_index + t``
         (``cache_index`` a Python int, or a 0-d long tensor on the device);
         self attention reads the first ``limit`` slots (:class:`Attention`);
-        ``positions`` (B, t) are the logical positions (default: the slots).
-        Returns (logits, cache)."""
+        ``positions`` (B, t) are the logical positions (default: the slots)
+        and ``k_positions`` (B, buffer slots) those of each cache slot, which
+        the ``t5_relpos`` bias reads (:class:`Decoder`). Returns (logits,
+        cache)."""
         b, t, _ = input_embeds.shape
         if positions is None:
             positions = (cache_index + torch.arange(t, device=input_embeds.device))[None].expand(b, t)
         x = self.decoder(input_embeds, None, positions=positions, self_mask=self_mask,
-                         cross_mask=cross_mask, cache=cache, cache_index=cache_index, limit=limit)
+                         cross_mask=cross_mask, cache=cache, cache_index=cache_index, limit=limit,
+                         k_positions=k_positions)
         return self.lm_head(x), cache

@@ -20,8 +20,8 @@ LoRA factors (``lora``: rank, alpha, targets; seeded with ``seed``) on that
 frozen base and writes the adapter to ``<checkpoint_path>/lora``.
 
 Not ported yet, each raising and naming ROADMAP queue 1, item 15: more than
-one process, tensor and FSDP mesh axes, the ``mmrs`` and ``web`` datasets
-and ``adafactor``. v32's ``dataset_type: web`` is therefore overridden to
+one process, tensor and FSDP mesh axes, the ``mmrs`` and ``web`` datasets,
+``adafactor`` and training a T5 backbone (item 15 (b)). v32's ``dataset_type: web`` is therefore overridden to
 ``ors``, a local track-folder dataset.
 """
 
@@ -75,6 +75,13 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{what}: not ported yet ({ROADMAP_ITEM})")
 
 
+def refuse_t5(config) -> None:
+    """Training a T5 backbone (its position bias, and kernel C at scale 1.0)
+    waits for item 15 (b); serving one is ported."""
+    if config.backbone.position_scheme == "t5_relpos":
+        raise NotImplementedError(f"training a T5 backbone: not ported yet ({ROADMAP_ITEM} (b))")
+
+
 def build_model_and_data(args, device: torch.device):
     """(model, vocab, make_batches): the model on ``device`` with seeded
     random fp32 parameters, computing in the ``mixed_precision`` dtype; or,
@@ -83,10 +90,12 @@ def build_model_and_data(args, device: torch.device):
     data_vocab = build_vocabulary(args)
     parser = BeatmapParser(args, data_vocab)
     config = build_config(args, data_vocab)
+    refuse_t5(config)
     if args.pretrained_path:
         pretrained = resolve_model_checkpoint_path(args.pretrained_path, gamemode=args.pretrained_gamemode)
         print(f"Loading pretrained weights from {pretrained}")
         model, vocab = load_checkpoint(pretrained)
+        refuse_t5(model.cfg)
         model, vocab = model.to(device), vocab or data_vocab
         dtype = model.cfg.backbone.dtype
         if dtype != config.backbone.dtype:

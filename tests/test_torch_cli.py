@@ -3,16 +3,20 @@
 API path (``load_model`` / ``generate``), with fp32 and with int8 weights and
 KV cache, and refuses what is not ported, naming its ROADMAP item (LoRA
 adapters, ``lora_path``, are covered by ``tests/test_torch_lora.py``);
-``generate_positions=true`` with no DiT bundle on disk writes the same .osu.
+``generate_positions=true`` with no DiT bundle on disk writes the same .osu;
+``-cn v32`` on a published T5 v1.1 checkpoint writes the .osu bytes of the
+JAX package's command line.
 """
 
 import pytest
 import torch
 
+import inference as jax_inference
 from mapperatorinator_tpu_torch import inference
 from mapperatorinator_tpu_torch.config import load_config
 from mapperatorinator_tpu_torch.models.transformer import QDense
 from tests.fixtures.tiny_checkpoint import SRC_SEQ_LEN, TGT_SEQ_LEN, make_wav
+from tests.test_torch_convert import FAMILY_OVERRIDES, SRC_LEN, TGT_LEN, write_hf_checkpoint
 from tests.test_torch_model import tiny  # noqa: F401  (module fixture)
 
 torch.set_num_threads(1)
@@ -41,13 +45,13 @@ def test_cli_main_writes_the_api_osu(tiny, tmp_path, int8):  # noqa: F811
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """A backbone of another family (nwhisper-base, T5): ROADMAP queue 1,
-    item 11. (DiT refinement and v28's whisper-base, which this refused
-    before, are ported: ``tests/test_torch_diffusion_generate.py``,
-    ``tests/test_torch_whisper_abs_serving.py``.)"""
+    """A backbone of another family (nwhisper-base, moonshine): ROADMAP
+    queue 1, item 11. (DiT refinement, v28's whisper-base and T5, which this
+    refused before, are ported: ``tests/test_torch_diffusion_generate.py``,
+    ``tests/test_torch_whisper_abs_serving.py``, ``tests/test_torch_t5.py``.)"""
     wav = make_wav(tmp_path / "song.wav", seconds=1.0)
     base = ["model_path=", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
-    for name in ("OliBomby/nwhisper-base", "google/t5-v1_1-small"):
+    for name in ("OliBomby/nwhisper-base", "UsefulSensors/moonshine-tiny"):
         with pytest.raises(NotImplementedError, match="item 11"):
             inference.main(["-cn", "v32", *base, f"train.model.name={name}"])
 
@@ -68,3 +72,22 @@ def test_cli_generate_positions_without_a_bundle_keeps_the_positions(tiny, tmp_p
     assert "diffusion checkpoint 'OliBomby/osu-diffusion-v2' not found; positions stay as generated" \
         in capsys.readouterr().out
     assert texts[1] == texts[0] and "[HitObjects]" in texts[0]
+
+
+def test_cli_on_a_t5_checkpoint_writes_the_jax_clis_osu(tmp_path):
+    """``-cn v32 model_path=<HF T5 dir>``, greedy: the port's and the JAX
+    package's ``main`` write the same .osu bytes (the T5 model's own
+    config.json decides the backbone; v32 decides the windows and prompts)."""
+    directory, _, _ = write_hf_checkpoint(tmp_path / "t5", "v32", overrides=FAMILY_OVERRIDES["t5"])
+    wav = make_wav(tmp_path / "song.wav", seconds=2.0)
+    base = [f"model_path={directory}", f"audio_path={wav}", f"train.data.src_seq_len={SRC_LEN}",
+            f"train.data.tgt_seq_len={TGT_LEN}", "do_sample=false", "seed=7", "gamemode=0", "device=cpu",
+            "super_timing=false", "title=T5", "bpm=120", "offset=0"]
+    written = []
+    for name, main in (("jax", jax_inference.main), ("port", inference.main)):
+        (tmp_path / name).mkdir()
+        text, path = main(["-cn", "v32", *base, f"output_path={tmp_path / name}"])
+        written.append((text, path.read_bytes()))
+    (want, want_bytes), (got, got_bytes) = written
+    assert "[HitObjects]" in got and "Title:T5" in got
+    assert got == want and got_bytes == want_bytes

@@ -1,15 +1,25 @@
-"""The port's checked-in v32 configs against the JAX loader.
+"""The port's checked-in v32 configs, and the T5 training config, against
+the JAX loader.
 
 ``mapperatorinator_tpu_torch/configs/v32.json`` is the JAX composition of
 ``configs/inference/v32.yaml`` and ``configs/train_v32.json`` that of
 ``configs/train/v32.yaml``, written out as JSON, so the port reads them
-without yaml. These tests recompose them and fail on any drift. To regenerate
-the files after a config change: ``JAX_PLATFORMS=cpu python -m tests.test_torch_config``.
+without yaml. ``configs/train_t5_base.json`` is the JAX loader's composition
+of ``configs/train/default.yaml`` with ``model=t5_base`` (the T5 v1.1-base
+backbone of the legacy osuT5 releases): the repo has no preset that names
+it, so the composition is of a preset written for it in a copy of
+``configs/``, ``defaults: [default, ../model@model: t5_base, _self_]``, as
+``configs/train/v32.yaml`` names its model. These tests recompose them and
+fail on any drift. To regenerate the files after a config change:
+``JAX_PLATFORMS=cpu python -m tests.test_torch_config``.
 """
 
 import dataclasses
 import json
+import shutil
+import tempfile
 from enum import Enum
+from pathlib import Path
 from types import SimpleNamespace
 
 import torch
@@ -38,6 +48,19 @@ def composed_v32():
 
 def composed_train_v32(overrides=()):
     return compose(REPO_ROOT / "configs" / "train", "v32", overrides=list(overrides), schema_cls=schema.TrainConfig)
+
+
+T5_BASE_PRESET = "defaults:\n  - default\n  - ../model@model: t5_base\n  - _self_\n"
+
+
+def composed_train_t5_base(overrides=()):
+    """``configs/train/default.yaml`` with ``model=t5_base``, composed by the
+    JAX loader from a copy of ``configs/`` holding the preset that says so."""
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = Path(tmp) / "configs"
+        shutil.copytree(REPO_ROOT / "configs", configs)
+        (configs / "train" / "t5_base.yaml").write_text(T5_BASE_PRESET)
+        return compose(configs / "train", "t5_base", overrides=list(overrides), schema_cls=schema.TrainConfig)
 
 
 def plain(node, keep_enums: bool = False):
@@ -80,6 +103,39 @@ def test_loaded_train_namespace_equals_the_jax_config(overrides):
     """Every field, overrides applied the way the JAX loader applies them."""
     assert plain(load_train_config("v32", overrides), keep_enums=True) == \
         plain(composed_train_v32(overrides), keep_enums=True)
+
+
+T5_OVERRIDES = ("mixed_precision=no", "model.overwrite.d_model=64", "model.spectrogram.implementation=pallas",
+                "data.src_seq_len=256")
+
+
+def test_checked_in_train_t5_base_json_is_the_jax_composition():
+    with open(CONFIG_DIR / "train_t5_base.json", encoding="utf-8") as f:
+        assert json.load(f) == plain(composed_train_t5_base())
+
+
+@pytest.mark.parametrize("overrides", [(), T5_OVERRIDES])
+def test_loaded_train_t5_base_namespace_equals_the_jax_config(overrides):
+    assert plain(load_train_config("t5_base", overrides), keep_enums=True) == \
+        plain(composed_train_t5_base(overrides), keep_enums=True)
+
+
+@pytest.mark.parametrize("overrides", [(), T5_OVERRIDES])
+def test_t5_build_config_matches_jax(overrides):
+    """The T5 branch of ``build_config``, field by field: T5_DIMS["base"],
+    head_dim_override 64, gated tanh-GELU, RMSNorm at 1e-6, unscaled and
+    bias-free attention, bias-free feed-forward, no conv stem."""
+    train = load_train_config("t5_base", overrides)
+    got = dataclasses.asdict(build_config(train, build_vocabulary(train)))
+    jax_train = composed_train_t5_base(overrides)
+    want = dataclasses.asdict(jax_build_config(jax_train, jax_build_vocabulary(jax_train)))
+    for tree in (got, want):
+        for key in ("dtype", "param_dtype"):
+            tree["backbone"][key] = str(tree["backbone"][key]).split(".")[-1].replace("'>", "")
+    assert got == want
+    b = got["backbone"]
+    assert (b["position_scheme"], b["head_dim_override"], b["encoder_layers"], b["decoder_heads"], b["decoder_ffn"],
+            b["conv_stem"], b["attention_scale"]) == ("t5_relpos", 64, 12, 12, 2048, False, False)
 
 
 def test_unknown_override_raises():
@@ -130,7 +186,8 @@ def test_build_config_matches_jax():
 
 
 if __name__ == "__main__":
-    for name, tree in (("v32", composed_v32()), ("train_v32", composed_train_v32())):
+    for name, tree in (("v32", composed_v32()), ("train_v32", composed_train_v32()),
+                       ("train_t5_base", composed_train_t5_base())):
         with open(CONFIG_DIR / f"{name}.json", "w", encoding="utf-8") as f:
             json.dump(plain(tree), f, indent=1, sort_keys=True)
             f.write("\n")

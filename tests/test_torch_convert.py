@@ -1,13 +1,17 @@
 """Published (HF-format) checkpoints on the port against the JAX loader.
 
 For each backbone family the port builds (stock whisper under ``-cn v28``,
-RoPEWhisper with the v31 conditioning embedders, VarWhisper under v32) a
-tiny reference state dict is made from a numpy seed under the keys the JAX
-``models/convert.py`` reads (``transformer.model.encoder.conv1.weight``,
-split ``q_proj`` / ``k_proj`` / ``v_proj`` with no ``k_proj.bias``,
-``transformer.proj_out.weight``, ``decoder_embedder.weight``,
-``encoder_embedder.{weight,bias}``, ...), beside a ``config.json`` written
-from the config's own model config. The directory is written with
+RoPEWhisper with the v31 conditioning embedders, VarWhisper under v32, and
+T5 v1.1 under v32 with ``train.model.name=google/t5-v1_1-base`` and a
+projected encoder input) a tiny reference state dict is made from a numpy
+seed under the keys the JAX ``models/convert.py`` reads
+(``transformer.model.encoder.conv1.weight``, split ``q_proj`` / ``k_proj`` /
+``v_proj`` with no ``k_proj.bias``, ``transformer.proj_out.weight``; T5's
+``transformer.encoder.block.N.layer.M`` with ``relative_attention_bias`` on
+block 0, gated ``DenseReluDense.wi_0`` / ``wi_1`` / ``wo``,
+``transformer.shared.weight`` and ``lm_head.weight``; then
+``decoder_embedder.weight``, ``encoder_embedder.{weight,bias}``, ...),
+beside a ``config.json`` written from the config's own model config. The directory is written with
 ``safetensors.numpy.save_file`` (the library's writer, which the port's
 reader is held to), as ``pytorch_model.bin``, and as two
 ``pytorch_model-0000N-of-00002.bin`` shards. Each package's
@@ -40,8 +44,9 @@ from mapperatorinator_tpu_torch.osu import build_vocabulary
 
 torch.set_num_threads(1)
 
-# family -> the port config whose model it is
-FAMILY_CONFIGS = {"whisper": "v28", "ropewhisper": "v31", "varwhisper": "v32"}
+# family -> the port config whose model it is, and the overrides that make it so
+FAMILY_CONFIGS = {"whisper": "v28", "ropewhisper": "v31", "varwhisper": "v32", "t5": "v32"}
+FAMILY_OVERRIDES = {"t5": ("train.model.name=google/t5-v1_1-base", "train.model.project_encoder_input=true")}
 TINY = dict(d_model=32, encoder_layers=2, decoder_layers=2, encoder_attention_heads=2, decoder_attention_heads=2,
             encoder_ffn_dim=64, decoder_ffn_dim=64)
 SRC_LEN, TGT_LEN = 256, 128
@@ -61,16 +66,25 @@ def hf_config(cfg) -> dict:
     widths override)."""
     b = cfg.backbone
     b = dataclasses.replace(b, num_mel_bins=b.d_model if cfg.project_encoder_input else b.num_mel_bins)
-    backbone = dict(d_model=b.d_model, encoder_layers=b.encoder_layers, decoder_layers=b.decoder_layers,
-                    encoder_attention_heads=b.encoder_heads, decoder_attention_heads=b.decoder_heads,
-                    encoder_ffn_dim=b.encoder_ffn, decoder_ffn_dim=b.decoder_ffn, activation_function="gelu",
-                    max_source_positions=b.max_source_positions, max_target_positions=b.max_target_positions,
-                    num_mel_bins=b.num_mel_bins, scale_embedding=False, tie_word_embeddings=b.tie_word_embeddings,
-                    global_attn_every_n_layers=b.global_attn_every_n_layers, local_attention=b.local_attention,
-                    global_rope_theta=b.rope_global_theta, local_rope_theta=b.rope_local_theta,
-                    attention_bias=b.attention_bias, rope_type=b.rope_type,
-                    rope_encoder_scaling_factor=b.rope_encoder_scaling_factor,
-                    rope_decoder_scaling_factor=b.rope_decoder_scaling_factor)
+    if b.position_scheme == "t5_relpos":  # HF T5Config's names
+        backbone = dict(d_model=b.d_model, num_layers=b.encoder_layers, num_decoder_layers=b.decoder_layers,
+                        num_heads=b.decoder_heads, d_ff=b.encoder_ffn, d_kv=b.head_dim,
+                        feed_forward_proj="gated-gelu" if b.ffn_gated else "relu",
+                        relative_attention_num_buckets=b.relative_attention_num_buckets,
+                        relative_attention_max_distance=b.relative_attention_max_distance,
+                        layer_norm_epsilon=b.norm_eps, tie_word_embeddings=b.tie_word_embeddings)
+    else:
+        backbone = dict(
+            d_model=b.d_model, encoder_layers=b.encoder_layers, decoder_layers=b.decoder_layers,
+            encoder_attention_heads=b.encoder_heads, decoder_attention_heads=b.decoder_heads,
+            encoder_ffn_dim=b.encoder_ffn, decoder_ffn_dim=b.decoder_ffn, activation_function="gelu",
+            max_source_positions=b.max_source_positions, max_target_positions=b.max_target_positions,
+            num_mel_bins=b.num_mel_bins, scale_embedding=False, tie_word_embeddings=b.tie_word_embeddings,
+            global_attn_every_n_layers=b.global_attn_every_n_layers, local_attention=b.local_attention,
+            global_rope_theta=b.rope_global_theta, local_rope_theta=b.rope_local_theta,
+            attention_bias=b.attention_bias, rope_type=b.rope_type,
+            rope_encoder_scaling_factor=b.rope_encoder_scaling_factor,
+            rope_decoder_scaling_factor=b.rope_decoder_scaling_factor)
     wrapper = {k: getattr(cfg, k) for k in (
         "vocab_size_in", "num_classes", "num_mappers", "input_features", "project_encoder_input",
         "embed_decoder_input", "do_style_embed", "do_difficulty_embed", "do_mapper_embed", "do_song_position_embed",
@@ -108,6 +122,61 @@ def hf_state_dict(family: str, hf_cfg: dict, seed: int = 0) -> dict[str, np.ndar
                 mat(f"{key}.{p}_proj", d, d, bias=p != "k")  # k_proj has no bias
             mat(f"{key}.out_proj", d, d)
 
+    def t5_attn(key):  # q scaled by d_kv^-0.5, as HF initialises it (the attention is unscaled)
+        for p in "qkv":
+            mat(f"{key}.{p}", b["num_heads"] * b["d_kv"], d, bias=False)
+        sd[f"{key}.q.weight"] *= b["d_kv"] ** -0.5
+        mat(f"{key}.o", d, b["num_heads"] * b["d_kv"], bias=False)
+
+    if family == "t5":  # T5ForConditionalGeneration under transformer.: the shared table, an untied lm_head
+        for side, n in (("encoder", b["num_layers"]), ("decoder", b["num_decoder_layers"])):
+            t = f"transformer.{side}"
+            sd[f"{t}.final_layer_norm.weight"] = 1 + 0.1 * rng.standard_normal(d)
+            sd[f"{t}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = rng.standard_normal(
+                (b["relative_attention_num_buckets"], b["num_heads"]))
+            for i in range(n):
+                p = f"{t}.block.{i}.layer"
+                t5_attn(f"{p}.0.SelfAttention")
+                if side == "decoder":
+                    t5_attn(f"{p}.1.EncDecAttention")
+                for sub in range(3 if side == "decoder" else 2):
+                    sd[f"{p}.{sub}.layer_norm.weight"] = 1 + 0.1 * rng.standard_normal(d)
+                ff = f"{p}.{2 if side == 'decoder' else 1}.DenseReluDense"
+                mat(f"{ff}.wi_0", b["d_ff"], d, bias=False)
+                mat(f"{ff}.wi_1", b["d_ff"], d, bias=False)
+                mat(f"{ff}.wo", d, b["d_ff"], bias=False)
+        sd["transformer.shared.weight"] = rng.standard_normal((vocab, d))
+        if not b["tie_word_embeddings"]:
+            mat("transformer.lm_head", vocab, d, bias=False)
+    else:
+        whisper_backbone(sd, family, b, vocab, rng, mat, norm, attn)
+    sd["decoder_embedder.weight"] = rng.standard_normal((hf_cfg["vocab_size_in"], d))
+    if hf_cfg["do_style_embed"]:
+        sd["style_embedder.embedding_table.weight"] = rng.standard_normal((hf_cfg["num_classes"] + 1, d))
+    if hf_cfg["project_encoder_input"]:  # the mels, then the embedded conditions (a style: d_model wide)
+        mat("encoder_embedder", d, hf_cfg["n_mels"] + hf_cfg["cond_size"] + d * hf_cfg["do_style_embed"])
+    cond = hf_cfg["cond_dim"]
+    for name, flag, proj, basis, width in (("difficulty_embedder", "difficulty", "difficulty_proj", 8, 1),
+                                           ("song_pos_embedder", "song_position", "position_proj", 10, 2)):
+        if hf_cfg[f"do_{flag}_embed"]:
+            sd[f"{name}.basis_centers"] = np.linspace(0, 1, basis) + 0.01 * rng.standard_normal(basis)
+            sd[f"{name}.basis_widths"] = 0.1 + 0.05 * np.abs(rng.standard_normal(basis))
+            hidden = width * cond
+            mat(f"{name}.{proj}.0", hidden, width * basis)
+            sd[f"{name}.{proj}.1.weight"], sd[f"{name}.{proj}.1.bias"] = 1 + 0.1 * rng.standard_normal((2, hidden))
+            mat(f"{name}.{proj}.4", cond, hidden)
+            sd[f"{name}.{proj}.5.weight"], sd[f"{name}.{proj}.5.bias"] = 1 + 0.1 * rng.standard_normal((2, cond))
+    if hf_cfg["do_mapper_embed"]:
+        sd["mapper_embedder.embedding.weight"] = rng.standard_normal((hf_cfg["num_mappers"] + 1, cond))
+        sd["mapper_embedder.layer_norm.weight"] = 1 + 0.1 * rng.standard_normal(cond)
+        sd["mapper_embedder.layer_norm.bias"] = 0.1 * rng.standard_normal(cond)
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()}
+
+
+def whisper_backbone(sd: dict, family: str, b: dict, vocab: int, rng, mat, norm, attn) -> None:
+    """A whisper family's backbone under ``transformer.model.`` and its
+    untied ``proj_out``."""
+    d = b["d_model"]
     t = "transformer.model"
     for conv, inp in (("conv1", b["num_mel_bins"]), ("conv2", d)):
         sd[f"{t}.encoder.{conv}.weight"] = rng.standard_normal((d, inp, 3)) * (3 * inp) ** -0.5
@@ -131,25 +200,6 @@ def hf_state_dict(family: str, hf_cfg: dict, seed: int = 0) -> dict[str, np.ndar
             mat(f"{p}.fc1", ffn, d)
             mat(f"{p}.fc2", d, ffn)
     mat("transformer.proj_out", vocab, d, bias=False)
-    sd["decoder_embedder.weight"] = rng.standard_normal((hf_cfg["vocab_size_in"], d))
-    if hf_cfg["project_encoder_input"]:
-        mat("encoder_embedder", d, hf_cfg["n_mels"] + hf_cfg["cond_size"])
-    cond = hf_cfg["cond_dim"]
-    for name, flag, proj, basis, width in (("difficulty_embedder", "difficulty", "difficulty_proj", 8, 1),
-                                           ("song_pos_embedder", "song_position", "position_proj", 10, 2)):
-        if hf_cfg[f"do_{flag}_embed"]:
-            sd[f"{name}.basis_centers"] = np.linspace(0, 1, basis) + 0.01 * rng.standard_normal(basis)
-            sd[f"{name}.basis_widths"] = 0.1 + 0.05 * np.abs(rng.standard_normal(basis))
-            hidden = width * cond
-            mat(f"{name}.{proj}.0", hidden, width * basis)
-            sd[f"{name}.{proj}.1.weight"], sd[f"{name}.{proj}.1.bias"] = 1 + 0.1 * rng.standard_normal((2, hidden))
-            mat(f"{name}.{proj}.4", cond, hidden)
-            sd[f"{name}.{proj}.5.weight"], sd[f"{name}.{proj}.5.bias"] = 1 + 0.1 * rng.standard_normal((2, cond))
-    if hf_cfg["do_mapper_embed"]:
-        sd["mapper_embedder.embedding.weight"] = rng.standard_normal((hf_cfg["num_mappers"] + 1, cond))
-        sd["mapper_embedder.layer_norm.weight"] = 1 + 0.1 * rng.standard_normal(cond)
-        sd["mapper_embedder.layer_norm.bias"] = 0.1 * rng.standard_normal(cond)
-    return {k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()}
 
 
 def write_hf_checkpoint(directory, name: str, fmt: str = "safetensors", overrides=(), seed: int = 0):
@@ -180,13 +230,15 @@ def write_hf_checkpoint(directory, name: str, fmt: str = "safetensors", override
 @pytest.mark.parametrize("fmt", ["safetensors", "bin", "shards"])
 @pytest.mark.parametrize("family", sorted(FAMILY_CONFIGS))
 def test_port_loads_the_jax_params(tmp_path, family, fmt):
-    directory, hf_cfg, sd = write_hf_checkpoint(tmp_path / "ckpt", FAMILY_CONFIGS[family], fmt)
+    directory, hf_cfg, sd = write_hf_checkpoint(tmp_path / "ckpt", FAMILY_CONFIGS[family], fmt,
+                                                FAMILY_OVERRIDES.get(family, ()))
     jmodel, jparams, jvocab = jax_load_checkpoint(directory)
     model, vocab = load_checkpoint(directory)
     assert vocab.state_dict() == jvocab.state_dict()
     want = params_from_flax(jparams)
     got = model.state_dict()
     # the HF decoder token table: the port's decoder (ids embedded by the wrapper, untied head) has none
+    assert not model.cfg.backbone.tie_word_embeddings
     assert "transformer.decoder.embed_tokens.weight" not in got
     del want["transformer.decoder.embed_tokens.weight"]
     assert set(got) == set(want)
@@ -196,7 +248,8 @@ def test_port_loads_the_jax_params(tmp_path, family, fmt):
     cfg = model.cfg
     assert cfg.spectrogram_implementation == "xla"
     assert (cfg.backbone.position_scheme, cfg.backbone.norm) == {
-        "whisper": ("whisper_abs", "layer"), "ropewhisper": ("rope", "rms"), "varwhisper": ("rope", "rms")}[family]
+        "whisper": ("whisper_abs", "layer"), "ropewhisper": ("rope", "rms"), "varwhisper": ("rope", "rms"),
+        "t5": ("t5_relpos", "rms")}[family]
     if family == "whisper":  # a fused bias's k slot is zero; the decoder's positions are learned
         bias = got["transformer.encoder.layers.0.self_attn.wqkv.bias"]
         assert not bias[32:64].any() and bias[:32].any() and bias[64:].any()
@@ -205,11 +258,23 @@ def test_port_loads_the_jax_params(tmp_path, family, fmt):
     if family == "ropewhisper":
         assert {"difficulty_embedder.rbf.basis_centers", "mapper_embedder.table.weight",
                 "song_pos_embedder.proj2.weight"} <= set(got)
+    if family == "t5":  # block 0's shared bias, the gate, the untied head; q / k / v fused in that order
+        t = "transformer"
+        assert torch.equal(got["transformer.decoder.rel_bias.embedding.weight"], torch.from_numpy(
+            sd[f"{t}.decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"]))
+        assert torch.equal(got["transformer.encoder.layers.1.ffn.fc1_gate.weight"],
+                           torch.from_numpy(sd[f"{t}.encoder.block.1.layer.1.DenseReluDense.wi_1.weight"]))
+        assert torch.equal(got["transformer.proj_out.weight"], torch.from_numpy(sd[f"{t}.lm_head.weight"]))
+        qkv = got["transformer.decoder.layers.0.self_attn.wqkv.weight"]
+        assert qkv.shape == (3 * 2 * 64, TINY["d_model"])  # 2 heads of d_kv 64 over d_model 32
+        assert torch.equal(qkv[128:256], torch.from_numpy(sd[f"{t}.decoder.block.0.layer.0.SelfAttention.k.weight"]))
+        assert not any(name.endswith("bias") and "rel_bias" not in name and "embedder" not in name for name in got)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILY_CONFIGS))
 def test_backbone_config_equals_jax_field_by_field(tmp_path, family):
-    _, hf_cfg, _ = write_hf_checkpoint(tmp_path / "ckpt", FAMILY_CONFIGS[family])
+    _, hf_cfg, _ = write_hf_checkpoint(tmp_path / "ckpt", FAMILY_CONFIGS[family], overrides=FAMILY_OVERRIDES.get(
+        family, ()))
     for cfg in (hf_cfg, {**hf_cfg, "backbone_config": {}}, {"backbone_model_name": hf_cfg["backbone_model_name"],
                                                             "vocab_size": 100}):
         jax_family, want = jax_backbone_config_from_hf(cfg)
@@ -223,7 +288,8 @@ def test_backbone_config_equals_jax_field_by_field(tmp_path, family):
         assert got == want
 
 
-@pytest.mark.parametrize("name", ["OliBomby/nwhisper-base", "UsefulSensors/moonshine-tiny", "google/t5-v1_1-small"])
+@pytest.mark.parametrize("name", ["OliBomby/nwhisper-base", "UsefulSensors/moonshine-tiny",
+                                  "UsefulSensors/moonshine-base"])
 def test_unported_families_raise(tmp_path, name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
         _backbone_config_from_hf({"backbone_model_name": name, "vocab_size": 100})
@@ -293,7 +359,7 @@ def test_load_checkpoint_dispatches_on_the_directory(tmp_path):
     legacy.mkdir()
     (legacy / "custom_checkpoint_0.pkl").write_bytes(b"")
     (legacy / "pytorch_model.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=r"item 16 \(b\)"):
+    with pytest.raises(ValueError, match=r"models\.legacy\.load_legacy_checkpoint\(dir, train_args\)"):
         load_checkpoint(legacy)
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError, match="no recognizable checkpoint"):

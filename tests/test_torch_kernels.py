@@ -8,7 +8,8 @@ Attention is checked on both routes: the fp32 kernels (split-TF32 products, agai
 versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
 the bf16 pair (D 64), and the fp32 forward as the DiT calls it (the band
 as ``window`` 256, a key mask over a bucket's padding) and one DiT-B block
-through it; qmm on both of its paths (its GEMV path also for
+through it, and both routes unscaled (``sm_scale`` 1.0) at T5-base's cross
+attention; qmm on both of its paths (also at T5-base's products) (its GEMV path also for
 bit-equal repeats and a refused launch); the fused mel against both its
 plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
 on the frame layouts it takes and refuses. CUDA graphs: the GEMV captured
@@ -679,6 +680,58 @@ def test_qmm_kernel_at_the_v28_shapes(cuda, dtype, rows, k, n):
     the tensor cores also against the plain version that rounds as they do."""
     wq, scale = quantized(k, n, cuda)
     x = torch.randn((rows, k), generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    tc = rows > GEMV_ROWS
+    before = qmm.launches_gemv, qmm.launches_tc
+    got = qmm(x, wq, scale)
+    assert (qmm.launches_gemv, qmm.launches_tc) == (before[0] + (not tc), before[1] + tc)
+    want = qmm_plain(x, wq, scale)
+    scale_out = max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=QMM_TOL[dtype] * scale_out)
+    if tc:
+        torch.testing.assert_close(got.float(), qmm_plain_tf32x2(x, wq, scale).float(), rtol=0,
+                                   atol=QMM_TC_TOL[dtype] * scale_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s", [(512, 2048), (512, 512)], ids=["v32-window", "train-window"])
+def test_unscaled_forward_at_t5_cross_attention(cuda, dtype, t, s):
+    """Kernel B as T5-base's cross attention calls it: sm_scale 1.0, B 1, H
+    12, D 64, T a teacher-forced pass's 512 tokens over S encoder frames (a
+    -cn v32 window, 2 048; the training config's, 512), q, k and v projected
+    from unit-RMS states by weights drawn as HF initialises T5's (q from
+    N(0, (768 * 64)^-0.5), k and v from N(0, 768^-0.5)), so the logits have
+    a T5 model's size: both routes against both of their plain versions at
+    scale 1.0, one launch each."""
+    gen = torch.Generator().manual_seed(7)
+    x, enc = torch.randn((1, t, 768), generator=gen), torch.randn((1, s, 768), generator=gen)
+    wq = torch.randn((768, 768), generator=gen) * (768 * 64) ** -0.5
+    wk, wv = (torch.randn((768, 768), generator=gen) * 768**-0.5 for _ in range(2))
+    q = (x @ wq).view(1, t, 12, 64).to(cuda, dtype)
+    k, v = ((enc @ w).view(1, s, 12, 64).to(cuda, dtype) for w in (wk, wv))
+    before = launches()
+    got = flash_attention(q, k, v, None, sm_scale=1.0)
+    assert launches() == added(before, route_step(dtype))
+    faithful = attention_plain_fp32_tc if dtype == torch.float32 else attention_plain_bf16_tc
+    for plain in (attention_plain, faithful):
+        torch.testing.assert_close(got.float(), plain(q, k, v, None, sm_scale=1.0).float(), rtol=0,
+                                   atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [
+    # T5-base (d 768, 12 heads of 64, gated ffn 2 048): a decode step's qkv, out / cross q, fc1 / fc1_gate
+    # and fc2, and out with CFG, on the GEMV path; a 512-frame window's qkv, out, fc1 / fc1_gate, fc2 and
+    # init_cache's cross k/v, and a prefill's qkv, on the tensor cores
+    (1, 768, 2304), (1, 768, 768), (1, 768, 2048), (1, 2048, 768), (2, 768, 768),
+    (512, 768, 2304), (512, 768, 768), (512, 768, 2048), (512, 2048, 768), (512, 768, 1536), (64, 768, 2304),
+])
+def test_qmm_kernel_at_the_t5_base_shapes(cuda, dtype, rows, k, n):
+    """Kernel D at T5-base's products, both paths against qmm_plain, the
+    tensor cores also against the plain version that rounds as they do."""
+    wq, scale = quantized(k, n, cuda)
+    x = torch.randn((rows, k), generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
     tc = rows > GEMV_ROWS
     before = qmm.launches_gemv, qmm.launches_tc
     got = qmm(x, wq, scale)

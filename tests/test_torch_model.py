@@ -151,7 +151,7 @@ def test_cached_decode_logits_match_jax(tiny, layout, max_len):
 
 def test_unported_families_raise(tiny):
     _, _, _, tmodel, _ = tiny
-    for change in ({"position_scheme": "t5_relpos"}, {"norm_scheme": "ngpt"}, {"stem_type": "moonshine"}):
+    for change in ({"decoder_ffn_gated_concat": True}, {"norm_scheme": "ngpt"}, {"stem_type": "moonshine"}):
         cfg = dataclasses.replace(tmodel.cfg, backbone=dataclasses.replace(tmodel.cfg.backbone, **change))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Mapperatorinator(cfg)

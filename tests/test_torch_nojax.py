@@ -9,8 +9,8 @@ where no card is visible, then, on the CPU by name, builds a tiny
 v32-architecture model with seeded random weights, runs ``load_model`` /
 ``generate`` to a written .osu file, loads the tiny checkpoint (written by the
 JAX package) with int8 weights and KV cache and decodes a few steps from it,
-loads a published (HF-format) v28 checkpoint from its ``model.safetensors``
-and decodes from it,
+loads published (HF-format) v28 and T5 v1.1 checkpoints from their
+``model.safetensors`` and decodes from each,
 runs one step of ``train.main`` on a small ORS dataset, and one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
 quantized, and writes a tiny DiT bundle, loads it with
@@ -23,9 +23,11 @@ The drift guard holds each copied file (``osu/``, ``native/``,
 ``torch.cat``) to its source: equal but for imports and the module
 docstring, and, where named below, the lines that point the copy at the
 port's own build or engine; and each copied definition of
-``models/lora.py``, ``infer/server.py``, ``mai_mod.py`` (the top-level
-script's) and the host code of ``infer/diffusion_pipeline.py`` (methods of
-its pipeline class too) to the JAX one, imports inside it aside.
+``models/lora.py``, ``models/legacy.py`` (its module map pointed at the
+port's ``osu/events.py``), ``infer/server.py``, ``mai_mod.py`` (the
+top-level script's) and the host code of ``infer/diffusion_pipeline.py``
+(methods of its pipeline class too) to the JAX one, imports inside it
+aside.
 """
 
 import ast
@@ -38,7 +40,7 @@ import pytest
 
 from mapperatorinator_tpu.osu.beatmap import Beatmap
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
-from tests.test_torch_convert import write_hf_checkpoint
+from tests.test_torch_convert import FAMILY_OVERRIDES, write_hf_checkpoint
 from tests.test_torch_data import TINY_MODEL, data_overrides, write_ors
 
 SCRIPT = textwrap.dedent("""
@@ -119,8 +121,19 @@ SCRIPT = textwrap.dedent("""
                                    build_logits_pipeline(hvocab, do_sample=False), [hvocab.eos_id], max_length=9)
     assert tokens.shape == (1, 9) and end > 1
 
+    # a published T5 v1.1 checkpoint (relative positions, no conv stem) under -cn v32
+    args = load_config("v32", [f"model_path={sys.argv[7]}", "device=cpu", "train.data.src_seq_len=256",
+                               "train.data.tgt_seq_len=128", "quantized_weights=true"])
+    tengine, tvocab = inference.load_model(args)
+    assert tengine.model.cfg.backbone.position_scheme == "t5_relpos"
+    enc = tengine.encode_with_cond(np.zeros((1, 255 * 128), np.float32))
+    assert enc.shape == (1, 256, 32)
+    tokens, end = tengine.generate(enc, np.full((1, 1), tvocab.sos_id, np.int32),
+                                   build_logits_pipeline(tvocab, do_sample=False), [tvocab.eos_id], max_length=9)
+    assert tokens.shape == (1, 9) and end > 1
+
     split = sys.argv.index("--")
-    state = train_main.main(sys.argv[7:split], log_dir=sys.argv[4])
+    state = train_main.main(sys.argv[8:split], log_dir=sys.argv[4])
     assert state.step == 1
 
     # a LoRA fine-tune of the checkpoint, its adapter merged at load and quantized
@@ -161,6 +174,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
     ors = write_ors(tmp_path / "ors", tracks=2, seconds=4.0, maps=1)
     ckpt = make_tiny_checkpoint(tmp_path / "tiny", d_model=128, heads=4, ffn=256)
     hf, _, _ = write_hf_checkpoint(tmp_path / "hf", "v28")
+    t5, _, _ = write_hf_checkpoint(tmp_path / "t5", "v32", overrides=FAMILY_OVERRIDES["t5"])
     train_argv = ["-cn", "v32", "device=cpu", "mixed_precision=no", f"checkpoint_path={tmp_path / 'ckpt'}",
                   *data_overrides(ors, src=128, tgt=192), *TINY_MODEL, "optim.batch_size=2", "optim.grad_acc=1",
                   "optim.total_steps=1", "dataloader.num_workers=0", "dataloader.balancer_buffer_size=0",
@@ -171,7 +185,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
                  "dataloader.balancer_buffer_size=0", "logging.log_with=none", "eval.every_steps=0"]
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), str(ckpt),
-         str(hf), *train_argv, "--", *lora_argv],
+         str(hf), str(t5), *train_argv, "--", *lora_argv],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         # the GPU machine sets JAX_PLATFORMS, which makes the JAX package's
         # __init__ import jax
@@ -260,6 +274,8 @@ COPIED_DEFINITIONS = [
       "resolve_compatible_lora_path")),
     ("infer/server.py", "mapperatorinator_tpu/infer/server.py",
      ("RETRY_SIGNAL", "InferenceServer", "InferenceClient")),
+    ("models/legacy.py", "mapperatorinator_tpu/models/legacy.py",
+     ("_MODULE_MAPPING", "RoutedUnpickler", "_normalize_tokenizer_state", "is_legacy_checkpoint")),
     ("infer/diffusion_pipeline.py", "mapperatorinator_tpu/infer/diffusion_pipeline.py",
      ("repeat_type", "DiffusionSlider", "PLAYFIELD", "_bucket_len", "DiffusionPipeline.get_class_vector",
       "DiffusionPipeline.EVENT_INDEX", "DiffusionPipeline.NC_TYPES", "DiffusionPipeline.events_to_sequence",
@@ -272,8 +288,12 @@ COPIED_DEFINITIONS = [
       "select_config_for_gamemode", "run_analysis", "main")),
 ]
 # (copy, name) -> [(source text, the copy's text)]: the port's MaiMod reads its own resolved configs; the
-# diffusion pipeline embeds the context's times with the port's timestep embedding
+# diffusion pipeline embeds the context's times with the port's timestep embedding; the legacy module map
+# routes the reference's paths to the port's events
 DEFINITION_REPLACED = {
+    ("models/legacy.py", "_MODULE_MAPPING"): [
+        ('"mapperatorinator_tpu.osu.events",\n', '"mapperatorinator_tpu_torch.osu.events",\n'),
+    ],
     ("infer/diffusion_pipeline.py", "DiffusionPipeline.events_to_sequence"): [
         ("                np.asarray(timestep_embedding(jnp.asarray(seq_o * 0.1), 128)),\n"
          "                np.asarray(timestep_embedding(jnp.asarray(seq_d), 128)),\n",
