@@ -127,7 +127,30 @@
    (A and D; its teacher-forced logits through D held); B unscaled at the
    cross attention's own q, k and v on both routes against both plain
    versions and float64, A at 388 mels and D at T5-base's products, each
-   with its own kernels-line entry.
+   with its own kernels-line entry. Then the last two families, each
+   written by the script as a published ``model.safetensors`` whose load
+   must equal the converter's map, served under ``-cn v32`` on the 4 s
+   song: NWhisper-base (``ngpt_phase``, nGPT: normalised weights, slerp
+   residuals, every attention call on B at ``sm_scale`` 1.0), (a) its
+   defaults (sampled), the first window's encoder states and teacher-forced
+   logits through B held against the plain path, one graphed decode step
+   profiled, (b) greedy with int8 weights and KV asked, which must leave no
+   ``QDense`` (every nGPT site stays a ``NormDense``) and an int8 cache; B
+   unscaled at the model's own normalised q, k, v of its encoder window on
+   both routes as T5's (its own kernels-line entry). Moonshine-tiny
+   (``moonshine_phase``: raw samples into a conv stem, 681 encoder
+   positions a window, heads of 36), (a) greedy fp32, its first window's
+   encoder states through B held, (b) greedy with int8 weights and KV, D's
+   tensor cores at the encoder's fc1, the first window encoded and
+   teacher-forced through D held against ``qmm_plain``; then B at D 36 and
+   52 and C at D 36 (a key mask, and causal with a key mask), which the
+   kernels take zero-padded (to 40 / 56 on the fp32 route, 64 on the sm90
+   one), held on the unpadded inputs against both plain versions of each
+   route and timed through ``flash_attention`` (the copies included) beside
+   the kernel on inputs padded beforehand, the copies alone, the plain
+   version, SDPA and the bound on the real D: B's rows in its own
+   kernels-line entry, C's in the C entries' ``shapes`` (no main path
+   trains a moonshine backbone).
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -298,6 +321,19 @@ DIT_TOL = 1e-4  # a DiT forward and a p_sample step through kernel B against the
 T5_AUDIO_SECONDS = 4.0
 T5_LEGACY_TRAIN = ("model.spectrogram.implementation=pallas",)
 T5_LEGACY_SERVE = ("train.data.src_seq_len=512", "train.data.tgt_seq_len=384")
+# the last two backbone families, served under -cn v32 from published checkpoints the script writes, on the same
+# 4 s song: NWhisper-base (nGPT) and moonshine-tiny, each with its model preset's settings
+# (configs/model/nwhisper_base.yaml, moonshine_tiny.yaml: a tied head)
+FAMILY_AUDIO_SECONDS = 4.0
+FAMILY_MODELS = {
+    "nwhisper": ("train.model.name=OliBomby/nwhisper-base", "train.model.embed_decoder_input=false",
+                 "train.model.project_encoder_input=true"),
+    "moonshine": ("train.model.name=UsefulSensors/moonshine-tiny", "train.model.input_raw_wave=true",
+                  "train.model.project_encoder_input=false", "train.model.overwrite.tie_word_embeddings=true"),
+}
+# moonshine's head dims (tiny, base), which the kernels take padded; the encoder window of a v32 window
+MOONSHINE_HEAD_DIMS = (36, 52)
+MOONSHINE_WINDOW = 681
 REFERENCE_EVENTS = "osuT5.osuT5.event"
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "safetensors", "transformers",
            "mapperatorinator_tpu")
@@ -1082,6 +1118,7 @@ def fmt_bytes(n: int | None) -> str:
 # (d_model, encoder layers, decoder layers, heads, ffn) of the whisper sizes, and of T5 v1.1-base
 WHISPER_SMALL, WHISPER_BASE = (768, 12, 12, 12, 3072), (512, 6, 6, 8, 2048)
 T5_BASE = (768, 12, 12, 12, 2048)
+NWHISPER_BASE, MOONSHINE_TINY = (512, 6, 6, 8, 2048), (288, 6, 6, 8, 1152)
 
 
 def check_full_width(model, widths=WHISPER_SMALL) -> None:
@@ -1226,10 +1263,13 @@ def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, 
           f"{graphs['capture_s']:.2f} s (pool {fmt_bytes(graphs['pool_bytes'])} at {engine.max_length} slots), "
           f"launches {launches}")
 
-    if check_encoder:  # a conv stem halves the frames
+    if check_encoder:  # a whisper stem halves the frames; moonshine's takes the window's samples
+        from mapperatorinator_tpu_torch.models.transformer import moonshine_stem_length
+
         stride = 2 if engine.model.cfg.backbone.conv_stem else 1
-        result["encoder_check"] = check_encoder_states(label, engine, first["frames"], first["cond"],
-                                                       args.train.data.src_seq_len // stride)
+        positions = (moonshine_stem_length(first["frames"].shape[1]) if engine.model.cfg.input_raw_wave
+                     else args.train.data.src_seq_len // stride)
+        result["encoder_check"] = check_encoder_states(label, engine, first["frames"], first["cond"], positions)
     if after is not None:
         result.update(after(engine, args, vocab, first))
     report["requests"].append(result)
@@ -2057,12 +2097,15 @@ def write_t5_checkpoints(directory: Path, seed: int):
     return hf, legacy, train, record
 
 
-def t5_cross_attention(q, k, v, report: dict) -> dict:
-    """Kernel B as T5's cross attention calls it, unscaled (``sm_scale``
-    1.0), on the q, k and v that request (a)'s model computed in its first
-    decoder layer (so at a T5 model's own activations: logits of std ~1, and
-    values as large as the encoder states make them): each route against
-    both its plain versions. An attention output's rounding error grows with
+def unscaled_attention(q, k, v, report: dict, key: str = "t5_cross_attention",
+                       label: str = "T5-base cross attention", name: str = "flash_attention_fwd_t5_cross",
+                       source: str = "T5-base's cross attention, request (a)'s model") -> dict:
+    """Kernel B as an unscaled call (``sm_scale`` 1.0) meets it, on the q, k
+    and v that a request's model computed (T5's cross attention in its
+    first decoder layer, at a T5 model's own activations: logits of std ~1,
+    and values as large as the encoder states make them; nGPT's first
+    encoder self-attention, q and k normalised and scaled): each route
+    against both its plain versions. An attention output's rounding error grows with
     its values and the keys it sums over, so each route's tolerance is its
     bar (2e-5 fp32, 2e-2 bf16) or three times the distance of its
     rounding-faithful plain version from a float64 evaluation on the same
@@ -2103,7 +2146,7 @@ def t5_cross_attention(q, k, v, report: dict) -> dict:
                    "library": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=1.0)})
     shape = f"B{B} T{T} S{S} H{H} D{D} fp32 sm_scale 1.0"
     f32, b16 = routes["fp32"], routes["sm90"]
-    print(f"flash_attention_fwd T5-base cross attention {shape} (the model's q, k, v: logits std "
+    print(f"flash_attention_fwd {label} {shape} (the model's q, k, v: logits std "
           f"{logits.std().item():.3f}, max |logit| {logits.abs().max().item():.2f}, max |out| "
           f"{f32['max_abs_out']:.2f}): fp32 route max_abs_err {f32['max_abs_err']['tc']:.3e} against the plain "
           f"version that splits as it does, {f32['max_abs_err']['fp32']:.3e} against the fp32 one (tol "
@@ -2112,22 +2155,22 @@ def t5_cross_attention(q, k, v, report: dict) -> dict:
           f"and {b16['max_abs_err']['fp32']:.3e} (tol {b16['tol']:.3e}); from float64: kernel "
           f"{b16['fp64']['kernel']:.3e}, plain {b16['fp64']['plain']:.3e}, rounding plain "
           f"{b16['fp64']['plain_rounded']:.3e}")
-    print(f"flash_attention_fwd T5-base cross attention {shape}: kernel {t_['kernel']:.4f} ms, plain "
+    print(f"flash_attention_fwd {label} {shape}: kernel {t_['kernel']:.4f} ms, plain "
           f"{t_['plain']:.4f} ms, scaled_dot_product_attention(scale=1.0) {t_['library']:.4f} ms "
           f"({t_['kernel'] / t_['library']:.2f}x); bound {bounds['bound_ms']:.4f} ms (three TF32 products "
           f"{bounds['tf32x3_ms']:.4f}, fp32 FMAs {bounds['fma_ms']:.4f}, bytes {bounds['bytes_ms']:.4f})")
     check = {"shape": shape, "routes": routes, "logits_std": logits.std().item(),
              "logits_max_abs": logits.abs().max().item()}
-    report["t5_cross_attention"] = check
+    report[key] = check
     if not all(e <= r["tol"] for r in routes.values() for e in (*r["max_abs_err"].values(), r["fp64"]["kernel"])):
-        raise AssertionError(f"kernel B at T5's unscaled cross attention disagrees with its plain versions: {check}")
-    return {"name": "flash_attention_fwd_t5_cross", "route": "cuda",
+        raise AssertionError(f"kernel B at the unscaled {label} disagrees with its plain versions: {check}")
+    return {"name": name, "route": "cuda",
             "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:88",
             "max_abs_err": max(f32["max_abs_err"].values()), "tol": f32["tol"], "ms": t_["kernel"],
             "plain_ms": t_["plain"], "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"],
             "library_ms": t_["library"], "bounds": bounds, "fp64": f32["fp64"], "sm90": b16,
-            "timed_shape": f"{shape} (T5-base's cross attention, request (a)'s model)"}
+            "timed_shape": f"{shape} ({source})"}
 
 
 def t5_kernels(report: dict) -> list[dict]:
@@ -2177,7 +2220,7 @@ def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
       its first window's encoder states and one teacher-forced logits pass
       (B at sm_scale 1.0 in every decoder layer's cross attention) held
       against the plain path, the first cross call's q, k and v kept for
-      :func:`t5_cross_attention`;
+      :func:`unscaled_attention`;
     * MaiMod on request (a)'s .osu (or a dense map) with that checkpoint:
       its teacher-forced analysis is where T5's cross attention takes B (a
       decode reads the cross k/v from the cache through plain attention, in
@@ -2194,7 +2237,6 @@ def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
     launches and the kernels-line entries of B, A and D at T5's shapes."""
     from mapperatorinator_tpu_torch import inference, mai_mod
     from mapperatorinator_tpu_torch.config import load_config
-    from mapperatorinator_tpu_torch.models import transformer
     from mapperatorinator_tpu_torch.models.io import load_checkpoint
     from mapperatorinator_tpu_torch.models.legacy import load_legacy_checkpoint
 
@@ -2220,27 +2262,11 @@ def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
     def teacher_forced(engine, args, vocab, first) -> dict:
         enc = engine.encode_with_cond(window0(args))
         seq = first["tokens"][:1, :min(int(first["end"]), 512)]
-        flash = transformer.flash_attention
-
-        def capture(q, k, v, *a, **kw):
-            captured.setdefault("qkv", (q.clone(), k.clone(), v.clone()))
-            return flash(q, k, v, *a, **kw)
-
-        transformer.flash_attention = capture
-        try:
-            with_kernel = engine.forward(enc, seq)
-        finally:
-            transformer.flash_attention = flash
-        set_flash(engine.model, False)
-        plain = engine.forward(enc, seq)
-        set_flash(engine.model, True)
-        err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
-        print(f"request t5-a, window 0: teacher-forced logits {with_kernel.shape} through kernel B (cross attention, "
-              f"sm_scale 1.0) vs plain attention: max_abs_err {err:.3e} (tol {tol:.3e} = {ENC_TOL:g} x the largest "
-              f"|logit|)")
-        if "qkv" not in captured or not (np.isfinite(with_kernel).all() and err <= tol):
-            raise AssertionError(f"request t5-a: teacher-forced logits through B disagree: {err} above {tol}")
-        return {"teacher_forced_check": {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol}}
+        with capture_first_flash(captured):  # B at sm_scale 1.0 in every decoder layer's cross attention
+            check = check_teacher_forced("t5-a", engine, enc, seq)
+        if "qkv" not in captured:
+            raise AssertionError("request t5-a: the teacher-forced pass launched no kernel B")
+        return {"teacher_forced_check": check}
 
     first = serve("t5-a-hf", tmp, wav, [f"model_path={hf}", "super_timing=false"], report, check_encoder=True,
                   after=teacher_forced, widths=T5_BASE)
@@ -2264,7 +2290,7 @@ def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
     if maimod["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 or second["qmm"] == 0 or second["qmm_tc"] == 0:
         raise AssertionError(f"the T5 phase launched {first}, {maimod} and {second}: B in MaiMod's analysis, A and "
                              "D's two paths in request (b)")
-    entries = [t5_cross_attention(*captured["qkv"], report), *t5_kernels(report)]
+    entries = [unscaled_attention(*captured["qkv"], report), *t5_kernels(report)]
     launches = {"flash_attention_fwd_t5_cross": first["flash_attention_fwd"] + maimod["flash_attention_fwd"]
                 + second["flash_attention_fwd"], "fused_mel_t5": second["fused_mel"],
                 "qmm_t5_base": second["qmm"], "qmm_tc_t5_base": second["qmm_tc"]}
@@ -2274,6 +2300,430 @@ def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
     report["t5"] = record
     print(f"T5 phase: {record['phase_s']:.1f} s, launches {launches}")
     return {k: first.get(k, 0) + maimod.get(k, 0) + second.get(k, 0) for k in first}, entries
+
+
+def write_family_checkpoint(directory: Path, family: str, seed: int) -> tuple[dict, dict]:
+    """A published (HF-format) checkpoint of ``-cn v32``'s model with
+    ``FAMILY_MODELS[family]``'s settings at full width, seeded random
+    weights in the reference's layout, through :func:`write_safetensors`:
+    NWhisper-base (``NWhisperForConditionalGeneration``: each projection a
+    ``NormLinear`` at ``.linear.weight``, the slerps' ``branch_scale``,
+    ``qk_scale``, ``alpha_positions`` and ``logit_scale`` drawn near their
+    inits, the encoder's learned position rows) or moonshine-tiny (HF
+    ``MoonshineForConditionalGeneration``: the raw-wave stem, bias-free
+    attention and LayerNorms, the gated decoder fc1, a tied head). Returns
+    (the state dict written, the record)."""
+    from mapperatorinator_tpu_torch.config import load_config
+    from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+
+    t0 = time.perf_counter()
+    args = load_config("v32", FAMILY_MODELS[family])
+    vocab = build_vocabulary(args.train)
+    cfg = build_config(args.train, vocab)
+    b = cfg.backbone
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, sd, t = b.d_model, {}, "transformer.model"
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).cpu()
+
+    def linear(key, out, inp, bias=True, weight="weight"):
+        sd[f"{key}.{weight}"] = rand(out, inp, std=inp**-0.5)
+        if bias:
+            sd[f"{key}.bias"] = rand(out, std=0.02)
+
+    if family == "nwhisper":
+        def scale(key, n, at):
+            sd[f"{key}.scale"] = rand(n, std=0.1 * at, mean=at)
+
+        for conv, inp in (("conv1", d), ("conv2", d)):  # the projected input is d_model wide
+            sd[f"{t}.encoder.{conv}.weight"] = rand(d, inp, 3, std=(3 * inp) ** -0.5)
+            sd[f"{t}.encoder.{conv}.bias"] = rand(d, std=0.02)
+        sd[f"{t}.encoder.embed_positions.weight"] = rand(b.max_source_positions, d)
+        sd[f"{t}.decoder.embed_positions.weight"] = rand(b.max_target_positions, d)
+        sd[f"{t}.decoder.embed_tokens.embedding.weight"] = rand(cfg.vocab_size_in, d)
+        for side, n, ffn in (("encoder", b.encoder_layers, b.encoder_ffn),
+                             ("decoder", b.decoder_layers, b.decoder_ffn)):
+            scale(f"{t}.{side}.alpha_positions", d, d**-0.5)
+            for i in range(n):
+                p = f"{t}.{side}.layers.{i}"
+                for res in ("self_attn_with_residual", "encoder_attn_with_residual") if side == "decoder" \
+                        else ("attn_with_residual",):
+                    for proj in ("q", "k", "v", "out"):
+                        linear(f"{p}.{res}.fn.{proj}_proj.linear", d, d, bias=proj != "k")  # k has no bias
+                    scale(f"{p}.{res}.fn.qk_scale", d, 1 / d)
+                    scale(f"{p}.{res}.branch_scale", d, d**-0.5)
+                linear(f"{p}.ff_with_residual.fn.fc1.linear", ffn, d, bias=False)
+                linear(f"{p}.ff_with_residual.fn.fc2.linear", d, ffn, bias=False)
+                scale(f"{p}.ff_with_residual.branch_scale", d, d**-0.5)
+        linear("transformer.proj_out.linear", cfg.vocab_size_out, d, bias=False)
+        scale("transformer.logit_scale", cfg.vocab_size_out, d**-0.5)
+        linear("encoder_embedder", d, cfg.n_mels + cfg.cond_size)
+        backbone = {"d_model": d, "encoder_layers": b.encoder_layers, "decoder_layers": b.decoder_layers,
+                    "encoder_attention_heads": b.encoder_heads, "decoder_attention_heads": b.decoder_heads,
+                    "encoder_ffn_dim": b.encoder_ffn, "decoder_ffn_dim": b.decoder_ffn,
+                    "max_source_positions": b.max_source_positions, "max_target_positions": b.max_target_positions,
+                    "num_mel_bins": d, "tie_word_embeddings": False, "input_vocab_size": cfg.vocab_size_in}
+        extra = {}
+    else:
+        def ln(key):
+            sd[f"{key}.weight"] = rand(d, std=0.02, mean=1.0)
+
+        sd[f"{t}.encoder.conv1.weight"] = rand(d, 1, 127, std=127**-0.5)
+        sd[f"{t}.encoder.groupnorm.weight"], sd[f"{t}.encoder.groupnorm.bias"] = rand(d, std=0.02, mean=1.0), \
+            rand(d, std=0.02)
+        for conv, out, inp, k in (("conv2", 2 * d, d, 7), ("conv3", d, 2 * d, 3)):
+            sd[f"{t}.encoder.{conv}.weight"] = rand(out, inp, k, std=(k * inp) ** -0.5)
+            sd[f"{t}.encoder.{conv}.bias"] = rand(out, std=0.02)
+        ln(f"{t}.encoder.layer_norm")
+        ln(f"{t}.decoder.norm")
+        sd[f"{t}.decoder.embed_tokens.weight"] = rand(cfg.vocab_size_out, d)
+        for side, n in (("encoder", b.encoder_layers), ("decoder", b.decoder_layers)):
+            for i in range(n):
+                p = f"{t}.{side}.layers.{i}"
+                for attn in ("self_attn", "encoder_attn") if side == "decoder" else ("self_attn",):
+                    for proj in "qkvo":
+                        linear(f"{p}.{attn}.{proj}_proj", d, d, bias=False)
+                for name in ("input_layernorm", "post_attention_layernorm", "final_layernorm")[:3 if side == "decoder"
+                                                                                              else 2]:
+                    ln(f"{p}.{name}")
+                linear(f"{p}.mlp.fc1", 2 * b.decoder_ffn if side == "decoder" else b.encoder_ffn, d)
+                linear(f"{p}.mlp.fc2", d, b.decoder_ffn if side == "decoder" else b.encoder_ffn)
+        backbone = {"hidden_size": d, "encoder_num_hidden_layers": b.encoder_layers,
+                    "decoder_num_hidden_layers": b.decoder_layers, "encoder_num_attention_heads": b.encoder_heads,
+                    "decoder_num_attention_heads": b.decoder_heads, "intermediate_size": b.encoder_ffn,
+                    "max_position_embeddings": b.max_target_positions, "rope_theta": b.rope_global_theta,
+                    "partial_rotary_factor": b.rope_partial_factor, "attention_bias": False,
+                    "decoder_hidden_act": "silu", "tie_word_embeddings": True}
+        extra = {"max_source_positions": b.max_source_positions}
+    sd["decoder_embedder.weight"] = rand(cfg.vocab_size_in, d)
+    hf_cfg = {"backbone_model_name": args.train.model.name, "vocab_size": cfg.vocab_size_out, "backbone_config": backbone,
+              **extra, **{k: getattr(cfg, k) for k in (
+                  "vocab_size_in", "num_classes", "num_mappers", "input_features", "input_raw_wave",
+                  "project_encoder_input", "embed_decoder_input", "do_style_embed", "cond_dim", "cond_size",
+                  "spectrogram_log_scale", "sample_rate", "n_fft", "n_mels", "hop_length", "f_min", "f_max",
+                  "pad_mode", "rhythm_token_start", "rhythm_token_end", "max_target_positions")}}
+    directory.mkdir(parents=True)
+    (directory / "config.json").write_text(json.dumps(hf_cfg))
+    vocab.save_pretrained(directory)
+    write_safetensors(directory / "model.safetensors", sd)
+    record = {"backbone": args.train.model.name, "tensors": len(sd), "parameters": sum(x.numel() for x in sd.values()),
+              "bytes": (directory / "model.safetensors").stat().st_size, "write_s": time.perf_counter() - t0}
+    print(f"{family}: seeded {args.train.model.name} weights ({record['parameters'] / 1e6:.1f} M parameters, "
+          f"{len(sd)} tensors) written as a published checkpoint ({record['bytes'] / 2**20:.1f} MiB "
+          f"model.safetensors) in {record['write_s']:.2f} s")
+    return sd, record
+
+
+def load_family_checkpoint(directory: Path, family: str, sd: dict, record: dict) -> None:
+    """``load_checkpoint`` of the directory: its parameters must equal the
+    converter's map of the state dict the script drew (the file's round
+    trip and the loader's dispatch), and its backbone must be the family's."""
+    from mapperatorinator_tpu_torch.models.convert import config_from_hf, convert_mapperatorinator_state_dict
+    from mapperatorinator_tpu_torch.models.io import load_checkpoint
+
+    t0 = time.perf_counter()
+    model, _ = load_checkpoint(directory)
+    record["load_s"] = time.perf_counter() - t0
+    got = model.state_dict()
+    _, cfg = config_from_hf(json.loads((directory / "config.json").read_text()))
+    want = convert_mapperatorinator_state_dict({k: v.float() for k, v in sd.items()}, cfg, family)
+    equal = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in got)
+    b = model.cfg.backbone
+    print(f"{family}: the published checkpoint loaded in {record['load_s']:.2f} s; {len(got)} parameters, equal to "
+          f"the converter's: {equal}; norm_scheme {b.norm_scheme}, stem {b.stem_type}, head dim {b.head_dim}")
+    if not equal or (b.norm_scheme == "ngpt") != (family == "nwhisper") or \
+            (b.stem_type == "moonshine") != (family == "moonshine"):
+        raise AssertionError(f"{family}: the loaded checkpoint is not the one written: {sorted(set(got) ^ set(want))[:5]}")
+
+
+def capture_first_flash(captured: dict):
+    """A context in which the first ``flash_attention`` call's q, k and v are
+    kept in ``captured["qkv"]``."""
+    from mapperatorinator_tpu_torch.models import transformer
+
+    @contextlib.contextmanager
+    def ctx():
+        flash = transformer.flash_attention
+
+        def capture(q, k, v, *a, **kw):
+            captured.setdefault("qkv", (q.clone(), k.clone(), v.clone()))
+            return flash(q, k, v, *a, **kw)
+
+        transformer.flash_attention = capture
+        try:
+            yield
+        finally:
+            transformer.flash_attention = flash
+
+    return ctx()
+
+
+def check_teacher_forced(label: str, engine, enc, seq) -> dict:
+    """Teacher-forced logits of ``seq`` through kernel B against the plain
+    attention path, within ENC_TOL times the largest |logit|."""
+    with_kernel = engine.forward(enc, seq)
+    set_flash(engine.model, False)
+    plain = engine.forward(enc, seq)
+    set_flash(engine.model, True)
+    err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
+    print(f"request {label}, window 0: teacher-forced logits {with_kernel.shape} through kernel B vs plain "
+          f"attention: max_abs_err {err:.3e} (tol {tol:.3e} = {ENC_TOL:g} x the largest |logit|)")
+    if not (np.isfinite(with_kernel).all() and err <= tol):
+        raise AssertionError(f"request {label}: teacher-forced logits through B disagree: {err} above {tol}")
+    return {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol}
+
+
+def ngpt_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
+    """The nGPT family at full width: NWhisper-base (d_model 512, 6 + 6
+    layers, 8 heads of 64, ffn 2 048, 1 024 source and 2 560 target
+    positions) from a published ``model.safetensors`` the script writes
+    (:func:`write_family_checkpoint`), whose load must equal the converter's
+    map; on a ``FAMILY_AUDIO_SECONDS`` song under ``-cn v32``:
+
+    * request (a): the v32 defaults (sampled) with ``super_timing=false``,
+      fp32; its first window's encoder states through B held against the
+      plain path, the first encoder self-attention's q, k and v (normalised,
+      scaled by ``qk_scale``) kept, one teacher-forced logits pass (B at
+      ``sm_scale`` 1.0 in every self and cross call) held against the plain
+      path, and one graphed decode step profiled (``profile_decode``);
+    * request (b): greedy with int8 weights and KV asked for: the model must
+      hold no ``QDense`` (every nGPT projection is a ``NormDense``, as in the
+      JAX package) and its KV cache must be int8.
+
+    Then B at that encoder window (B 1, T = S = 1 024, H 8, D 64, sm_scale
+    1.0, the model's own q, k, v) on both routes (:func:`unscaled_attention`).
+    Returns the launches and B's kernels-line entry."""
+    from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline, get_eos_token_ids
+    from mapperatorinator_tpu_torch.models.transformer import QDense
+
+    started = time.perf_counter()
+    wav = write_wav(tmp / "ngpt.wav", FAMILY_AUDIO_SECONDS, seed=11)
+    directory = tmp / "nwhisper-hf"
+    sd, record = write_family_checkpoint(directory, "nwhisper", seed=11)
+    load_family_checkpoint(directory, "nwhisper", sd, record)
+    del sd
+    captured = {}
+
+    def checks_a(engine, args, vocab, first) -> dict:
+        with capture_first_flash(captured):
+            enc = engine.encode_with_cond(window0(args))
+        seq = first["tokens"][:1, :min(int(first["end"]), 512)]
+        out = {"teacher_forced_check": check_teacher_forced("ngpt-a", engine, enc, seq)}
+        out["decode_profile"] = profile_decode(engine, enc, first["ids"][:1], build_logits_pipeline(
+            vocab, do_sample=False), get_eos_token_ids(vocab), int8=False, steps=16)["graphs"]
+        st = out["decode_profile"]
+        print(f"request ngpt-a: a graphed greedy decode step {st['host_ms_per_step']:.3f} ms of host time over "
+              f"{st['device_ms_per_step']:.3f} ms of device kernels (idle {st['idle_share']:.3f}), "
+              f"{st['kernels_per_step']:.0f} kernels a step")
+        return out
+
+    def checks_b(engine, args, vocab, first) -> dict:
+        n_qdense = sum(isinstance(m, QDense) for m in engine.model.modules())
+        with torch.inference_mode():
+            cache = engine.model.init_cache(1, 8, engine.encode_with_cond(window0(args)))
+        print(f"request ngpt-b: {n_qdense} QDense modules with int8 weights asked; KV cache {cache[0]['self']['k'].dtype}")
+        if n_qdense or cache[0]["self"]["k"].dtype != torch.int8:
+            raise AssertionError(f"request ngpt-b: {n_qdense} QDense (want 0: nGPT has no QDense site), "
+                                 f"KV {cache[0]['self']['k'].dtype}")
+        return {"qdense": n_qdense}
+
+    first = serve("ngpt-a", tmp, wav, [f"model_path={directory}", "super_timing=false"], report, check_encoder=True,
+                  after=checks_a, widths=NWHISPER_BASE)
+    second = serve("ngpt-b-int8", tmp, wav, [f"model_path={directory}", "super_timing=false", "do_sample=false",
+                                              "quantized_weights=true", "quantized_kv=true"],
+                   report, check_encoder=False, after=checks_b, widths=NWHISPER_BASE)
+    if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["qmm"] or second["qmm_tc"]:
+        raise AssertionError(f"the nGPT requests launched {first} and {second}: B in both, no D")
+    entry = unscaled_attention(*captured["qkv"], report, key="ngpt_attention",
+                               label="NWhisper-base encoder self-attention", name="flash_attention_fwd_ngpt",
+                               source="NWhisper-base's encoder window, request (a)'s model")
+    entry["launches"] = first["flash_attention_fwd"] + second["flash_attention_fwd"]
+    record["phase_s"] = time.perf_counter() - started
+    report["ngpt"] = record
+    print(f"nGPT phase: {record['phase_s']:.1f} s, B launches {entry['launches']}")
+    return {k: first.get(k, 0) + second.get(k, 0) for k in first}, [entry]
+
+
+def padded_attention(report: dict) -> tuple[dict, dict]:
+    """Kernels B and C at moonshine's head dims, which they take zero-padded
+    (``flash_attention``: to 40 / 56 on the fp32 route, 64 on the sm90
+    route), each result held on the unpadded inputs against the plain
+    versions that round as its route does and the fp32 ones: B at an encoder
+    window (B 1, T = S = 681, H 8) at D 36 and D 52, C at D 36 with a key
+    mask and causal with a key mask, on both routes. The fp32 route is timed
+    through ``flash_attention`` (the padding copies included), beside the
+    kernel alone on inputs padded beforehand, the copies alone, the plain
+    version and SDPA at the unpadded D, and the bound of three TF32 products
+    on the real D; the sm90 route likewise beside its bound. Returns B's
+    kernels-line entry (launches filled in by the caller) and C's rows."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (
+        attention_backward_plain, attention_backward_plain_bf16_tc, attention_backward_plain_fp32_tc,
+        attention_plain, attention_plain_bf16_tc, attention_plain_fp32_tc, attention_route, flash_attention,
+        flash_attention_bwd, flash_attention_fwd, head_dim_width, pad_head_dim)
+
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    B, T, H = 1, MOONSHINE_WINDOW, 8
+    faithful = {torch.float32: (attention_plain_fp32_tc, attention_backward_plain_fp32_tc),
+                torch.bfloat16: (attention_plain_bf16_tc, attention_backward_plain_bf16_tc)}
+    fwd_rows, bwd_rows = [], []
+    for D in MOONSHINE_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            route = attention_route(dtype, D)
+            width = head_dim_width(route, D)
+            q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype) for _ in range(3))
+            out = flash_attention(q, k, v)
+            err, tol = {}, {}
+            for name, ref in (("tc", faithful[dtype][0]), ("fp32", attention_plain)):
+                want = ref(q, k, v).float()
+                err[name] = (out.float() - want).abs().max().item()
+                tol[name] = ATTN_TOL[dtype] * max(1.0, want.abs().max().item())
+            qp, kp, vp = (pad_head_dim(x, width) for x in (q, k, v))
+            qs, ks, vs = sdpa_layout(q, k, v)
+            t_ = in_turns({"plain": lambda: faithful[dtype][0](q, k, v) if dtype == torch.bfloat16
+                           else attention_plain(q, k, v),
+                           "kernel": lambda: flash_attention(q, k, v),
+                           "kernel_prepadded": lambda: flash_attention_fwd(qp, kp, vp, None, False, 0, D**-0.5),
+                           "padding": lambda: [pad_head_dim(x, width) for x in (q, k, v)],
+                           "library": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+            flops, nbytes = 4.0 * B * H * T * T * D, q.element_size() * 4 * B * T * H * D  # q, k, v in; out
+            bounds = fp32_bounds(flops, nbytes) if dtype == torch.float32 else dict(zip(
+                ("bound_ms", "bound_by"), bound(flops, nbytes, dtype)))
+            row = {"shape": f"B{B} T{T} S{T} H{H} D{D} {str(dtype).split('.')[-1]}", "route": route, "width": width,
+                   "max_abs_err": err, "tol": tol, "ms": t_["kernel"], "kernel_prepadded_ms": t_["kernel_prepadded"],
+                   "padding_ms": t_["padding"], "plain_ms": t_["plain"], "library_ms": t_["library"], **bounds}
+            fwd_rows.append(row)
+            print(f"flash_attention_fwd {route} moonshine {row['shape']} (padded to D {width}): max_abs_err "
+                  f"{err['tc']:.3e} against the plain version that rounds as the route does, {err['fp32']:.3e} "
+                  f"against the fp32 one (tol {tol['tc']:.3e}); flash_attention {row['ms']:.4f} ms (the kernel on "
+                  f"inputs padded beforehand {row['kernel_prepadded_ms']:.4f} ms, the three padding copies "
+                  f"{row['padding_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                  f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            if not all(err[n] <= tol[n] for n in err):
+                raise AssertionError(f"kernel B at D {D} ({route}, padded to {width}) disagrees: {err} above {tol}")
+            del q, k, v, qp, kp, vp, qs, ks, vs, out
+
+    D = MOONSHINE_HEAD_DIMS[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        route = attention_route(dtype, D)
+        width = head_dim_width(route, D)
+        for label, causal in (("key mask", False), ("causal + key mask", True)):
+            q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype) for _ in range(4))
+            lengths = torch.randint(int(0.75 * T), T + 1, (B, 1), generator=gen, device="cuda")
+            mask = torch.arange(T, device="cuda")[None] < lengths
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            grads = torch.autograd.grad(flash_attention(*leaves, mask, causal=causal), leaves, do)
+            err, tol = {}, {}
+            for name, ref in (("tc", faithful[dtype][1]), ("fp32", attention_backward_plain)):
+                want = ref(q, k, v, mask, do, causal=causal)
+                err[name] = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+                tol[name] = ATTN_TOL[dtype] * max(1.0, max(w.float().abs().max().item() for w in want))
+            row = {"shape": f"B{B} T{T} S{T} H{H} D{D} {str(dtype).split('.')[-1]} {label}", "route": route,
+                   "width": width, "max_abs_err": err, "tol": tol}
+            if not causal:  # timed: the backward alone, dO's padding copy included
+                qp, kp, vp = (pad_head_dim(x, width) for x in (q, k, v))
+                out, lse = flash_attention_fwd(qp, kp, vp, mask, False, 0, D**-0.5, with_lse=True)
+                qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
+                sdpa_mask = mask[:, None, None, :]
+                sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+                do_s = do.transpose(1, 2).contiguous()
+                t_ = in_turns({
+                    "plain": lambda: faithful[dtype][1](q, k, v, mask, do) if dtype == torch.bfloat16
+                    else attention_backward_plain(q, k, v, mask, do),
+                    "kernel": lambda: [g[..., :D] for g in flash_attention_bwd(
+                        qp, kp, vp, mask, out, lse, pad_head_dim(do, width), False, 0, D**-0.5)],
+                    "library": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True)})
+                el = B * T * H * D
+                pairs = H * attended_pairs(B, T, T, False, mask)
+                flops, nbytes = 10.0 * pairs * D, q.element_size() * 8 * el + 4 * B * H * T  # q, k, v, O, dO in; 3 out
+                bounds = fp32_bounds(flops, nbytes) if dtype == torch.float32 else dict(zip(
+                    ("bound_ms", "bound_by"), bound(flops, nbytes, dtype)))
+                row.update({"ms": t_["kernel"], "plain_ms": t_["plain"], "library_ms": t_["library"], **bounds})
+                del qp, kp, vp, out, lse, qs, ks, vs, sdpa_out
+            bwd_rows.append(row)
+            timing = (f"; flash_attention_bwd {row['ms']:.4f} ms (dO padded in the call), plain {row['plain_ms']:.4f} "
+                      f"ms, SDPA's backward {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})") if "ms" in row else ""
+            print(f"flash_attention_bwd {route} moonshine {row['shape']} (padded to D {width}): max_abs_err "
+                  f"{err['tc']:.3e} / {err['fp32']:.3e} (tol {tol['tc']:.3e} / {tol['fp32']:.3e}){timing}")
+            if not all(err[n] <= tol[n] for n in err):
+                raise AssertionError(f"kernel C at D {D} ({route}, padded to {width}) disagrees: {err} above {tol}")
+            del q, k, v, do, grads, leaves
+    torch.cuda.empty_cache()
+    report["moonshine_attention"] = {"fwd": fwd_rows, "bwd": bwd_rows}
+    timed = fwd_rows[0]
+    entry = {"name": "flash_attention_fwd_moonshine", "route": "cuda",
+             "source": "mapperatorinator_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "mapperatorinator_tpu/ops/attention_kernel.py:88",
+             "max_abs_err": max(e for r in fwd_rows if r["route"] == "fp32" for e in r["max_abs_err"].values()),
+             "tol": "2e-5 x max(1, max |reference output|)", "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
+             "timed_shape": f"{timed['shape']} (moonshine-tiny's encoder window, zero-padded to D {timed['width']} "
+                            "in the timed call)", "shapes": fwd_rows}
+    return entry, bwd_rows
+
+
+def moonshine_phase(tmp: Path, report: dict) -> tuple[dict, list[dict], list[dict]]:
+    """The moonshine family at full width: moonshine-tiny (d_model 288, 6 + 6
+    layers, 8 heads of 36, ffn 1 152, a tied head; a v32 window's 262 144
+    samples -> 681 encoder positions) from a published ``model.safetensors``
+    the script writes, whose load must equal the converter's map; on a
+    ``FAMILY_AUDIO_SECONDS`` song under ``-cn v32``:
+
+    * request (a): greedy, fp32, ``super_timing=false``: B padded at D 36 in
+      every encoder self and cross call; its first window's encoder states
+      through B held against the plain path;
+    * request (b): greedy with int8 weights and KV: D's tensor-core path at
+      the encoder's fc1 (681 rows, K 288, N 1 152; the other moonshine
+      shapes miss the qmm gate, as in the JAX package), its first window
+      encoded and teacher-forced through D held against ``qmm_plain``.
+
+    Then B and C at the head dims (:func:`padded_attention`). Returns the
+    launches, B's kernels-line entry and C's rows."""
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
+
+    started = time.perf_counter()
+    wav = write_wav(tmp / "moonshine.wav", FAMILY_AUDIO_SECONDS, seed=12)
+    directory = tmp / "moonshine-hf"
+    sd, record = write_family_checkpoint(directory, "moonshine", seed=12)
+    load_family_checkpoint(directory, "moonshine", sd, record)
+    del sd
+
+    def checks_b(engine, args, vocab, first) -> dict:
+        frames = window0(args)
+        seq = first["tokens"][:1, :min(int(first["end"]), 512)]
+        before = qmm.launches_tc
+        with_kernel = engine.forward(engine.encode_with_cond(frames), seq)
+        launched = qmm.launches_tc - before
+        set_qmm(engine.model, False)
+        plain = engine.forward(engine.encode_with_cond(frames), seq)
+        set_qmm(engine.model, True)
+        err, tol = float(np.abs(with_kernel - plain).max()), ENC_TOL * float(np.abs(plain).max())
+        print(f"request moonshine-b, window 0: encoded and teacher-forced through kernel D ({launched} tensor-core "
+              f"launches, the encoder's fc1) vs qmm_plain: logits {with_kernel.shape} max_abs_err {err:.3e} (tol "
+              f"{tol:.3e})")
+        if launched != engine.model.cfg.backbone.encoder_layers or not (np.isfinite(with_kernel).all() and err <= tol):
+            raise AssertionError(f"request moonshine-b: D at the encoder's fc1 launched {launched} times, or its "
+                                 f"logits disagree with qmm_plain: {err} above {tol}")
+        return {"qmm_logits_check": {"shape": list(with_kernel.shape), "max_abs_err": err, "tol": tol,
+                                     "tc_launches": launched}}
+
+    first = serve("moonshine-a", tmp, wav, [f"model_path={directory}", "super_timing=false", "do_sample=false"],
+                  report, check_encoder=True, widths=MOONSHINE_TINY)
+    second = serve("moonshine-b-int8", tmp, wav, [f"model_path={directory}", "super_timing=false", "do_sample=false",
+                                                  "quantized_weights=true", "quantized_kv=true"],
+                   report, check_encoder=False, after=checks_b, widths=MOONSHINE_TINY)
+    if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["qmm_tc"] == 0:
+        raise AssertionError(f"the moonshine requests launched {first} and {second}: B in both, D's tensor cores in "
+                             "request (b)'s")
+    entry, bwd_rows = padded_attention(report)
+    entry["launches"] = first["flash_attention_fwd"] + second["flash_attention_fwd"]
+    record["phase_s"] = time.perf_counter() - started
+    report["moonshine"] = record
+    print(f"moonshine phase: {record['phase_s']:.1f} s, B launches {entry['launches']}, D (tensor cores) "
+          f"{second['qmm_tc']}")
+    return {k: first.get(k, 0) + second.get(k, 0) for k in first}, [entry], bwd_rows
 
 
 def dense_dit_map(path: Path) -> Path:
@@ -3392,13 +3842,21 @@ def main() -> int:
         dit, dit_rows = dit_phase(tmp, wav, report)
         whisper, whisper_entries = whisper_phase(tmp, report)
         t5, t5_entries = t5_phase(tmp, report)
+        ngpt, ngpt_entries = ngpt_phase(tmp, report)
+        moonshine, moonshine_entries, moonshine_bwd_rows = moonshine_phase(tmp, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
     # kernel B's entry gains the DiT's shapes and their errors
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
     fwd["shapes"] += dit_rows
     fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows for e in row["max_abs_err"].values()))
-    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, whisper, t5, lora_served)
+    # kernel C's entries gain moonshine's head dim (a card check: no main path trains a moonshine backbone)
+    for entry in kernels:
+        if entry["name"] in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
+            route = "fp32" if entry["name"] == "flash_attention_bwd" else "sm90"
+            entry.setdefault("shapes", []).extend(row for row in moonshine_bwd_rows if row["route"] == route)
+    serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, whisper, t5, ngpt, moonshine,
+                     lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
@@ -3411,6 +3869,8 @@ def main() -> int:
                                   "DiT refinement (the dense song and a v32 request)": dit,
                                   "whisper_abs (a v29 and an int8 v28 request)": whisper,
                                   "T5 (a published checkpoint's request and MaiMod, an int8 legacy one)": t5,
+                                  "nGPT (NWhisper-base: a fp32 and an int8-KV request)": ngpt,
+                                  "moonshine (moonshine-tiny: a fp32 and an int8 request)": moonshine,
                                   "LoRA serving (two requests)": lora_served,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,
@@ -3421,8 +3881,9 @@ def main() -> int:
             entry["gradient_check_launches"] = checked[entry["name"]]
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never launched on the paths it serves: {report['launches_by_path']}")
-    # B and D at the whisper shapes, and B, A and D at T5's: their launches are those phases'
-    kernels += whisper_entries + t5_entries
+    # B and D at the whisper shapes, B, A and D at T5's, B at nGPT's and moonshine's: their launches are those
+    # phases'
+    kernels += whisper_entries + t5_entries + ngpt_entries + moonshine_entries
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
     if loaded:

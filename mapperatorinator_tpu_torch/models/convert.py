@@ -17,6 +17,19 @@ between:
   ``DenseReluDense.wi_0`` / ``wi_1`` / ``wo`` (the gate ``wi_1`` is the
   port's ``fc1_gate``; a v1.0 ``wi`` is ``fc1``), RMSNorm, and one
   ``relative_attention_bias`` a stack, read from block 0.
+* NWhisper (``NWhisperForConditionalGeneration``, nGPT): each projection a
+  ``NormLinear`` whose weight is stored at ``.linear.weight`` or, under a
+  torch parametrization, ``.linear.parametrizations.weight.original`` (the
+  raw weight: the port normalises it on each forward, as the reference
+  does), split ``q_proj`` / ``k_proj`` / ``v_proj`` / ``out_proj`` kept
+  split, the residual slerps' ``*_with_residual.branch_scale.scale``,
+  ``qk_scale``, ``alpha_positions``, ``logit_scale`` and the encoder's
+  learned ``embed_positions``;
+* moonshine (HF ``MoonshineForConditionalGeneration``): the raw-wave stem
+  (``conv1`` without bias, ``groupnorm``, ``conv2``, ``conv3``), split
+  ``q_proj`` / ``k_proj`` / ``v_proj`` / ``o_proj`` with no biases, fused,
+  bias-free LayerNorms (``input_layernorm``, ``post_attention_layernorm``,
+  ``final_layernorm``) and ``mlp.fc1`` / ``fc2``.
 
 An ``nn.Linear`` weight is (out, in) in both, so the split projections are
 concatenated along the output rows into the port's fused ``wqkv`` (q, k, v)
@@ -24,7 +37,7 @@ and ``wkv`` (k, v); ``k_proj`` has no bias, so its slot of the fused bias is
 0, which computes the same. The whisper encoder's frozen sinusoid table is
 dropped (the port computes it), and so is the HF decoder's token table where
 the port's decoder has none (a wrapper that embeds its own ids with an untied
-head). NWhisper and moonshine raise (ROADMAP queue 1, item 11).
+head).
 """
 
 from __future__ import annotations
@@ -38,9 +51,6 @@ import torch
 from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig
 from .safetensors import read_torch_weights
 from .transformer import TransformerConfig
-
-UNPORTED_FAMILIES = ("nwhisper", "moonshine")
-
 
 def backbone_family(backbone_model_name: str) -> str:
     """The reference's ``backbone_model_name`` -> converter family key."""
@@ -65,8 +75,6 @@ def _backbone_config_from_hf(hf_cfg: dict) -> tuple[str, TransformerConfig]:
     every default of the JAX ``_backbone_config_from_hf``."""
     name = hf_cfg.get("backbone_model_name", "OliBomby/varwhisper-small")
     family = backbone_family(name)
-    if family in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"backbone {name!r} ({family}): not ported yet (ROADMAP queue 1, item 11)")
     bc = dict(hf_cfg.get("backbone_config", {}) or {})
     if family == "t5":
         return family, TransformerConfig(
@@ -94,6 +102,32 @@ def _backbone_config_from_hf(hf_cfg: dict) -> tuple[str, TransformerConfig]:
             mlp_bias=False,
             conv_stem=False,
             tie_word_embeddings=bc.get("tie_word_embeddings", False),
+        )
+    if family == "moonshine":  # HF MoonshineConfig's names
+        return family, TransformerConfig(
+            vocab_size=hf_cfg.get("vocab_size", bc.get("vocab_size")),
+            d_model=bc.get("hidden_size", 288),
+            encoder_layers=bc.get("encoder_num_hidden_layers", 6),
+            decoder_layers=bc.get("decoder_num_hidden_layers", 6),
+            encoder_heads=bc.get("encoder_num_attention_heads", 8),
+            decoder_heads=bc.get("decoder_num_attention_heads", 8),
+            encoder_ffn=bc.get("intermediate_size", 1152),
+            decoder_ffn=bc.get("intermediate_size", 1152),
+            max_source_positions=hf_cfg.get("max_source_positions", 1024),
+            max_target_positions=bc.get("max_position_embeddings", 2048),
+            num_mel_bins=1,
+            position_scheme="rope",
+            rope_global_theta=bc.get("rope_theta", 10000.0),
+            rope_local_theta=bc.get("rope_theta", 10000.0),
+            rope_partial_factor=bc.get("partial_rotary_factor", 0.9),
+            norm="layer",
+            norm_bias=False,
+            attention_bias=bc.get("attention_bias", False),
+            decoder_activation=bc.get("decoder_hidden_act", "silu"),
+            decoder_ffn_gated_concat=True,
+            conv_stem=True,
+            stem_type="moonshine",
+            tie_word_embeddings=bc.get("tie_word_embeddings", True),
         )
     common = dict(
         vocab_size=hf_cfg.get("vocab_size", bc.get("vocab_size")),
@@ -129,6 +163,9 @@ def _backbone_config_from_hf(hf_cfg: dict) -> tuple[str, TransformerConfig]:
             rope_decoder_scaling_factor=bc.get("rope_decoder_scaling_factor", 1.0),
             **common,
         )
+    elif family == "nwhisper":
+        cfg = TransformerConfig(position_scheme="whisper_abs", norm="layer", norm_scheme="ngpt",
+                                input_vocab_size=bc.get("input_vocab_size"), **common)
     else:  # stock whisper
         cfg = TransformerConfig(position_scheme="whisper_abs", norm="layer", **common)
     return family, cfg
@@ -330,11 +367,115 @@ def convert_t5_state_dict(sd: dict, encoder_layers: int, decoder_layers: int,
     return out
 
 
+def _nkernel(sd: dict, prefix: str) -> torch.Tensor:
+    """A ``NormLinear``'s raw (out, in) weight, at ``.linear.weight`` or, under
+    a parametrization, ``.linear.parametrizations.weight.original``."""
+    for key in (f"{prefix}.linear.weight", f"{prefix}.linear.parametrizations.weight.original"):
+        if key in sd:
+            return sd[key]
+    raise KeyError(f"missing NormLinear weight at {prefix}")
+
+
+def _ngpt_attn(out: dict, sd: dict, theirs: str, ours: str) -> None:
+    """nGPT's ``q_proj`` / ``k_proj`` / ``v_proj`` / ``out_proj`` (biases on
+    q, v and out where the file has them) and ``qk_scale``."""
+    for proj, name in (("q_proj", "wq"), ("k_proj", "wk"), ("v_proj", "wv"), ("out_proj", "wo")):
+        out[f"{ours}.{name}.weight"] = _nkernel(sd, f"{theirs}.{proj}")
+        if proj != "k_proj" and f"{theirs}.{proj}.linear.bias" in sd:
+            out[f"{ours}.{name}.bias"] = sd[f"{theirs}.{proj}.linear.bias"]
+    out[f"{ours}.qk_scale.weight"] = sd[f"{theirs}.qk_scale.scale"]
+
+
+def _ngpt_block(out: dict, sd: dict, theirs: str, ours: str, branches: tuple) -> None:
+    """One nGPT layer: each ``(reference residual, port attention or None
+    for the feed-forward, port residual)`` of ``branches``."""
+    for residual, attn, ours_residual in branches:
+        fn = f"{theirs}.{residual}.fn"
+        if attn is None:
+            out[f"{ours}.ffn.fc1.weight"] = _nkernel(sd, f"{fn}.fc1")
+            out[f"{ours}.ffn.fc2.weight"] = _nkernel(sd, f"{fn}.fc2")
+        else:
+            _ngpt_attn(out, sd, fn, f"{ours}.{attn}")
+        out[f"{ours}.{ours_residual}.branch_scale.weight"] = sd[f"{theirs}.{residual}.branch_scale.scale"]
+
+
+def convert_nwhisper_state_dict(sd: dict, encoder_layers: int, decoder_layers: int,
+                                tied_head: bool) -> dict[str, torch.Tensor]:
+    """An NWhisperForConditionalGeneration state dict -> the port's
+    ``OsuTransformer`` state dict (the head is always the normalised
+    ``proj_out`` with its ``logit_scale``)."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {}
+    for conv in ("conv1", "conv2"):
+        _linear(out, sd, f"encoder.{conv}", f"encoder.{conv}")
+    out["encoder.embed_positions"] = sd["encoder.embed_positions.weight"]
+    for side in ("encoder", "decoder"):
+        out[f"{side}.alpha_positions.weight"] = sd[f"{side}.alpha_positions.scale"]
+    for i in range(encoder_layers):
+        _ngpt_block(out, sd, f"encoder.layers.{i}", f"encoder.layers.{i}",
+                    (("attn_with_residual", "self_attn", "attn_residual"), ("ff_with_residual", None, "ffn_residual")))
+    for key in ("decoder.embed_tokens.embedding.weight", "decoder.embed_tokens.embedding.parametrizations.weight.original"):
+        if key in sd:
+            out["decoder.embed_tokens.weight"] = sd[key]
+            break
+    out["decoder.embed_positions.weight"] = sd["decoder.embed_positions.weight"]
+    for i in range(decoder_layers):
+        _ngpt_block(out, sd, f"decoder.layers.{i}", f"decoder.layers.{i}",
+                    (("self_attn_with_residual", "self_attn", "attn_residual"),
+                     ("encoder_attn_with_residual", "cross_attn", "cross_residual"),
+                     ("ff_with_residual", None, "ffn_residual")))
+    out["proj_out.weight"] = _nkernel(sd, "proj_out")
+    out["logit_scale.weight"] = sd["logit_scale.scale"]
+    return out
+
+
+def _moonshine_attn(out: dict, sd: dict, theirs: str, ours: str, cross: bool) -> None:
+    """Moonshine's ``q_proj`` / ``k_proj`` / ``v_proj`` / ``o_proj`` (no
+    biases) -> the fused layout."""
+    q, k, v = (sd[f"{theirs}.{p}_proj.weight"] for p in "qkv")
+    out[f"{ours}.wo.weight"] = sd[f"{theirs}.o_proj.weight"]
+    if cross:
+        out[f"{ours}.wq.weight"] = q
+        out[f"{ours}.wkv.weight"] = torch.cat([k, v])
+    else:
+        out[f"{ours}.wqkv.weight"] = torch.cat([q, k, v])
+
+
+def convert_moonshine_state_dict(sd: dict, encoder_layers: int, decoder_layers: int,
+                                 tied_head: bool) -> dict[str, torch.Tensor]:
+    """An HF Moonshine state dict -> the port's ``OsuTransformer`` state dict
+    (the raw-wave stem, bias-free norms, the gated-concat decoder MLP)."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {"encoder.conv1.weight": sd["encoder.conv1.weight"]}
+    for name in ("groupnorm", "conv2", "conv3"):
+        _linear(out, sd, f"encoder.{name}", f"encoder.{name}")
+    out["encoder.norm.weight"] = sd["encoder.layer_norm.weight"]
+    out["decoder.norm.weight"] = sd["decoder.norm.weight"]
+    out["decoder.embed_tokens.weight"] = sd["decoder.embed_tokens.weight"]
+    for side, n in (("encoder", encoder_layers), ("decoder", decoder_layers)):
+        for i in range(n):
+            p = f"{side}.layers.{i}"
+            _moonshine_attn(out, sd, f"{p}.self_attn", f"{p}.self_attn", cross=False)
+            out[f"{p}.self_attn_norm.weight"] = sd[f"{p}.input_layernorm.weight"]
+            if side == "decoder":
+                _moonshine_attn(out, sd, f"{p}.encoder_attn", f"{p}.cross_attn", cross=True)
+                out[f"{p}.cross_attn_norm.weight"] = sd[f"{p}.post_attention_layernorm.weight"]
+                out[f"{p}.final_norm.weight"] = sd[f"{p}.final_layernorm.weight"]
+            else:
+                out[f"{p}.final_norm.weight"] = sd[f"{p}.post_attention_layernorm.weight"]
+            _ffn(out, sd, f"{p}.mlp", f"{p}.ffn")
+    if not tied_head and "proj_out.weight" in sd:
+        out["proj_out.weight"] = sd["proj_out.weight"]
+    return out
+
+
 _BACKBONE_CONVERTERS = {
     "varwhisper": convert_varwhisper_state_dict,
     "whisper": convert_whisper_state_dict,
     "ropewhisper": convert_ropewhisper_state_dict,
+    "nwhisper": convert_nwhisper_state_dict,
     "t5": convert_t5_state_dict,
+    "moonshine": convert_moonshine_state_dict,
 }
 
 
@@ -362,7 +503,8 @@ def convert_mapperatorinator_state_dict(sd: dict, config: MapperatorinatorConfig
     transformer_sd = {k.removeprefix("transformer."): v for k, v in sd.items() if k.startswith("transformer.")}
     backbone = _BACKBONE_CONVERTERS[family](transformer_sd, b.encoder_layers, b.decoder_layers,
                                             b.tie_word_embeddings)
-    if config.embed_decoder_input and not b.tie_word_embeddings:
+    tied = b.tie_word_embeddings and b.norm_scheme != "ngpt"  # an nGPT head is its own
+    if config.embed_decoder_input and not tied:
         backbone.pop("decoder.embed_tokens.weight", None)  # the port's decoder has no token table to fill
     out = {f"transformer.{k}": v for k, v in backbone.items()}
     if config.embed_decoder_input and "decoder_embedder.weight" in sd:

@@ -43,6 +43,12 @@ T5_DIMS = {
     "base": dict(d_model=768, layers=12, heads=12, ffn=2048, head_dim=64),
 }
 
+# HF UsefulSensors/moonshine-* (MoonshineConfig defaults)
+MOONSHINE_DIMS = {
+    "tiny": dict(d_model=288, layers=6, heads=8, ffn=1152),
+    "base": dict(d_model=416, layers=8, heads=8, ffn=1664),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class MapperatorinatorConfig:
@@ -96,34 +102,45 @@ def _t5_size(name: str) -> dict:
 
 def build_config(train_args, vocab) -> MapperatorinatorConfig:
     """A MapperatorinatorConfig from a training config and a Vocabulary, for
-    the backbones the port builds: RoPE + RMSNorm (VarWhisper, RoPEWhisper),
-    stock whisper (``openai/whisper-*``: absolute positions + LayerNorm) and
-    T5 v1.1 (``google/t5-v1_1-*``: relative positions, RMSNorm at eps 1e-6,
-    gated tanh-GELU, unscaled bias-free attention of 64-wide heads, no conv
-    stem), in the JAX ``build_config``'s dispatch order and with its
-    defaults."""
+    every backbone family of the JAX ``build_config``, in its dispatch order
+    and with its defaults: NWhisper (``OliBomby/nwhisper-*``: nGPT blocks,
+    the backbone embedding the decoder ids itself), T5 v1.1
+    (``google/t5-v1_1-*``: relative positions, RMSNorm at eps 1e-6, gated
+    tanh-GELU, unscaled bias-free attention of 64-wide heads, no conv
+    stem), RoPE + RMSNorm (VarWhisper, RoPEWhisper), moonshine
+    (``UsefulSensors/moonshine-*``: the raw-wave stem, partial rotation,
+    bias-free LayerNorms and attention, the gated SiLU decoder
+    feed-forward; an unknown size is tiny's) and stock whisper
+    (``openai/whisper-*``: absolute positions + LayerNorm). Another name
+    raises: the JAX package would build a VarWhisper of the name's size."""
     m = train_args.model
     name = m.name
-    t5, attention_bias = {}, m.attention_bias
+    family, attention_bias = {}, m.attention_bias
     if name.startswith(("OliBomby/nwhisper", "olibomby/nwhisper")):
-        raise NotImplementedError(f"backbone {name!r} (nwhisper): not ported yet (ROADMAP queue 1, item 11)")
-    if name.startswith("google/t5"):
+        dims = _size(WHISPER_DIMS, "whisper", name)
+        position_scheme, norm = "whisper_abs", "layer"
+        family = dict(norm_scheme="ngpt", input_vocab_size=vocab.vocab_size_in)
+    elif name.startswith("google/t5"):
         dims = _t5_size(name)
         position_scheme, norm = "t5_relpos", "rms"
         attention_bias = False
-        t5 = dict(head_dim_override=dims["head_dim"], attention_scale=False, ffn_gated=True, mlp_bias=False,
-                  conv_stem=False, norm_eps=1e-6, activation="gelu_tanh")
+        family = dict(head_dim_override=dims["head_dim"], attention_scale=False, ffn_gated=True, mlp_bias=False,
+                      conv_stem=False, norm_eps=1e-6, activation="gelu_tanh")
     elif name.startswith(("OliBomby/varwhisper", "Tiger14n/ropewhisper")):
         dims = _size(WHISPER_DIMS, "whisper", name)
         position_scheme, norm = "rope", "rms"
     elif name.startswith("UsefulSensors/moonshine"):
-        raise NotImplementedError(f"backbone {name!r} (moonshine): not ported yet (ROADMAP queue 1, item 11)")
+        dims = MOONSHINE_DIMS.get(name.rsplit("-", 1)[-1], MOONSHINE_DIMS["tiny"])
+        position_scheme, norm = "rope", "layer"
+        attention_bias = False
+        family = dict(norm_bias=False, stem_type="moonshine", rope_partial_factor=0.9, decoder_activation="silu",
+                      decoder_ffn_gated_concat=True)
     elif "whisper" in name:
         dims = _size(WHISPER_DIMS, "whisper", name)
         position_scheme, norm = "whisper_abs", "layer"
     else:
-        raise NotImplementedError(f"backbone {name!r}: the port builds VarWhisper, RoPEWhisper, stock whisper and "
-                                  "T5 v1.1 only (other families: ROADMAP queue 1, item 11)")
+        raise NotImplementedError(f"backbone {name!r}: the port builds NWhisper, T5 v1.1, VarWhisper, RoPEWhisper, "
+                                  "moonshine and stock whisper")
     overwrite = dict(m.overwrite or {})
     tie = overwrite.pop("tie_word_embeddings", True)
     dropout = overwrite.pop("dropout", 0.0)
@@ -158,7 +175,7 @@ def build_config(train_args, vocab) -> MapperatorinatorConfig:
         tie_word_embeddings=tie,
         pad_token_id=0,
         dtype=compute_dtype,
-        **t5,
+        **family,
     )
     rhythm_start, rhythm_end = vocab.event_type_range(EventType.TIME_SHIFT)
     return MapperatorinatorConfig(
@@ -281,9 +298,6 @@ FP32_MODULES = ("spectrogram", "style_embedder", "difficulty_embedder", "mapper_
 class Mapperatorinator(nn.Module):
     def __init__(self, cfg: MapperatorinatorConfig):
         super().__init__()
-        if cfg.input_raw_wave:
-            raise NotImplementedError("MapperatorinatorConfig.input_raw_wave: not ported yet "
-                                      "(ROADMAP queue 1, item 11)")
         self.cfg = cfg
         b = cfg.backbone
         self.spectrogram = MelSpectrogram(
@@ -327,8 +341,12 @@ class Mapperatorinator(nn.Module):
         conditions the config embeds: ``beatmap_idx`` (B,) style ids (missing:
         the "no style" row ``num_classes``), ``difficulty`` (B,) star ratings,
         ``mapper_idx`` (B,) mapper ids (-1: none) and ``song_position`` (B, 2)
-        the window's start and end as fractions of the song."""
+        the window's start and end as fractions of the song. Under
+        ``input_raw_wave`` (moonshine) the samples go to the backbone's stem
+        as one channel, with no mel and no conditions."""
         cfg = self.cfg
+        if cfg.input_raw_wave:
+            return self.transformer.encode(frames[..., None])
         mel = self.spectrogram(frames).to(cfg.backbone.dtype)
         conds = []
         if cfg.do_style_embed:
@@ -386,7 +404,7 @@ class Mapperatorinator(nn.Module):
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         if self.cfg.embed_decoder_input:
             return self.decoder_embedder(input_ids)
-        return self.transformer.decoder.embed_tokens(input_ids)
+        return self.transformer.decoder.embed(input_ids)
 
     def init_cache(self, batch: int, max_len: int, encoder_states: torch.Tensor) -> list:
         return self.transformer.init_cache(batch, max_len, encoder_states)

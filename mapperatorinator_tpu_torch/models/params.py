@@ -13,7 +13,12 @@ so the mapping is by rule:
 * a ``QDense`` keeps its leaves: ``kernel_q`` (in, out) int8 in the JAX
   layout, and ``scale``, which a ``kernel_q`` sibling marks as the int8
   kernel's and not an RMSNorm's;
-* ``bias`` stays ``bias``.
+* ``bias`` stays ``bias``;
+* nGPT's ``HyperScale`` leaves (``qk_scale/scale``,
+  ``*_residual/branch_scale/scale``, ``alpha_positions/scale``,
+  ``logit_scale/scale``) and moonshine's ``groupnorm/scale`` are a
+  ``weight`` too (the module names its flax leaf as ``flax_weight``), and
+  the nGPT encoder's bare ``embed_positions`` keeps its name.
 
 The fused ``wqkv`` / ``wkv`` projections stay fused: the port splits their
 output the way the JAX ``Attention`` does (``reshape(b, t, 3h, d)``, then
@@ -109,6 +114,8 @@ def flax_paths(model: nn.Module) -> dict[str, str]:
                 leaf = "kernel"
             elif isinstance(owner, nn.LayerNorm):  # the conditioning embedders' flax LayerNorm
                 leaf = "scale"
+            elif hasattr(owner, "flax_weight"):  # HyperScale, moonshine's GroupNorm
+                leaf = owner.flax_weight
         paths[name] = "/".join(["params", *scope, leaf]).replace("/layers/", "/layers_")
     return paths
 
@@ -165,13 +172,19 @@ def init_params(model: nn.Module, seed: int) -> None:
     """Seeded random weights, drawn on the model's device: lecun-normal
     matrices and conv kernels, unit-variance embeddings (the learned decoder
     position table too), zero biases (a LayerNorm's too), unit norm scales,
-    and an RBF embedder's basis as flax initialises it (centres evenly over
-    [0, 1], widths 0.1)."""
+    and what flax initialises as a constant as flax does: an RBF embedder's
+    basis (centres evenly over [0, 1], widths 0.1) and a parameter whose
+    module says (``flax_init``: nGPT's scales and the encoder's sinusoid
+    position rows)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(".basis_centers"):
+            *scope, leaf = name.split(".")
+            owner = model.get_submodule(".".join(scope))
+            if hasattr(owner, "flax_init"):
+                p.copy_(owner.flax_init(leaf))
+            elif name.endswith(".basis_centers"):
                 p.copy_(torch.linspace(0, 1, p.numel()))
             elif name.endswith(".basis_widths"):
                 p.fill_(0.1)
@@ -179,7 +192,7 @@ def init_params(model: nn.Module, seed: int) -> None:
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
-            elif isinstance(model.get_submodule(name.rsplit(".", 1)[0]), nn.Embedding):
+            elif isinstance(owner, nn.Embedding):
                 p.normal_(0.0, 1.0, generator=gen)
             else:
                 fan_in = p[0].numel()

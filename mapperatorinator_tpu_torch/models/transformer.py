@@ -1,7 +1,8 @@
-"""The seq2seq transformer (``models/transformer.py``): the whisper and T5
-families.
+"""The seq2seq transformer (``models/transformer.py``): the whisper, T5,
+nGPT and moonshine families.
 
-Three position schemes of the JAX ``TransformerConfig`` are ported. ``rope``
+Every position scheme and block structure of the JAX ``TransformerConfig``
+that a published backbone uses is ported. ``rope``
 (VarWhisper, v32; RoPEWhisper, v30 and v31): rotate-half RoPE in fp32 with
 the dynamic-NTK base, RMSNorm, alternating local/global self-attention.
 ``whisper_abs`` (stock whisper, v28 and v29): fixed sinusoids added after
@@ -15,26 +16,41 @@ conv stem, a learned relative-position bias per stack
 (:class:`RelativePositionBias`) added to every self-attention's logits,
 unscaled and bias-free attention of ``head_dim_override`` wide heads, and a
 gated tanh-GELU (or ReLU) feed-forward with no biases, RMSNorm at eps 1e-6.
-The other families (``ngpt``, moonshine) raise.
+``norm_scheme="ngpt"`` (NWhisper, ``OliBomby/nwhisper-*``): hidden states
+and weight rows on the unit sphere, every projection a :class:`NormDense`
+(its weight l2-normalised on each forward), separate ``wq`` / ``wk`` /
+``wv`` / ``wo``, q and k l2-normalised per head after the cache is read and
+scaled by a learned ``qk_scale`` (q by sqrt(D) too) with unscaled logits,
+slerp residuals (:class:`HyperResidual`) in place of norms, a learned
+encoder position table (``embed_positions``, a bare parameter) and the
+decoder's table each reached by a slerp, and a normalised head times a
+learned ``logit_scale``. Moonshine (``UsefulSensors/moonshine-*``): a
+raw-wave conv stem (conv 127 / 64 without bias, tanh, a one-group
+GroupNorm, conv 7 / 3 and conv 3 / 2 with GELUs), a partial GPT-J style
+rotation (:func:`apply_rope_interleaved_partial`) of ``rope_partial_factor``
+of each head, bias-free LayerNorms and attention, and a gated-concat SiLU
+decoder feed-forward that stays a plain ``Dense`` under int8.
 
 Dtypes follow the flax modules op by op rather than ``torch.autocast``: the
 projections and the conv stem compute in ``cfg.dtype`` whatever the dtype of
 their parameters (flax's ``dtype`` / ``param_dtype``: bf16 mixed-precision
-training keeps fp32 parameters), while RoPE, RMSNorm, LayerNorm (flax's
-statistics: ``E[x^2] - E[x]^2``, clipped at 0) and the softmax compute in
-fp32 and cast back.
+training keeps fp32 parameters), while RoPE, RMSNorm, LayerNorm, GroupNorm
+(flax's statistics: ``E[x^2] - E[x]^2``, clipped at 0), the nGPT
+normalisations and the softmax compute in fp32 and cast back.
 
 Attention follows the JAX routing. A call that is structurally eligible for
 the flash kernel (no cache, no position bias, at most a key-padding mask)
 goes to :func:`..ops.attention_kernel.flash_attention`, for every shape, at
-``sm_scale`` 1.0 where the config's attention is unscaled (T5's cross
-attention; the JAX package sends that call to its plain ``_attend`` only
+``sm_scale`` 1.0 where the attention is unscaled (T5's cross attention and
+every nGPT call; the JAX package sends those to its plain ``_attend``
 because its TPU gate refuses unscaled calls, and both compute the same
 function): the JAX package's ``flash_min_logits`` gate is a TPU v5e
-measurement and is not carried over. A call with a position bias (T5's
+measurement and is not carried over. ``banded_local_attention`` changes
+nothing: the JAX chunked band computes the band mask's function, which the
+kernel's ``window`` computes. A call with a position bias (T5's
 self-attention) is plain :func:`attend`. On a CUDA tensor a head width the
-kernels refuse raises at the call, as for every family; the config itself
-takes any ``head_dim_override``. Cached decode attention is plain PyTorch
+kernels refuse raises at the call, as for every family. Cached decode
+attention is plain PyTorch
 over a static prefix of the cache: the end of the ``decode_attend_bucket``
 bucket that holds the write slot, which the caller passes as ``limit``, so
 that a step indexed by a device tensor has static shapes and can be
@@ -45,9 +61,11 @@ passed in).
 The int8 options follow the JAX package too: ``quantized_weights`` makes
 every attention projection, feed-forward layer and untied LM head a
 :class:`QDense` (int8 kernel, fp32 per-column scale, routed through kernel D
-where the JAX gate admits the shape), and ``quantized_kv`` stores the cache as
+where the JAX gate admits the shape), but for nGPT's :class:`NormDense`
+sites and moonshine's gated decoder feed-forward, which stay as they are;
+``quantized_kv`` stores the cache as
 int8 with an fp32 scale per token and head, quantized after RoPE on write and
-dequantized in ``cfg.dtype`` on read.
+dequantized in ``cfg.dtype`` on read (nGPT caches its raw keys).
 """
 
 from __future__ import annotations
@@ -131,35 +149,31 @@ class TransformerConfig:
         return self.d_model // self.decoder_heads
 
 
-# (field, values the port supports, ROADMAP queue 1 item that ports the rest)
+# (field, the values the port builds): every value the JAX modules branch on
 _SUPPORTED = (
-    ("position_scheme", ("rope", "whisper_abs", "t5_relpos"), 11),
-    ("norm", ("rms", "layer"), 11),
-    ("norm_scheme", ("prenorm",), 11),
-    ("stem_type", ("whisper",), 11),
-    ("rope_partial_factor", (1.0,), 11),
-    ("activation", ("gelu", "gelu_tanh", "relu"), 11),
-    ("decoder_activation", (None,), 11),
-    ("decoder_ffn_gated_concat", (False,), 11),
-    ("scale_embedding", (False,), 11),
-    ("banded_local_attention", (False,), 11),
+    ("position_scheme", ("rope", "whisper_abs", "t5_relpos")),
+    ("norm", ("rms", "layer")),
+    ("norm_scheme", ("prenorm", "ngpt")),
+    ("stem_type", ("whisper", "moonshine")),
 )
 
 # the feed-forward activations: torch's exact-erf GELU, the tanh form (HF's
-# gelu_new, T5 v1.1's gated-gelu) and ReLU
-ACTIVATIONS = {"gelu": F.gelu, "gelu_tanh": functools.partial(F.gelu, approximate="tanh"), "relu": F.relu}
-
+# gelu_new, T5 v1.1's gated-gelu), ReLU and SiLU (moonshine's decoder)
+ACTIVATIONS = {"gelu": F.gelu, "gelu_tanh": functools.partial(F.gelu, approximate="tanh"), "relu": F.relu,
+               "silu": F.silu}
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """The port covers the whisper families with RoPE and RMSNorm (VarWhisper,
-    RoPEWhisper) and with absolute positions and LayerNorm (stock whisper),
-    and T5 v1.1 (relative positions); raise for the rest."""
-    for field, values, item in _SUPPORTED:
+    """Raise for a config the port cannot build: a value no JAX branch
+    takes, or an activation it does not know. A head dim the attention
+    kernels do not take builds; on a card its first kernel call raises."""
+    for field, values in _SUPPORTED:
         if getattr(cfg, field) not in values:
-            raise NotImplementedError(
-                f"TransformerConfig.{field}={getattr(cfg, field)!r}: the port supports only "
-                f"{' or '.join(map(repr, values))} so far (ROADMAP queue 1, item {item})"
-            )
+            raise NotImplementedError(f"TransformerConfig.{field}={getattr(cfg, field)!r}: the port builds "
+                                      f"{' or '.join(map(repr, values))}")
+    for field in ("activation", "decoder_activation"):
+        if getattr(cfg, field) not in (*ACTIVATIONS, None):
+            raise NotImplementedError(f"TransformerConfig.{field}={getattr(cfg, field)!r}: the port builds "
+                                      f"{' or '.join(map(repr, ACTIVATIONS))}")
 
 
 class Dense(nn.Linear):
@@ -305,10 +319,89 @@ class LayerNorm(nn.Module):
 
 
 def norm_layer(cfg: TransformerConfig) -> nn.Module:
-    """The JAX ``Norm`` for ``cfg.norm``."""
+    """The JAX ``Norm`` for ``cfg.norm``; the identity under nGPT, whose
+    hidden states are unit vectors already."""
+    if cfg.norm_scheme == "ngpt":
+        return nn.Identity()
     if cfg.norm == "rms":
         return RMSNorm(cfg.d_model, cfg.norm_eps)
     return LayerNorm(cfg.d_model, cfg.norm_eps, cfg.norm_bias)
+
+
+class GroupNorm(nn.Module):
+    """The flax ``nn.GroupNorm(num_groups=1)`` of moonshine's stem on a
+    (B, C, L) tensor: statistics over C and L in fp32 with the fast
+    variance clipped at 0, then ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` per channel, cast back."""
+
+    flax_weight = "scale"
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean((1, 2), keepdim=True)
+        var = ((xf * xf).mean((1, 2), keepdim=True) - mean * mean).clamp(min=0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()[:, None]) + self.bias.float()[:, None]
+        return y.to(x.dtype)
+
+
+def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """``x / max(||x||, eps)`` along ``dim``, the JAX ``l2norm``: a zero
+    vector stays 0."""
+    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=eps)
+
+
+class HyperScale(nn.Module):
+    """The JAX ``HyperScale``: a (dim,) parameter stored at ``scale`` and
+    multiplied by ``init / scale`` on each forward, in fp32."""
+
+    flax_weight = "scale"
+
+    def __init__(self, dim: int, init: float, scale: float):
+        super().__init__()
+        self.init_value, self.stored = init, scale
+        self.weight = nn.Parameter(torch.full((dim,), scale))
+
+    def flax_init(self, leaf: str) -> torch.Tensor:
+        """The value flax initialises ``leaf`` to."""
+        return torch.full_like(self.weight, self.stored)
+
+    def forward(self) -> torch.Tensor:
+        return self.weight.float() * (self.init_value / self.stored)
+
+
+class NormDense(Dense):
+    """The JAX ``NormDense``: a dense layer whose weight is l2-normalised on
+    every forward, in fp32, along its input axis (``norm_dim_in``) or else
+    its output axis. flax normalises axis 0 of its (in, out) kernel under
+    ``norm_dim_in``: axis 1 of the (out, in) weight here."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, compute_dtype: torch.dtype,
+                 norm_dim_in: bool = True):
+        super().__init__(in_features, out_features, bias, compute_dtype)
+        self.norm_dim_in = norm_dim_in
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        weight = l2norm(self.weight.float(), dim=1 if self.norm_dim_in else 0)
+        return F.linear(x.to(dt), weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
+class HyperResidual(nn.Module):
+    """The JAX ``HyperResidual``: ``l2norm(x + alpha (l2norm(branch) - x))``
+    with a learned per-dim rate ``alpha`` (``branch_scale``)."""
+
+    def __init__(self, dim: int, alpha_init: float):
+        super().__init__()
+        self.branch_scale = HyperScale(dim, alpha_init, dim**-0.5)
+
+    def forward(self, x: torch.Tensor, branch_out: torch.Tensor) -> torch.Tensor:
+        return l2norm(x + self.branch_scale() * (l2norm(branch_out) - x))
 
 
 def whisper_sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -386,6 +479,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def apply_rope_interleaved_partial(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                                   rotary_dim: int) -> torch.Tensor:
+    """Moonshine's rotation in fp32: the first ``rotary_dim`` dims of each
+    head rotate in pairs (x0, x1) -> (-x1, x0), GPT-J style, with each
+    frequency's cos and sin repeated for the two dims of its pair; the rest
+    pass through. x: (B, T, H, D); positions: (B, T)."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=x.device) / rotary_dim))
+    angles = positions[..., None].float() * inv_freq
+    cos = torch.repeat_interleave(torch.cos(angles), 2, dim=-1)[:, :, None, :]
+    sin = torch.repeat_interleave(torch.sin(angles), 2, dim=-1)[:, :, None, :]
+    xf = x.float()
+    x_rot, x_pass = xf[..., :rotary_dim], xf[..., rotary_dim:]
+    rot = torch.stack([-x_rot[..., 1::2], x_rot[..., 0::2]], dim=-1).reshape(x_rot.shape)
+    return torch.cat([x_rot * cos + rot * sin, x_pass], dim=-1).to(x.dtype)
+
+
 def dynamic_ntk_theta(theta: float, head_dim: int, seq_len: int, max_positions: int, factor: float) -> float:
     """HF dynamic-NTK base rescaling; identity while seq_len fits the trained range."""
     if seq_len <= max_positions or factor <= 0:
@@ -427,9 +536,10 @@ def attend(q, k, v, mask: Optional[torch.Tensor], dtype: torch.dtype, bias: Opti
 
 
 class Attention(nn.Module):
-    """Self or cross attention with RoPE (under ``position_scheme="rope"``) or
-    a position bias (``t5_relpos``), causal and sliding-window masks and a
-    preallocated cache for step-by-step decode."""
+    """Self or cross attention with RoPE (under ``position_scheme="rope"``,
+    moonshine's partial rotation where ``rope_partial_factor`` < 1) or a
+    position bias (``t5_relpos``), causal and sliding-window masks, nGPT's
+    normalised q and k, and a preallocated cache for step-by-step decode."""
 
     def __init__(self, cfg: TransformerConfig, num_heads: int, is_cross: bool = False,
                  is_causal: bool = False, is_decoder: bool = False, layer_idx: int = 0):
@@ -440,11 +550,19 @@ class Attention(nn.Module):
         self.is_causal = is_causal
         self.is_decoder = is_decoder
         self.is_local = layer_idx % cfg.global_attn_every_n_layers != 0
+        self.ngpt = cfg.norm_scheme == "ngpt"
         # attention calls that the flash kernel covers go to it; cleared, they
         # take the plain path (chip_smoke.py holds the two against each other)
         self.use_flash = cfg.use_flash_attention
         inner = num_heads * (cfg.head_dim_override or cfg.d_model // num_heads)
         bias, dt = cfg.attention_bias, cfg.dtype
+        if self.ngpt:  # q and v carry biases, k none; wo normalises along its output axis
+            self.wq = NormDense(cfg.d_model, inner, True, dt)
+            self.wk = NormDense(cfg.d_model, inner, False, dt)
+            self.wv = NormDense(cfg.d_model, inner, True, dt)
+            self.wo = NormDense(inner, cfg.d_model, True, dt, norm_dim_in=False)
+            self.qk_scale = HyperScale(inner, 1.0, cfg.d_model**-1)
+            return
         dense = QDense if cfg.quantized_weights else Dense
         if is_cross:
             self.wq = dense(cfg.d_model, inner, bias, dt)
@@ -456,6 +574,33 @@ class Attention(nn.Module):
     @property
     def rope_theta(self) -> float:
         return self.cfg.rope_local_theta if self.is_local else self.cfg.rope_global_theta
+
+    @property
+    def scaled(self) -> bool:
+        """Whether the logits are scaled by D^-0.5: not in T5, nor in nGPT,
+        whose q carries its own scale."""
+        return self.cfg.attention_scale and not self.ngpt
+
+    def kv(self, source: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The k and v heads (B, S, H, D) of ``source``, before any
+        normalisation: the cross cache's contents."""
+        b, s, _ = source.shape
+        h = self.num_heads
+        if self.ngpt:
+            return self.wk(source).view(b, s, h, -1), self.wv(source).view(b, s, h, -1)
+        kv = self.wkv(source).view(b, s, 2 * h, -1)
+        return kv[:, :, :h], kv[:, :, h:]
+
+    def _qk(self, q: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """nGPT: q and k l2-normalised per head in fp32 and scaled by the
+        learned ``qk_scale``, q by sqrt(D) too, then cast to the compute
+        dtype; q and k as they are otherwise."""
+        if not self.ngpt:
+            return q, k
+        d = q.shape[-1]
+        sqk = self.qk_scale().view(1, 1, self.num_heads, d)
+        dt = self.cfg.dtype
+        return (sqk * l2norm(q.float()) * d**0.5).to(dt), (sqk * l2norm(k.float())).to(dt)
 
     def forward(
         self,
@@ -481,24 +626,23 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         h = self.num_heads
-        scale = None if cfg.attention_scale else 1.0  # flash_attention's sm_scale
+        scale = None if self.scaled else 1.0  # flash_attention's sm_scale
 
         if self.is_cross:
             q = self.wq(x).view(b, t, h, -1)
-            if cache is not None:
-                k, v = _read_kv(cache, None, cfg.dtype)
-            else:
-                kv = self.wkv(kv_source)
-                kv = kv.view(b, kv.shape[1], 2 * h, -1)
-                k, v = kv[:, :, :h], kv[:, :, h:]
+            k, v = _read_kv(cache, None, cfg.dtype) if cache is not None else self.kv(kv_source)
+            q, k = self._qk(q, k)
             if cache is None and self.use_flash and _key_mask_only(attn_mask):
                 out = flash_attention(q, k, v, _key_mask(attn_mask), sm_scale=scale)
             else:
-                out = attend(q, k, v, attn_mask, cfg.dtype, scaled=cfg.attention_scale)
+                out = attend(q, k, v, attn_mask, cfg.dtype, scaled=self.scaled)
             return self.wo(out.reshape(b, t, -1)), cache
 
-        qkv = self.wqkv(x).view(b, t, 3 * h, -1)
-        q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+        if self.ngpt:
+            q, (k, v) = self.wq(x).view(b, t, h, -1), self.kv(x)
+        else:
+            qkv = self.wqkv(x).view(b, t, 3 * h, -1)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
         if positions is None:
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
         if cfg.position_scheme == "rope":
@@ -508,8 +652,13 @@ class Attention(nn.Module):
                 max_pos = cfg.max_target_positions if self.is_decoder else cfg.max_source_positions
                 factor = cfg.rope_decoder_scaling_factor if self.is_decoder else cfg.rope_encoder_scaling_factor
                 theta = dynamic_ntk_theta(theta, cfg.head_dim, seq_len, max_pos, factor)
-            q = apply_rope(q, positions, theta)
-            k = apply_rope(k, positions, theta)
+            if cfg.rope_partial_factor < 1.0:
+                rotary_dim = int(cfg.head_dim * cfg.rope_partial_factor)
+                q = apply_rope_interleaved_partial(q, positions, theta, rotary_dim)
+                k = apply_rope_interleaved_partial(k, positions, theta, rotary_dim)
+            else:
+                q = apply_rope(q, positions, theta)
+                k = apply_rope(k, positions, theta)
 
         if cache is not None:
             # keys past the last written slot are causally masked for every
@@ -519,10 +668,11 @@ class Attention(nn.Module):
                 limit = cache_index + t
             for name, x_new in (("k", k), ("v", v)):
                 if "k_scale" in cache:
-                    x_new, scale = quantize_kv(x_new)
-                    cache[f"{name}_scale"].index_copy_(1, q_pos, scale)
+                    x_new, kv_scale = quantize_kv(x_new)
+                    cache[f"{name}_scale"].index_copy_(1, q_pos, kv_scale)
                 cache[name].index_copy_(1, q_pos, x_new.to(cache[name].dtype))
             k, v = _read_kv(cache, limit, cfg.dtype)
+            q, k = self._qk(q, k)  # the cache holds raw keys; an unwritten slot's 0 stays 0
             k_pos = torch.arange(limit, device=x.device)
             mask = k_pos[None, :] <= q_pos[:, None]
             if self.is_local:
@@ -530,8 +680,9 @@ class Attention(nn.Module):
             mask = mask[None, None]
             if attn_mask is not None:
                 mask = mask & attn_mask[..., :limit]
-            out = attend(q, k, v, mask, cfg.dtype, pos_bias, cfg.attention_scale)
+            out = attend(q, k, v, mask, cfg.dtype, pos_bias, self.scaled)
         elif pos_bias is None and self.use_flash and _key_mask_only(attn_mask):
+            q, k = self._qk(q, k)
             out = flash_attention(
                 q, k, v, _key_mask(attn_mask),
                 causal=self.is_causal,
@@ -539,6 +690,7 @@ class Attention(nn.Module):
                 sm_scale=scale,
             )
         else:
+            q, k = self._qk(q, k)
             pos = positions[0]
             mask = attn_mask
             if self.is_causal:
@@ -547,7 +699,7 @@ class Attention(nn.Module):
             if self.is_local:
                 band = sliding_window_mask(pos, pos, cfg.local_attention)[None, None]
                 mask = band if mask is None else mask & band
-            out = attend(q, k, v, mask, cfg.dtype, pos_bias, cfg.attention_scale)
+            out = attend(q, k, v, mask, cfg.dtype, pos_bias, self.scaled)
         return self.wo(out.reshape(b, t, -1)), cache
 
 
@@ -560,19 +712,35 @@ def _key_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 class FeedForward(nn.Module):
-    """``fc2(act(fc1(x)))``, or under ``ffn_gated`` (T5 v1.1)
-    ``fc2(act(fc1(x)) * fc1_gate(x))``: the JAX ``FeedForward``."""
+    """The JAX ``FeedForward``: ``fc2(act(fc1(x)))``; under ``ffn_gated``
+    (T5 v1.1) ``fc2(act(fc1(x)) * fc1_gate(x))``; in a decoder under
+    ``decoder_ffn_gated_concat`` (moonshine) one ``fc1`` of twice the width
+    split into (hidden, gate), ``fc2(act(gate) * hidden)``, plain ``Dense``
+    layers even under int8; under nGPT two :class:`NormDense` without
+    biases, ``fc2`` normalised along its output axis."""
 
-    def __init__(self, cfg: TransformerConfig, ffn_dim: int):
+    def __init__(self, cfg: TransformerConfig, ffn_dim: int, is_decoder: bool = False):
         super().__init__()
         dense = QDense if cfg.quantized_weights else Dense
-        self.act = ACTIVATIONS[cfg.activation]
+        self.act = ACTIVATIONS[(is_decoder and cfg.decoder_activation) or cfg.activation]
+        self.gated_concat = is_decoder and cfg.decoder_ffn_gated_concat
+        if self.gated_concat:
+            self.fc1 = Dense(cfg.d_model, 2 * ffn_dim, cfg.mlp_bias, cfg.dtype)
+            self.fc2 = Dense(ffn_dim, cfg.d_model, cfg.mlp_bias, cfg.dtype)
+            return
+        if cfg.norm_scheme == "ngpt":
+            self.fc1 = NormDense(cfg.d_model, ffn_dim, False, cfg.dtype)
+            self.fc2 = NormDense(ffn_dim, cfg.d_model, False, cfg.dtype, norm_dim_in=False)
+            return
         self.fc1 = dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
         if cfg.ffn_gated:
             self.fc1_gate = dense(cfg.d_model, ffn_dim, cfg.mlp_bias, cfg.dtype)
         self.fc2 = dense(ffn_dim, cfg.d_model, cfg.mlp_bias, cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gated_concat:
+            hidden, gate = self.fc1(x).chunk(2, dim=-1)
+            return self.fc2(self.act(gate) * hidden)
         h = self.act(self.fc1(x))
         if hasattr(self, "fc1_gate"):
             h = h * self.fc1_gate(x)
@@ -580,67 +748,121 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
+    """Pre-norm residuals, or nGPT's slerps (``attn_residual``,
+    ``ffn_residual``) with no norms."""
+
     def __init__(self, cfg: TransformerConfig, layer_idx: int):
         super().__init__()
+        self.ngpt = cfg.norm_scheme == "ngpt"
         self.self_attn = Attention(cfg, cfg.encoder_heads, layer_idx=layer_idx)
         self.ffn = FeedForward(cfg, cfg.encoder_ffn)
-        self.self_attn_norm = norm_layer(cfg)
-        self.final_norm = norm_layer(cfg)
+        if self.ngpt:
+            self.attn_residual = HyperResidual(cfg.d_model, cfg.ngpt_alpha_init)
+            self.ffn_residual = HyperResidual(cfg.d_model, cfg.ngpt_alpha_init)
+        else:
+            self.self_attn_norm = norm_layer(cfg)
+            self.final_norm = norm_layer(cfg)
 
     def forward(self, x, positions, attn_mask=None, pos_bias=None):
+        if self.ngpt:
+            x = self.attn_residual(x, self.self_attn(x, positions=positions, attn_mask=attn_mask)[0])
+            return self.ffn_residual(x, self.ffn(x))
         x = x + self.self_attn(self.self_attn_norm(x), positions=positions, attn_mask=attn_mask,
                                pos_bias=pos_bias)[0]
         return x + self.ffn(self.final_norm(x))
 
 
 class DecoderLayer(nn.Module):
+    """Pre-norm residuals, or nGPT's slerps (``attn_residual``,
+    ``cross_residual``, ``ffn_residual``) with no norms."""
+
     def __init__(self, cfg: TransformerConfig, layer_idx: int):
         super().__init__()
+        self.ngpt = cfg.norm_scheme == "ngpt"
         self.self_attn = Attention(cfg, cfg.decoder_heads, is_causal=True, is_decoder=True, layer_idx=layer_idx)
         self.cross_attn = Attention(cfg, cfg.decoder_heads, is_cross=True)
-        self.ffn = FeedForward(cfg, cfg.decoder_ffn)
-        self.self_attn_norm = norm_layer(cfg)
-        self.cross_attn_norm = norm_layer(cfg)
-        self.final_norm = norm_layer(cfg)
+        self.ffn = FeedForward(cfg, cfg.decoder_ffn, is_decoder=True)
+        if self.ngpt:
+            for name in ("attn_residual", "cross_residual", "ffn_residual"):
+                setattr(self, name, HyperResidual(cfg.d_model, cfg.ngpt_alpha_init))
+        else:
+            self.self_attn_norm = norm_layer(cfg)
+            self.cross_attn_norm = norm_layer(cfg)
+            self.final_norm = norm_layer(cfg)
 
     def forward(self, x, encoder_states, positions, self_mask=None, cross_mask=None,
                 cache: Optional[dict] = None, cache_index=None, limit: Optional[int] = None, pos_bias=None):
+        ngpt = self.ngpt
         attn_out, _ = self.self_attn(
-            self.self_attn_norm(x), positions=positions, attn_mask=self_mask,
+            x if ngpt else self.self_attn_norm(x), positions=positions, attn_mask=self_mask,
             cache=cache["self"] if cache is not None else None, cache_index=cache_index, limit=limit,
             pos_bias=pos_bias,
         )
-        x = x + attn_out
+        x = self.attn_residual(x, attn_out) if ngpt else x + attn_out
         cross_out, _ = self.cross_attn(
-            self.cross_attn_norm(x), kv_source=encoder_states, attn_mask=cross_mask,
+            x if ngpt else self.cross_attn_norm(x), kv_source=encoder_states, attn_mask=cross_mask,
             cache=cache["cross"] if cache is not None else None,
         )
-        x = x + cross_out
+        x = self.cross_residual(x, cross_out) if ngpt else x + cross_out
+        if ngpt:
+            return self.ffn_residual(x, self.ffn(x))
         return x + self.ffn(self.final_norm(x))
+
+
+def moonshine_stem_length(samples: int) -> int:
+    """Encoder positions of a window of raw samples through moonshine's stem
+    (conv 127 / 64, conv 7 / 3, conv 3 / 2, all unpadded)."""
+    for kernel, stride in ((127, 64), (7, 3), (3, 2)):
+        samples = (samples - kernel) // stride + 1
+    return samples
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.conv_stem:
-            self.conv1 = Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1, compute_dtype=cfg.dtype)
-            self.conv2 = Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1, compute_dtype=cfg.dtype)
+        dt = cfg.dtype
+        if cfg.conv_stem and cfg.stem_type == "moonshine":  # raw samples, one channel
+            self.conv1 = Conv1d(1, cfg.d_model, 127, stride=64, bias=False, compute_dtype=dt)
+            self.groupnorm = GroupNorm(cfg.d_model)
+            self.conv2 = Conv1d(cfg.d_model, 2 * cfg.d_model, 7, stride=3, compute_dtype=dt)
+            self.conv3 = Conv1d(2 * cfg.d_model, cfg.d_model, 3, stride=2, compute_dtype=dt)
+        elif cfg.conv_stem:
+            self.conv1 = Conv1d(cfg.num_mel_bins, cfg.d_model, 3, padding=1, compute_dtype=dt)
+            self.conv2 = Conv1d(cfg.d_model, cfg.d_model, 3, stride=2, padding=1, compute_dtype=dt)
+        if cfg.norm_scheme == "ngpt":  # learned rows, initialised to the sinusoids
+            self.embed_positions = nn.Parameter(whisper_sinusoids(cfg.max_source_positions, cfg.d_model))
+            self.alpha_positions = HyperScale(cfg.d_model, cfg.ngpt_alpha_pos_init, cfg.d_model**-0.5)
         if cfg.position_scheme == "t5_relpos":
             self.rel_bias = RelativePositionBias(cfg, cfg.encoder_heads, bidirectional=True)
         self.layers = nn.ModuleList(EncoderLayer(cfg, i) for i in range(cfg.encoder_layers))
         self.norm = norm_layer(cfg)
 
+    def flax_init(self, leaf: str) -> torch.Tensor:
+        """The value flax initialises ``leaf`` (``embed_positions``) to."""
+        return whisper_sinusoids(self.cfg.max_source_positions, self.cfg.d_model, self.embed_positions.device)
+
     def forward(self, features: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, T, num_mel_bins) -> (B, ceil(T / 2), D) through the conv stem,
-        (B, T, D) from (B, T, D) features without one."""
+        """(B, T, num_mel_bins) -> (B, ceil(T / 2), D) through the whisper
+        stem, (B, n, 1) raw samples -> (B, :func:`moonshine_stem_length`
+        (n), D) through moonshine's, (B, T, D) from (B, T, D) features
+        without one."""
         cfg = self.cfg
         x = features.to(cfg.dtype)
-        if cfg.conv_stem:
+        if cfg.conv_stem and cfg.stem_type == "moonshine":
+            x = self.groupnorm(torch.tanh(self.conv1(x.transpose(1, 2))))
+            x = F.gelu(self.conv2(x))
+            x = F.gelu(self.conv3(x)).transpose(1, 2)
+        elif cfg.conv_stem:
             x = F.gelu(self.conv1(x.transpose(1, 2)))
             x = F.gelu(self.conv2(x)).transpose(1, 2)
         b, t, _ = x.shape
-        if cfg.position_scheme == "whisper_abs":
+        if cfg.norm_scheme == "ngpt":  # slerp toward the learned position rows
+            if t > cfg.max_source_positions:
+                raise ValueError(f"{t} source positions: the model has {cfg.max_source_positions}")
+            xf = l2norm(x.float())
+            x = l2norm(xf + self.alpha_positions() * (self.embed_positions[:t].float() - xf)).to(cfg.dtype)
+        elif cfg.position_scheme == "whisper_abs":
             if t > cfg.max_source_positions:
                 raise ValueError(f"{t} source positions: the model has {cfg.max_source_positions}")
             x = x + whisper_sinusoids(t, cfg.d_model, x.device).to(cfg.dtype)
@@ -657,14 +879,23 @@ class Decoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, embed_inputs: bool):
         super().__init__()
         self.cfg = cfg
-        if embed_inputs or cfg.tie_word_embeddings:
+        ngpt = cfg.norm_scheme == "ngpt"
+        if embed_inputs or (cfg.tie_word_embeddings and not ngpt):
             self.embed_tokens = nn.Embedding(cfg.input_vocab_size or cfg.vocab_size, cfg.d_model)
         if cfg.position_scheme == "whisper_abs":
             self.embed_positions = nn.Embedding(cfg.max_target_positions, cfg.d_model)
+        if ngpt:
+            self.alpha_positions = HyperScale(cfg.d_model, cfg.ngpt_alpha_pos_init, cfg.d_model**-0.5)
         if cfg.position_scheme == "t5_relpos":
             self.rel_bias = RelativePositionBias(cfg, cfg.decoder_heads, bidirectional=False)
         self.layers = nn.ModuleList(DecoderLayer(cfg, i) for i in range(cfg.decoder_layers))
         self.norm = norm_layer(cfg)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token rows of ``input_ids``; l2-normalised under nGPT, whose
+        rows live on the unit sphere."""
+        e = self.embed_tokens(input_ids)
+        return l2norm(e) if self.cfg.norm_scheme == "ngpt" else e
 
     def forward(self, inputs_embeds, encoder_states, positions=None, self_mask=None,
                 cross_mask=None, cache: Optional[list] = None, cache_index=None, limit: Optional[int] = None,
@@ -673,7 +904,11 @@ class Decoder(nn.Module):
         position or the row of the learned position table (default: 0 ..
         t - 1). A table lookup past its last row fails (on a card, as a device
         assert), so the callers keep positions below ``max_target_positions``
-        (:attr:`OsuTransformer.position_table`). Under ``t5_relpos`` the
+        (:attr:`OsuTransformer.position_table`). Under ``scale_embedding``
+        the input rows are first multiplied by sqrt(d_model). Under nGPT the
+        token rows are slerped toward the table's rows, else the rows are
+        added. Under
+        ``t5_relpos`` the
         position bias is computed once for every layer, from ``positions``
         to ``k_positions`` (B, buffer slots), the logical position of each
         cache slot, over the slots the self-attention reads (``limit``);
@@ -681,13 +916,20 @@ class Decoder(nn.Module):
         indices, as the JAX decoder does."""
         cfg = self.cfg
         x = inputs_embeds.to(cfg.dtype)
+        if cfg.scale_embedding:
+            x = x * math.sqrt(cfg.d_model)
         b, t, _ = x.shape
         if positions is None:
             if cfg.position_scheme == "whisper_abs" and t > cfg.max_target_positions:
                 raise ValueError(f"{t} target positions: the model has {cfg.max_target_positions}")
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
         if cfg.position_scheme == "whisper_abs":
-            x = x + self.embed_positions(positions).to(cfg.dtype)
+            p = self.embed_positions(positions).to(cfg.dtype)
+            if cfg.norm_scheme == "ngpt":
+                xf = x.float()
+                x = l2norm(xf + self.alpha_positions() * (p.float() - xf)).to(cfg.dtype)
+            else:
+                x = x + p
         pos_bias = None
         if cfg.position_scheme == "t5_relpos":
             if cache is not None and limit is None:
@@ -715,7 +957,10 @@ class OsuTransformer(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg, embed_inputs)
-        if not cfg.tie_word_embeddings:
+        if cfg.norm_scheme == "ngpt":  # a normalised head and a learned logit scale
+            self.proj_out = NormDense(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
+            self.logit_scale = HyperScale(cfg.vocab_size, 1.0, cfg.d_model**-0.5)
+        elif not cfg.tie_word_embeddings:
             head = QDense if cfg.quantized_weights else Dense
             self.proj_out = head(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
 
@@ -727,6 +972,8 @@ class OsuTransformer(nn.Module):
         return self.cfg.max_target_positions if self.cfg.position_scheme == "whisper_abs" else None
 
     def lm_head(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.norm_scheme == "ngpt":
+            return self.proj_out(x) * self.logit_scale().to(self.cfg.dtype)
         if self.cfg.tie_word_embeddings:
             return x @ self.decoder.embed_tokens.weight.to(x.dtype).T
         return self.proj_out(x)
@@ -740,7 +987,7 @@ class OsuTransformer(nn.Module):
         if encoder_states is None:
             encoder_states = self.encoder(features)
         if decoder_inputs_embeds is None:
-            decoder_inputs_embeds = self.decoder.embed_tokens(decoder_input_ids)
+            decoder_inputs_embeds = self.decoder.embed(decoder_input_ids)
         self_mask = None
         if decoder_attention_mask is not None:
             self_mask = decoder_attention_mask[:, None, None, :].bool()
@@ -765,12 +1012,9 @@ class OsuTransformer(nn.Module):
         """Each decoder layer's cross-attention k/v of ``encoder_states``, in
         the cache's format."""
         cfg = self.cfg
-        h, d = cfg.decoder_heads, cfg.head_dim
         out = []
         for layer in self.decoder.layers:
-            kv = layer.cross_attn.wkv(encoder_states)
-            kv = kv.view(kv.shape[0], kv.shape[1], 2 * h, d)
-            k, v = kv[:, :, :h], kv[:, :, h:]
+            k, v = layer.cross_attn.kv(encoder_states)
             if cfg.quantized_kv:
                 (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
                 out.append({"k": kq, "k_scale": ks, "v": vq, "v_scale": vs})

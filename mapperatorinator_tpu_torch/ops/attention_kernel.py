@@ -8,8 +8,15 @@ and the backward ``_attention_bwd_kernel`` (via ``_bwd_call`` /
 kernels, and :func:`attention_route` picks one by dtype and head dim: the
 fp32 kernels of ``csrc/flash_attention.cu`` (split-TF32 products on the
 tensor cores, for fp32 at any head dim up to 128) and the bf16 kernels of
-``csrc/flash_attention_sm90.cu`` (wgmma, for bf16 with D 64, v32's head
-dim); bf16 at another head dim raises. Each source's header says what bounds
+``csrc/flash_attention_sm90.cu`` (wgmma, for bf16 with D up to 64, built for
+v32's D 64); bf16 above D 64 raises. A head dim the route's kernels are not
+built for (moonshine's 36 and 52) is zero-padded along D to the next width
+they take (:func:`head_dim_width`: a multiple of 8 on the fp32 route, 64 on
+the sm90 route), with the scale taken from the unpadded D, and the output
+(and under autograd dq, dk, dv) sliced back: zero columns add nothing to
+q·k, and give zero output and gradient columns, so the kernels compute the
+same function (in :func:`flash_attention`; the padding copies are part
+of the call). Each source's header says what bounds
 its kernels on the H100. The ``*_fp32_tc`` and ``*_bf16_tc`` plain versions
 round where the kernels of each route round; the tests and
 ``chip_smoke.py`` hold the kernels against them and against the fp32 plain
@@ -33,6 +40,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.nn import functional as F
 
 from . import _build, launches
 
@@ -253,7 +261,8 @@ def attention_backward_plain_fp32_tc(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-SM90_HEAD_DIMS = (64,)
+SM90_HEAD_DIM = 64  # the head dim the sm90 kernels are built for
+MAX_HEAD_DIM = 128  # the fp32 kernels' widest head
 
 
 def attention_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -262,17 +271,32 @@ def attention_route(dtype: torch.dtype, head_dim: int) -> str:
     every product as three TF32 tensor-core products of split operands,
     which hold the fp32 bar of 2e-5 where one TF32 or bf16 product does not;
     ``"sm90"`` (``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores,
-    bf16 operands, fp32 sums) for bf16 with a head dim in
-    :data:`SM90_HEAD_DIMS`. Anything else raises: no ported model runs bf16
-    at another head dim. The route is decided here alone; a kernel that
+    bf16 operands, fp32 sums) for bf16 with a head dim up to
+    :data:`SM90_HEAD_DIM`, a narrower one padded to it
+    (:func:`head_dim_width`). Anything else raises: there is no sm90 kernel
+    for a wider bf16 head. The route is decided here alone; a kernel that
     fails raises, and no call moves to the other route or to the plain
     version."""
     if dtype == torch.float32:
         return "fp32"
-    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+    if dtype == torch.bfloat16 and 0 < head_dim <= SM90_HEAD_DIM:
         return "sm90"
     raise ValueError(f"flash_attention: no kernel takes {dtype} with head dim {head_dim} (fp32, or bf16 with head "
-                     f"dim in {SM90_HEAD_DIMS})")
+                     f"dim at most {SM90_HEAD_DIM})")
+
+
+def head_dim_width(route: str, head_dim: int) -> int:
+    """The head dim that ``route``'s kernels run a head of ``head_dim`` at:
+    the next multiple of 8 on the fp32 route (its kernels load and multiply
+    8 dims a step), :data:`SM90_HEAD_DIM` on the sm90 route. The kernels'
+    own entries refuse any other width."""
+    return -(-head_dim // 8) * 8 if route == "fp32" else SM90_HEAD_DIM
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` (..., D) zero-padded along its last dim to ``width`` (a new
+    contiguous tensor), or ``x`` itself where D is ``width``."""
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
 
 
 def _check(q, k, v, kv_mask, what: str) -> Optional[torch.Tensor]:
@@ -285,8 +309,8 @@ def _check(q, k, v, kv_mask, what: str) -> Optional[torch.Tensor]:
         raise ValueError(f"{what}: fp32 or bf16 operands of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (b, s, h, d) or v.shape != (b, s, h, d):
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d % 8 or d > 128 or t == 0 or s == 0:
-        raise ValueError(f"{what}: head dim {d} (multiple of 8, at most 128), T {t}, S {s}")
+    if not 0 < d <= MAX_HEAD_DIM or t == 0 or s == 0:
+        raise ValueError(f"{what}: head dim {d} (at most {MAX_HEAD_DIM}), T {t}, S {s}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what}: operands need a unit stride along the head dim")
     if kv_mask is not None:
@@ -315,7 +339,9 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool, window: int, scale: floa
     """Launch the forward kernel of the route :func:`attention_route` picks
     (checked operands, a contiguous bool mask or None). Returns (out, lse):
     out (B, T, H, D) in q's dtype, lse (B, H, T) fp32 when ``with_lse``, else
-    None."""
+    None. The head dim must be one the route's kernels are built for
+    (:func:`head_dim_width`), else the kernel's entry raises;
+    :func:`flash_attention` pads to it."""
     if attention_route(q.dtype, q.shape[-1]) == "sm90":
         return flash_fwd_sm90(q, k, v, kv_mask, causal, window, scale, with_lse)
     return flash_fwd_fp32(q, k, v, kv_mask, causal, window, scale, with_lse)
@@ -475,15 +501,23 @@ def flash_attention(
 ) -> torch.Tensor:
     """Same contract as :func:`attention_plain`, and differentiable. On a
     CUDA tensor: the kernels of the route :func:`attention_route` picks,
-    which take fp32 with D a multiple of 8 up to 128, or bf16 with D 64, each
-    (B, T, H, D) operand with a unit stride along D and 16-byte aligned
-    rows; anything else raises. Each kernel counts its launches:
+    which take fp32 with D up to 128, or bf16 with D up to 64, each (B, T, H,
+    D) operand with a unit stride along D and 16-byte aligned rows, a D the
+    kernels are not built for zero-padded to one they are
+    (:func:`pad_head_dim`, the scale from the unpadded D, the output and
+    under autograd dq, dk, dv sliced back); anything
+    else raises. Each kernel counts its launches:
     ``flash_fwd_fp32.launches``, ``flash_bwd_fp32.launches``,
     ``flash_fwd_sm90.launches``, ``flash_bwd_sm90.launches``."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask, causal=causal, window=window, sm_scale=sm_scale)
     kv_mask = _check(q, k, v, kv_mask, "flash_attention")
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    d = q.shape[-1]
+    scale = float(d**-0.5 if sm_scale is None else sm_scale)
+    width = head_dim_width(attention_route(q.dtype, d), d)
+    q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFunction.apply(q, k, v, kv_mask, bool(causal), int(window), float(scale))
-    return flash_attention_fwd(q, k, v, kv_mask, causal, window, scale)[0]
+        out = FlashAttentionFunction.apply(q, k, v, kv_mask, bool(causal), int(window), scale)
+    else:
+        out = flash_attention_fwd(q, k, v, kv_mask, causal, window, scale)[0]
+    return out if width == d else out[..., :d]

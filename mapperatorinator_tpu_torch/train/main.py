@@ -75,11 +75,17 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{what}: not ported yet ({ROADMAP_ITEM})")
 
 
-def refuse_t5(config) -> None:
-    """Training a T5 backbone (its position bias, and kernel C at scale 1.0)
-    waits for item 15 (b); serving one is ported."""
-    if config.backbone.position_scheme == "t5_relpos":
-        raise NotImplementedError(f"training a T5 backbone: not ported yet ({ROADMAP_ITEM} (b))")
+def refuse_backbone(config) -> None:
+    """Training a T5 backbone (its position bias, and kernel C at scale 1.0),
+    an nGPT one (the slerps and normalised weights through C at scale 1.0)
+    or a moonshine one (the raw-wave stem, C at head dims 36 and 52) waits
+    for item 15 (b); serving each is ported."""
+    b = config.backbone
+    for refused, what in ((b.position_scheme == "t5_relpos", "a T5 backbone"),
+                          (b.norm_scheme == "ngpt", "an nGPT (NWhisper) backbone"),
+                          (b.stem_type == "moonshine", "a moonshine backbone")):
+        if refused:
+            raise NotImplementedError(f"training {what}: not ported yet ({ROADMAP_ITEM} (b))")
 
 
 def build_model_and_data(args, device: torch.device):
@@ -90,12 +96,12 @@ def build_model_and_data(args, device: torch.device):
     data_vocab = build_vocabulary(args)
     parser = BeatmapParser(args, data_vocab)
     config = build_config(args, data_vocab)
-    refuse_t5(config)
+    refuse_backbone(config)
     if args.pretrained_path:
         pretrained = resolve_model_checkpoint_path(args.pretrained_path, gamemode=args.pretrained_gamemode)
         print(f"Loading pretrained weights from {pretrained}")
         model, vocab = load_checkpoint(pretrained)
-        refuse_t5(model.cfg)
+        refuse_backbone(model.cfg)
         model, vocab = model.to(device), vocab or data_vocab
         dtype = model.cfg.backbone.dtype
         if dtype != config.backbone.dtype:

@@ -26,10 +26,11 @@ from mapperatorinator_tpu.models.transformer import _attend
 from mapperatorinator_tpu.ops.attention_kernel import _flash_backward
 from mapperatorinator_tpu.ops.attention_kernel import flash_attention as jax_flash_attention
 from mapperatorinator_tpu_torch.ops.attention_kernel import (
-    SM90_HEAD_DIMS,
+    SM90_HEAD_DIM,
     attention_backward_plain_bf16_tc,
     attention_plain_bf16_tc,
     attention_route,
+    head_dim_width,
 )
 from tests.test_torch_attention import CASES, inputs, structural_mask
 from tests.test_torch_attention_bwd import live_rows
@@ -91,18 +92,22 @@ def test_plain_tc_backward_matches_jax_bf16(t, s, causal, window, masked):
         np.testing.assert_array_equal(got[1][0], 0.0)  # and nothing to its keys' dk
 
 
-# (dtype, head dim) -> route; a pair missing here has no kernel and raises
-ROUTES = {(torch.float32, d): "fp32" for d in (8, 32, 64, 128)} | {(torch.bfloat16, 64): "sm90"}
+# (dtype, head dim) -> (route, the head dim its kernels run it at); a pair
+# missing here has no kernel and raises
+ROUTES = {(torch.float32, d): ("fp32", d) for d in (8, 32, 64, 128)} | {
+    (torch.bfloat16, d): ("sm90", 64) for d in (8, 32, 64)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("head_dim", [8, 32, 64, 128])
 def test_route_rule(dtype, head_dim):
-    """fp32 goes to the fp32 kernels at any head dim, bf16 at D 64 to the
-    tensor-core kernels; bf16 at another head dim, and fp16, raise."""
-    assert SM90_HEAD_DIMS == (64,)
+    """fp32 goes to the fp32 kernels at any head dim, bf16 up to D 64 to the
+    tensor-core kernels, which are built for D 64 (a narrower head is padded
+    to it); bf16 above D 64, and fp16, raise."""
+    assert SM90_HEAD_DIM == 64
     if (dtype, head_dim) in ROUTES:
-        assert attention_route(dtype, head_dim) == ROUTES[dtype, head_dim]
+        route = attention_route(dtype, head_dim)
+        assert (route, head_dim_width(route, head_dim)) == ROUTES[dtype, head_dim]
     else:
         with pytest.raises(ValueError, match="no kernel takes"):
             attention_route(dtype, head_dim)

@@ -4,8 +4,9 @@ API path (``load_model`` / ``generate``), with fp32 and with int8 weights and
 KV cache, and refuses what is not ported, naming its ROADMAP item (LoRA
 adapters, ``lora_path``, are covered by ``tests/test_torch_lora.py``);
 ``generate_positions=true`` with no DiT bundle on disk writes the same .osu;
-``-cn v32`` on a published T5 v1.1 checkpoint writes the .osu bytes of the
-JAX package's command line.
+``-cn v32`` on a published T5 v1.1, NWhisper or moonshine checkpoint
+(moonshine with int8 weights and KV) writes the .osu bytes of the JAX
+package's command line.
 """
 
 import pytest
@@ -45,14 +46,16 @@ def test_cli_main_writes_the_api_osu(tiny, tmp_path, int8):  # noqa: F811
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """A backbone of another family (nwhisper-base, moonshine): ROADMAP
-    queue 1, item 11. (DiT refinement, v28's whisper-base and T5, which this
-    refused before, are ported: ``tests/test_torch_diffusion_generate.py``,
-    ``tests/test_torch_whisper_abs_serving.py``, ``tests/test_torch_t5.py``.)"""
+    """A backbone of no family the port builds (the JAX package would build
+    it as a VarWhisper of the name's size). (DiT refinement, v28's
+    whisper-base, T5, NWhisper and moonshine, which this refused before, are
+    ported: ``tests/test_torch_diffusion_generate.py``,
+    ``tests/test_torch_whisper_abs_serving.py``, ``tests/test_torch_t5.py``,
+    and the two tests below.)"""
     wav = make_wav(tmp_path / "song.wav", seconds=1.0)
     base = ["model_path=", f"audio_path={wav}", f"output_path={tmp_path}", "device=cpu", "gamemode=0"]
-    for name in ("OliBomby/nwhisper-base", "UsefulSensors/moonshine-tiny"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for name in ("facebook/bart-base", "openai/clap-small"):
+        with pytest.raises(NotImplementedError, match="the port builds"):
             inference.main(["-cn", "v32", *base, f"train.model.name={name}"])
 
 
@@ -74,20 +77,42 @@ def test_cli_generate_positions_without_a_bundle_keeps_the_positions(tiny, tmp_p
     assert texts[1] == texts[0] and "[HitObjects]" in texts[0]
 
 
-def test_cli_on_a_t5_checkpoint_writes_the_jax_clis_osu(tmp_path):
-    """``-cn v32 model_path=<HF T5 dir>``, greedy: the port's and the JAX
-    package's ``main`` write the same .osu bytes (the T5 model's own
-    config.json decides the backbone; v32 decides the windows and prompts)."""
-    directory, _, _ = write_hf_checkpoint(tmp_path / "t5", "v32", overrides=FAMILY_OVERRIDES["t5"])
+def cli_osu_of_both_packages(tmp_path, family: str, title: str, extra=()):
+    """``-cn v32 model_path=<HF dir of family>``, greedy, through the JAX
+    package's ``main`` and the port's: (text, bytes) of each .osu (the
+    model's own config.json decides the backbone; v32 decides the windows
+    and prompts)."""
+    directory, _, _ = write_hf_checkpoint(tmp_path / family, "v32", overrides=FAMILY_OVERRIDES[family])
     wav = make_wav(tmp_path / "song.wav", seconds=2.0)
     base = [f"model_path={directory}", f"audio_path={wav}", f"train.data.src_seq_len={SRC_LEN}",
             f"train.data.tgt_seq_len={TGT_LEN}", "do_sample=false", "seed=7", "gamemode=0", "device=cpu",
-            "super_timing=false", "title=T5", "bpm=120", "offset=0"]
+            "super_timing=false", f"title={title}", "bpm=120", "offset=0", *extra]
     written = []
     for name, main in (("jax", jax_inference.main), ("port", inference.main)):
         (tmp_path / name).mkdir()
         text, path = main(["-cn", "v32", *base, f"output_path={tmp_path / name}"])
         written.append((text, path.read_bytes()))
-    (want, want_bytes), (got, got_bytes) = written
+    return written
+
+
+def test_cli_on_a_t5_checkpoint_writes_the_jax_clis_osu(tmp_path):
+    """``-cn v32 model_path=<HF T5 dir>``: the same .osu bytes."""
+    (want, want_bytes), (got, got_bytes) = cli_osu_of_both_packages(tmp_path, "t5", "T5")
     assert "[HitObjects]" in got and "Title:T5" in got
+    assert got == want and got_bytes == want_bytes
+
+
+def test_cli_on_an_nwhisper_checkpoint_writes_the_jax_clis_osu(tmp_path):
+    """``-cn v32 model_path=<HF NWhisper dir>``: the same .osu bytes."""
+    (want, want_bytes), (got, got_bytes) = cli_osu_of_both_packages(tmp_path, "nwhisper", "NWhisper")
+    assert "[HitObjects]" in got and "Title:NWhisper" in got
+    assert got == want and got_bytes == want_bytes
+
+
+def test_cli_on_a_moonshine_checkpoint_writes_the_jax_clis_osu(tmp_path):
+    """``-cn v32 model_path=<HF moonshine dir>``, raw samples into the
+    backbone, with int8 weights and KV on both sides: the same .osu bytes."""
+    (want, want_bytes), (got, got_bytes) = cli_osu_of_both_packages(
+        tmp_path, "moonshine", "Moonshine", ("quantized_weights=true", "quantized_kv=true"))
+    assert "[HitObjects]" in got and "Title:Moonshine" in got
     assert got == want and got_bytes == want_bytes

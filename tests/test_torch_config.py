@@ -1,5 +1,5 @@
-"""The port's checked-in v32 configs, and the T5 training config, against
-the JAX loader.
+"""The port's checked-in v32 configs, and the T5, NWhisper and moonshine
+training configs, against the JAX loader.
 
 ``mapperatorinator_tpu_torch/configs/v32.json`` is the JAX composition of
 ``configs/inference/v32.yaml`` and ``configs/train_v32.json`` that of
@@ -9,7 +9,9 @@ of ``configs/train/default.yaml`` with ``model=t5_base`` (the T5 v1.1-base
 backbone of the legacy osuT5 releases): the repo has no preset that names
 it, so the composition is of a preset written for it in a copy of
 ``configs/``, ``defaults: [default, ../model@model: t5_base, _self_]``, as
-``configs/train/v32.yaml`` names its model. These tests recompose them and
+``configs/train/v32.yaml`` names its model; ``train_nwhisper_base.json``
+and ``train_moonshine_tiny.json`` are composed alike with
+``model=nwhisper_base`` and ``model=moonshine_tiny``. These tests recompose them and
 fail on any drift. To regenerate the files after a config change:
 ``JAX_PLATFORMS=cpu python -m tests.test_torch_config``.
 """
@@ -51,16 +53,25 @@ def composed_train_v32(overrides=()):
 
 
 T5_BASE_PRESET = "defaults:\n  - default\n  - ../model@model: t5_base\n  - _self_\n"
+# the backbones whose training configs are composed the same way: the JAX
+# training default with ``model=<preset>``, as train_<preset>.json
+MODEL_PRESETS = ("t5_base", "nwhisper_base", "moonshine_tiny")
 
 
-def composed_train_t5_base(overrides=()):
-    """``configs/train/default.yaml`` with ``model=t5_base``, composed by the
-    JAX loader from a copy of ``configs/`` holding the preset that says so."""
+def composed_train_preset(model: str, overrides=()):
+    """``configs/train/default.yaml`` with ``model=<model>``, composed by the
+    JAX loader from a copy of ``configs/`` holding the preset that says so
+    (``T5_BASE_PRESET`` with the model's name)."""
     with tempfile.TemporaryDirectory() as tmp:
         configs = Path(tmp) / "configs"
         shutil.copytree(REPO_ROOT / "configs", configs)
-        (configs / "train" / "t5_base.yaml").write_text(T5_BASE_PRESET)
-        return compose(configs / "train", "t5_base", overrides=list(overrides), schema_cls=schema.TrainConfig)
+        (configs / "train" / f"{model}.yaml").write_text(T5_BASE_PRESET.replace("t5_base", model))
+        return compose(configs / "train", model, overrides=list(overrides), schema_cls=schema.TrainConfig)
+
+
+def composed_train_t5_base(overrides=()):
+    """``configs/train/default.yaml`` with ``model=t5_base``."""
+    return composed_train_preset("t5_base", overrides)
 
 
 def plain(node, keep_enums: bool = False):
@@ -138,6 +149,38 @@ def test_t5_build_config_matches_jax(overrides):
             b["conv_stem"], b["attention_scale"]) == ("t5_relpos", 64, 12, 12, 2048, False, False)
 
 
+@pytest.mark.parametrize("model", ["nwhisper_base", "moonshine_tiny"])
+def test_checked_in_train_json_of_each_backbone_is_the_jax_composition(model):
+    with open(CONFIG_DIR / f"train_{model}.json", encoding="utf-8") as f:
+        assert json.load(f) == plain(composed_train_preset(model))
+
+
+# (model preset, its backbone as build_config resolves it: name, norm scheme, stem, head dim, d_model, layers,
+# ffn, decoder ffn gated, input_raw_wave)
+BACKBONES = {"nwhisper_base": ("olibomby/nwhisper-base", "ngpt", "whisper", 64, 512, 6, 2048, False, False),
+             "moonshine_tiny": ("UsefulSensors/moonshine-tiny", "prenorm", "moonshine", 36, 288, 6, 1152, True, True)}
+
+
+@pytest.mark.parametrize("overrides", [(), ("mixed_precision=no", "data.src_seq_len=256")])
+@pytest.mark.parametrize("model", ["nwhisper_base", "moonshine_tiny"])
+def test_backbone_build_config_matches_jax(model, overrides):
+    """The nGPT and moonshine branches of ``build_config``, field by field
+    on the loaded namespace and the JAX composition, at full width."""
+    train = load_train_config(model, overrides)
+    jax_train = composed_train_preset(model, overrides)
+    assert plain(train, keep_enums=True) == plain(jax_train, keep_enums=True)
+    cfg = build_config(train, build_vocabulary(train))
+    got = dataclasses.asdict(cfg)
+    want = dataclasses.asdict(jax_build_config(jax_train, jax_build_vocabulary(jax_train)))
+    for tree in (got, want):
+        for key in ("dtype", "param_dtype"):
+            tree["backbone"][key] = str(tree["backbone"][key]).split(".")[-1].replace("'>", "")
+    assert got == want
+    b = cfg.backbone
+    assert (train.model.name, b.norm_scheme, b.stem_type, b.head_dim, b.d_model, b.encoder_layers, b.decoder_ffn,
+            b.decoder_ffn_gated_concat, cfg.input_raw_wave) == BACKBONES[model]
+
+
 def test_unknown_override_raises():
     with pytest.raises(KeyError):
         load_train_config("v32", ["optim.no_such_field=1"])
@@ -187,7 +230,7 @@ def test_build_config_matches_jax():
 
 if __name__ == "__main__":
     for name, tree in (("v32", composed_v32()), ("train_v32", composed_train_v32()),
-                       ("train_t5_base", composed_train_t5_base())):
+                       *((f"train_{model}", composed_train_preset(model)) for model in MODEL_PRESETS)):
         with open(CONFIG_DIR / f"{name}.json", "w", encoding="utf-8") as f:
             json.dump(plain(tree), f, indent=1, sort_keys=True)
             f.write("\n")

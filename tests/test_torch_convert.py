@@ -1,9 +1,10 @@
 """Published (HF-format) checkpoints on the port against the JAX loader.
 
 For each backbone family the port builds (stock whisper under ``-cn v28``,
-RoPEWhisper with the v31 conditioning embedders, VarWhisper under v32, and
+RoPEWhisper with the v31 conditioning embedders, VarWhisper under v32,
 T5 v1.1 under v32 with ``train.model.name=google/t5-v1_1-base`` and a
-projected encoder input) a tiny reference state dict is made from a numpy
+projected encoder input, and NWhisper and moonshine under v32 with their
+model presets' settings, ``FAMILY_OVERRIDES``) a tiny reference state dict is made from a numpy
 seed under the keys the JAX ``models/convert.py`` reads
 (``transformer.model.encoder.conv1.weight``, split ``q_proj`` / ``k_proj`` /
 ``v_proj`` with no ``k_proj.bias``, ``transformer.proj_out.weight``; T5's
@@ -18,8 +19,15 @@ reader is held to), as ``pytorch_model.bin``, and as two
 ``load_checkpoint`` reads it: the port's state dict must equal
 ``params_from_flax`` of the JAX params exactly, less the HF decoder token
 table, which the port's decoder does not hold. Also: the backbone config
-field by field, the unported families raising, bf16 and fp16 files read as
-torch's own cast, and malformed files raising.
+field by field, the published widths of nwhisper-base, moonshine-tiny and
+moonshine-base, bf16 and fp16 files read as torch's own cast, and malformed
+files raising. NWhisper's state dict is the nGPT layout (``NormLinear``
+weights at ``.linear.weight`` or ``.linear.parametrizations.weight.original``,
+the residual slerps' ``branch_scale``, ``qk_scale``, ``alpha_positions``,
+``logit_scale``, the encoder's learned ``embed_positions``); moonshine's the
+HF ``MoonshineForConditionalGeneration`` one (the raw-wave stem, bias-free
+``input_layernorm`` / ``post_attention_layernorm`` / ``final_layernorm``,
+``mlp.fc1`` / ``fc2``).
 """
 
 import dataclasses
@@ -37,7 +45,7 @@ from mapperatorinator_tpu.models.io import load_checkpoint as jax_load_checkpoin
 from mapperatorinator_tpu_torch.config import load_config
 from mapperatorinator_tpu_torch.models.convert import _backbone_config_from_hf, backbone_family, load_hf_checkpoint
 from mapperatorinator_tpu_torch.models.io import load_checkpoint
-from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
+from mapperatorinator_tpu_torch.models.mapperatorinator import Mapperatorinator, build_config
 from mapperatorinator_tpu_torch.models.params import params_from_flax
 from mapperatorinator_tpu_torch.models.safetensors import read_safetensors, read_torch_weights
 from mapperatorinator_tpu_torch.osu import build_vocabulary
@@ -45,8 +53,16 @@ from mapperatorinator_tpu_torch.osu import build_vocabulary
 torch.set_num_threads(1)
 
 # family -> the port config whose model it is, and the overrides that make it so
-FAMILY_CONFIGS = {"whisper": "v28", "ropewhisper": "v31", "varwhisper": "v32", "t5": "v32"}
-FAMILY_OVERRIDES = {"t5": ("train.model.name=google/t5-v1_1-base", "train.model.project_encoder_input=true")}
+FAMILY_CONFIGS = {"whisper": "v28", "ropewhisper": "v31", "varwhisper": "v32", "t5": "v32", "nwhisper": "v32",
+                  "moonshine": "v32"}
+# nwhisper and moonshine as configs/model/nwhisper_base.yaml and moonshine_tiny.yaml set them
+FAMILY_OVERRIDES = {
+    "t5": ("train.model.name=google/t5-v1_1-base", "train.model.project_encoder_input=true"),
+    "nwhisper": ("train.model.name=OliBomby/nwhisper-base", "train.model.embed_decoder_input=false",
+                 "train.model.project_encoder_input=true"),
+    "moonshine": ("train.model.name=UsefulSensors/moonshine-tiny", "train.model.input_raw_wave=true",
+                  "train.model.project_encoder_input=false"),
+}
 TINY = dict(d_model=32, encoder_layers=2, decoder_layers=2, encoder_attention_heads=2, decoder_attention_heads=2,
             encoder_ffn_dim=64, decoder_ffn_dim=64)
 SRC_LEN, TGT_LEN = 256, 128
@@ -66,7 +82,16 @@ def hf_config(cfg) -> dict:
     widths override)."""
     b = cfg.backbone
     b = dataclasses.replace(b, num_mel_bins=b.d_model if cfg.project_encoder_input else b.num_mel_bins)
-    if b.position_scheme == "t5_relpos":  # HF T5Config's names
+    extra = {}
+    if b.stem_type == "moonshine":  # HF MoonshineConfig's names
+        backbone = dict(hidden_size=b.d_model, encoder_num_hidden_layers=b.encoder_layers,
+                        decoder_num_hidden_layers=b.decoder_layers, encoder_num_attention_heads=b.encoder_heads,
+                        decoder_num_attention_heads=b.decoder_heads, intermediate_size=b.encoder_ffn,
+                        max_position_embeddings=b.max_target_positions, rope_theta=b.rope_global_theta,
+                        partial_rotary_factor=b.rope_partial_factor, attention_bias=False, decoder_hidden_act="silu",
+                        tie_word_embeddings=b.tie_word_embeddings)
+        extra = {"max_source_positions": b.max_source_positions}
+    elif b.position_scheme == "t5_relpos":  # HF T5Config's names
         backbone = dict(d_model=b.d_model, num_layers=b.encoder_layers, num_decoder_layers=b.decoder_layers,
                         num_heads=b.decoder_heads, d_ff=b.encoder_ffn, d_kv=b.head_dim,
                         feed_forward_proj="gated-gelu" if b.ffn_gated else "relu",
@@ -85,12 +110,14 @@ def hf_config(cfg) -> dict:
             attention_bias=b.attention_bias, rope_type=b.rope_type,
             rope_encoder_scaling_factor=b.rope_encoder_scaling_factor,
             rope_decoder_scaling_factor=b.rope_decoder_scaling_factor)
+        if b.norm_scheme == "ngpt":
+            backbone["input_vocab_size"] = b.input_vocab_size
     wrapper = {k: getattr(cfg, k) for k in (
-        "vocab_size_in", "num_classes", "num_mappers", "input_features", "project_encoder_input",
+        "vocab_size_in", "num_classes", "num_mappers", "input_features", "input_raw_wave", "project_encoder_input",
         "embed_decoder_input", "do_style_embed", "do_difficulty_embed", "do_mapper_embed", "do_song_position_embed",
         "cond_dim", "cond_size", "spectrogram_log_scale", "sample_rate", "n_fft", "n_mels", "hop_length", "f_min",
         "f_max", "pad_mode", "rhythm_token_start", "rhythm_token_end", "max_target_positions")}
-    return {"backbone_config": backbone, "vocab_size": cfg.vocab_size_out, **wrapper}
+    return {"backbone_config": backbone, "vocab_size": cfg.vocab_size_out, **extra, **wrapper}
 
 
 def hf_state_dict(family: str, hf_cfg: dict, seed: int = 0) -> dict[str, np.ndarray]:
@@ -98,7 +125,7 @@ def hf_state_dict(family: str, hf_cfg: dict, seed: int = 0) -> dict[str, np.ndar
     seeded): the keys the JAX converter reads, at the shapes it expects."""
     rng = np.random.default_rng(seed)
     b = hf_cfg["backbone_config"]
-    d, vocab = b["d_model"], hf_cfg["vocab_size"]
+    d, vocab = b.get("d_model", b.get("hidden_size")), hf_cfg["vocab_size"]
     sd = {}
 
     def mat(key, out, inp, bias=True):
@@ -148,6 +175,10 @@ def hf_state_dict(family: str, hf_cfg: dict, seed: int = 0) -> dict[str, np.ndar
         sd["transformer.shared.weight"] = rng.standard_normal((vocab, d))
         if not b["tie_word_embeddings"]:
             mat("transformer.lm_head", vocab, d, bias=False)
+    elif family == "nwhisper":
+        ngpt_backbone(sd, b, vocab, rng, mat)
+    elif family == "moonshine":
+        moonshine_backbone(sd, b, vocab, rng, mat)
     else:
         whisper_backbone(sd, family, b, vocab, rng, mat, norm, attn)
     sd["decoder_embedder.weight"] = rng.standard_normal((hf_cfg["vocab_size_in"], d))
@@ -202,6 +233,87 @@ def whisper_backbone(sd: dict, family: str, b: dict, vocab: int, rng, mat, norm,
     mat("transformer.proj_out", vocab, d, bias=False)
 
 
+def ngpt_backbone(sd: dict, b: dict, vocab: int, rng, mat) -> None:
+    """An NWhisper backbone under ``transformer.model.``, its ``proj_out`` and
+    ``logit_scale``: every projection a NormLinear, its weight at
+    ``.linear.weight`` or, in layer 1 and for the decoder's token table, at
+    ``.linear.parametrizations.weight.original``, the scales drawn near their
+    inits (qk 1/d, the slerps' and the positions' d^-1/2)."""
+    d = b["d_model"]
+    t = "transformer.model"
+
+    def scale(key, n, at):
+        sd[f"{key}.scale"] = at * (1 + 0.2 * rng.standard_normal(n))
+
+    def norm_linear(key, out, inp, bias, layer):
+        where = "linear.parametrizations.weight.original" if layer == 1 else "linear.weight"
+        sd[f"{key}.{where}"] = rng.standard_normal((out, inp)) * inp**-0.5
+        if bias:
+            sd[f"{key}.linear.bias"] = 0.1 * rng.standard_normal(out)
+
+    def attn(key, layer):
+        for p in ("q", "k", "v", "out"):
+            norm_linear(f"{key}.fn.{p}_proj", d, d, p != "k", layer)  # k has no bias
+        scale(f"{key}.fn.qk_scale", d, 1 / d)
+        scale(f"{key}.branch_scale", d, d**-0.5)
+
+    for conv in ("conv1", "conv2"):
+        inp = b["num_mel_bins"] if conv == "conv1" else d
+        sd[f"{t}.encoder.{conv}.weight"] = rng.standard_normal((d, inp, 3)) * (3 * inp) ** -0.5
+        sd[f"{t}.encoder.{conv}.bias"] = 0.1 * rng.standard_normal(d)
+    sd[f"{t}.encoder.embed_positions.weight"] = rng.standard_normal((b["max_source_positions"], d))
+    sd[f"{t}.decoder.embed_positions.weight"] = rng.standard_normal((b["max_target_positions"], d))
+    sd[f"{t}.decoder.embed_tokens.embedding.parametrizations.weight.original"] = rng.standard_normal(
+        (b["input_vocab_size"], d))
+    for side in ("encoder", "decoder"):
+        scale(f"{t}.{side}.alpha_positions", d, d**-0.5)
+        ffn = b[f"{side}_ffn_dim"]
+        for i in range(b[f"{side}_layers"]):
+            p = f"{t}.{side}.layers.{i}"
+            for residual in ("self_attn_with_residual", "encoder_attn_with_residual") if side == "decoder" \
+                    else ("attn_with_residual",):
+                attn(f"{p}.{residual}", i)
+            norm_linear(f"{p}.ff_with_residual.fn.fc1", ffn, d, False, i)
+            norm_linear(f"{p}.ff_with_residual.fn.fc2", d, ffn, False, i)
+            scale(f"{p}.ff_with_residual.branch_scale", d, d**-0.5)
+    norm_linear("transformer.proj_out", vocab, d, False, 0)
+    scale("transformer.logit_scale", vocab, 3 * d**-0.5)
+
+
+def moonshine_backbone(sd: dict, b: dict, vocab: int, rng, mat) -> None:
+    """A moonshine backbone under ``transformer.model.``: the raw-wave stem,
+    bias-free attention and LayerNorms, ``mlp.fc1`` / ``fc2`` (the decoder's
+    fc1 twice the width), the decoder's token table (the head where tied)
+    and an untied ``proj_out`` where not."""
+    d, ffn = b["hidden_size"], b["intermediate_size"]
+    t = "transformer.model"
+
+    def ln(key):
+        sd[f"{key}.weight"] = 1 + 0.1 * rng.standard_normal(d)
+
+    sd[f"{t}.encoder.conv1.weight"] = rng.standard_normal((d, 1, 127)) * 127**-0.5
+    sd[f"{t}.encoder.groupnorm.weight"], sd[f"{t}.encoder.groupnorm.bias"] = 1 + 0.1 * rng.standard_normal((2, d))
+    for conv, out, inp, k in (("conv2", 2 * d, d, 7), ("conv3", d, 2 * d, 3)):
+        sd[f"{t}.encoder.{conv}.weight"] = rng.standard_normal((out, inp, k)) * (k * inp) ** -0.5
+        sd[f"{t}.encoder.{conv}.bias"] = 0.1 * rng.standard_normal(out)
+    ln(f"{t}.encoder.layer_norm")
+    ln(f"{t}.decoder.norm")
+    sd[f"{t}.decoder.embed_tokens.weight"] = rng.standard_normal((vocab, d))
+    for side in ("encoder", "decoder"):
+        for i in range(b[f"{side}_num_hidden_layers"]):
+            p = f"{t}.{side}.layers.{i}"
+            for attn in ("self_attn", "encoder_attn") if side == "decoder" else ("self_attn",):
+                for proj in "qkvo":
+                    mat(f"{p}.{attn}.{proj}_proj", d, d, bias=False)
+            for name in ("input_layernorm", "post_attention_layernorm") + (("final_layernorm",) if side == "decoder"
+                                                                           else ()):
+                ln(f"{p}.{name}")
+            mat(f"{p}.mlp.fc1", 2 * ffn if side == "decoder" else ffn, d)
+            mat(f"{p}.mlp.fc2", d, ffn)
+    if not b["tie_word_embeddings"]:
+        mat("transformer.proj_out", vocab, d, bias=False)
+
+
 def write_hf_checkpoint(directory, name: str, fmt: str = "safetensors", overrides=(), seed: int = 0):
     """A published checkpoint of ``-cn name``'s model at tiny widths:
     ``config.json``, ``tokenizer.json`` and the weights as ``fmt``
@@ -237,19 +349,24 @@ def test_port_loads_the_jax_params(tmp_path, family, fmt):
     assert vocab.state_dict() == jvocab.state_dict()
     want = params_from_flax(jparams)
     got = model.state_dict()
-    # the HF decoder token table: the port's decoder (ids embedded by the wrapper, untied head) has none
     assert not model.cfg.backbone.tie_word_embeddings
-    assert "transformer.decoder.embed_tokens.weight" not in got
-    del want["transformer.decoder.embed_tokens.weight"]
+    if family == "nwhisper":  # the backbone embeds the decoder ids itself, from the HF token table
+        assert not model.cfg.embed_decoder_input and "transformer.decoder.embed_tokens.weight" in got
+    else:  # the HF decoder token table: the port's decoder (ids embedded by the wrapper, untied head) has none
+        assert "transformer.decoder.embed_tokens.weight" not in got
+        del want["transformer.decoder.embed_tokens.weight"]
     assert set(got) == set(want)
     for name in got:
         assert got[name].dtype == torch.float32 and torch.equal(got[name], want[name]), name
     assert "transformer.encoder.embed_positions.weight" not in got  # frozen sinusoids: computed
     cfg = model.cfg
     assert cfg.spectrogram_implementation == "xla"
-    assert (cfg.backbone.position_scheme, cfg.backbone.norm) == {
-        "whisper": ("whisper_abs", "layer"), "ropewhisper": ("rope", "rms"), "varwhisper": ("rope", "rms"),
-        "t5": ("t5_relpos", "rms")}[family]
+    assert (cfg.backbone.position_scheme, cfg.backbone.norm, cfg.backbone.norm_scheme) == {
+        "whisper": ("whisper_abs", "layer", "prenorm"), "ropewhisper": ("rope", "rms", "prenorm"),
+        "varwhisper": ("rope", "rms", "prenorm"), "t5": ("t5_relpos", "rms", "prenorm"),
+        "nwhisper": ("whisper_abs", "layer", "ngpt"), "moonshine": ("rope", "layer", "prenorm")}[family]
+    if family in ("nwhisper", "moonshine"):
+        check_family_params(family, got, sd)
     if family == "whisper":  # a fused bias's k slot is zero; the decoder's positions are learned
         bias = got["transformer.encoder.layers.0.self_attn.wqkv.bias"]
         assert not bias[32:64].any() and bias[:32].any() and bias[64:].any()
@@ -269,6 +386,31 @@ def test_port_loads_the_jax_params(tmp_path, family, fmt):
         assert qkv.shape == (3 * 2 * 64, TINY["d_model"])  # 2 heads of d_kv 64 over d_model 32
         assert torch.equal(qkv[128:256], torch.from_numpy(sd[f"{t}.decoder.block.0.layer.0.SelfAttention.k.weight"]))
         assert not any(name.endswith("bias") and "rel_bias" not in name and "embedder" not in name for name in got)
+
+
+def check_family_params(family: str, got: dict, sd: dict) -> None:
+    """Where the nGPT and moonshine leaves land: the learned encoder position
+    rows, both NormLinear storage keys, k without a bias, the scales;
+    moonshine's stem, its gated fc1 of twice the width, no attention bias."""
+    t = "transformer.model"
+    if family == "nwhisper":
+        assert torch.equal(got["transformer.encoder.embed_positions"],
+                           torch.from_numpy(sd[f"{t}.encoder.embed_positions.weight"]))
+        assert torch.equal(got["transformer.decoder.layers.1.cross_attn.wk.weight"], torch.from_numpy(
+            sd[f"{t}.decoder.layers.1.encoder_attn_with_residual.fn.k_proj.linear.parametrizations.weight.original"]))
+        assert torch.equal(got["transformer.decoder.embed_tokens.weight"], torch.from_numpy(
+            sd[f"{t}.decoder.embed_tokens.embedding.parametrizations.weight.original"]))
+        assert torch.equal(got["transformer.encoder.layers.0.attn_residual.branch_scale.weight"],
+                           torch.from_numpy(sd[f"{t}.encoder.layers.0.attn_with_residual.branch_scale.scale"]))
+        assert torch.equal(got["transformer.logit_scale.weight"], torch.from_numpy(sd["transformer.logit_scale.scale"]))
+        assert "transformer.encoder.layers.0.self_attn.wk.bias" not in got
+        assert not any("norm" in n for n in got if n.startswith("transformer."))
+    else:
+        assert got["transformer.encoder.conv1.weight"].shape == (TINY["d_model"], 1, 127)
+        assert "transformer.encoder.conv1.bias" not in got and "transformer.encoder.groupnorm.bias" in got
+        assert got["transformer.decoder.layers.0.ffn.fc1.weight"].shape == (2 * TINY["decoder_ffn_dim"],
+                                                                            TINY["d_model"])
+        assert not any(n.endswith("bias") for n in got if "attn" in n or n.endswith(("_norm.bias", ".norm.bias")))
 
 
 @pytest.mark.parametrize("family", sorted(FAMILY_CONFIGS))
@@ -291,11 +433,37 @@ def test_backbone_config_equals_jax_field_by_field(tmp_path, family):
 @pytest.mark.parametrize("name", ["OliBomby/nwhisper-base", "UsefulSensors/moonshine-tiny",
                                   "UsefulSensors/moonshine-base"])
 def test_unported_families_raise(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        _backbone_config_from_hf({"backbone_model_name": name, "vocab_size": 100})
-    (tmp_path / "config.json").write_text(json.dumps({"backbone_model_name": name, "vocab_size": 100}))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_checkpoint(tmp_path)
+    """The three published backbones that raised until the port built the
+    nGPT and moonshine families: ``build_config`` gives each its published
+    widths (nwhisper-base: d_model 512, 8 heads of 64; moonshine-tiny: 288,
+    8 heads of 36; moonshine-base: 416, 8 of 52) as the JAX package does, the
+    model builds, and a tiny published checkpoint under the name (moonshine-base
+    with a tied head) loads to the JAX loader's parameters, exactly."""
+    family = backbone_family(name)
+    args = load_config("v32", [*FAMILY_OVERRIDES[family], f"train.model.name={name}"])
+    vocab = build_vocabulary(args.train)
+    cfg = build_config(args.train, vocab)
+    b = cfg.backbone
+    assert (b.d_model, b.encoder_layers, b.decoder_heads, b.head_dim, b.encoder_ffn) == {
+        "OliBomby/nwhisper-base": (512, 6, 8, 64, 2048), "UsefulSensors/moonshine-tiny": (288, 6, 8, 36, 1152),
+        "UsefulSensors/moonshine-base": (416, 8, 8, 52, 1664)}[name]
+    with torch.device("meta"):
+        model = Mapperatorinator(cfg)
+    assert sum(p.numel() for p in model.parameters()) > 10**6
+    tied = ("train.model.overwrite.tie_word_embeddings=true",) if name.endswith("moonshine-base") else ()
+    directory, hf_cfg, sd = write_hf_checkpoint(tmp_path / "ckpt", "v32", "safetensors",
+                                                (*FAMILY_OVERRIDES[family], f"train.model.name={name}", *tied))
+    assert hf_cfg["backbone_model_name"] == name
+    jmodel, jparams, _ = jax_load_checkpoint(directory)
+    model, _ = load_checkpoint(directory)
+    want, got = params_from_flax(jparams), model.state_dict()
+    if not model.cfg.embed_decoder_input or model.cfg.backbone.tie_word_embeddings:
+        assert "transformer.decoder.embed_tokens.weight" in got  # the backbone's own table, or the tied head
+    else:
+        del want["transformer.decoder.embed_tokens.weight"]
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in got)
+    assert ("transformer.proj_out.weight" in got) == (family == "nwhisper" or not tied)
+    check_family_params(family, got, sd)
 
 
 def test_half_precision_files_read_as_torch_casts(tmp_path):

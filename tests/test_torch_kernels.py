@@ -6,7 +6,8 @@ test_torch_attention.py, test_torch_attention_tc.py, test_torch_mel.py,
 test_torch_mel_tc.py, test_torch_qmm.py and test_torch_qmm_tc.py).
 Attention is checked on both routes: the fp32 kernels (split-TF32 products, against both the plain
 versions that round as they do and the fp32 ones, at D 32, 64 and 128) and
-the bf16 pair (D 64), and the fp32 forward as the DiT calls it (the band
+the bf16 pair (D 64), both routes at moonshine's head dims 36 and 52
+(padded to the widths the kernels take), and the fp32 forward as the DiT calls it (the band
 as ``window`` 256, a key mask over a bucket's padding) and one DiT-B block
 through it, and both routes unscaled (``sm_scale`` 1.0) at T5-base's cross
 attention; qmm on both of its paths (also at T5-base's products) (its GEMV path also for
@@ -277,16 +278,19 @@ def test_sm90_kernels_reject_misaligned_rows(cuda):
 
 @pytest.mark.cuda
 def test_launch_counters_show_the_route(cuda):
-    """fp32 takes the fp32 pair at any head dim and bf16 at D 64 the
-    tensor-core pair, each call adding one to its own kernels' counters
-    only; bf16 at another head dim raises and launches nothing."""
+    """fp32 takes the fp32 pair at any head dim and bf16 up to D 64 the
+    tensor-core pair (a narrower head padded to 64), each call adding one
+    to its own kernels' counters only; bf16 above D 64 raises and launches
+    nothing."""
     for dtype, d, step in ((torch.float32, 64, (1, 1, 0, 0)), (torch.float32, 32, (1, 1, 0, 0)),
-                           (torch.float32, 128, (1, 1, 0, 0)), (torch.bfloat16, 64, (0, 0, 1, 1))):
+                           (torch.float32, 128, (1, 1, 0, 0)), (torch.float32, 36, (1, 1, 0, 0)),
+                           (torch.bfloat16, 64, (0, 0, 1, 1)), (torch.bfloat16, 32, (0, 0, 1, 1)),
+                           (torch.bfloat16, 52, (0, 0, 1, 1))):
         x = torch.randn((1, 40, 2, d), device=cuda).to(dtype).requires_grad_()
         before = launches()
         flash_attention(x, x, x, causal=True).sum().backward()
         assert launches() == added(before, step), (dtype, d)
-    x = torch.randn((1, 40, 2, 32), device=cuda).to(torch.bfloat16).requires_grad_()
+    x = torch.randn((1, 40, 2, 96), device=cuda).to(torch.bfloat16).requires_grad_()
     before = launches()
     with pytest.raises(ValueError, match="no kernel takes"):
         flash_attention(x, x, x, causal=True)
@@ -295,12 +299,49 @@ def test_launch_counters_show_the_route(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
-    q = torch.randn((1, 8, 2, 12), device=cuda)
+    q = torch.randn((1, 8, 2, 136), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
     q = torch.randn((1, 8, 2, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         flash_attention(q, q, q)
+    q = torch.randn((1, 8, 2, 36), device=cuda)  # the kernels' own entries take no padding
+    with pytest.raises(RuntimeError, match="flash_fwd_fp32: CUDA error"):
+        flash_attention_fwd(q, q, q, None, False, 0, 1.0)
+
+
+# moonshine's head dims (tiny, base): padded to 40 / 56 on the fp32 route, 64 on the sm90 route
+PADDED_HEAD_DIMS = (36, 52)
+PADDED_CASES = [(681, 681, False, 0, "none"), (96, 96, True, 0, "some"), (50, 681, False, 0, "some")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("t,s,causal,window,masked", PADDED_CASES)
+def test_kernels_take_head_dims_that_are_padded(cuda, dtype, d, t, s, causal, window, masked):
+    """B and C at moonshine's head dims through ``flash_attention`` (one
+    launch of each kernel of the route, the scale from the unpadded D),
+    held on the unpadded inputs against the plain versions that round as
+    the route does and the fp32 ones: a moonshine encoder window (T = S =
+    681), a causal self-attention with a key mask and a cross call."""
+    q, k, v, kvm = attention_inputs(cuda, t, s, masked, dtype, d=d, h=8)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    before = launches()
+    out = flash_attention(q, k, v, kvm, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert launches() == added(before, route_step(dtype, fwd=1, bwd=1))
+    assert out.shape == q.shape and all(g.shape == x.shape for g, x in zip(got, (q, k, v)))
+    faithful = {torch.float32: (attention_plain_fp32_tc, attention_backward_plain_fp32_tc),
+                torch.bfloat16: (attention_plain_bf16_tc, attention_backward_plain_bf16_tc)}[dtype]
+    for fwd, bwd in (faithful, (attention_plain, attention_backward_plain)):
+        want = fwd(q.detach(), k.detach(), v.detach(), kvm, causal=causal, window=window)
+        torch.testing.assert_close(out.detach().float(), want.float(), rtol=0, atol=ATTN_TOL[dtype])
+        want_grads = bwd(q.detach(), k.detach(), v.detach(), kvm, do, causal=causal, window=window)
+        tol = grad_tol(dtype, *want_grads)
+        for g, w in zip(got, want_grads):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
 
 
 @pytest.mark.cuda

@@ -9,8 +9,9 @@ where no card is visible, then, on the CPU by name, builds a tiny
 v32-architecture model with seeded random weights, runs ``load_model`` /
 ``generate`` to a written .osu file, loads the tiny checkpoint (written by the
 JAX package) with int8 weights and KV cache and decodes a few steps from it,
-loads published (HF-format) v28 and T5 v1.1 checkpoints from their
-``model.safetensors`` and decodes from each,
+loads published (HF-format) v28, T5 v1.1, NWhisper and moonshine
+checkpoints from their ``model.safetensors`` and decodes from each (the last
+two with int8 weights and KV),
 runs one step of ``train.main`` on a small ORS dataset, and one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
 quantized, and writes a tiny DiT bundle, loads it with
@@ -132,8 +133,20 @@ SCRIPT = textwrap.dedent("""
                                    build_logits_pipeline(tvocab, do_sample=False), [tvocab.eos_id], max_length=9)
     assert tokens.shape == (1, 9) and end > 1
 
+    # published NWhisper (nGPT) and moonshine (raw samples in) checkpoints under -cn v32, with int8 KV and weights
+    for directory, scheme, positions in ((sys.argv[8], "ngpt", 128), (sys.argv[9], "prenorm", 83)):
+        args = load_config("v32", [f"model_path={directory}", "device=cpu", "train.data.src_seq_len=256",
+                                   "train.data.tgt_seq_len=128", "quantized_weights=true", "quantized_kv=true"])
+        fengine, fvocab = inference.load_model(args)
+        assert fengine.model.cfg.backbone.norm_scheme == scheme
+        enc = fengine.encode_with_cond(np.zeros((1, 255 * 128), np.float32))
+        assert enc.shape == (1, positions, 32)
+        tokens, end = fengine.generate(enc, np.full((1, 1), fvocab.sos_id, np.int32),
+                                       build_logits_pipeline(fvocab, do_sample=False), [fvocab.eos_id], max_length=9)
+        assert tokens.shape == (1, 9) and end > 1
+
     split = sys.argv.index("--")
-    state = train_main.main(sys.argv[8:split], log_dir=sys.argv[4])
+    state = train_main.main(sys.argv[10:split], log_dir=sys.argv[4])
     assert state.step == 1
 
     # a LoRA fine-tune of the checkpoint, its adapter merged at load and quantized
@@ -175,6 +188,8 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
     ckpt = make_tiny_checkpoint(tmp_path / "tiny", d_model=128, heads=4, ffn=256)
     hf, _, _ = write_hf_checkpoint(tmp_path / "hf", "v28")
     t5, _, _ = write_hf_checkpoint(tmp_path / "t5", "v32", overrides=FAMILY_OVERRIDES["t5"])
+    ngpt, _, _ = write_hf_checkpoint(tmp_path / "ngpt", "v32", overrides=FAMILY_OVERRIDES["nwhisper"])
+    moonshine, _, _ = write_hf_checkpoint(tmp_path / "moonshine", "v32", overrides=FAMILY_OVERRIDES["moonshine"])
     train_argv = ["-cn", "v32", "device=cpu", "mixed_precision=no", f"checkpoint_path={tmp_path / 'ckpt'}",
                   *data_overrides(ors, src=128, tgt=192), *TINY_MODEL, "optim.batch_size=2", "optim.grad_acc=1",
                   "optim.total_steps=1", "dataloader.num_workers=0", "dataloader.balancer_buffer_size=0",
@@ -185,7 +200,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
                  "dataloader.balancer_buffer_size=0", "logging.log_with=none", "eval.every_steps=0"]
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), str(ckpt),
-         str(hf), str(t5), *train_argv, "--", *lora_argv],
+         str(hf), str(t5), str(ngpt), str(moonshine), *train_argv, "--", *lora_argv],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         # the GPU machine sets JAX_PLATFORMS, which makes the JAX package's
         # __init__ import jax
