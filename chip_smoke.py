@@ -150,7 +150,27 @@
    the kernel on inputs padded beforehand, the copies alone, the plain
    version, SDPA and the bound on the real D: B's rows in its own
    kernels-line entry, C's in the C entries' ``shapes`` (no main path
-   trains a moonshine backbone).
+   trains a moonshine backbone). Then the evaluation tools (``eval_phase``)
+   at full width from seeded random weights: the mapper classifier of
+   ``configs/classifier/train_v1.yaml`` (whisper-base, 1 024 frames and
+   tokens, 388 mels, the mapper classes of ``datasets/beatmap_users.json``),
+   CM3P at ``Cm3pConfig()``'s widths (written native and as
+   ``pytorch_model.bin``, whose two loads must be equal) and OsuR, each
+   written as the bundle its loader reads; ``classifier_classify`` on
+   request 1's .osu, ``calc_fid`` with ``skip_generation`` and every metric
+   on request 1's map against request 2's as its generation (or the next
+   request's on the same song, or a dense map, where request 2's has no
+   timing point, which the classifier's parser needs, or request 1's hit
+   objects) (classifier at
+   batch 32, CM3P at 16; every number finite), ``classifier_test`` at batch
+   32 and ``rcomplexion_inference`` / ``rcomplexion_test`` on synthesized
+   tracks, each through its ``python -m`` entry's ``main``; B must launch in
+   the first three and nothing else of B or C anywhere; then B at the
+   classifier's calls (B 32, T = S = 1 024, H 8: unmasked, and causal with
+   a key mask whose batch row 0 is a window of pads, which must average v
+   over all keys) and CM3P's beatmap tower (B 16, T = S = 512, the same
+   mask) against both plain versions and timed beside SDPA; these join B's
+   kernels-line entry and its launches.
 5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
    for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
@@ -2726,6 +2746,297 @@ def moonshine_phase(tmp: Path, report: dict) -> tuple[dict, list[dict], list[dic
     return {k: first.get(k, 0) + second.get(k, 0) for k in first}, [entry], bwd_rows
 
 
+# the evaluation phase: the mapper classifier of configs/classifier/train_v1.yaml (whisper-base: d 512, 6 + 6
+# layers, 8 heads, ffn 2 048, 1 024 frames and 1 024 tokens, 388 mels, projection 256, the mapper classes of
+# datasets/beatmap_users.json), CM3P at Cm3pConfig()'s widths (d 512, 6 layers a tower, 1 024 frames, 512
+# tokens, projection 512) and OsuR at configs/rcomplexion/train_v1.yaml, each from seeded random weights.
+# classifier_test and rcomplexion_inference read EVAL_TRACKS of write_ors's tracks (4 maps of 60 s each)
+EVAL_TRACKS = 2
+EVAL_BATCH, CM3P_BATCH = 32, 16
+# kernel B at the evaluation models' calls (fp32, H 8, D 64): (label, B, T, S, causal, key mask)
+EVAL_ATTENTION = [("classifier encoder and cross", EVAL_BATCH, 1024, 1024, False, False),
+                  ("classifier decoder self", EVAL_BATCH, 1024, 1024, True, True),
+                  ("CM3P beatmap tower", CM3P_BATCH, 512, 512, False, True)]
+
+
+def eval_attention(report: dict) -> list[dict]:
+    """Kernel B at the classifier's and CM3P's calls (``EVAL_ATTENTION``),
+    against both fp32 plain versions at 2e-5, timed beside the plain
+    version, SDPA and the bound. Each key mask pads each row's end, and its
+    batch row 0 is a window of pads only: every query row there sees no key
+    and must average v over all S keys, as the JAX ``_attend`` does."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, attention_plain_fp32_tc, \
+        flash_fwd_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    H, D, tol = 8, 64, ATTN_TOL[torch.float32]
+    scale = D**-0.5
+    rows = []
+    for label, B, T, S, causal, masked in EVAL_ATTENTION:
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda") for _ in range(2))
+        mask = sdpa_mask = None
+        if masked:
+            lengths = torch.randint(S // 4, S + 1, (B, 1), generator=gen, device="cuda")
+            mask = torch.arange(S, device="cuda")[None] < lengths
+            mask[0] = False
+            sdpa_mask = mask[:, None, None, :]
+            if causal:
+                sdpa_mask = sdpa_mask & torch.ones((T, S), dtype=torch.bool, device="cuda").tril()
+        out = flash_fwd_fp32(q, k, v, mask, causal, 0, scale, False)[0]
+        err = {"tc": (out - attention_plain_fp32_tc(q, k, v, mask, causal=causal)).abs().max().item(),
+               "fp32": (out - attention_plain(q, k, v, mask, causal=causal)).abs().max().item()}
+        if masked:
+            err["empty window"] = (out[0] - v[0].mean(0, keepdim=True)).abs().max().item()
+        qs, ks, vs = sdpa_layout(q, k, v)
+        times = in_turns({"plain": lambda: attention_plain(q, k, v, mask, causal=causal),
+                          "kernel": lambda: flash_fwd_fp32(q, k, v, mask, causal, 0, scale, False),
+                          "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                              qs, ks, vs, attn_mask=sdpa_mask)})
+        pairs = H * attended_pairs(B, T, S, causal, mask)
+        bounds = fp32_bounds(4.0 * pairs * D, 4 * 2 * B * H * D * (T + S))  # q, out; k, v
+        row = {"label": label, "shape": f"B{B} T{T} S{S} H{H} D{D} fp32" + (" causal" if causal else "")
+               + (" key mask, row 0 all pads" if masked else ""), "ms": times["kernel"], "plain_ms": times["plain"],
+               "library_ms": times["library"], **bounds, "pairs_share": pairs / (B * H * T * S),
+               "max_abs_err": err, "tol": tol}
+        rows.append(row)
+        print(f"flash_attention_fwd fp32 {label} {row['shape']}: max_abs_err {err['tc']:.3e} against the plain "
+              f"version that splits as the kernel does, {err['fp32']:.3e} against the fp32 one"
+              + (f", {err['empty window']:.3e} from v's mean in the window of pads" if masked else "")
+              + f" (tol {tol:g}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention {row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.2f}x); "
+              f"bound {row['bound_ms']:.4f} ms (three TF32 products {row['tf32x3_ms']:.4f}, fp32 FMAs "
+              f"{row['fma_ms']:.4f}, bytes {row['bytes_ms']:.4f}); the masks leave {row['pairs_share']:.4f} of T x S")
+        if not all(e <= tol for e in err.values()):
+            raise AssertionError(f"flash_attention fp32 {label}: {err} above {tol}")
+        del q, k, v, out, qs, ks, vs, sdpa_mask
+    torch.cuda.empty_cache()
+    report["attention_eval"] = rows
+    return rows
+
+
+def cm3p_torch_state_dict(model) -> dict:
+    """A CM3P's weights in the torch dual-tower layout ``load_cm3p`` converts
+    (``pytorch_model.bin``): the fused ``wqkv`` split into q / k / v
+    projections (k without a bias, whose fused slot must be 0), the norms
+    and feed-forwards under the whisper names."""
+    state = {name: t.detach().cpu() for name, t in model.state_dict().items()}
+    sd = {name: state[name] for name in ("beatmap_embedder.weight", "audio_embedder.weight", "audio_embedder.bias",
+                                         "beatmap_projection.weight", "audio_projection.weight", "logit_scale")}
+    for tower, backbone in (("beatmap_encoder", model.cfg.beatmap_backbone),
+                            ("audio_encoder", model.cfg.audio_backbone)):
+        norms = [("layer_norm", "norm")]
+        for i in range(backbone.encoder_layers):
+            p = f"{tower}.layers.{i}"
+            q, k, v = state[f"{p}.self_attn.wqkv.weight"].chunk(3)
+            qb, kb, vb = state[f"{p}.self_attn.wqkv.bias"].chunk(3)
+            if kb.any():
+                raise AssertionError(f"{p}: a k bias the torch layout cannot hold")
+            sd.update({f"{p}.self_attn.q_proj.weight": q, f"{p}.self_attn.q_proj.bias": qb,
+                       f"{p}.self_attn.k_proj.weight": k, f"{p}.self_attn.v_proj.weight": v,
+                       f"{p}.self_attn.v_proj.bias": vb,
+                       f"{p}.self_attn.out_proj.weight": state[f"{p}.self_attn.wo.weight"],
+                       f"{p}.self_attn.out_proj.bias": state[f"{p}.self_attn.wo.bias"]})
+            for fc in ("fc1", "fc2"):
+                for leaf in ("weight", "bias"):
+                    sd[f"{p}.{fc}.{leaf}"] = state[f"{p}.ffn.{fc}.{leaf}"]
+            norms += [(f"layers.{i}.self_attn_layer_norm", f"layers.{i}.self_attn_norm"),
+                      (f"layers.{i}.final_layer_norm", f"layers.{i}.final_norm")]
+        for theirs, ours in norms:
+            for leaf in ("weight", "bias"):
+                if f"{tower}.{ours}.{leaf}" in state:
+                    sd[f"{tower}.{theirs}.{leaf}"] = state[f"{tower}.{ours}.{leaf}"]
+    return sd
+
+
+def eval_bundles(tmp: Path, mappers: Path) -> tuple[dict, dict]:
+    """The classifier bundle (``save_classifier_bundle``), CM3P written
+    native (``save_cm3p``) and as ``pytorch_model.bin`` beside its config,
+    and OsuR's ``params.msgpack``, all at full width from seeded random
+    weights; CM3P's two loads must be equal. Returns the paths and the
+    record."""
+    from mapperatorinator_tpu_torch.config import load_classifier_config, load_config, load_rcomplexion_config
+    from mapperatorinator_tpu_torch.models.classifier import (OsuR, OsuRConfig, build_classifier,
+                                                              save_classifier_bundle)
+    from mapperatorinator_tpu_torch.models.cm3p import Cm3p, Cm3pConfig, load_cm3p, save_cm3p
+    from mapperatorinator_tpu_torch.models.io import save_params
+    from mapperatorinator_tpu_torch.models.params import init_params
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+    from mapperatorinator_tpu_torch.rcomplexion import RTokenizer
+
+    t0 = time.perf_counter()
+    args = load_classifier_config("train_v1", [f"data.mappers_path={mappers}"])
+    vocab = build_vocabulary(args)
+    classifier = build_classifier(args, vocab)
+    check_full_width(classifier, WHISPER_BASE)
+    init_params(classifier, 19)
+    paths = {"classifier": save_classifier_bundle(tmp / "classifier", classifier, args, vocab)}
+
+    # Cm3pConfig()'s widths, its token table as wide as the vocabulary the bundle carries: v32's, whose event
+    # types are those the feature extractor's parser emits at the JAX DataConfig() defaults (the classifier's
+    # splits positions into POS_X / POS_Y, which that parser does not)
+    cm3p_vocab = build_vocabulary(load_config("v32").train)
+    cm3p = Cm3p(dataclasses.replace(Cm3pConfig(), vocab_size=max(Cm3pConfig().vocab_size, cm3p_vocab.vocab_size_in)))
+    init_params(cm3p, 20)
+    paths["cm3p"] = save_cm3p(tmp / "cm3p", cm3p, cm3p_vocab)
+    paths["cm3p_bin"] = tmp / "cm3p_bin"
+    paths["cm3p_bin"].mkdir()
+    (paths["cm3p_bin"] / "cm3p_config.json").write_text((paths["cm3p"] / "cm3p_config.json").read_text())
+    torch.save(cm3p_torch_state_dict(cm3p), paths["cm3p_bin"] / "pytorch_model.bin")
+    native, from_bin = load_cm3p(paths["cm3p"])[0].state_dict(), load_cm3p(paths["cm3p_bin"])[0].state_dict()
+    unequal = [name for name in native if not torch.equal(native[name], from_bin[name])]
+    if set(native) != set(from_bin) or unequal:
+        raise AssertionError(f"CM3P: the native and pytorch_model.bin loads differ at {unequal[:5]}")
+
+    rc_args = load_rcomplexion_config("inference_v1")
+    tokenizer = RTokenizer(rc_args)
+    osur = OsuR(OsuRConfig(vocab_size_in=tokenizer.vocab_size_in, vocab_size_out=tokenizer.vocab_size_out,
+                           src_seq_len=rc_args.data.src_seq_len, hidden_size=rc_args.model.hidden_size))
+    init_params(osur, 21)
+    paths["osur"] = tmp / "osur"
+    paths["osur"].mkdir()
+    save_params(paths["osur"] / "params.msgpack", osur)
+    count = {name: sum(p.numel() for p in m.parameters()) for name, m in
+             (("classifier", classifier), ("cm3p", cm3p), ("osur", osur))}
+    record = {"parameters": count, "mapper_classes": vocab.num_mapper_classes,
+              "cm3p_loads_equal": len(native), "bundles_s": time.perf_counter() - t0}
+    print(f"eval bundles: classifier {count['classifier'] / 1e6:.1f} M parameters ({vocab.num_mapper_classes} "
+          f"mapper classes), CM3P {count['cm3p'] / 1e6:.1f} M (native and pytorch_model.bin loads equal in all "
+          f"{len(native)} tensors), OsuR {count['osur'] / 1e6:.2f} M; written in {record['bundles_s']:.1f} s")
+    return paths, record
+
+
+def counted(label: str, fn, record: dict):
+    """``fn()`` with the attention counters set to 0 before and read after;
+    its result, wall time and launches go to ``record[label]``."""
+    reset_attention_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    record[label] = {"wall_s": time.perf_counter() - t0, "launches": attention_launches()}
+    return out
+
+
+def eval_generation(tmp: Path, report: dict) -> tuple[Path, str]:
+    """(the map ``calc_fid`` takes as request 1's generation, what it is):
+    request 2's .osu, or where random weights wrote one with no timing point
+    or hit object (the classifier's parser asserts a timing point, as the
+    JAX one does) or the same hit objects as request 1's (a comparison of a
+    map with itself gives FID 0) the next request's on the same song (3,
+    then super-timing's), else a dense map (``maimod_map``)."""
+    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+
+    def objects(path) -> str:
+        return Path(path).read_text().partition("[HitObjects]")[2].strip()
+
+    real = objects(report["requests"][0]["osu_path"])
+    same_song = [r for r in report["requests"][1:] if r["label"][0].isdigit()]
+    for request in same_song:
+        written = Beatmap.from_path(request["osu_path"])
+        if written.timing_points and written.hit_objects() and objects(request["osu_path"]) != real:
+            return Path(request["osu_path"]), f"request {request['label']}'s .osu"
+    osu, source = maimod_map(tmp, report["requests"][1]["osu_path"], "request 2", AUDIO_SECONDS)
+    return Path(osu), source
+
+
+def eval_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, list[dict]]:
+    """The evaluation tools at full width (``eval_bundles``), each through
+    its entry point on the card:
+
+    * (a) ``classifier_classify`` on request 1's .osu and the song: the top
+      100 mappers, each confidence finite;
+    * (b) ``calc_fid`` with ``skip_generation=true``, every metric on (fid
+      with the classifier at batch 32, ``fid_cm3p`` at batch 16, the rhythm
+      and extra stats) over an ORS folder of request 1's map as the real one
+      and request 2's as its generation (``eval_generation``: another
+      request's where request 2's has no timing point or request 1's hit
+      objects), on the same song: every number finite;
+    * (c) ``classifier_test`` on ``EVAL_TRACKS`` of ``write_ors``'s tracks at
+      batch 32, and (d) ``rcomplexion_inference`` (in a directory of its own:
+      it writes ``rhythm_complexities.csv`` where it runs) and
+      ``rcomplexion_test`` on them.
+
+    The mapper table is ``datasets/beatmap_users.json`` with the synthesized
+    maps' ids added under users it already holds, so the classes are the
+    table's. Kernel B must launch in (a), (b) and (c) and nothing else of
+    B or C; then B at the models' calls (``eval_attention``). Returns the
+    launches and B's rows."""
+    from mapperatorinator_tpu_torch import calc_fid, classifier_classify, classifier_test, rcomplexion_inference, \
+        rcomplexion_test
+
+    started = time.perf_counter()
+    ors = write_ors(tmp / "eval_tracks", tracks=EVAL_TRACKS)
+    table = json.loads((REPO / "datasets" / "beatmap_users.json").read_text())
+    users = sorted(set(table.values()))
+    bids = [int(json.loads((t / "metadata.json").read_text())["Beatmaps"][m]["BeatmapId"])
+            for t in sorted(ors.glob("Track*")) for m in json.loads((t / "metadata.json").read_text())["Beatmaps"]]
+    mappers = tmp / "mappers.json"
+    mappers.write_text(json.dumps({**table, **{str(bid): users[i % len(users)] for i, bid in enumerate(bids)}}))
+    paths, record = eval_bundles(tmp, mappers)
+
+    real = Path(report["requests"][0]["osu_path"])
+    generated, generated_source = eval_generation(tmp, report)
+    record["generated"] = generated_source
+    fid_set = tmp / "eval_fid"
+    (fid_set / "Track00000" / "beatmaps").mkdir(parents=True)
+    (fid_set / "generated" / "Track00000_real").mkdir(parents=True)
+    (fid_set / "Track00000" / "beatmaps" / "real.osu").write_text(real.read_text())
+    (fid_set / "Track00000" / "audio.wav").write_bytes(wav.read_bytes())
+    (fid_set / "generated" / "Track00000_real" / "generated.osu").write_text(generated.read_text())
+
+    clf = [f"model_path={paths['classifier']}", f"data.mappers_path={mappers}"]
+    top = counted("classify", lambda: classifier_classify.main(
+        ["-cn", "train_v1", *clf, f"beatmap_path={real}", f"audio_path={wav}", "time=0"]), record)
+    fid = counted("calc_fid", lambda: calc_fid.main(
+        [f"dataset_path={fid_set}", "dataset_start=0", "dataset_end=1", "gamemodes=[0]", "skip_generation=true",
+         f"classifier_ckpt={paths['classifier']}", f"classifier_batch_size={EVAL_BATCH}", "fid=true",
+         "fid_cm3p=true", f"cm3p_ckpt={paths['cm3p']}", f"cm3p_batch_size={CM3P_BATCH}", "rhythm_stats=true",
+         "extra_stats=true"]), record)
+    tracks = [f"data.test_dataset_path={ors}", "data.test_dataset_start=0", f"data.test_dataset_end={EVAL_TRACKS}"]
+    tested = counted("classifier_test", lambda: classifier_test.main(
+        ["-cn", "train_v1", *clf, *tracks, f"optim.batch_size={EVAL_BATCH}"]), record)
+    rc = [f"model_path={paths['osur']}", f"data.train_dataset_path={ors}", "data.train_dataset_start=0",
+          f"data.train_dataset_end={EVAL_TRACKS}"]
+    (tmp / "rcomplexion").mkdir()
+    with contextlib.chdir(tmp / "rcomplexion"):
+        complexities = counted("rcomplexion_inference", lambda: rcomplexion_inference.main(
+            ["-cn", "inference_v1", *rc]), record)
+        grid = counted("rcomplexion_test", lambda: rcomplexion_test.main(
+            ["-cn", "inference_v1", *rc, "-o", str(tmp / "rcomplexion" / "grid.png")]), record)
+
+    numbers = [c for *_, c in top] + list(fid.values()) + list(tested.values()) + list(complexities.values())
+    wanted = {"fid", "ssm_rmse", "fid_cm3p", "ssm_rmse_cm3p", "active_rhythm_f1", "drain_mse", "bpm_mse", "sr_mse"}
+    complete = (len(top) == 100 and wanted <= set(fid) and len(tested) == 4
+                and len(complexities) == ORS_MAPS * EVAL_TRACKS)
+    if not (complete and np.isfinite(numbers).all() and np.isfinite(grid).all()):
+        raise AssertionError(f"the evaluation outputs are incomplete or not finite: {len(top)} mappers, {fid}, "
+                             f"{tested}, {complexities}")
+    launches = {name: sum(r["launches"][name] for r in record.values() if isinstance(r, dict) and "launches" in r)
+                for name in attention_launches()}
+    by_step = {label: record[label]["launches"]["flash_attention_fwd"] for label in
+               ("classify", "calc_fid", "classifier_test", "rcomplexion_inference", "rcomplexion_test")}
+    if not (by_step["classify"] and by_step["calc_fid"] and by_step["classifier_test"]) \
+            or by_step["rcomplexion_inference"] or by_step["rcomplexion_test"] \
+            or launches["flash_attention_fwd"] != sum(launches.values()):
+        raise AssertionError(f"the evaluation phase launched {launches} ({by_step}): B in (a)-(c), nothing else")
+    record.update({"top": top[:5], "fid": fid, "test": tested, "rhythm_complexities": complexities,
+                   "entropy_bits": float(grid.sum(axis=1).mean())})
+    print(f"eval (a) classify: top mapper {top[0][1]} at {top[0][2]:.4f}, {record['classify']['wall_s']:.2f} s; "
+          f"(b) calc_fid on {generated_source} as the generation, {record['calc_fid']['wall_s']:.2f} s: " + ", ".join(f"{k} {v:.6g}" for k, v in fid.items()
+                                                                                if not isinstance(v, dict))
+          + f"; (c) classifier_test {record['classifier_test']['wall_s']:.2f} s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tested.items())
+          + f"; (d) rcomplexion_inference {record['rcomplexion_inference']['wall_s']:.2f} s, "
+          f"{len(complexities)} maps, rcomplexion_test {record['rcomplexion_test']['wall_s']:.2f} s; B launches "
+          f"{by_step}")
+    rows = eval_attention(report)
+    record["phase_s"] = time.perf_counter() - started
+    report["eval"] = record
+    print(f"eval phase: {record['phase_s']:.1f} s, B launches {launches['flash_attention_fwd']}")
+    return launches, rows
+
+
 def dense_dit_map(path: Path) -> Path:
     """``DIT_OBJECTS`` hit objects 150 ms apart at random positions:
     circles, and every ``DIT_SLIDER_EVERY``-th a slider (Bezier, perfect,
@@ -3308,12 +3619,12 @@ SliderTickRate:1
 """
 
 
-def write_ors(root: Path) -> Path:
-    """An ``ors`` track-folder dataset made from a seed: ``ORS_TRACKS``
-    tracks of ``ORS_SECONDS`` s of audio, each with ``ORS_MAPS`` maps whose
-    hit objects, one every 50 ms, fill the 2560-token target of a window."""
+def write_ors(root: Path, tracks: int = ORS_TRACKS) -> Path:
+    """An ``ors`` track-folder dataset made from a seed: ``tracks`` tracks
+    of ``ORS_SECONDS`` s of audio, each with ``ORS_MAPS`` maps whose hit
+    objects, one every 50 ms, fill the 2560-token target of a window."""
     rng = np.random.default_rng(0)
-    for track_i in range(ORS_TRACKS):
+    for track_i in range(tracks):
         track = root / f"Track{track_i:05d}"
         (track / "beatmaps").mkdir(parents=True)
         write_wav(track / "audio.wav", ORS_SECONDS, seed=track_i, freq=220.0 + 30 * track_i)
@@ -3844,12 +4155,14 @@ def main() -> int:
         t5, t5_entries = t5_phase(tmp, report)
         ngpt, ngpt_entries = ngpt_phase(tmp, report)
         moonshine, moonshine_entries, moonshine_bwd_rows = moonshine_phase(tmp, report)
+        evaluated, eval_rows = eval_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
-    # kernel B's entry gains the DiT's shapes and their errors
+    # kernel B's entry gains the DiT's and the evaluation models' shapes and their errors
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
-    fwd["shapes"] += dit_rows
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows for e in row["max_abs_err"].values()))
+    fwd["shapes"] += dit_rows + eval_rows
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows + eval_rows
+                                                   for e in row["max_abs_err"].values()))
     # kernel C's entries gain moonshine's head dim (a card check: no main path trains a moonshine backbone)
     for entry in kernels:
         if entry["name"] in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
@@ -3859,10 +4172,10 @@ def main() -> int:
                      lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
-    # fp32 training, bf16 training, the LoRA fine-tune; the gradient check's
-    # are listed apart
+    # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools;
+    # the gradient check's are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
-                for k in served}
+                + evaluated.get(k, 0) for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
@@ -3872,6 +4185,7 @@ def main() -> int:
                                   "nGPT (NWhisper-base: a fp32 and an int8-KV request)": ngpt,
                                   "moonshine (moonshine-tiny: a fp32 and an int8 request)": moonshine,
                                   "LoRA serving (two requests)": lora_served,
+                                  "evaluation (classify, calc_fid, classifier_test, rcomplexion)": evaluated,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,
                                   "gradient check (fp32 and bf16, first batch; not a main path)": checked}

@@ -4,8 +4,10 @@ A native checkpoint is a directory holding ``model_config.json`` (the
 MapperatorinatorConfig tree), ``params.msgpack`` (flax-serialized params) and
 ``tokenizer.json`` (the Vocabulary state). :func:`load_checkpoint` also reads
 a published one (``config.json`` and the reference's torch weights,
-:mod:`.convert`). A DiT bundle, as the JAX
-``diffusion_train.py`` exports one, holds ``dit_config.json`` (the DiTConfig
+:mod:`.convert`). :func:`save_params` and
+:func:`load_params` write and read the ``params.msgpack`` of any module that
+carries the flax names (the classifier, OsuR and CM3P bundles). A DiT bundle,
+as the JAX ``diffusion_train.py`` exports one, holds ``dit_config.json`` (the DiTConfig
 fields but the dtype) and ``params.msgpack`` (the EMA params). The msgpack
 files are read and written by :mod:`.flax_msgpack`, in pure Python: the port
 needs no ``msgpack`` package.
@@ -18,7 +20,6 @@ import json
 from pathlib import Path
 from typing import Optional, Union
 
-import numpy as np
 import torch
 
 from ..osu.vocab import Vocabulary
@@ -27,7 +28,7 @@ from .convert import load_hf_checkpoint
 from .legacy import is_legacy_checkpoint
 from .dit import DiT, DiTConfig
 from .mapperatorinator import Mapperatorinator, MapperatorinatorConfig, build_model
-from .params import dit_params_from_flax, dit_params_to_flax, flax_layout, flax_paths, params_from_flax
+from .params import dit_params_from_flax, dit_params_to_flax, flax_paths, params_from_flax, params_to_flax
 from .transformer import TransformerConfig, quantize_weight
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -70,6 +71,20 @@ def read_flax_msgpack(path: Union[str, Path]) -> dict:
     return tree
 
 
+def save_params(path: Union[str, Path], model: torch.nn.Module) -> None:
+    """``model``'s weights as the ``params.msgpack`` that ``flax.serialization``
+    writes for its flax counterpart: fp32, the flax layout and names."""
+    Path(path).write_bytes(flax_msgpack.packb(params_to_flax(model.state_dict(), flax_paths(model))))
+
+
+def load_params(path: Union[str, Path], model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` with the weights of a ``params.msgpack`` (the flax tree of a
+    classifier, OsuR or CM3P, or of any module that carries the flax names);
+    raises if a tensor is missing, left over or of another shape."""
+    model.load_state_dict(params_from_flax(read_flax_msgpack(path)))
+    return model
+
+
 def save_checkpoint(directory: Union[str, Path], config: MapperatorinatorConfig,
                     state_dict: dict[str, torch.Tensor], vocab: Optional[Vocabulary] = None) -> None:
     """The counterpart of the JAX ``save_checkpoint``: ``model_config.json``,
@@ -83,17 +98,7 @@ def save_checkpoint(directory: Union[str, Path], config: MapperatorinatorConfig,
         paths = flax_paths(Mapperatorinator(config))
     if set(paths) != set(state_dict):
         raise ValueError(f"state dict does not match the config: {sorted(set(paths) ^ set(state_dict))[:5]}")
-    tree: dict = {}
-    for name, tensor in state_dict.items():
-        path = paths[name]
-        t = flax_layout(tensor.detach(), path).cpu()
-        if t.is_floating_point():
-            t = t.float()
-        *scopes, leaf = path.split("/")
-        node = tree
-        for scope in scopes:
-            node = node.setdefault(scope, {})
-        node[leaf] = np.ascontiguousarray(t.numpy())
+    tree = params_to_flax(state_dict, paths)
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     with open(directory / "model_config.json", "w", encoding="utf-8") as f:

@@ -25,8 +25,11 @@ output the way the JAX ``Attention`` does (``reshape(b, t, 3h, d)``, then
 thirds along the head axis), so the columns keep their meaning.
 
 :func:`flax_paths` runs the same table backwards, from a module's parameter
-names to the flax paths the JAX optimizer's masks match against, and
-:func:`flax_layout` moves a tensor between the two layouts.
+names to the flax paths the JAX optimizer's masks match against,
+:func:`flax_layout` moves a tensor between the two layouts, and
+:func:`params_to_flax` writes a module's state dict as the flax tree. The
+classifier, OsuR and CM3P (:mod:`.classifier`, :mod:`.cm3p`) carry the flax
+names too, so the same rules read and write their trees.
 
 The DiT (:mod:`.dit`) has its own table, :func:`dit_params_from_flax` and
 :func:`dit_params_to_flax`: ``blocks_3`` becomes ``blocks.3``, a Dense
@@ -144,6 +147,24 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {name}")
         state[name] = torch.tensor(arr)
     return state
+
+
+def params_to_flax(state: dict[str, torch.Tensor], paths: dict[str, str]) -> dict:
+    """A port module's state dict -> the nested flax tree of fp32 (floating)
+    numpy arrays in the flax layout, each tensor at the flax path ``paths``
+    (:func:`flax_paths` of the module) names."""
+    tree: dict = {}
+    for name, tensor in state.items():
+        path = paths[name]
+        t = flax_layout(tensor.detach(), path).cpu()
+        if t.is_floating_point():
+            t = t.float()
+        *scopes, leaf = path.split("/")
+        node = tree
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = np.ascontiguousarray(t.numpy()).reshape(t.shape)  # a 0-d leaf stays 0-d
+    return tree
 
 
 def lora_from_flax(tree: dict) -> dict[str, torch.Tensor]:

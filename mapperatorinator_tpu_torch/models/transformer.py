@@ -30,6 +30,8 @@ GroupNorm, conv 7 / 3 and conv 3 / 2 with GELUs), a partial GPT-J style
 rotation (:func:`apply_rope_interleaved_partial`) of ``rope_partial_factor``
 of each head, bias-free LayerNorms and attention, and a gated-concat SiLU
 decoder feed-forward that stays a plain ``Dense`` under int8.
+``position_scheme="none"`` (a CM3P tower may use it) adds no position
+information anywhere, as the JAX modules' branches do.
 
 Dtypes follow the flax modules op by op rather than ``torch.autocast``: the
 projections and the conv stem compute in ``cfg.dtype`` whatever the dtype of
@@ -151,7 +153,7 @@ class TransformerConfig:
 
 # (field, the values the port builds): every value the JAX modules branch on
 _SUPPORTED = (
-    ("position_scheme", ("rope", "whisper_abs", "t5_relpos")),
+    ("position_scheme", ("rope", "whisper_abs", "t5_relpos", "none")),
     ("norm", ("rms", "layer")),
     ("norm_scheme", ("prenorm", "ngpt")),
     ("stem_type", ("whisper", "moonshine")),
@@ -949,14 +951,18 @@ class OsuTransformer(nn.Module):
     """Encoder-decoder with LM head. ``forward`` is the teacher-forced path;
     ``init_cache`` / ``decode_step`` the cached autoregressive one.
     ``embed_inputs`` gives the decoder its own token table (the JAX decoder
-    creates it on first use; a wrapper that embeds its own ids has none)."""
+    creates it on first use; a wrapper that embeds its own ids has none), and
+    ``head`` the LM head (a wrapper that reads the hidden states, as the
+    classifier does, has none)."""
 
-    def __init__(self, cfg: TransformerConfig, embed_inputs: bool = True):
+    def __init__(self, cfg: TransformerConfig, embed_inputs: bool = True, head: bool = True):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg, embed_inputs)
+        if not head:
+            return
         if cfg.norm_scheme == "ngpt":  # a normalised head and a learned logit scale
             self.proj_out = NormDense(cfg.d_model, cfg.vocab_size, False, cfg.dtype)
             self.logit_scale = HyperScale(cfg.vocab_size, 1.0, cfg.d_model**-0.5)

@@ -7,8 +7,12 @@ of ``configs/inference/v32-mini.yaml`` (``v31``, ``v30``, ``v29`` and
 ``configs/train/<name>.yaml`` for v32-mini and the fine-tune configs
 (``lora``, ``lora_v32``, ``v32_ft``, ``v32-mini_ft``), and ``mai_mod.json`` that of
 ``configs/mai_mod.yaml`` (``MaiModConfig``, the v32 inference config under
-``inference``), written out as JSON as ``tests/test_torch_config.py`` does for
-the v32 pair. These tests recompose them and fail on any drift; to regenerate
+``inference``), ``classifier_train_v1.json`` that of
+``configs/classifier/train_v1.yaml`` (``ClassifierConfig``),
+``rcomplexion_train_v1.json`` and ``rcomplexion_inference_v1.json`` those of
+``configs/rcomplexion/`` (``RcomplexionConfig``) and ``calc_fid.json`` that
+of ``configs/calc_fid.yaml`` (``FidConfig``, v32 under ``inference``),
+written out as JSON as ``tests/test_torch_config.py`` does for the v32 pair. These tests recompose them and fail on any drift; to regenerate
 them: ``JAX_PLATFORMS=cpu python -m tests.test_torch_configs_more``.
 
 v32-mini's backbone is VarWhisper-base: 6 + 6 layers, all attention global.
@@ -28,7 +32,8 @@ from mapperatorinator_tpu.config import compose, schema
 from mapperatorinator_tpu.models.mapperatorinator import build_config as jax_build_config
 from mapperatorinator_tpu.osu import build_vocabulary as jax_build_vocabulary
 from mapperatorinator_tpu_torch import inference
-from mapperatorinator_tpu_torch.config import CONFIG_DIR, load_config, load_mai_mod_config, load_train_config
+from mapperatorinator_tpu_torch.config import (CONFIG_DIR, load_classifier_config, load_config, load_fid_config,
+                                               load_mai_mod_config, load_rcomplexion_config, load_train_config)
 from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
 from mapperatorinator_tpu_torch.osu import build_vocabulary
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
@@ -42,10 +47,17 @@ CONFIGS = {  # checked-in file -> (JAX config directory, config name, schema)
     **{name: ("inference", name, schema.InferenceConfig) for name in INFERENCE_CONFIGS},
     **{f"train_{name}": ("train", name, schema.TrainConfig) for name in TRAIN_CONFIGS},
     "mai_mod": ("", "mai_mod", schema.MaiModConfig),
+    "classifier_train_v1": ("classifier", "train_v1", schema.ClassifierConfig),
+    **{f"rcomplexion_{name}": ("rcomplexion", name, schema.RcomplexionConfig) for name in ("train_v1", "inference_v1")},
+    "calc_fid": ("", "calc_fid", schema.FidConfig),
 }
 LOADERS = {**{name: lambda o, name=name: load_config(name, o) for name in INFERENCE_CONFIGS},
            **{f"train_{name}": lambda o, name=name: load_train_config(name, o) for name in TRAIN_CONFIGS},
-           "mai_mod": lambda o: load_mai_mod_config("mai_mod", o)}
+           "mai_mod": lambda o: load_mai_mod_config("mai_mod", o),
+           "classifier_train_v1": lambda o: load_classifier_config("train_v1", o),
+           **{f"rcomplexion_{name}": lambda o, name=name: load_rcomplexion_config(name, o)
+              for name in ("train_v1", "inference_v1")},
+           "calc_fid": lambda o: load_fid_config("calc_fid", o)}
 OVERRIDES = {
     "v32-mini": ("cfg_scale=2", "train.data.src_seq_len=256", "device=cpu", 'descriptors=["clean"]'),
     "v31": ("mapper_id=1234", "difficulty=6.5", "year=2020", "train.model.spectrogram.implementation=pallas",
@@ -62,6 +74,12 @@ OVERRIDES = {
     "train_v32-mini_ft": ("pretrained_path=base", "pretrained_gamemode=0", "optim.grad_acc=1"),
     "mai_mod": ("beatmap_path=map.osu", "raw_output=true", "inference.cfg_scale=2",
                 "inference.train.data.tgt_seq_len=192", "inference.super_timing=true"),
+    "classifier_train_v1": ("model_path=clf", "data.src_seq_len=64", "model.input_features=true",
+                            "model.spectrogram.n_mels=32", "data.mappers_path=", "device=cpu"),
+    "rcomplexion_train_v1": ("data.src_seq_len=8", "model.hidden_size=16", "optim.batch_size=4"),
+    "rcomplexion_inference_v1": ("model_path=osur", "data.train_dataset_end=2", "device=cpu"),
+    "calc_fid": ("skip_generation=true", "num_processes=0", "gamemodes=[0]", "classifier_batch_size=4",
+                 "inference.model_path=ckpt", "inference.device=cpu", "inference.train.data.src_seq_len=128"),
 }
 
 

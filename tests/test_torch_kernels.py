@@ -10,7 +10,9 @@ the bf16 pair (D 64), both routes at moonshine's head dims 36 and 52
 (padded to the widths the kernels take), and the fp32 forward as the DiT calls it (the band
 as ``window`` 256, a key mask over a bucket's padding) and one DiT-B block
 through it, and both routes unscaled (``sm_scale`` 1.0) at T5-base's cross
-attention; qmm on both of its paths (also at T5-base's products) (its GEMV path also for
+attention, and the fp32 forward at the mapper classifier's and CM3P's calls
+(windows of pads only included) and through a small classifier; qmm on
+both of its paths (also at T5-base's products) (its GEMV path also for
 bit-equal repeats and a refused launch); the fused mel against both its
 plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
 on the frame layouts it takes and refuses. CUDA graphs: the GEMV captured
@@ -783,3 +785,72 @@ def test_qmm_kernel_at_the_t5_base_shapes(cuda, dtype, rows, k, n):
     if tc:
         torch.testing.assert_close(got.float(), qmm_plain_tf32x2(x, wq, scale).float(), rtol=0,
                                    atol=QMM_TC_TOL[dtype] * scale_out)
+
+
+# the mapper classifier's and CM3P's calls (fp32, H 8, D 64): (B, T, S, causal, key mask)
+EVAL_CASES = [
+    (4, 1024, 1024, False, "none"),  # the classifier's encoder, and its cross attention
+    (4, 1024, 1024, True, "ragged, row 0 empty"),  # its decoder self-attention under the token mask
+    (4, 512, 512, False, "ragged, row 0 empty"),  # CM3P's beatmap tower
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,causal,masked", EVAL_CASES)
+def test_kernel_b_at_the_classifier_and_cm3p_calls(cuda, b, t, s, causal, masked):
+    """Kernel B as the evaluation models call it, against both fp32 plain
+    versions at 2e-5; in a window of pads only (row 0), every query row sees
+    no key and averages v over all S keys, as the JAX ``_attend`` does."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn((b, n, 8, 64), generator=gen).to(cuda) for n in (t, s, s))
+    kvm = None
+    if masked != "none":
+        lengths = torch.randint(s // 4, s + 1, (b, 1), generator=gen)
+        kvm = (torch.arange(s)[None] < lengths).to(cuda)
+        kvm[0] = False
+    before = launches()
+    got = flash_attention(q, k, v, kvm, causal=causal)
+    assert launches() == added(before, (1, 0, 0, 0))
+    for plain in (attention_plain, attention_plain_fp32_tc):
+        torch.testing.assert_close(got, plain(q, k, v, kvm, causal=causal), rtol=0, atol=ATTN_TOL[torch.float32])
+    if kvm is not None:
+        torch.testing.assert_close(got[0], v[0].mean(0, keepdim=True).expand(t, -1, -1), rtol=0,
+                                   atol=ATTN_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_a_classifier_forward_through_kernel_b(cuda):
+    """A small classifier (2 + 2 layers, d_model 512, 8 heads, 256 frames,
+    128 tokens, one window all pads) on the card: each encoder layer, each
+    decoder self and cross attention launches B once, and the outputs agree
+    with the plain attention path within 2e-4 times their size."""
+    from types import SimpleNamespace
+
+    from mapperatorinator_tpu_torch.models.classifier import build_classifier
+    from mapperatorinator_tpu_torch.models.params import init_params
+
+    spect = SimpleNamespace(sample_rate=16000, n_fft=1024, n_mels=388, hop_length=128)
+    model_args = SimpleNamespace(d_model=512, encoder_layers=2, decoder_layers=2, encoder_heads=8, decoder_heads=8,
+                                 encoder_ffn=2048, decoder_ffn=2048, classifier_proj_size=256, input_features=False,
+                                 spectrogram=spect)
+    vocab = SimpleNamespace(vocab_size_out=4000, vocab_size_in=4100, num_mapper_classes=64)
+    model = build_classifier(SimpleNamespace(model=model_args, data=SimpleNamespace(src_seq_len=256,
+                                                                                    tgt_seq_len=128)), vocab)
+    init_params(model, 0)
+    model = model.to(cuda).eval()
+    gen = torch.Generator().manual_seed(14)
+    frames = torch.randn((2, 255 * 128), generator=gen).to(cuda)
+    ids = torch.randint(1, 4100, (2, 128), generator=gen).to(cuda)
+    mask = torch.ones((2, 128), dtype=torch.bool, device=cuda)
+    mask[1] = False
+    before = launches()
+    with torch.inference_mode():
+        got = model(frames, ids, mask)
+        assert launches() == added(before, (2 + 2 * 2, 0, 0, 0))
+        for module in model.modules():
+            if hasattr(module, "use_flash"):
+                module.use_flash = False
+        want = model(frames, ids, mask)
+    for key in ("encoder_last_hidden_state", "decoder_last_hidden_state", "feature_vector", "logits"):
+        scale = max(1.0, want[key].abs().max().item())
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=2e-4 * scale)

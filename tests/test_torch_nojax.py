@@ -1,5 +1,6 @@
 """The port runs where jax, flax, optax, yaml, msgpack, safetensors,
-transformers and the JAX package cannot be imported, and its copies of the JAX package's host code stay the
+transformers, matplotlib (which the GPU machine lacks) and the JAX package
+cannot be imported, and its copies of the JAX package's host code stay the
 JAX package's code.
 
 A subprocess installs an import hook that refuses those packages (the JAX
@@ -14,12 +15,14 @@ checkpoints from their ``model.safetensors`` and decodes from each (the last
 two with int8 weights and KV),
 runs one step of ``train.main`` on a small ORS dataset, and one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
-quantized, and writes a tiny DiT bundle, loads it with
-``load_diffusion_model`` and refines the positions of a few events with it.
+quantized, writes a tiny DiT bundle, loads it with
+``load_diffusion_model`` and refines the positions of a few events with it,
+and writes a tiny classifier and CM3P bundle and runs every metric of
+``calc_fid`` with them on the ORS set's maps.
 
 The drift guard holds each copied file (``osu/``, ``native/``,
 ``csrc/difficulty.cpp``, ``train/data/``, ``diffusion/{vocab,data,export}.py``,
-``audio/io.py``,
+``audio/io.py``, ``eval/``, ``rcomplexion/``, ``utils/batched_apply.py``,
 ``infer/super_timing.py``, and ``infer/processor.py``, whose CFG folds use
 ``torch.cat``) to its source: equal but for imports and the module
 docstring, and, where named below, the lines that point the copy at the
@@ -27,8 +30,9 @@ port's own build or engine; and each copied definition of
 ``models/lora.py``, ``models/legacy.py`` (its module map pointed at the
 port's ``osu/events.py``), ``infer/server.py``, ``mai_mod.py`` (the
 top-level script's) and the host code of ``infer/diffusion_pipeline.py``
-(methods of its pipeline class too) to the JAX one, imports inside it
-aside.
+(methods of its pipeline class too), ``calc_fid.py``,
+``classifier_classify.py`` and ``rcomplexion_inference.py`` (the top-level
+scripts') to the JAX one, imports inside it aside.
 """
 
 import ast
@@ -41,6 +45,7 @@ import pytest
 
 from mapperatorinator_tpu.osu.beatmap import Beatmap
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
+from tests.test_torch_calc_fid import write_generated
 from tests.test_torch_convert import FAMILY_OVERRIDES, write_hf_checkpoint
 from tests.test_torch_data import TINY_MODEL, data_overrides, write_ors
 
@@ -48,7 +53,7 @@ SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "safetensors", "transformers",
-               "mapperatorinator_tpu"}
+               "mapperatorinator_tpu", "matplotlib"}
     attempts = []
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -146,7 +151,7 @@ SCRIPT = textwrap.dedent("""
         assert tokens.shape == (1, 9) and end > 1
 
     split = sys.argv.index("--")
-    state = train_main.main(sys.argv[10:split], log_dir=sys.argv[4])
+    state = train_main.main(sys.argv[11:split], log_dir=sys.argv[4])
     assert state.step == 1
 
     # a LoRA fine-tune of the checkpoint, its adapter merged at load and quantized
@@ -175,6 +180,32 @@ SCRIPT = textwrap.dedent("""
               Event(EventType.DISTANCE, 80) if k == 1 else Event(EventType.CIRCLE) for i in range(3) for k in range(3)]
     refined = DiffusionPipeline(args, dit, dit).generate(events, GenerationConfig(), timing=None)
     assert [e.type for e in refined].count(EventType.POS_X) == 3
+    # the evaluation harness on the CPU: a classifier and a CM3P bundle the port writes and reads without
+    # msgpack, every metric of calc_fid on the ORS set's maps and their "generated" copies
+    from mapperatorinator_tpu_torch import calc_fid
+    from mapperatorinator_tpu_torch.config import load_classifier_config
+    from mapperatorinator_tpu_torch.models.classifier import build_classifier, save_classifier_bundle
+    from mapperatorinator_tpu_torch.models.cm3p import Cm3p, Cm3pConfig, save_cm3p
+    from mapperatorinator_tpu_torch.models.transformer import TransformerConfig
+    from mapperatorinator_tpu_torch.osu import build_vocabulary
+
+    torch.manual_seed(0)
+    clf_args = load_classifier_config("train_v1", [
+        "model.d_model=64", "model.encoder_layers=1", "model.decoder_layers=1", "model.encoder_heads=4",
+        "model.decoder_heads=4", "model.encoder_ffn=128", "model.decoder_ffn=128", "model.classifier_proj_size=8",
+        "data.src_seq_len=64", "data.tgt_seq_len=32", "model.spectrogram.n_mels=32"])
+    clf_vocab = build_vocabulary(clf_args)
+    save_classifier_bundle(f"{sys.argv[3]}/classifier", build_classifier(clf_args, clf_vocab), clf_args, clf_vocab)
+    tower = TransformerConfig(d_model=64, encoder_layers=1, encoder_heads=4, encoder_ffn=128, conv_stem=False)
+    save_cm3p(f"{sys.argv[3]}/cm3p", Cm3p(Cm3pConfig(beatmap_backbone=tower, audio_backbone=tower,
+                                                      vocab_size=qvocab.vocab_size_in, projection_dim=8,
+                                                      src_seq_len=64, tgt_seq_len=32)), qvocab)
+    results = calc_fid.main([f"dataset_path={sys.argv[10]}", "dataset_start=0", "dataset_end=2", "gamemodes=[0]",
+                             "skip_generation=true", f"classifier_ckpt={sys.argv[3]}/classifier",
+                             f"cm3p_ckpt={sys.argv[3]}/cm3p", "fid_cm3p=true", "classifier_batch_size=4",
+                             "cm3p_batch_size=4", "inference.device=cpu"])
+    assert {"fid", "fid_cm3p", "active_rhythm_f1", "sr_mse"} <= set(results), results
+
     # not even attempted: an import caught by a try would still be one
     assert not attempts, attempts
     print("MODULES", len(modules))
@@ -198,9 +229,10 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
                  *data_overrides(ors, src=128, tgt=192), "data.mappers_path=", "data.tags_metadata_path=",
                  "lora.r=4", "optim.batch_size=2", "optim.total_steps=1", "dataloader.num_workers=0",
                  "dataloader.balancer_buffer_size=0", "logging.log_with=none", "eval.every_steps=0"]
+    write_generated(ors)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(REPO_ROOT), str(wav), str(tmp_path), str(tmp_path / "logs"), str(ckpt),
-         str(hf), str(t5), str(ngpt), str(moonshine), *train_argv, "--", *lora_argv],
+         str(hf), str(t5), str(ngpt), str(moonshine), str(ors), *train_argv, "--", *lora_argv],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         # the GPU machine sets JAX_PLATFORMS, which makes the JAX package's
         # __init__ import jax
@@ -227,11 +259,21 @@ COPIES = {
     "native/difficulty.py": "mapperatorinator_tpu/native/difficulty.py",
     "csrc/difficulty.cpp": "native/difficulty.cpp",
     **{f"train/data/{name}.py": f"mapperatorinator_tpu/train/data/{name}.py"
-       for name in ("sequence", "batching", "ors")},
+       for name in ("sequence", "batching", "ors", "classifier")},
+    **{f"eval/{name}.py": f"mapperatorinator_tpu/eval/{name}.py" for name in ("__init__", "fid", "rhythm")},
+    **{f"rcomplexion/{name}.py": f"mapperatorinator_tpu/rcomplexion/{name}.py"
+       for name in ("__init__", "vocab", "parser", "data")},
+    "utils/batched_apply.py": "mapperatorinator_tpu/utils/batched_apply.py",
 }
 # (source text, the copy's text): the copy builds its library with the port's
-# ops/_build.py; the Processor folds its CFG batches with torch.cat
+# ops/_build.py; the Processor folds its CFG batches with torch.cat; the FID
+# takes the matrix root as every scipy version returns it
 REPLACED = {
+    "eval/fid.py": [
+        ("    covmean, _ = linalg.sqrtm(sigma1.dot(sigma2), disp=False)\n",
+         "    # scipy 1.16 dropped sqrtm's ``disp``; without it every version returns the root alone\n"
+         "    covmean = linalg.sqrtm(sigma1.dot(sigma2))\n"),
+    ],
     "infer/processor.py": [
         ("\n            encoder_states = jnp.concatenate([encoder_states, encoder_states], axis=0)\n",
          "            encoder_states = torch.cat([encoder_states, encoder_states], dim=0)\n"),
@@ -296,16 +338,88 @@ COPIED_DEFINITIONS = [
       "DiffusionPipeline.EVENT_INDEX", "DiffusionPipeline.NC_TYPES", "DiffusionPipeline.events_to_sequence",
       "DiffusionPipeline._timing_point_at", "DiffusionPipeline._to_positions",
       "DiffusionPipeline._slider_recompute_host", "DiffusionPipeline.events_with_pos")),
+    ("calc_fid.py", "calc_fid.py",
+     ("get_beatmap_paths", "get_beatmap_paths_by_gamemode", "test_training_set_overlap", "generate_beatmaps",
+      "rhythm_report", "drain_time_seconds", "_bpm_segments", "bpm_mse_for_pair", "extra_stats",
+      "compute_self_similarity", "_resize_matrix", "ssm_rmse_for_pair", "classifier_fid", "cm3p_fid",
+      "_fan_out_generation", "_generated_dir", "_already_generated", "_generated_for", "main")),
+    ("classifier_classify.py", "classifier_classify.py",
+     ("STEPS_PER_MILLISECOND", "create_example", "get_mapper_names")),
+    ("rcomplexion_inference.py", "rcomplexion_inference.py", ("od_to_ms_300", "calc_rhythm_complexity")),
     ("mai_mod.py", "mai_mod.py",
      ("MOD_EXPLANATIONS", "POSITION_TYPES", "ANCHOR_TYPES", "HS_TYPES", "TIMING_TYPES_", "HITOBJECT_TYPES",
       "Suggestion", "type_to_str", "_GroupIndex", "_worth_reporting", "_combo_positions", "_attach_editor_locations",
       "_mmssms", "_edit_address", "_SURPRISAL_TIERS", "_surprisal_text", "_categorize", "ai_mod",
       "select_config_for_gamemode", "run_analysis", "main")),
 ]
-# (copy, name) -> [(source text, the copy's text)]: the port's MaiMod reads its own resolved configs; the
+# (copy, name) -> [(source text, the copy's text)]: the port's harness raises on the mmrs scan, reads its own
+# resolved configs, spawns no JAX platform choice, loads CM3P on the device the config selects and holds
+# (model, config, vocab) bundles; OsuR's softmax is torch's; the port's MaiMod reads its own resolved configs; the
 # diffusion pipeline embeds the context's times with the port's timestep embedding; the legacy module map
 # routes the reference's paths to the port's events
 DEFINITION_REPLACED = {
+    ("calc_fid.py", "get_beatmap_paths_by_gamemode"): [
+        ('    if args.dataset_type == "mmrs":\n\n'
+         "        df = load_mmrs_metadata(root)\n"
+         "        df = filter_mmrs_metadata(\n"
+         "            df,\n"
+         "            start=args.dataset_start,\n"
+         "            end=args.dataset_end,\n"
+         "            gamemodes=list(args.gamemodes),\n"
+         "            min_year=args.min_year,\n"
+         "            max_year=args.max_year,\n"
+         "            min_difficulty=args.min_difficulty,\n"
+         "            max_difficulty=args.max_difficulty,\n"
+         "        )\n"
+         "        for _, item in df.iterrows():\n"
+         '            gm = int(item["ModeInt"])\n'
+         "            by_gm.setdefault(gm, []).append(\n"
+         '                root / "data" / item["BeatmapSetFolder"] / item["BeatmapFile"]\n'
+         "            )\n",
+         '    if args.dataset_type == "mmrs":\n'
+         """        raise NotImplementedError("dataset_type='mmrs': its metadata is parquet, read with pandas; "\n"""
+         '                                  "not ported (ROADMAP queue 1, item 15); use dataset_type=ors")\n'),
+    ],
+    ("calc_fid.py", "generate_beatmaps"): [
+        ('        i_args = compose(REPO_ROOT / "configs" / "inference", "v32", '
+         "schema_cls=schema.InferenceConfig)\n",
+         '        i_args = load_config("v32")\n'),
+    ],
+    ("calc_fid.py", "cm3p_fid"): [
+        ('    _, _, config, vocab = bundle\n',
+         '    _, config, vocab = bundle\n'),
+        ('    bundle = load_cm3p(args.cm3p_ckpt)\n',
+         '    bundle = load_cm3p(args.cm3p_ckpt, select_device(args.inference))\n'),
+    ],
+    ("calc_fid.py", "_fan_out_generation"): [
+        ("\n        platform = jax.default_backend()\n"
+         '        ctx = multiprocessing.get_context("spawn")\n'
+         "        procs = [\n"
+         "            ctx.Process(target=_generation_worker, args=(chunk, args, gm, i, platform))\n",
+         "\n"
+         '        ctx = multiprocessing.get_context("spawn")\n'
+         "        procs = [\n"
+         "            ctx.Process(target=_generation_worker, args=(chunk, args, gm, i))\n"),
+    ],
+    ("calc_fid.py", "main"): [
+        ('    args = compose(REPO_ROOT / "configs", "calc_fid", overrides=overrides, '
+         "schema_cls=schema.FidConfig)\n",
+         '    args = load_fid_config("calc_fid", overrides)\n'),
+    ],
+    ("calc_fid.py", "classifier_fid"): [
+        ('    sr = classifier_bundle[2].model.spectrogram.sample_rate\n',
+         '    sr = classifier_bundle[1].model.spectrogram.sample_rate\n'),
+    ],
+    ("rcomplexion_inference.py", "calc_rhythm_complexity"): [
+        ("    # pad the batch dim to the next power of two so XLA reuses compiles\n"
+         "    # across beatmaps with different window counts\n",
+         "    # pad the batch dim to the next power of two, as the JAX function does\n"
+         "    # (its compiles are reused across beatmaps), so the logits are the same\n"),
+        ("    probs = np.asarray(\n"
+         '        __import__("jax").nn.softmax(logits.astype("float32"), axis=-1)\n'
+         "    )\n",
+         "    probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()\n"),
+    ],
     ("models/legacy.py", "_MODULE_MAPPING"): [
         ('"mapperatorinator_tpu.osu.events",\n', '"mapperatorinator_tpu_torch.osu.events",\n'),
     ],
