@@ -202,6 +202,24 @@
    (and then quantized), and the requests must launch the kernels of
    request 2 (A, B) and of request 3 (B, D) with A. The resolver must skip
    the adapter at ``gamemode=1``.
+   Then the auxiliary trainers (``aux_train_phase``), each through its
+   entry point's ``main`` on the same synthesized set, from weights seeded
+   as flax draws them: ``diffusion_train -cn v1`` (DiT-B at v1's batch 256,
+   3 steps, the uniform sampler; its EMA bundle read back equal; then one
+   step with the ``loss-second-moment`` sampler from a warm history),
+   ``classifier_train -cn train_v1`` (train_v1's widths, micro-batch 128
+   and grad_acc 2: two updates and one eval batch; its
+   bundle read back equal) and ``rcomplexion_train -cn train_v1`` (OsuR at
+   batch 1 024, 3 steps and an eval; its export read back equal). Every
+   attention call of the DiT and the classifier must run B forward and C
+   backward on the fp32 route (12 of each a DiT step, 18 a classifier
+   micro-step), OsuR none; one fp32 gradient check each for the DiT and
+   the classifier through B + C against plain attention; then B and C at
+   the trainers' calls (DiT-B's B 256, T = S = 128, H 12, unmasked; the
+   classifier's B 64, T = S = 1 024, H 8, unmasked and causal with a key
+   mask whose row 0 is a window of pads, where C's dq and dk must be
+   exactly 0) against both plain versions and timed beside SDPA and the
+   bound; these join B's and C's kernels-line entries and their launches.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -215,6 +233,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import gc
 import io
@@ -2753,6 +2772,22 @@ def moonshine_phase(tmp: Path, report: dict) -> tuple[dict, list[dict], list[dic
 # classifier_test and rcomplexion_inference read EVAL_TRACKS of write_ors's tracks (4 maps of 60 s each)
 EVAL_TRACKS = 2
 EVAL_BATCH, CM3P_BATCH = 32, 16
+# the auxiliary trainers (diffusion_train, classifier_train, rcomplexion_train), each through its entry point
+# on train_phase's synthesized set (ORS_TRACKS tracks of ORS_MAPS maps, an object every 50 ms): DiT-B at
+# configs/diffusion/v1.yaml's batch 256; the classifier at configs/classifier/train_v1.yaml's widths and grad_acc
+# 2 and its micro-batch of 128 rows (fp32 activations of 1 024 frames and 1 024 tokens a row take about 0.6 GiB);
+# OsuR at
+# configs/rcomplexion/train_v1.yaml's batch 1 024. The step counts are cut, warmup_steps to 1, one eval batch
+# each; printed with the phase
+AUX_DIT_STEPS = 3
+AUX_CLF_BATCH, AUX_CLF_MICRO_STEPS = 128, 4
+AUX_OSUR_STEPS = 3
+AUX_DIT_CHECK_BATCH, AUX_CLF_CHECK_BATCH = 32, 4  # the gradient checks' batches (plain attention's memory)
+DIT_CALLS, CLF_CALLS = 12, 18  # attention calls a forward: DiT-B's blocks; the classifier's 6 + 6 + 6
+# kernels B and C at the auxiliary trainers' calls (fp32, D 64): (label, B, T, S, H, causal + key mask)
+AUX_ATTENTION = [("DiT-B training self-attention", 256, 128, 128, 12, False),
+                 ("classifier training encoder and cross", AUX_CLF_BATCH, 1024, 1024, 8, False),
+                 ("classifier training decoder self", AUX_CLF_BATCH, 1024, 1024, 8, True)]
 # kernel B at the evaluation models' calls (fp32, H 8, D 64): (label, B, T, S, causal, key mask)
 EVAL_ATTENTION = [("classifier encoder and cross", EVAL_BATCH, 1024, 1024, False, False),
                   ("classifier decoder self", EVAL_BATCH, 1024, 1024, True, True),
@@ -2940,6 +2975,18 @@ def eval_generation(tmp: Path, report: dict) -> tuple[Path, str]:
     return Path(osu), source
 
 
+def mapper_table(path: Path, ors: Path) -> Path:
+    """``datasets/beatmap_users.json`` with the maps of ``ors`` added under
+    users it already holds, in turn, so that the classifier's classes are
+    the table's and every synthesized map has a mapper."""
+    table = json.loads((REPO / "datasets" / "beatmap_users.json").read_text())
+    users = sorted(set(table.values()))
+    bids = [int(json.loads((t / "metadata.json").read_text())["Beatmaps"][m]["BeatmapId"])
+            for t in sorted(ors.glob("Track*")) for m in json.loads((t / "metadata.json").read_text())["Beatmaps"]]
+    path.write_text(json.dumps({**table, **{str(bid): users[i % len(users)] for i, bid in enumerate(bids)}}))
+    return path
+
+
 def eval_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, list[dict]]:
     """The evaluation tools at full width (``eval_bundles``), each through
     its entry point on the card:
@@ -2967,12 +3014,7 @@ def eval_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, list[dict]]:
 
     started = time.perf_counter()
     ors = write_ors(tmp / "eval_tracks", tracks=EVAL_TRACKS)
-    table = json.loads((REPO / "datasets" / "beatmap_users.json").read_text())
-    users = sorted(set(table.values()))
-    bids = [int(json.loads((t / "metadata.json").read_text())["Beatmaps"][m]["BeatmapId"])
-            for t in sorted(ors.glob("Track*")) for m in json.loads((t / "metadata.json").read_text())["Beatmaps"]]
-    mappers = tmp / "mappers.json"
-    mappers.write_text(json.dumps({**table, **{str(bid): users[i % len(users)] for i, bid in enumerate(bids)}}))
+    mappers = mapper_table(tmp / "mappers.json", ors)
     paths, record = eval_bundles(tmp, mappers)
 
     real = Path(report["requests"][0]["osu_path"])
@@ -3682,18 +3724,12 @@ def check_gradients(ors: Path, report: dict) -> dict:
             raise AssertionError(f"the gradient check launched {launches}, not {want}")
         return loss, grads, launches
 
-    def worst(grads: dict, ref: dict) -> tuple[float, str]:
-        """The largest error relative to the reference tensor's largest entry, and its tensor."""
-        errs = {n: ((grads[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item() for n, g in ref.items()}
-        name = max(errs, key=errs.get)
-        return errs[name], name
-
     model, _, make_batches = build("no")
     batch = to_device({k: v[:2] for k, v in next(iter(make_batches(test=False))).items()}, "cuda")
     weights = {n: p.detach().clone() for n, p in model.named_parameters()}
     loss_k, grads_k, fp32_launches = with_kernels(model, batch, ("flash_attention_fwd", "flash_attention_bwd"))
     loss_ref, ref = loss_and_grads(model, batch, False)
-    err, name = worst(grads_k, ref)
+    err, name = worst_relative(grads_k, ref)
     print(f"training gradients, first batch, fp32, B2, kernels B+C (fp32) vs plain attention: loss {loss_k:.6f} vs "
           f"{loss_ref:.6f}, {len(ref)} gradient tensors, largest error relative to the tensor's largest entry "
           f"{err:.3e} ({name}; tol {GRAD_TOL:g}), launches {fp32_launches}")
@@ -3711,7 +3747,8 @@ def check_gradients(ors: Path, report: dict) -> dict:
         raise AssertionError("the bf16 model's seeded weights differ from the fp32 model's")
     loss_k, grads_k, launches = with_kernels(model, batch, ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90"))
     loss_p, grads_p = loss_and_grads(model, batch, False)
-    (err_k, name_k), (err_p, name_p), (err_kp, _) = worst(grads_k, ref), worst(grads_p, ref), worst(grads_k, grads_p)
+    (err_k, name_k), (err_p, name_p), (err_kp, _) = (worst_relative(grads_k, ref), worst_relative(grads_p, ref),
+                                                     worst_relative(grads_k, grads_p))
     print(f"training gradients, first batch, bf16, B2, against the fp32 plain gradients: kernels B+C (tensor "
           f"cores) loss {loss_k:.6f}, largest relative error {err_k:.3e} ({name_k}); plain bf16 attention loss "
           f"{loss_p:.6f}, {err_p:.3e} ({name_p}); fp32 loss {loss_ref:.6f} (tol: the kernels within "
@@ -3810,7 +3847,7 @@ def train_phase(tmp: Path, report: dict) -> dict:
         raise AssertionError(f"not the full-width bf16 v32 backbone: {b}")
     steps = metrics_steps(logs)
     shapes = {"frames": np.zeros((TRAIN_BATCH, 2047 * 128)), "decoder_input_ids": np.zeros((TRAIN_BATCH, 2560))}
-    tokens = batch_tokens(shapes)
+    tokens = batch_tokens(shapes, state.model.cfg)
     card = card_line()
     for r in steps:
         print(f"train step {r['step']}: loss {r['train/loss']:.4f}, grad_l2 {r['train/grad_l2']:.3f}, "
@@ -3987,7 +4024,7 @@ def finetune_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
             after = counts()
             per_step.append({k: after[k] - before[k] for k in after})
             b_moved.append(all(bool(f.b.detach().abs().sum() > 0) for f in state.model.values()))
-            step_tokens.append(batch_tokens(batch))
+            step_tokens.append(batch_tokens(batch, model.cfg))
             return state, metrics
 
         return run
@@ -4104,6 +4141,359 @@ def finetune_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     return launches, {k: sum(r[k] for r in serving.values()) for k in next(iter(serving.values()))}
 
 
+def aux_attention(report: dict) -> tuple[list[dict], list[dict]]:
+    """Kernels B and C at the auxiliary trainers' calls (``AUX_ATTENTION``),
+    against both fp32 plain versions (forward within 2e-5, backward within
+    2e-5 times the largest reference gradient), timed beside the plain
+    version, SDPA (its backward through autograd) and the bound. The
+    classifier decoder's key mask pads each row's end, and its batch row 0
+    is a window of pads only: no key is live there, so the exact dq and dk
+    are 0, which C must write. Returns B's and C's rows."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (
+        attention_backward_plain, attention_backward_plain_fp32_tc, attention_plain, attention_plain_fp32_tc,
+        flash_bwd_fp32, flash_fwd_fp32)
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    D, tol = 64, ATTN_TOL[torch.float32]
+    scale = D**-0.5
+    fwd_rows, bwd_rows = [], []
+    for label, B, T, S, H, masked in AUX_ATTENTION:
+        q, do = (torch.randn((B, T, H, D), generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda") for _ in range(2))
+        mask = sdpa_mask = None
+        if masked:
+            lengths = torch.randint(S // 4, S + 1, (B, 1), generator=gen, device="cuda")
+            mask = torch.arange(S, device="cuda")[None] < lengths
+            mask[0] = False
+            sdpa_mask = torch.ones((T, S), dtype=torch.bool, device="cuda").tril()[None, None] & mask[:, None, None, :]
+        out, lse = flash_fwd_fp32(q, k, v, mask, masked, 0, scale, True)
+        fwd_err = {"tc": (out - attention_plain_fp32_tc(q, k, v, mask, causal=masked)).abs().max().item(),
+                   "fp32": (out - attention_plain(q, k, v, mask, causal=masked)).abs().max().item()}
+        grads = flash_bwd_fp32(q, k, v, mask, out, lse, do, masked, 0, scale)
+        bwd_err, bwd_tol = {}, {}
+        for name, plain in (("tc", attention_backward_plain_fp32_tc), ("fp32", attention_backward_plain)):
+            want = plain(q, k, v, mask, do, causal=masked)
+            bwd_err[name] = max((g - w).abs().max().item() for g, w in zip(grads, want))
+            bwd_tol[name] = tol * max(1.0, max(w.abs().max().item() for w in want))
+            del want
+        if masked:  # no live key in row 0: dq and dk exactly 0 there
+            bwd_err["pads row dq, dk"] = max(grads[0][0].abs().max().item(), grads[1][0].abs().max().item())
+            bwd_tol["pads row dq, dk"] = 0.0
+        del grads
+        qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+        do_s = do.transpose(1, 2).contiguous()
+        el_q, el_k = B * T * H * D, B * S * H * D
+        pairs = H * attended_pairs(B, T, S, masked, mask)
+        shape = f"B{B} T{T} S{S} H{H} D{D} fp32" + (" causal + key mask, row 0 all pads" if masked else "")
+        kinds = (("fwd", fwd_rows, fwd_err, {"tc": tol, "fp32": tol},
+                  {"plain": lambda: attention_plain(q, k, v, mask, causal=masked),
+                   "kernel": lambda: flash_fwd_fp32(q, k, v, mask, masked, 0, scale, True),
+                   "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qs.detach(), ks.detach(), vs.detach(), attn_mask=sdpa_mask)},
+                  fp32_bounds(4.0 * pairs * D, 4 * (2 * el_q + 2 * el_k) + 4 * B * H * T)),  # q, k, v in; out, lse
+                 ("bwd", bwd_rows, bwd_err, bwd_tol,
+                  {"plain": lambda: attention_backward_plain(q, k, v, mask, do, causal=masked),
+                   "kernel": lambda: flash_bwd_fp32(q, k, v, mask, out, lse, do, masked, 0, scale),
+                   "library": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True)},
+                  # q, k, v, O, dO and lse in; dq, dk, dv out
+                  fp32_bounds(10.0 * pairs * D, 4 * (3 * el_q + 2 * el_k) + 4 * (el_q + 2 * el_k) + 4 * B * H * T)))
+        for kind, rows, err, tols, fns, bounds in kinds:
+            t_ = in_turns(fns, reps=5)
+            row = {"label": label, "shape": shape, "ms": t_["kernel"], "plain_ms": t_["plain"],
+                   "library_ms": t_["library"], **bounds, "pairs_share": pairs / (B * H * T * S),
+                   "max_abs_err": err, "tol": tols}
+            rows.append(row)
+            print(f"flash_attention_{kind} fp32 {label} {shape}: max_abs_err "
+                  + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in err.items())
+                  + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA"
+                  + (" backward" if kind == "bwd" else "") + f" {row['library_ms']:.4f} ms "
+                  f"({row['ms'] / row['library_ms']:.2f}x); bound {row['bound_ms']:.4f} ms (three TF32 products "
+                  f"{row['tf32x3_ms']:.4f}, fp32 FMAs {row['fma_ms']:.4f}, bytes {row['bytes_ms']:.4f}); the masks "
+                  f"leave {row['pairs_share']:.4f} of T x S")
+            if not all(err[n] <= tols[n] for n in err):
+                raise AssertionError(f"flash_attention_{kind} fp32 {label}: {err} above {tols}")
+        del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, do_s, sdpa_mask
+        torch.cuda.empty_cache()
+    report["attention_aux_training"] = {"fwd": fwd_rows, "bwd": bwd_rows}
+    return fwd_rows, bwd_rows
+
+
+@contextlib.contextmanager
+def timed_steps(module, name: str, steps: list):
+    """``module.<name>`` (a train-step factory) replaced, while the block
+    runs, by one whose steps each append their seconds (to a synchronize
+    after the step) and attention launches to ``steps``."""
+    make = getattr(module, name)
+
+    def factory(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(*a, **kw):
+            before = attention_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            after = attention_launches()
+            steps.append({"s": time.perf_counter() - t0, "launches": {k: after[k] - before[k] for k in after}})
+            return out
+
+        return run
+
+    setattr(module, name, factory)
+    try:
+        yield
+    finally:
+        setattr(module, name, make)
+
+
+def trainer_run(label: str, module, factory: str, argv: list, record: dict):
+    """``module.main(argv)``, each step timed (``timed_steps``), the
+    attention counters set to 0 before and read after, the peak memory
+    reset before: the run's wall, launches, steps and peak go to
+    ``record[label]``. Returns what ``main`` returns."""
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_steps(module, factory, steps):
+        out = counted(label, lambda: module.main(argv), record)
+    record[label].update({"steps": steps, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return out
+
+
+def worst_relative(grads: dict, ref: dict) -> tuple[float, str]:
+    """The largest gradient error relative to its reference tensor's largest entry, and its tensor."""
+    errs = {n: ((grads[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item() for n, g in ref.items()}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def gradient_check(label: str, model, loss_fn, record: dict) -> dict:
+    """``loss_fn()``'s loss and every parameter gradient through kernels B
+    and C against the plain attention path (``set_flash``), within
+    ``GRAD_TOL`` times each tensor's largest entry; the kernels' launches
+    are the check's, not a main path's."""
+    def loss_and_grads(flash: bool):
+        set_flash(model, flash)
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True, materialize_grads=True)
+        return loss.item(), {n: g for (n, _), g in zip(model.named_parameters(), grads)}
+
+    reset_attention_launches()
+    loss_k, grads_k = loss_and_grads(True)
+    launches = attention_launches()
+    loss_p, grads_p = loss_and_grads(False)
+    set_flash(model, True)
+    err, name = worst_relative(grads_k, grads_p)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p, "tensors": len(grads_p), "worst_relative": err,
+           "worst_tensor": name, "tol": GRAD_TOL, "launches": launches}
+    print(f"{label} gradients, kernels B + C (fp32) against plain attention: loss {loss_k:.6f} vs {loss_p:.6f}, "
+          f"{len(grads_p)} gradient tensors, largest error relative to the tensor's largest entry {err:.3e} ({name}; "
+          f"tol {GRAD_TOL:g}), launches {launches}")
+    record[f"{label} gradient check"] = out
+    if not (launches["flash_attention_fwd"] and launches["flash_attention_fwd"] == launches["flash_attention_bwd"]
+            and math.isfinite(loss_k) and abs(loss_k - loss_p) <= GRAD_TOL * abs(loss_p) and err <= GRAD_TOL):
+        raise AssertionError(f"{label}: gradients through the kernels disagree: {out}")
+    del grads_k, grads_p
+    return launches
+
+
+def per_step(run: dict) -> str:
+    return ", ".join(f"{s['s']:.3f} s (B {s['launches']['flash_attention_fwd']}, C "
+                     f"{s['launches']['flash_attention_bwd']})" for s in run["steps"])
+
+
+def aux_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], list[dict]]:
+    """The three auxiliary trainers through their entry points on the card,
+    on train_phase's synthesized set (``tmp / "ors"``), each from weights
+    seeded as flax draws them (``AUX_*`` says what is cut):
+
+    * (a) ``diffusion_train -cn v1``: DiT-B (hidden 768, depth 12, heads 12,
+      128 positions, context 272) at v1's batch 256, the uniform sampler;
+      the EMA bundle it writes read back equal; then one step of the same
+      model with the ``loss-second-moment`` sampler from a warm history;
+    * (b) ``classifier_train -cn train_v1`` at train_v1's widths (d 512,
+      6 + 6 layers, 8 heads, 388 mels): two optimizer steps of grad_acc 2
+      and one eval batch; its bundle read back equal;
+    * (c) ``rcomplexion_train -cn train_v1``: OsuR at batch 1 024, a few
+      steps and one eval; its export read back equal.
+
+    Every attention call of (a) and (b) must run B forward and C backward
+    (12 of each a DiT step, 18 a classifier micro-step, 18 B an eval batch),
+    and (c) none. Then one fp32 gradient check each for the DiT and the
+    classifier through B + C against plain attention, and B and C at the
+    trainers' calls (``aux_attention``). Returns the trainers' launches (a
+    main path) and B's and C's rows."""
+    from mapperatorinator_tpu_torch import classifier_train, diffusion_train, rcomplexion_train
+    from mapperatorinator_tpu_torch.config import load_diffusion_config
+    from mapperatorinator_tpu_torch.diffusion import create_diffusion
+    from mapperatorinator_tpu_torch.diffusion.data import DiffusionDataset
+    from mapperatorinator_tpu_torch.diffusion.schedule_sampler import make_schedule_sampler
+    from mapperatorinator_tpu_torch.diffusion.vocab import DiffusionVocab
+    from mapperatorinator_tpu_torch.config import load_classifier_config
+    from mapperatorinator_tpu_torch.models.classifier import load_classifier_bundle
+    from mapperatorinator_tpu_torch.models.io import load_dit_bundle, load_params
+    from mapperatorinator_tpu_torch.osu import BeatmapParser, build_vocabulary
+    from mapperatorinator_tpu_torch.train.data.batching import batch_iterator
+    from mapperatorinator_tpu_torch.train.data.classifier import ClassifierDataset
+    from mapperatorinator_tpu_torch.train.optim import build_adamw_chain
+
+    gc.collect()  # the classifier at micro-batch 128 peaks at about 76 of the card's 79 GiB
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    ors, work, record = tmp / "ors", tmp / "aux", {}
+    work.mkdir()
+    common = ["logging.every_steps=1", "logging.log_with=none", "checkpoint.every_steps=1000000",
+              "optim.warmup_steps=1"]
+    print(f"auxiliary training cuts: DiT {AUX_DIT_STEPS} steps of 400 000 and one loss-second-moment step, the "
+          f"classifier at micro-batch {AUX_CLF_BATCH} (train_v1's 128) for {AUX_CLF_MICRO_STEPS} micro-steps at "
+          f"grad_acc 2, OsuR "
+          f"{AUX_OSUR_STEPS} steps at batch 1 024; warmup_steps 1 (a schedule needs decay steps after its "
+          "warmup), one eval batch, no checkpoint but the last; the synthesized set for the datasets; widths and "
+          "batches otherwise as published")
+
+    with contextlib.chdir(work):  # each trainer logs under ./logs, as the JAX ones do
+        # (a) DiT-B
+        dit_argv = ["-cn", "v1", f"data.train_dataset_path={ors}", "data.start=0", f"data.end={ORS_TRACKS}",
+                    f"optim.total_steps={AUX_DIT_STEPS}", f"checkpoint_path={work / 'dit'}", *common]
+        model, ema = trainer_run("dit", diffusion_train, "make_diffusion_train_step", dit_argv, record)
+        cfg = ema.cfg
+        if (cfg.hidden_size, cfg.depth, cfg.num_heads, cfg.context_size) != (768, 12, 12, 272):
+            raise AssertionError(f"not DiT-B at v1: {cfg}")
+        t0 = time.perf_counter()
+        bundle = load_dit_bundle(work / "dit" / "final")
+        unequal = [n for n, t in ema.state_dict().items() if not torch.equal(bundle.state_dict()[n], t.cpu())]
+        record["dit"]["bundle_read_s"] = time.perf_counter() - t0
+        if unequal:
+            raise AssertionError(f"the DiT bundle reads back unequal at {unequal[:5]}")
+        del bundle
+        losses = [json.loads(line)["train/loss"] for line in (work / "logs" / "diffusion" / "metrics.jsonl")
+                  .read_text().splitlines()]
+        record["dit"]["losses"] = losses
+
+        args = load_diffusion_config("v1")
+        vocab = DiffusionVocab.from_args(args)
+        args.data.train_dataset_path, args.data.end = str(ors), ORS_TRACKS
+        diffusion = create_diffusion("", noise_schedule=args.model.noise_schedule,
+                                     diffusion_steps=args.model.diffusion_steps)
+        batch = diffusion_train.to_device(next(batch_iterator(DiffusionDataset(args.data, vocab),
+                                                              args.optim.batch_size)), "cuda",
+                                          diffusion_train.BATCH_KEYS)
+        sampler = make_schedule_sampler("loss-second-moment", args.model.diffusion_steps,
+                                        max_timestep=args.model.max_diffusion_step)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        state = sampler.init("cuda")
+        state["history"].uniform_(0.05, 2.0, generator=gen)
+        state["counts"][: sampler.support_size] = sampler.history_per_term
+        history = state["history"].clone()
+        lsm = diffusion_train.make_diffusion_train_step(
+            model, ema, diffusion, build_adamw_chain(args.optim, model),
+            max_t=args.model.max_diffusion_step, sampler=sampler)
+        reset_attention_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, state = lsm(batch, state, gen, gen)
+        loss = loss.item()
+        record["dit loss-second-moment"] = {"s": time.perf_counter() - t0, "launches": attention_launches(),
+                                            "loss": loss, "rows_moved": int((state["history"] != history)
+                                                                            .any(-1).sum().item())}
+        if not (math.isfinite(loss) and record["dit loss-second-moment"]["rows_moved"] > 0
+                and int(state["counts"].sum()) == sampler.support_size * sampler.history_per_term):
+            raise AssertionError(f"the loss-second-moment step: {record['dit loss-second-moment']}")
+        # the vectorised ring update alone, at v1's batch (what it costs a step)
+        t = torch.randint(0, sampler.support_size, (args.optim.batch_size,), generator=gen, device="cuda")
+        losses = torch.rand(args.optim.batch_size, generator=gen, device="cuda")
+        record["dit loss-second-moment"]["update_ms"] = median_ms(lambda: sampler.update(state, t, losses))
+
+        x, c, y = (batch[k][:AUX_DIT_CHECK_BATCH] for k in ("x", "c", "y"))
+        t = torch.randint(0, args.model.max_diffusion_step, (len(x),), generator=gen, device="cuda")
+        noise = torch.randn(x.shape, generator=gen, device="cuda")
+        checked = gradient_check("DiT-B", model, lambda: diffusion.training_losses(
+            lambda xt, tt: model(xt, tt, c, y), x, t, lambda shape: noise)["loss"].mean(), record)
+        del model, ema, batch, x, c, y, noise, lsm, state, history
+        torch.cuda.empty_cache()
+
+        # (b) the classifier at train_v1's widths
+        mappers = mapper_table(tmp / "aux_mappers.json", ors)
+        split = [f"data.mappers_path={mappers}", f"data.train_dataset_path={ors}", "data.train_dataset_start=0",
+                 f"data.train_dataset_end={ORS_TRACKS}", f"data.test_dataset_path={ors}", "data.test_dataset_start=0",
+                 f"data.test_dataset_end={ORS_TRACKS}"]
+        clf_argv = ["-cn", "train_v1", *split, f"optim.batch_size={AUX_CLF_BATCH}",
+                    f"optim.total_steps={AUX_CLF_MICRO_STEPS}", f"eval.every_steps={AUX_CLF_MICRO_STEPS}",
+                    "eval.steps=1", f"checkpoint_path={work / 'clf'}", *common]
+        classifier = trainer_run("classifier", classifier_train, "make_train_step", clf_argv, record)
+        b = classifier.cfg.backbone
+        if (b.d_model, b.encoder_layers, b.decoder_layers, b.encoder_heads, classifier.cfg.n_mels) != \
+                (512, 6, 6, 8, 388):
+            raise AssertionError(f"not the classifier at train_v1's widths: {classifier.cfg}")
+        loaded = load_classifier_bundle(work / "clf" / "final")[0]
+        unequal = [n for n, t in classifier.state_dict().items() if not torch.equal(loaded.state_dict()[n], t.cpu())]
+        if unequal:
+            raise AssertionError(f"the classifier bundle reads back unequal at {unequal[:5]}")
+        logged = [json.loads(line) for line in (work / "logs" / "classifier" / "metrics.jsonl").read_text()
+                  .splitlines()]
+        record["classifier"]["logged"] = logged
+        clf_args = load_classifier_config("train_v1", clf_argv[2:])
+        clf_vocab = build_vocabulary(clf_args)
+        check = next(batch_iterator(ClassifierDataset(clf_args, BeatmapParser(clf_args, clf_vocab), clf_vocab,
+                                                      test=True), AUX_CLF_CHECK_BATCH))
+        check = classifier_train.to_device(check, "cuda")
+        checked_clf = gradient_check("classifier", classifier, lambda: classifier(
+            check["frames"], check["decoder_input_ids"], check["decoder_attention_mask"], check["labels"])["loss"],
+            record)
+        del classifier, loaded, check
+        torch.cuda.empty_cache()
+
+        # (c) OsuR
+        rc_argv = ["-cn", "train_v1", f"data.train_dataset_path={ors}", "data.train_dataset_start=0",
+                   f"data.train_dataset_end={ORS_TRACKS}", f"data.test_dataset_path={ors}",
+                   "data.test_dataset_start=0", f"data.test_dataset_end={ORS_TRACKS}",
+                   "optim.batch_size=1024", f"optim.total_steps={AUX_OSUR_STEPS}",
+                   f"eval.every_steps={AUX_OSUR_STEPS}", "eval.steps=1", f"checkpoint_path={work / 'osur'}", *common]
+        osur = trainer_run("osur", rcomplexion_train, "make_train_step", rc_argv, record)
+        exported = load_params(work / "osur" / "final" / "params.msgpack", copy.deepcopy(osur).cpu())
+        if any(not torch.equal(a, b.cpu()) for a, b in zip(exported.state_dict().values(), osur.state_dict().values())):
+            raise AssertionError("OsuR's export reads back unequal")
+        record["osur"]["logged"] = [json.loads(line) for line in (work / "logs" / "rcomplexion" / "metrics.jsonl")
+                                    .read_text().splitlines()]
+        del osur, exported
+
+    # every attention call of the DiT and the classifier on B and C, OsuR none
+    want = {"dit": (DIT_CALLS * AUX_DIT_STEPS, DIT_CALLS * AUX_DIT_STEPS),
+            "dit loss-second-moment": (DIT_CALLS, DIT_CALLS),
+            "classifier": (CLF_CALLS * (AUX_CLF_MICRO_STEPS + 1), CLF_CALLS * AUX_CLF_MICRO_STEPS), "osur": (0, 0)}
+    for label, (fwd, bwd) in want.items():
+        got = record[label]["launches"]
+        if (got["flash_attention_fwd"], got["flash_attention_bwd"]) != (fwd, bwd) \
+                or got["flash_attention_fwd_sm90"] or got["flash_attention_bwd_sm90"]:
+            raise AssertionError(f"{label} launched {got}, not B {fwd} and C {bwd} on the fp32 route")
+    numbers = record["dit"]["losses"] + [v for r in record["classifier"]["logged"] + record["osur"]["logged"]
+                                         for v in r.values()]
+    val = [r for r in record["classifier"]["logged"] + record["osur"]["logged"] if "val/loss" in r]
+    if len(record["dit"]["losses"]) != AUX_DIT_STEPS or len(val) != 2 or not np.isfinite(numbers).all():
+        raise AssertionError(f"the trainers logged {record['dit']['losses']}, {record['classifier']['logged']}, "
+                             f"{record['osur']['logged']}")
+    for label, what in (("dit", "DiT-B, batch 256"), ("classifier", f"the classifier, micro-batch {AUX_CLF_BATCH}"),
+                        ("osur", "OsuR, batch 1 024")):
+        run = record[label]
+        print(f"aux train ({what}): {run['wall_s']:.2f} s (model build, data, checkpoint and export included), "
+              f"peak {run['peak_mem_gib']:.2f} GiB; steps {per_step(run)}")
+    lsm_run = record["dit loss-second-moment"]
+    print(f"aux train: DiT losses {[round(x, 5) for x in record['dit']['losses']]}, bundle read back equal in "
+          f"{record['dit']['bundle_read_s']:.2f} s; loss-second-moment step {lsm_run['s']:.3f} s, loss "
+          f"{lsm_run['loss']:.5f}, {lsm_run['rows_moved']} history rows moved, the sampler's update alone "
+          f"{lsm_run['update_ms']:.4f} ms at batch 256; classifier "
+          f"{record['classifier']['logged']}; OsuR {record['osur']['logged']}")
+    fwd_rows, bwd_rows = aux_attention(report)
+    record["phase_s"] = time.perf_counter() - started
+    report["aux_train"] = record
+    launches = {name: sum(record[label]["launches"][name] for label in want) for name in attention_launches()}
+    checks = {name: checked[name] + checked_clf[name] for name in checked}
+    print(f"aux train phase: {record['phase_s']:.1f} s, launches {launches} (gradient checks {checks})")
+    return launches, checks, fwd_rows, bwd_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -4158,11 +4548,17 @@ def main() -> int:
         evaluated, eval_rows = eval_phase(tmp, wav, report)
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
-    # kernel B's entry gains the DiT's and the evaluation models' shapes and their errors
+        aux_trained, aux_checked, aux_fwd_rows, aux_bwd_rows = aux_train_phase(tmp, report)
+    # kernel B's entry gains the DiT's, the evaluation models' and the auxiliary trainers' shapes and their
+    # errors; C's fp32 entry the auxiliary trainers'
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
-    fwd["shapes"] += dit_rows + eval_rows
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows + eval_rows
+    fwd["shapes"] += dit_rows + eval_rows + aux_fwd_rows
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows + eval_rows + aux_fwd_rows
                                                    for e in row["max_abs_err"].values()))
+    bwd = next(entry for entry in kernels if entry["name"] == "flash_attention_bwd")
+    bwd["shapes"] += aux_bwd_rows
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], *(e for row in aux_bwd_rows for e in row["max_abs_err"].values()))
+    checked = {name: checked.get(name, 0) + aux_checked.get(name, 0) for name in set(checked) | set(aux_checked)}
     # kernel C's entries gain moonshine's head dim (a card check: no main path trains a moonshine backbone)
     for entry in kernels:
         if entry["name"] in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
@@ -4172,10 +4568,10 @@ def main() -> int:
                      lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
-    # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools;
-    # the gradient check's are listed apart
+    # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools,
+    # the auxiliary trainers; the gradient checks' are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
-                + evaluated.get(k, 0) for k in served}
+                + evaluated.get(k, 0) + aux_trained.get(k, 0) for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
@@ -4188,7 +4584,9 @@ def main() -> int:
                                   "evaluation (classify, calc_fid, classifier_test, rcomplexion)": evaluated,
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,
-                                  "gradient check (fp32 and bf16, first batch; not a main path)": checked}
+                                  "auxiliary training (DiT-B, the classifier, OsuR)": aux_trained,
+                                  "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32; not a main "
+                                  "path)": checked}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in checked:

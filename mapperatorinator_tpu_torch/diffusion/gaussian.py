@@ -1,16 +1,17 @@
-"""Gaussian diffusion sampling (ADM/IDDPM lineage) in PyTorch: the sampling
-half of the JAX ``diffusion/gaussian.py`` (reference:
+"""Gaussian diffusion (ADM/IDDPM lineage) in PyTorch: the JAX
+``diffusion/gaussian.py`` (reference:
 ``osu_diffusion/utils/diffusion/gaussian_diffusion.py:59-874``,
 ``respace.py:11-130``): squaredcos_cap_v2 / linear beta schedules, epsilon
 prediction with LEARNED_RANGE sigma, timestep respacing (per-section counts
-like ``[100, 0, ...]`` included), DDPM and DDIM sampling. Training losses
-come with DiT training (ROADMAP queue 1, item 15 (b)).
+like ``[100, 0, ...]`` included), DDPM and DDIM sampling, and the MSE (or
+L1) + VB training losses.
 
 The coefficient tables are float64 numpy, as in JAX, gathered as fp32 on the
 sampled tensor's device. The loops run one eager step at a time.
 
 Noise. JAX draws from ``jax.random`` keys, which torch cannot reproduce. Each
-sampler here takes its draws from a ``source``: a ``torch.Generator`` on the
+sampler here, and :meth:`GaussianDiffusion.training_losses`, takes its draws
+from a ``source``: a ``torch.Generator`` on the
 tensor's device (draws in call order), or a callable ``source(shape) ->
 Tensor`` (its draws are moved to the tensor's device and dtype), which lets
 a caller feed any draws, the JAX ones included. :func:`scoped` turns a
@@ -103,6 +104,7 @@ class GaussianDiffusion:
         use_timesteps: Optional[set] = None,
         learn_sigma: bool = True,
         predict_xstart: bool = False,
+        use_l1: bool = False,
     ):
         betas = np.asarray(betas, np.float64)
         if use_timesteps is not None:
@@ -120,6 +122,7 @@ class GaussianDiffusion:
 
         self.learn_sigma = learn_sigma
         self.predict_xstart = predict_xstart
+        self.use_l1 = use_l1
         self.betas = betas
         self.num_timesteps = len(betas)
 
@@ -324,6 +327,76 @@ class GaussianDiffusion:
             x = self.ddim_sample(model_fn, x, t, source, clip_denoised, denoised_fn, eta)["sample"]
         return x
 
+    # -- training -------------------------------------------------------------------
+
+    def training_losses(self, model_fn, x_start: torch.Tensor, t: torch.Tensor, source: Source) -> dict:
+        """MSE (L1 under ``use_l1``) + VB for learned sigma, per sample (N,)
+        (reference: gaussian_diffusion.py:785-874), the noise drawn from
+        ``source``. The VB term sees the predicted mean through ``detach``
+        (JAX's ``stop_gradient``): it trains the variance only."""
+        noise = normal(source, x_start.shape, x_start)
+        x_t = self.q_sample(x_start, t, noise)
+        model_output = model_fn(x_t, self._map_t(t))
+
+        terms = {}
+        if self.learn_sigma:
+            c = x_t.shape[-1]
+            mean_out, var_values = model_output[..., :c], model_output[..., c:]
+            frozen = torch.cat([mean_out.detach(), var_values], dim=-1)
+            terms["vb"] = self._vb_terms(frozen, x_start, x_t, t)
+            model_output = mean_out
+
+        target = x_start if self.predict_xstart else noise
+        dims = tuple(range(1, x_start.ndim))
+        name = "l1" if self.use_l1 else "mse"
+        diff = target - model_output
+        terms[name] = (diff.abs() if self.use_l1 else diff**2).mean(dims)
+        terms["loss"] = terms[name] + terms["vb"] if "vb" in terms else terms[name]
+        return terms
+
+    def _vb_terms(self, frozen_out, x_start, x_t, t) -> torch.Tensor:
+        """The variational bound term in bits: the KL of the posterior at
+        t > 0, the decoder's negative log-likelihood at t == 0."""
+        nd = x_t.ndim
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+
+        c = x_t.shape[-1]
+        mean_out, var_values = frozen_out[..., :c], frozen_out[..., c:]
+        min_log = self._extract("posterior_log_variance_clipped", t, nd)
+        max_log = self._extract("log_betas", t, nd)
+        frac = (var_values + 1) / 2
+        log_var = frac * max_log + (1 - frac) * min_log
+        pred_xstart = self._predict_xstart_from_eps(x_t, t, mean_out)
+        mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x_t, t)
+
+        dims = tuple(range(1, nd))
+        kl = normal_kl(true_mean, true_log_var, mean, log_var).mean(dims) / math.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(x_start, mean, 0.5 * log_var)
+        decoder_nll = decoder_nll.mean(dims) / math.log(2.0)
+        return torch.where(t == 0, decoder_nll, kl)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    return 0.5 * (
+        -1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, means, log_scales):
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus, torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
 
 def create_diffusion(
     timestep_respacing,
@@ -331,6 +404,7 @@ def create_diffusion(
     predict_xstart: bool = False,
     learn_sigma: bool = True,
     diffusion_steps: int = 1000,
+    use_l1: bool = False,
 ) -> GaussianDiffusion:
     """Factory matching the reference (osu_diffusion/utils/diffusion/__init__.py:10)."""
     betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
@@ -341,4 +415,5 @@ def create_diffusion(
         use_timesteps=space_timesteps(diffusion_steps, timestep_respacing),
         learn_sigma=learn_sigma,
         predict_xstart=predict_xstart,
+        use_l1=use_l1,
     )

@@ -24,6 +24,11 @@ The fused ``wqkv`` / ``wkv`` projections stay fused: the port splits their
 output the way the JAX ``Attention`` does (``reshape(b, t, 3h, d)``, then
 thirds along the head axis), so the columns keep their meaning.
 
+Seeded initialisation: :func:`init_params` gives the generation model
+random weights for serving; :func:`init_flax_params` (the classifier, OsuR)
+and :func:`init_dit_flax` (the DiT) draw each tensor from the distribution
+the flax module's own initialiser draws it from, where a trainer starts.
+
 :func:`flax_paths` runs the same table backwards, from a module's parameter
 names to the flax paths the JAX optimizer's masks match against,
 :func:`flax_layout` moves a tensor between the two layouts, and
@@ -34,7 +39,8 @@ names too, so the same rules read and write their trees.
 The DiT (:mod:`.dit`) has its own table, :func:`dit_params_from_flax` and
 :func:`dit_params_to_flax`: ``blocks_3`` becomes ``blocks.3``, a Dense
 ``kernel`` a Linear ``weight``; its LayerNorms hold no parameters.
-:func:`init_dit_params` seeds it.
+:func:`init_dit_params` seeds it for serving tests (every tensor random),
+:func:`init_dit_flax` as flax does.
 
 A LoRA adapter (:mod:`.lora`) holds its factors in the flax layout already,
 keyed by the target kernel's flax path: :func:`lora_from_flax` and
@@ -263,3 +269,53 @@ def init_dit_params(model: nn.Module, seed: int, std: float) -> None:
     with torch.no_grad():
         for p in model.parameters():
             p.normal_(0.0, std, generator=gen)
+
+
+# flax's lecun_normal is a normal truncated at two standard deviations,
+# rescaled by this factor (the truncated unit normal's std) to variance 1 / fan_in
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(p: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal()`` in place on a torch Linear or Conv1d weight
+    (fan in: every axis but the output one)."""
+    std = p[0].numel() ** -0.5 / _TRUNCATED_NORMAL_STD
+    nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def init_flax_params(model: nn.Module, seed: int, zeroed=lambda name: False) -> None:
+    """Seeded weights drawn as the flax modules' default initialisers draw
+    them, on the model's device: lecun-normal (truncated) Dense and Conv
+    kernels, zero biases, unit norm scales, ``nn.Embed``'s N(0, 1 /
+    features) tables, a parameter whose module says (``flax_init``) as that
+    module says, and zeros for every parameter named where ``zeroed(name)``
+    holds. The classifier's and OsuR's modules are flax's defaults."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            *scope, leaf = name.split(".")
+            owner = model.get_submodule(".".join(scope))
+            if zeroed(name) or leaf == "bias":
+                p.zero_()
+            elif hasattr(owner, "flax_init"):
+                p.copy_(owner.flax_init(leaf))
+            elif isinstance(owner, nn.Embedding):
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                lecun_normal_(p, gen)
+
+
+def init_dit_flax(model: nn.Module, seed: int) -> None:
+    """Seeded weights for a :class:`.dit.DiT` as the JAX ``model.init`` draws
+    them: lecun-normal Dense kernels and zero biases, and zeros for every
+    block's ``adaln``, the final layer's ``adaln`` and its ``proj``
+    (``models/dit.py:121,159,164`` of the JAX package): the model starts at
+    eps = 0 with every block the identity, where a trainer starts."""
+    def zeroed(name: str) -> bool:
+        scope = name.split(".")[:-1]
+        return scope[-1] == "adaln" or scope == ["final_layer", "proj"]
+
+    init_flax_params(model, seed, zeroed)

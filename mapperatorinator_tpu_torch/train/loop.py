@@ -20,6 +20,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..models.transformer import moonshine_stem_length
 from ..osu.events import ContextType, EventType
 from ..osu.vocab import Vocabulary
 
@@ -328,33 +329,47 @@ class MetricsLogger:
 # ---------------------------------------------------------------------------
 
 
-def _batch_token_split(batch: dict) -> tuple[float, float]:
-    """(encoder frames, decoder positions) processed per step."""
+def encoder_positions(cfg, samples: int) -> float:
+    """Encoder positions of a window of ``samples`` raw audio samples for a
+    model config (a :class:`..models.mapperatorinator.MapperatorinatorConfig`
+    or a :class:`..models.classifier.ClassifierConfig`): a position per
+    spectrogram ``hop_length`` times the whisper conv stem's stride 2, a
+    position a hop where the backbone has no stem (T5, the classifier), or
+    what moonshine's raw-wave stem makes of the samples
+    (:func:`..models.transformer.moonshine_stem_length`)."""
+    if getattr(cfg, "input_raw_wave", False):
+        return float(moonshine_stem_length(samples))
+    return samples / (cfg.hop_length * (2 if cfg.backbone.conv_stem else 1))
+
+
+def _batch_token_split(batch: dict, cfg) -> tuple[float, float]:
+    """(encoder positions, decoder positions) processed per step by a model
+    of config ``cfg`` (:func:`encoder_positions`)."""
     tok_enc = tok_dec = 0.0
     ids = batch.get("decoder_input_ids")
     if ids is not None:
         tok_dec = float(np.prod(ids.shape))
     frames = batch.get("frames")
     if frames is not None:
-        # raw samples -> mel frames (hop 128), halved by the conv stem
-        tok_enc = float(frames.shape[0]) * (frames.shape[-1] / 128.0) / 2.0
+        tok_enc = float(frames.shape[0]) * encoder_positions(cfg, frames.shape[-1])
     return tok_enc, tok_dec
 
 
-def batch_tokens(batch: dict) -> float:
-    """Tokens processed per step: encoder frames + decoder positions."""
-    return sum(_batch_token_split(batch))
+def batch_tokens(batch: dict, cfg) -> float:
+    """Tokens processed per step: encoder positions + decoder positions."""
+    return sum(_batch_token_split(batch, cfg))
 
 
-def _attention_flops(batch: dict, backbone) -> float:
+def _attention_flops(batch: dict, cfg) -> float:
     """fwd + bwd FLOPs of the attention score and value products per step:
     12 S^2 d_model per layer and batch row (fwd 4, bwd 8), the full S^2
     (the kernels skip no masked tile)."""
     ids, frames = batch.get("decoder_input_ids"), batch.get("frames")
-    if ids is None or backbone is None:
+    if ids is None or cfg is None or cfg.backbone is None:
         return 0.0
+    backbone = cfg.backbone
     bsz, s_dec = int(ids.shape[0]), int(ids.shape[-1])
-    s_enc = int(frames.shape[-1] / 128.0 / 2.0) if frames is not None else 0
+    s_enc = int(encoder_positions(cfg, frames.shape[-1])) if frames is not None else 0
     d = backbone.d_model
     per_row = (backbone.encoder_layers * 12.0 * s_enc * s_enc * d
                + backbone.decoder_layers * 12.0 * s_dec * s_dec * d
@@ -375,19 +390,21 @@ def _side_counts(counts) -> tuple[int, int]:
     return enc, dec
 
 
-def step_flops(model, batch: dict, backbone=None) -> float:
+def step_flops(model, batch: dict, cfg) -> float:
     """fwd + bwd FLOPs of one step: 6 (N_enc S_enc + N_dec S_dec) for the
-    parameterised products, encoder parameters seeing only encoder frames
-    and the rest only decoder positions, plus the attention products when
-    ``backbone`` is given (the JAX ``step_flops``). Given a LoRA adapter,
-    this is the JAX figure for a LoRA step, whose parameters are the
-    factors: attention and little else (see :func:`lora_step_flops`)."""
-    tok_enc, tok_dec = _batch_token_split(batch)
+    parameterised products, encoder parameters seeing only encoder positions
+    and the rest only decoder positions, plus the attention products of
+    ``cfg.backbone`` (none where it is None), ``cfg`` being the model's
+    config: the JAX ``step_flops``, which takes 256 samples a position
+    (:func:`encoder_positions` of a v32-family config). Given a LoRA
+    adapter, this is the JAX figure for a LoRA step, whose parameters are
+    the factors: attention and little else (see :func:`lora_step_flops`)."""
+    tok_enc, tok_dec = _batch_token_split(batch, cfg)
     enc, dec = _side_counts((name, p.numel()) for name, p in model.named_parameters())
-    return 6.0 * (enc * tok_enc + dec * tok_dec) + _attention_flops(batch, backbone)
+    return 6.0 * (enc * tok_enc + dec * tok_dec) + _attention_flops(batch, cfg)
 
 
-def lora_step_flops(model, adapter, batch: dict, backbone=None) -> float:
+def lora_step_flops(model, adapter, batch: dict, cfg) -> float:
     """What the card computes in a LoRA micro-step
     (:func:`.step.make_lora_train_step`), per token of each side: the frozen
     base's forward and its input gradients, 4 N_base; the gradient of each
@@ -395,12 +412,12 @@ def lora_step_flops(model, adapter, batch: dict, backbone=None) -> float:
     in full and passes to the factors; plus, once a step, each target's
     merge and its two factor gradients, 6 r N_target; and the attention
     products as in :func:`step_flops`."""
-    tok_enc, tok_dec = _batch_token_split(batch)
+    tok_enc, tok_dec = _batch_token_split(batch, cfg)
     enc, dec = _side_counts((name, p.numel()) for name, p in model.named_parameters())
     t_enc, t_dec = _side_counts((f.flax_path, f.a.shape[0] * f.b.shape[1]) for f in adapter.values())
     merge = 6.0 * sum(f.a.numel() * f.b.shape[1] for f in adapter.values())
     return (4.0 * (enc * tok_enc + dec * tok_dec) + 2.0 * (t_enc * tok_enc + t_dec * tok_dec) + merge
-            + _attention_flops(batch, backbone))
+            + _attention_flops(batch, cfg))
 
 
 def device_peak_flops(device) -> float:
@@ -446,6 +463,40 @@ class Profile:
         return self.path
 
 
+def run_steps(args, make_batches: Callable[[], Iterable[dict]], train_step: Callable[[dict], torch.Tensor], *,
+              held, checkpoints: CheckpointManager, logger: MetricsLogger,
+              evaluate: Optional[Callable[[], dict]] = None) -> int:
+    """The loop of the JAX diffusion, classifier and rhythm-complexion
+    trainers: ``train_step(batch) -> loss`` over a fresh ``make_batches()``
+    each epoch until ``optim.total_steps``, logging ``train/loss`` every
+    ``logging.every_steps``, ``evaluate()``'s metrics every
+    ``eval.every_steps`` (where positive), and saving ``held`` (its ``step``
+    kept current) every ``checkpoint.every_steps`` and at the end. Returns
+    the steps run."""
+    step = 0
+    while step < args.optim.total_steps:
+        progressed = False
+        for batch in make_batches():
+            if step >= args.optim.total_steps:
+                break
+            progressed = True
+            loss = train_step(batch)
+            step += 1
+            held.step = step
+            if step % args.logging.every_steps == 0:
+                logger.log({"train/loss": float(loss)}, step)
+            if evaluate is not None and args.eval.every_steps > 0 and step % args.eval.every_steps == 0:
+                stats = evaluate()
+                if stats:
+                    logger.log(stats, step)
+            if step % args.checkpoint.every_steps == 0:
+                checkpoints.save(step, held)
+        if not progressed:
+            break
+    checkpoints.save(step, held)
+    return step
+
+
 def train(*, train_step: Callable, eval_step: Callable, state, train_batch_factory: Callable[[], Iterable[dict]],
           eval_batch_factory: Optional[Callable[[], Iterable[dict]]] = None, vocab: Vocabulary, args,
           logger: Optional[MetricsLogger] = None, checkpoints: Optional[CheckpointManager] = None,
@@ -469,7 +520,7 @@ def train(*, train_step: Callable, eval_step: Callable, state, train_batch_facto
     last_log = time.time()
     if flops is None:
         model = state.model
-        flops = lambda batch: {"mfu": step_flops(model, batch, model.cfg.backbone)}  # noqa: E731
+        flops = lambda batch: {"mfu": step_flops(model, batch, model.cfg)}  # noqa: E731
     device = next(state.model.parameters()).device
     peak_flops = device_peak_flops(device)
     step = state.step

@@ -149,12 +149,11 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
         lora_alpha = float(lora_cfg.get("lora_alpha", 128))
         trained = init_lora_params(model, rank=rank, target_modules=lora_cfg.get("target_modules"), seed=args.seed)
         train_step, eval_step = make_lora_train_step(model, lora_alpha), make_lora_eval_step(model, lora_alpha)
-        backbone = model.cfg.backbone
 
         def flops(batch):
             # what the card computes, beside the JAX figure (the factors as the model)
-            return {"mfu": lora_step_flops(model, trained, batch, backbone),
-                    "mfu_jax_numerator": step_flops(trained, batch, backbone)}
+            return {"mfu": lora_step_flops(model, trained, batch, model.cfg),
+                    "mfu_jax_numerator": step_flops(trained, batch, model.cfg)}
         print(f"LoRA fine-tuning: rank={rank} alpha={lora_alpha} "
               f"({sum(p.numel() for p in trained.parameters())} trainable params)")
     else:

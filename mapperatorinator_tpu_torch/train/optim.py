@@ -175,15 +175,19 @@ class AdamWScale(Optimizer):
 
 class AdamW(Optimizer):
     """``optax.adamw`` at its defaults: Adam with bias correction, decoupled
-    weight decay on the ``decay_mask`` leaves, scaled by the schedule at the
-    count before the increment."""
+    weight decay on the leaves whose flax path ``mask`` admits (the JAX
+    train step's ``decay_mask`` by default; None decays every leaf, as
+    ``optax.adamw`` does without a mask, which the diffusion, classifier and
+    rhythm-complexion trainers build), scaled by the schedule at the count
+    before the increment."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, params: NamedParams, learning_rate: Schedule, weight_decay: float):
+    def __init__(self, params: NamedParams, learning_rate: Schedule, weight_decay: float,
+                 mask: Optional[Callable[[str], bool]] = decay_mask):
         super().__init__(params)
         self.lr, self.weight_decay = learning_rate, weight_decay
-        self.decay = [decay_mask(path) for path in self.paths]
+        self.decay = [mask is None or mask(path) for path in self.paths]
         self.mu, self.nu = _zeros_like(self.params), _zeros_like(self.params)
 
     def buffers(self):
@@ -362,4 +366,19 @@ def build_optimizer(args, params: NamedParams):
         tx = ClipByGlobalNorm(tx, optim.grad_clip)
     if optim.grad_acc > 1:
         tx = MultiSteps(tx, optim.grad_acc, [p for _, p in params])
+    return tx
+
+
+def build_adamw_chain(optim, model: torch.nn.Module, grad_acc: int = 1):
+    """The chain the diffusion, classifier and rhythm-complexion trainers
+    build: ``optax.clip_by_global_norm(grad_clip)`` then ``optax.adamw``
+    on the schedule with ``weight_decay`` on every leaf (no mask), under
+    ``optax.MultiSteps(grad_acc)`` where ``grad_acc`` > 1. The diffusion
+    trainer builds no ``MultiSteps`` whatever its config's ``grad_acc``, as
+    the JAX one does, so each caller passes its own. With no mask the
+    parameters' names are not read."""
+    params = list(model.named_parameters())
+    tx = ClipByGlobalNorm(AdamW(params, build_schedule(optim), optim.weight_decay, mask=None), optim.grad_clip)
+    if grad_acc > 1:
+        tx = MultiSteps(tx, grad_acc, [p for _, p in params])
     return tx

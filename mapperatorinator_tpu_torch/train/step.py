@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from ..models.params import flax_paths
 from .optim import global_norm
 
 BATCH_KEYS = ("frames", "decoder_input_ids", "decoder_attention_mask", "labels", "sample_weights")
-_INTEGER_KEYS = ("decoder_input_ids", "decoder_attention_mask", "labels")
+_INTEGER_KEYS = ("decoder_input_ids", "decoder_attention_mask", "labels", "input_ids")
 
 
 @dataclasses.dataclass
@@ -53,11 +53,13 @@ def named_flax_params(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
     return [(paths[name], p) for name, p in model.named_parameters()]
 
 
-def to_device(batch: dict, device) -> dict:
-    """The model's inputs of a collated numpy batch as tensors on ``device``."""
+def to_device(batch: dict, device, keys: Iterable[str] = BATCH_KEYS) -> dict:
+    """The inputs ``keys`` of a collated numpy batch (the generation model's
+    by default) as tensors on ``device``: token ids, masks and labels as
+    int64, the rest as fp32."""
     return {key: torch.as_tensor(np.asarray(batch[key])).to(device, torch.long if key in _INTEGER_KEYS
                                                              else torch.float32)
-            for key in BATCH_KEYS if key in batch}
+            for key in keys if key in batch}
 
 
 def _inputs(batch: dict) -> dict:

@@ -11,7 +11,9 @@ the bf16 pair (D 64), both routes at moonshine's head dims 36 and 52
 as ``window`` 256, a key mask over a bucket's padding) and one DiT-B block
 through it, and both routes unscaled (``sm_scale`` 1.0) at T5-base's cross
 attention, and the fp32 forward at the mapper classifier's and CM3P's calls
-(windows of pads only included) and through a small classifier; qmm on
+(windows of pads only included) and through a small classifier, and the
+fp32 backward at DiT-B's and the classifier's training calls (a window of
+pads' dq and dk exactly 0) and through a DiT training step; qmm on
 both of its paths (also at T5-base's products) (its GEMV path also for
 bit-equal repeats and a refused launch); the fused mel against both its
 plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
@@ -854,3 +856,82 @@ def test_a_classifier_forward_through_kernel_b(cuda):
     for key in ("encoder_last_hidden_state", "decoder_last_hidden_state", "feature_vector", "logits"):
         scale = max(1.0, want[key].abs().max().item())
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=2e-4 * scale)
+
+
+# kernel C at the training calls (fp32, D 64): DiT-B at diffusion v1's batch
+# (unmasked self-attention, H 12) and the mapper classifier at train_v1's
+# widths (H 8) at a cut batch: (B, T, S, H, causal, key mask)
+TRAIN_BWD_CASES = [
+    (256, 128, 128, 12, False, "none"),  # DiT-B
+    (4, 1024, 1024, 8, False, "none"),  # the classifier's encoder, and its cross attention
+    (4, 1024, 1024, 8, True, "ragged, row 0 empty"),  # its decoder self-attention under the token mask
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,h,causal,masked", TRAIN_BWD_CASES)
+def test_kernel_c_at_the_dit_and_classifier_training_calls(cuda, b, t, s, h, causal, masked):
+    """Kernel C as DiT and classifier training call it, against both fp32
+    plain backward versions at 2e-5 times the gradients' size; in a window of
+    pads only (row 0) no key is live, so the exact dq and dk there are 0 and
+    the kernel must write 0."""
+    gen = torch.Generator().manual_seed(20)
+    q, k, v = (torch.randn((b, n, h, 64), generator=gen).to(cuda) for n in (t, s, s))
+    do = torch.randn((b, t, h, 64), generator=gen).to(cuda)
+    kvm = None
+    if masked != "none":
+        lengths = torch.randint(s // 4, s + 1, (b, 1), generator=gen)
+        kvm = (torch.arange(s)[None] < lengths).to(cuda)
+        kvm[0] = False
+    scale = 64**-0.5
+    out, lse = flash_attention_fwd(q, k, v, kvm, causal, 0, scale, with_lse=True)
+    before = launches()
+    got = flash_attention_bwd(q, k, v, kvm, out, lse, do, causal, 0, scale)
+    assert launches() == added(before, (0, 1, 0, 0))
+    for plain in (attention_backward_plain, attention_backward_plain_fp32_tc):
+        want = plain(q, k, v, kvm, do, causal=causal)
+        tol = grad_tol(torch.float32, *want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    if kvm is not None:
+        assert got[0][0].abs().max().item() == 0 and got[1][0].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_a_dit_training_step_through_kernels_b_and_c(cuda):
+    """A DiT at DiT-B's head width (2 blocks, hidden 384, 6 heads of 64, 128
+    positions, batch 8) from flax's initialisation with its zero adaLN
+    perturbed, so that every block computes: the training loss and every
+    gradient through B and C (one of each a block) against the plain
+    attention path, within 2e-4 times each gradient's size."""
+    from mapperatorinator_tpu_torch.diffusion import create_diffusion
+    from mapperatorinator_tpu_torch.models.dit import DiT, DiTConfig
+    from mapperatorinator_tpu_torch.models.params import init_dit_flax
+
+    model = DiT(DiTConfig(hidden_size=384, depth=2, num_heads=6, class_size=48)).to(cuda)
+    init_dit_flax(model, 0)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=torch.Generator(cuda).manual_seed(1))
+    diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", diffusion_steps=1000)
+    gen = torch.Generator().manual_seed(21)
+    x = (torch.rand((8, 128, 2), generator=gen) * 2 - 1).to(cuda)
+    c = torch.randn((8, 128, 272), generator=gen).to(cuda)
+    y = (torch.rand((8, 48), generator=gen) < 0.3).float().to(cuda)
+    t = torch.randint(0, 100, (8,), generator=gen).to(cuda)
+    noise = torch.randn((8, 128, 2), generator=gen).to(cuda)
+
+    def loss_and_grads():
+        loss = diffusion.training_losses(lambda xt, tt: model(xt, tt, c, y), x, t, lambda shape: noise)["loss"].mean()
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    before = launches()
+    loss, grads = loss_and_grads()
+    assert launches() == added(before, (2, 2, 0, 0))
+    for block in model.blocks:
+        block.use_flash = False
+    want_loss, want = loss_and_grads()
+    torch.testing.assert_close(loss, want_loss, rtol=2e-5, atol=0)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * max(w.abs().max().item(), 1e-30))

@@ -40,6 +40,7 @@ from mapperatorinator_tpu.train.step import init_train_state, make_lora_train_st
 from mapperatorinator_tpu.train.step import wrap_grad_acc
 from mapperatorinator_tpu_torch.config import load_train_config
 from mapperatorinator_tpu_torch.models import lora
+from mapperatorinator_tpu_torch.models.mapperatorinator import MapperatorinatorConfig
 from mapperatorinator_tpu_torch.models.params import flatten, lora_from_flax, torch_name, unflatten
 from mapperatorinator_tpu_torch.train import loop, optim
 from mapperatorinator_tpu_torch.train import main as train_main
@@ -266,20 +267,19 @@ def test_step_flops_under_lora(tiny):  # noqa: F811
     tree = factor_tree(jparams, False)
     adapter = lora.init_lora_params(tm, rank=RANK)
     batch = batch_arrays(tm.cfg.vocab_size_in)
-    backbone = tm.cfg.backbone
     want_jax = jax_loop.step_flops(SimpleNamespace(params=tree), batch, jmodel.config.backbone)
-    assert loop.step_flops(adapter, batch, backbone) == pytest.approx(want_jax, rel=1e-12)
+    assert loop.step_flops(adapter, batch, tm.cfg) == pytest.approx(want_jax, rel=1e-12)
 
-    tok_enc, tok_dec = loop._batch_token_split(batch)
+    tok_enc, tok_dec = loop._batch_token_split(batch, tm.cfg)
     n_enc = sum(p.numel() for n, p in tm.named_parameters() if "encoder" in n)
     n_dec = sum(p.numel() for n, p in tm.named_parameters() if "encoder" not in n)
     targets = {path: m.in_features * m.out_features for path, m in lora.target_kernels(tm, lora.DEFAULT_TARGETS).items()}
     t_enc = sum(n for path, n in targets.items() if "encoder" in path)
     t_dec = sum(targets.values()) - t_enc
-    attention = loop._attention_flops(batch, backbone)
+    attention = loop._attention_flops(batch, tm.cfg)
     want = (4 * (n_enc * tok_enc + n_dec * tok_dec) + 2 * (t_enc * tok_enc + t_dec * tok_dec)
             + 6 * RANK * sum(targets.values()) + attention)
-    got = loop.lora_step_flops(tm, adapter, batch, backbone)
+    got = loop.lora_step_flops(tm, adapter, batch, tm.cfg)
     assert got == pytest.approx(want, rel=1e-12)
     # the factors are a sliver of the base: the JAX figure is nearly attention alone
     assert attention < want_jax < 1.5 * attention < got
@@ -302,7 +302,7 @@ def test_the_loop_logs_each_flops_gauge_over_peak_times_seconds(monkeypatch, lor
     ``mfu`` is :func:`loop.step_flops` of ``state.model``."""
     monkeypatch.setattr(loop, "device_peak_flops", lambda device: 1e12)
     model = torch.nn.Linear(4, 4)
-    model.cfg = SimpleNamespace(backbone=None)
+    model.cfg = MapperatorinatorConfig()
     batch = {"decoder_input_ids": np.zeros((2, 8)), "frames": np.zeros((2, 1024))}
 
     def train_step(state, batch):
@@ -317,7 +317,7 @@ def test_the_loop_logs_each_flops_gauge_over_peak_times_seconds(monkeypatch, lor
     loop.train(train_step=train_step, eval_step=None, state=TrainState(0, model, None),
                train_batch_factory=lambda: iter([batch] * 4), vocab=None, args=args, logger=logger,
                flops=(lambda b: gauges) if lora_gauges else None)
-    want = gauges if lora_gauges else {"mfu": loop.step_flops(model, batch)}
+    want = gauges if lora_gauges else {"mfu": loop.step_flops(model, batch, model.cfg)}
     assert [step for step, _ in logger.rows] == [1, 2]
     for _, stats in logger.rows:
         seconds = stats["train/seconds_per_step"]

@@ -72,7 +72,10 @@ SCRIPT = textwrap.dedent("""
     for name in modules:
         importlib.import_module(name)
     assert {"mapperatorinator_tpu_torch.mai_mod", "mapperatorinator_tpu_torch.infer.server",
-            "mapperatorinator_tpu_torch.infer.super_timing", "mapperatorinator_tpu_torch.audio.io"} <= set(modules)
+            "mapperatorinator_tpu_torch.infer.super_timing", "mapperatorinator_tpu_torch.audio.io",
+            "mapperatorinator_tpu_torch.diffusion_train", "mapperatorinator_tpu_torch.classifier_train",
+            "mapperatorinator_tpu_torch.rcomplexion_train",
+            "mapperatorinator_tpu_torch.diffusion.schedule_sampler"} <= set(modules)
 
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config, select_device

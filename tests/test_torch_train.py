@@ -161,6 +161,27 @@ def test_adamw_variants_match_optax(tiny, name):  # noqa: F811
     assert_tree_close(tm, params, lambda path, x: ADAMW_TOL)
 
 
+def test_adamw_without_a_mask_decays_every_leaf_as_optax(tiny):  # noqa: F811
+    """``AdamW(mask=None)``, the optimizer of the diffusion, classifier and
+    rhythm-complexion trainers, against ``optax.adamw`` without a mask at
+    weight decay 0.01: every leaf decays, the biases and norm scales that
+    ``decay_mask`` spares included."""
+    jax_args, args = configs(OPTIM_ARGS + ["optim.name=adamw"])
+    assert args.optim.weight_decay == 0.01
+    _, jparams, tm = port_model(tiny)
+    tx = optax.adamw(jax_optim.build_schedule(jax_args.optim), weight_decay=jax_args.optim.weight_decay)
+    port_tx = optim.AdamW(named_flax_params(tm), optim.build_schedule(args.optim), args.optim.weight_decay,
+                          mask=None)
+    assert all(port_tx.decay) and not all(optim.decay_mask(path) for path in port_tx.paths)
+    params, opt_state = jparams, tx.init(jparams)
+    for i in range(3):
+        grads = random_grads(jparams, seed=i)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        port_tx.step(port_grads(tm, grads))
+    assert_tree_close(tm, params, lambda path, x: ADAMW_TOL)
+
+
 def test_clipping_and_grad_acc_match_multisteps(tiny):  # noqa: F811
     """grad_acc=2 over 5 micro-steps (two updates, one accumulation left
     over), clipping at a norm the averaged gradients exceed."""
