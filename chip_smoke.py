@@ -149,8 +149,8 @@
    route and timed through ``flash_attention`` (the copies included) beside
    the kernel on inputs padded beforehand, the copies alone, the plain
    version, SDPA and the bound on the real D: B's rows in its own
-   kernels-line entry, C's in the C entries' ``shapes`` (no main path
-   trains a moonshine backbone). Then the evaluation tools (``eval_phase``)
+   kernels-line entry, C's in the C entries' ``shapes`` (the backbone
+   training phase trains moonshine on the bf16 route). Then the evaluation tools (``eval_phase``)
    at full width from seeded random weights: the mapper classifier of
    ``configs/classifier/train_v1.yaml`` (whisper-base, 1 024 frames and
    tokens, 388 mels, the mapper classes of ``datasets/beatmap_users.json``),
@@ -220,6 +220,25 @@
    mask whose row 0 is a window of pads, where C's dq and dk must be
    exactly 0) against both plain versions and timed beside SDPA and the
    bound; these join B's and C's kernels-line entries and their launches.
+   Last, every other backbone family trains (``backbone_train_phase``)
+   through ``train.main`` on the same set, at full width, its recipe's bf16
+   and ``adamwscale``, from seeded random weights: ``-cn v29``
+   (whisper-small) and ``v28`` (whisper-base), both whisper_abs with
+   ``data.dataset_type=ors`` for their ``mmrs``, ``t5_base`` (T5
+   v1.1-base), ``nwhisper_base`` (nGPT) and ``moonshine_tiny``; 4
+   micro-steps at grad_acc 2 each, at the recipe's micro-batch 128 where
+   the peak reckoned from two memory probes fits 85% of the card, else the
+   largest power of two that does. First, on the first batch at batch 2,
+   the bf16 loss and every gradient through B and C must be no further
+   from the fp32 plain gradients than twice plain bf16 attention's; then
+   every loss finite, the step count, two updates, the published widths in
+   bf16, one B and one C a covered call and nothing else (whisper_abs:
+   every call; T5: the cross calls, its self-attention carrying the
+   position bias; nGPT at ``sm_scale`` 1.0 and moonshine at D 36 padded to
+   64: every call), and the final checkpoint restored equal; then B and C
+   at each family's calls, on the check's own inputs, against both bf16
+   plain versions and timed beside SDPA and the bound; these join the bf16
+   pair's kernels-line entries and their launches.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -241,6 +260,7 @@ import itertools
 import json
 import math
 import os
+import random
 import statistics
 import sys
 import tempfile
@@ -4220,23 +4240,26 @@ def aux_attention(report: dict) -> tuple[list[dict], list[dict]]:
 
 
 @contextlib.contextmanager
-def timed_steps(module, name: str, steps: list):
+def timed_steps(module, name: str, steps: list, describe=None):
     """``module.<name>`` (a train-step factory) replaced, while the block
     runs, by one whose steps each append their seconds (to a synchronize
-    after the step) and attention launches to ``steps``."""
+    after the step), attention launches and, given ``describe``, what
+    ``describe`` makes of the step's arguments to ``steps``."""
     make = getattr(module, name)
 
     def factory(*args, **kwargs):
         step = make(*args, **kwargs)
 
         def run(*a, **kw):
+            described = describe(*a, **kw) if describe is not None else {}
             before = attention_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*a, **kw)
             torch.cuda.synchronize()
             after = attention_launches()
-            steps.append({"s": time.perf_counter() - t0, "launches": {k: after[k] - before[k] for k in after}})
+            steps.append({"s": time.perf_counter() - t0, "launches": {k: after[k] - before[k] for k in after},
+                          **described})
             return out
 
         return run
@@ -4494,6 +4517,376 @@ def aux_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], li
     return launches, checks, fwd_rows, bwd_rows
 
 
+# the backbone training phase: every other backbone family through train.main at full width, its recipe's bf16 and
+# adamwscale, on train_phase's synthesized set, from seeded random weights (the machine has no checkpoint, so none
+# is loaded). Cut: grad_acc BACKBONE_GRAD_ACC and BACKBONE_MICRO_STEPS micro-steps (two updates) of the recipes'
+# grad_acc 8 (v28 and the three model presets) and 32 (v29); warmup 1 of 10 000 (a cosine decay needs steps after
+# its warmup); no eval; the micro-batch the recipe's 128 where it fits in BACKBONE_MEMORY_SHARE of the card, else
+# the largest power of two that does, reckoned from two probes (printed with the phase)
+BACKBONE_TRAIN = {  # config: (label, published widths, kernel B and C calls a forward)
+    "v29": ("whisper-small (whisper_abs)", WHISPER_SMALL, 36),  # encoder self, decoder self, cross: 12 + 12 + 12
+    "v28": ("whisper-base (whisper_abs)", WHISPER_BASE, 18),
+    "t5_base": ("T5 v1.1-base (t5_relpos)", T5_BASE, 12),  # cross only: self-attention adds the position bias
+    "nwhisper_base": ("NWhisper-base (nGPT)", NWHISPER_BASE, 18),  # every call, at sm_scale 1.0
+    "moonshine_tiny": ("moonshine-tiny", MOONSHINE_TINY, 18),  # every call, D 36 zero-padded to 64
+}
+BACKBONE_GRAD_ACC, BACKBONE_MICRO_STEPS = 2, 4
+BACKBONE_CHECK_BATCH, BACKBONE_PROBE_BATCH = 2, 8  # the gradient check's rows; the second memory probe's
+BACKBONE_MEMORY_SHARE = 0.85
+
+
+def capture_flash_calls(calls: dict):
+    """A context in which the first ``flash_attention`` call of each
+    signature (T, S, H, D, causal, window, key mask, sm_scale) keeps its
+    inputs in ``calls``."""
+    from mapperatorinator_tpu_torch.models import transformer
+
+    @contextlib.contextmanager
+    def ctx():
+        flash = transformer.flash_attention
+
+        def capture(q, k, v, kv_mask=None, *, causal=False, window=0, sm_scale=None):
+            key = (q.shape[1], k.shape[1], q.shape[2], q.shape[3], bool(causal), int(window), kv_mask is not None,
+                   sm_scale)
+            if key not in calls:
+                calls[key] = tuple(None if x is None else x.detach().clone() for x in (q, k, v, kv_mask))
+            return flash(q, k, v, kv_mask, causal=causal, window=window, sm_scale=sm_scale)
+
+        transformer.flash_attention = capture
+        try:
+            yield
+        finally:
+            transformer.flash_attention = flash
+
+    return ctx()
+
+
+def backbone_gradient_check(label: str, name: str, overrides: list, calls_per_forward: int) -> dict:
+    """On the first training batch's first ``BACKBONE_CHECK_BATCH`` rows: the
+    loss and every parameter gradient of the bf16 model through kernels B
+    and C against the fp32 model's through plain attention, on the same
+    seeded weights, within ``GRAD_TOL_BF16`` times plain bf16 attention's
+    own error (``check_gradients``' rule), the kernels launched once each a
+    covered call; the kernel pass keeps each call's inputs
+    (:func:`capture_flash_calls`). Then the bf16 model's peak memory over a
+    forward and backward at the check's rows and at
+    ``BACKBONE_PROBE_BATCH``. Returns the record: the check, the calls, the
+    peaks, the parameter count and the launches (a check's, not a main
+    path's)."""
+    from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.train import main as train_main
+    from mapperatorinator_tpu_torch.train.step import to_device
+
+    def build(precision: str):
+        args = load_train_config(name, overrides + [f"mixed_precision={precision}"])
+        return train_main.build_model_and_data(args, torch.device("cuda"))
+
+    def loss_and_grads(model, batch, flash: bool):
+        set_flash(model, flash)
+        model.zero_grad(set_to_none=True)
+        _, loss = model(**batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    model, _, make_batches = build("no")
+    first = next(iter(make_batches(test=False)))
+    batch = to_device({k: v[:BACKBONE_CHECK_BATCH] for k, v in first.items()}, "cuda")
+    probe = to_device({k: v[:BACKBONE_PROBE_BATCH] for k, v in first.items()}, "cuda")
+    weights = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss_ref, ref = loss_and_grads(model, batch, False)
+    n_params = sum(p.numel() for p in model.parameters())
+    if len(ref) != len(weights):
+        raise AssertionError(f"{label}: the fp32 loss reaches {len(ref)} of {len(weights)} parameters")
+    del model
+    torch.cuda.empty_cache()
+
+    model, _, _ = build("bf16")
+    if any(not torch.equal(p, weights[n]) for n, p in model.named_parameters()):
+        raise AssertionError(f"{label}: the bf16 model's seeded weights differ from the fp32 model's")
+    del weights
+    calls = {}
+    reset_attention_launches()
+    with capture_flash_calls(calls):
+        loss_k, grads_k = loss_and_grads(model, batch, True)
+    launches = attention_launches()
+    loss_p, grads_p = loss_and_grads(model, batch, False)
+    want = {k: 0 for k in launches}
+    want["flash_attention_fwd_sm90"] = want["flash_attention_bwd_sm90"] = calls_per_forward
+    if launches != want or sorted(grads_k) != sorted(ref) or sorted(grads_p) != sorted(ref):
+        raise AssertionError(f"{label}: the gradient check launched {launches}, not {want}, or its passes reached "
+                             f"other parameters")
+    (err_k, name_k), (err_p, name_p) = worst_relative(grads_k, ref), worst_relative(grads_p, ref)
+    check = {"rows": BACKBONE_CHECK_BATCH, "loss_kernels": loss_k, "loss_plain_bf16": loss_p, "loss_fp32": loss_ref,
+             "worst_relative_kernels": err_k, "worst_tensor_kernels": name_k, "worst_relative_plain_bf16": err_p,
+             "worst_tensor_plain_bf16": name_p, "tensors": len(ref), "tol_factor": GRAD_TOL_BF16,
+             "launches": launches}
+    print(f"backbone training {label}: gradients at B{BACKBONE_CHECK_BATCH} of the first batch, bf16, against the "
+          f"fp32 plain gradients: kernels B+C (tensor cores) loss {loss_k:.6f}, largest relative error {err_k:.3e} "
+          f"({name_k}); plain bf16 attention loss {loss_p:.6f}, {err_p:.3e} ({name_p}); fp32 loss {loss_ref:.6f}; "
+          f"{len(ref)} tensors (tol: the kernels within {GRAD_TOL_BF16:g}x plain bf16's error); launches {launches}")
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_ref) <= GRAD_TOL_BF16 * abs(loss_p - loss_ref) + 1e-2
+            and err_k <= GRAD_TOL_BF16 * err_p):
+        raise AssertionError(f"{label}: bf16 gradients through the kernels are further from fp32 than plain bf16 "
+                             f"attention's: {check}")
+    del grads_k, grads_p, ref
+
+    peaks = {}
+    set_flash(model, True)
+    for rows, b in ((BACKBONE_CHECK_BATCH, batch), (BACKBONE_PROBE_BATCH, probe)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, loss = model(**b)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        del loss
+        peaks[rows] = torch.cuda.max_memory_allocated()
+    probed = attention_launches()
+    del model, batch, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"check": check, "calls": calls, "peaks": peaks, "params": n_params, "launches": probed}
+
+
+def backbone_micro_batch(label: str, recipe_batch: int, probed: dict) -> tuple[int, dict]:
+    """The micro-batch to train at: the recipe's where the reckoned peak fits
+    in ``BACKBONE_MEMORY_SHARE`` of the card, else the largest power of two
+    below it that does. The reckoning: the probes' peaks are linear in the
+    rows (parameters, their gradients and bf16 copies, then activations a
+    row), plus the optimizer's two fp32 moments and its accumulator a
+    parameter, 12 bytes."""
+    (r0, p0), (r1, p1) = sorted(probed["peaks"].items())
+    per_row = (p1 - p0) / (r1 - r0)
+    static = p0 - r0 * per_row + 12 * probed["params"]
+    budget = BACKBONE_MEMORY_SHARE * torch.cuda.get_device_properties(0).total_memory
+    batch = recipe_batch
+    while batch > 1 and static + batch * per_row > budget:
+        batch //= 2
+    reckoning = {"per_row_gib": per_row / 2**30, "static_gib": static / 2**30, "budget_gib": budget / 2**30,
+                 "recipe_gib": (static + recipe_batch * per_row) / 2**30,
+                 "reckoned_gib": (static + batch * per_row) / 2**30, "batch": batch, "recipe_batch": recipe_batch}
+    cut = "" if batch == recipe_batch else f"; cut to {batch}, the largest power of two that fits"
+    print(f"backbone training {label}: reckoned peak {reckoning['recipe_gib']:.2f} GiB at the recipe's micro-batch "
+          f"{recipe_batch} ({reckoning['static_gib']:.2f} GiB fixed + {reckoning['per_row_gib']:.3f} GiB a row, "
+          f"from the peaks at {r0} and {r1} rows), budget {reckoning['budget_gib']:.2f} GiB{cut}")
+    return batch, reckoning
+
+
+def backbone_attention(label: str, calls: dict) -> tuple[list[dict], list[dict]]:
+    """Kernels B and C on the bf16 route at each attention call of a
+    family's training forward, on the inputs the gradient check's kernel
+    pass gave them (its rows of the first batch): through ``flash_attention``
+    under autograd (a head dim below 64 zero-padded, the output and the
+    gradients sliced back) against both bf16 plain versions, the one that
+    rounds as the route does and the fp32 one, within 2e-2 times the
+    largest reference entry (at least 1), timed beside the plain version,
+    SDPA (its backward through autograd) and the bound on the unpadded head
+    dim. Returns B's and C's rows."""
+    from mapperatorinator_tpu_torch.ops.attention_kernel import (
+        attention_backward_plain, attention_backward_plain_bf16_tc, attention_plain, attention_plain_bf16_tc,
+        attention_route, flash_attention, head_dim_width)
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    tol, dtype = ATTN_TOL[torch.bfloat16], torch.bfloat16
+    fwd_rows, bwd_rows = [], []
+    for (T, S, H, D, causal, window, _, sm_scale), (q, k, v, mask) in calls.items():
+        B = q.shape[0]
+        call = "decoder self" if causal else "encoder self" if T == S else "cross"
+        kw = {"causal": causal, "window": window, "sm_scale": sm_scale}
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, mask, **kw)
+        grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        fwd_err, fwd_tol, bwd_err, bwd_tol = {}, {}, {}, {}
+        for name, fwd, bwd in (("tc", attention_plain_bf16_tc, attention_backward_plain_bf16_tc),
+                               ("fp32", attention_plain, attention_backward_plain)):
+            want = fwd(q, k, v, mask, **kw).float()
+            fwd_err[name] = (out.detach().float() - want).abs().max().item()
+            fwd_tol[name] = tol * max(1.0, want.abs().max().item())
+            want = bwd(q, k, v, mask, do, **kw)
+            bwd_err[name] = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+            bwd_tol[name] = tol * max(1.0, max(w.float().abs().max().item() for w in want))
+            del want
+        qs, ks, vs = (x.requires_grad_() for x in sdpa_layout(q, k, v))
+        live = None
+        if causal or mask is not None:
+            live = torch.ones((T, S), dtype=torch.bool, device="cuda")
+            live = (live.tril() if causal else live)[None, None]
+            live = live if mask is None else live & mask[:, None, None, :]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=live, scale=sm_scale)
+        do_s = do.transpose(1, 2).contiguous()
+        el_q, el_k = B * T * H * D, B * S * H * D
+        pairs = H * attended_pairs(B, T, S, causal, mask, window)
+        shape = (f"B{B} T{T} S{S} H{H} D{D} bf16" + (" causal" if causal else "") + (" key mask" if mask is not None
+                 else "") + (f" sm_scale {sm_scale:g}" if sm_scale is not None else ""))
+        width = head_dim_width(attention_route(dtype, D), D)
+        kinds = (("fwd", fwd_rows, fwd_err, fwd_tol,
+                  {"plain": lambda: attention_plain_bf16_tc(q, k, v, mask, **kw),
+                   "kernel": lambda: flash_attention(q, k, v, mask, **kw),
+                   "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qs.detach(), ks.detach(), vs.detach(), attn_mask=live, scale=sm_scale)},
+                  bound(4.0 * pairs * D, 2 * (2 * el_q + 2 * el_k) + 4 * B * H * T, dtype)),  # q, k, v in; out, lse
+                 ("bwd", bwd_rows, bwd_err, bwd_tol,
+                  {"plain": lambda: attention_backward_plain_bf16_tc(q, k, v, mask, do, **kw),
+                   "kernel": lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                   "library": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s, retain_graph=True)},
+                  # q, k, v, O, dO and lse in; dq, dk, dv out
+                  bound(10.0 * pairs * D, 2 * (3 * el_q + 2 * el_k) + 2 * (el_q + 2 * el_k) + 4 * B * H * T, dtype)))
+        for kind, rows, err, tols, fns, (bound_ms, bound_by) in kinds:
+            t_ = in_turns(fns, reps=5)
+            row = {"label": f"{label} {call}", "shape": shape, "route": "sm90", "width": width, "ms": t_["kernel"],
+                   "plain_ms": t_["plain"], "library_ms": t_["library"], "bound_ms": bound_ms, "bound_by": bound_by,
+                   "max_abs_err": err, "tol": tols}
+            rows.append(row)
+            print(f"flash_attention_{kind}_sm90 {label} {call} {shape} (width {width}): max_abs_err "
+                  + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in err.items())
+                  + f"; flash_attention{' under autograd' if kind == 'bwd' else ''} {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, SDPA{' backward' if kind == 'bwd' else ''} {row['library_ms']:.4f} ms; "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            if not all(err[n] <= tols[n] for n in err):
+                raise AssertionError(f"flash_attention_{kind}_sm90 {label} {call}: {err} above {tols}")
+        del q, k, v, mask, do, leaves, out, grads, qs, ks, vs, sdpa_out, do_s, live
+    calls.clear()
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def backbone_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], list[dict]]:
+    """Training every other backbone family through ``train.main`` (``-cn
+    <name>``) on the card, on train_phase's synthesized set (``tmp /
+    "ors"``, ``data.dataset_type=ors`` for v28's and v29's ``mmrs``), each
+    at full width and its recipe's bf16 (``BACKBONE_TRAIN``): v29
+    (whisper-small) and v28 (whisper-base), T5 v1.1-base, NWhisper-base and
+    moonshine-tiny. For each:
+
+    * a gradient check (:func:`backbone_gradient_check`) and the two memory
+      probes that pick the micro-batch (:func:`backbone_micro_batch`);
+    * ``BACKBONE_MICRO_STEPS`` micro-steps at grad_acc ``BACKBONE_GRAD_ACC``:
+      every loss finite, ``state.step`` the micro-steps run, two updates,
+      the published widths in bf16, and a B and a C launched a covered call
+      (whisper_abs: every encoder self, decoder self and cross call; T5:
+      the cross calls; nGPT at sm_scale 1.0 and moonshine at D 36 padded
+      to 64: every call), nothing on the fp32 route and no fused mel;
+    * the final checkpoint restored into a fresh state with equal
+      parameters, step and update count;
+    * B and C at the family's calls (:func:`backbone_attention`).
+
+    Prints seconds a micro-step, tokens per second, peak GiB and MFU beside
+    the card. Returns the training launches (a main path), the checks'
+    launches, and B's and C's rows."""
+    from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.train import main as train_main
+    from mapperatorinator_tpu_torch.train.loop import CheckpointManager, batch_tokens, card_line, step_flops
+    from mapperatorinator_tpu_torch.train.optim import build_optimizer
+    from mapperatorinator_tpu_torch.train.step import TrainState, named_flax_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    ors, work, record = tmp / "ors", tmp / "backbones", {}
+    work.mkdir()
+    card = card_line()
+    print(f"backbone training cuts: {BACKBONE_MICRO_STEPS} micro-steps at grad_acc {BACKBONE_GRAD_ACC} (two updates) "
+          f"of the recipes' grad_acc 8 (v28, t5_base, nwhisper_base, moonshine_tiny) and 32 (v29); warmup_steps 1 of "
+          f"10 000 (a cosine decay needs steps after its warmup); no eval; the synthesized ors set for v28's and "
+          f"v29's mmrs; the recipe's micro-batch 128 where the reckoned peak fits {BACKBONE_MEMORY_SHARE:g} of the "
+          f"card; seeded random weights; widths and depths as published")
+    launches_total = {k: 0 for k in attention_launches()}
+    checks_total = dict(launches_total)
+    fwd_rows, bwd_rows = [], []
+    for name, (label, widths, calls_per_forward) in BACKBONE_TRAIN.items():
+        t_family = time.perf_counter()
+        # the data pipeline draws its augmentations from random and np.random, as the JAX one does: seeded, so that
+        # the checks' inputs repeat from run to run
+        random.seed(0)
+        np.random.seed(0)
+        args = load_train_config(name)
+        probed = backbone_gradient_check(label, name, data_overrides(ors) + [
+            f"optim.batch_size={BACKBONE_PROBE_BATCH}", "dataloader.num_workers=0"], calls_per_forward)
+        batch, reckoning = backbone_micro_batch(label, args.optim.batch_size, probed)
+        f_rows, b_rows = backbone_attention(label, probed.pop("calls"))
+        fwd_rows += f_rows
+        bwd_rows += b_rows
+        checks_total = {k: checks_total[k] + probed["launches"][k] for k in checks_total}
+
+        ckpt, logs = work / f"{name}_ckpt", work / f"{name}_logs"
+        overrides = train_overrides(ors, ckpt, batch, BACKBONE_GRAD_ACC, BACKBONE_MICRO_STEPS) + [
+            "optim.warmup_steps=1"]
+        steps = []
+
+        def describe(state, batch_):
+            return {"rows": int(batch_["frames"].shape[0]), "tokens": batch_tokens(batch_, state.model.cfg),
+                    "flops": step_flops(state.model, batch_, state.model.cfg)}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_attention_launches()
+        fused_mel.launches = 0
+        t0 = time.perf_counter()
+        with timed_steps(train_main, "make_train_step", steps, describe):
+            state = train_main.main(["-cn", name, *overrides], log_dir=str(logs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = attention_launches()
+        logged = metrics_steps(logs)
+        check_full_width(state.model, widths)
+        b = state.model.cfg.backbone
+        if b.dtype != torch.bfloat16 or state.step != BACKBONE_MICRO_STEPS or len(logged) != BACKBONE_MICRO_STEPS \
+                or len(steps) != BACKBONE_MICRO_STEPS \
+                or state.optimizer.count != BACKBONE_MICRO_STEPS // BACKBONE_GRAD_ACC:
+            raise AssertionError(f"{label}: dtype {b.dtype}, step {state.step}, {len(logged)} steps logged, "
+                                 f"{len(steps)} timed, {state.optimizer.count} updates")
+        if not all(math.isfinite(r["train/loss"]) for r in logged):
+            raise AssertionError(f"{label}: a training loss is not finite: {[r['train/loss'] for r in logged]}")
+        want = {k: 0 for k in launches}
+        want["flash_attention_fwd_sm90"] = want["flash_attention_bwd_sm90"] = calls_per_forward * BACKBONE_MICRO_STEPS
+        if launches != want or fused_mel.launches:
+            raise AssertionError(f"{label}: the micro-steps launched {launches} and {fused_mel.launches} fused mel, "
+                                 f"not {want} and 0")
+        launches_total = {k: launches_total[k] + launches[k] for k in launches_total}
+
+        args = load_train_config(name, overrides)
+        fresh, _, _ = train_main.build_model_and_data(args, torch.device("cuda"))
+        t1 = time.perf_counter()
+        restored = CheckpointManager(ckpt).restore(TrainState(0, fresh, build_optimizer(args, named_flax_params(fresh))))
+        restore_s = time.perf_counter() - t1
+        trained = dict(state.model.named_parameters())
+        same = all(torch.equal(p, trained[n]) for n, p in restored.model.named_parameters())
+        if restored.step != state.step or not same or restored.optimizer.count != state.optimizer.count:
+            raise AssertionError(f"{label}: the checkpoint does not restore the trained state")
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del fresh, restored, state, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for s_ in steps:
+            s_["tokens_per_s"] = s_["tokens"] / s_["s"]
+            s_["mfu"] = s_["flops"] / (PEAK_FLOPS[torch.bfloat16] * s_["s"])
+        record[name] = {"label": label, "batch": batch, "reckoning": reckoning, "check": probed["check"],
+                        "peaks_probed_gib": {r: p / 2**30 for r, p in probed["peaks"].items()}, "params": n_params,
+                        "wall_s": wall, "peak_mem_gib": peak, "launches": launches, "steps": steps, "logged": logged,
+                        "restore_s": restore_s, "family_s": time.perf_counter() - t_family}
+        print(f"backbone training {label} ({n_params / 1e6:.1f} M parameters), micro-batch {batch}: "
+              f"{BACKBONE_MICRO_STEPS} micro-steps in {wall:.1f} s (model build, data and the final checkpoint "
+              f"included), losses {[round(r['train/loss'], 4) for r in logged]}, launches {launches}, peak "
+              f"{peak:.2f} GiB; checkpoint restored equal in {restore_s:.2f} s; the family "
+              f"{record[name]['family_s']:.1f} s ({card})")
+        for i, s_ in enumerate(steps, 1):
+            print(f"  micro-step {i}: {s_['rows']} rows, {s_['s']:.3f} s to the step's synchronize "
+                  f"({logged[i - 1]['train/seconds_per_step']:.3f} s between the loop's logs, data included), "
+                  f"{s_['tokens_per_s']:.0f} tokens/s (encoder positions + decoder positions), MFU {s_['mfu']:.4f} "
+                  f"of 989 TFLOP/s bf16 ({card})")
+    record["phase_s"] = time.perf_counter() - started
+    report["backbone_train"] = record
+    print(f"backbone training phase: {record['phase_s']:.1f} s, launches {launches_total} (gradient checks and memory "
+          f"probes {checks_total})")
+    return launches_total, checks_total, fwd_rows, bwd_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -4549,6 +4942,7 @@ def main() -> int:
         trained, trained_fp32, checked = train_phase(tmp, report)
         finetuned, lora_served = finetune_phase(tmp, report)
         aux_trained, aux_checked, aux_fwd_rows, aux_bwd_rows = aux_train_phase(tmp, report)
+        backbone_trained, backbone_checked, backbone_fwd_rows, backbone_bwd_rows = backbone_train_phase(tmp, report)
     # kernel B's entry gains the DiT's, the evaluation models' and the auxiliary trainers' shapes and their
     # errors; C's fp32 entry the auxiliary trainers'
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
@@ -4558,20 +4952,28 @@ def main() -> int:
     bwd = next(entry for entry in kernels if entry["name"] == "flash_attention_bwd")
     bwd["shapes"] += aux_bwd_rows
     bwd["max_abs_err"] = max(bwd["max_abs_err"], *(e for row in aux_bwd_rows for e in row["max_abs_err"].values()))
-    checked = {name: checked.get(name, 0) + aux_checked.get(name, 0) for name in set(checked) | set(aux_checked)}
-    # kernel C's entries gain moonshine's head dim (a card check: no main path trains a moonshine backbone)
+    checked = {name: checked.get(name, 0) + aux_checked.get(name, 0) + backbone_checked.get(name, 0)
+               for name in set(checked) | set(aux_checked) | set(backbone_checked)}
+    # kernel C's entries gain moonshine's head dim; the bf16 pair's entries every other backbone family's training
+    # calls (T5's and nGPT's at sm_scale 1.0, moonshine's at D 36 padded to 64) and their errors
     for entry in kernels:
         if entry["name"] in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
             route = "fp32" if entry["name"] == "flash_attention_bwd" else "sm90"
             entry.setdefault("shapes", []).extend(row for row in moonshine_bwd_rows if row["route"] == route)
+        rows = {"flash_attention_fwd_sm90": backbone_fwd_rows, "flash_attention_bwd_sm90": backbone_bwd_rows}.get(
+            entry["name"], [])
+        if rows:
+            entry.setdefault("shapes", []).extend(rows)
+            entry["max_abs_err"] = max(entry["max_abs_err"], *(e for row in rows for e in row["max_abs_err"].values()))
     serving_paths = (first, second, third, maimod, super_timing, server, v31, dit, whisper, t5, ngpt, moonshine,
                      lora_served)
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools,
-    # the auxiliary trainers; the gradient checks' are listed apart
+    # the auxiliary trainers, the other backbone families' training; the
+    # gradient checks' are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
-                + evaluated.get(k, 0) + aux_trained.get(k, 0) for k in served}
+                + evaluated.get(k, 0) + aux_trained.get(k, 0) + backbone_trained.get(k, 0) for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
@@ -4585,8 +4987,10 @@ def main() -> int:
                                   "training, fp32 micro-steps": trained_fp32, "training, bf16 micro-steps": trained,
                                   "LoRA fine-tune, bf16 micro-steps": finetuned,
                                   "auxiliary training (DiT-B, the classifier, OsuR)": aux_trained,
-                                  "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32; not a main "
-                                  "path)": checked}
+                                  "backbone training (v29, v28, T5-base, NWhisper-base, moonshine-tiny; bf16)":
+                                      backbone_trained,
+                                  "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32, the five "
+                                  "backbones bf16 and their memory probes; not a main path)": checked}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in checked:

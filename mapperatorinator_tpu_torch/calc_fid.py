@@ -58,7 +58,7 @@ def get_beatmap_paths_by_gamemode(args) -> dict[int, list[Path]]:
 
     if args.dataset_type == "mmrs":
         raise NotImplementedError("dataset_type='mmrs': its metadata is parquet, read with pandas; "
-                                  "not ported (ROADMAP queue 1, item 15); use dataset_type=ors")
+                                  "not ported (ROADMAP queue 1, not queued); use dataset_type=ors")
     elif args.dataset_type == "ors":
         for i in range(args.dataset_start, args.dataset_end):
             beatmaps = root / f"Track{i:05d}" / "beatmaps"

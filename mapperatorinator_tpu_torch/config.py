@@ -4,7 +4,7 @@
 ``configs/inference/<name>.yaml`` (the nested training config included;
 v32, v32-mini, v31, v30, v29 and v28),
 ``configs/train_<name>.json`` that of ``configs/train/<name>.yaml`` (v32,
-v32-mini, and the fine-tune configs ``v32_ft``, ``v32-mini_ft``, ``lora``
+v32-mini, v28, v29, and the fine-tune configs ``v32_ft``, ``v32-mini_ft``, ``lora``
 and ``lora_v32``; ``t5_base`` is ``configs/train/default.yaml`` with
 ``model=t5_base``, the T5 v1.1-base of the legacy checkpoints), and
 ``configs/mai_mod.json`` that of ``configs/mai_mod.yaml``,

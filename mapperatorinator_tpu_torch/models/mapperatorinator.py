@@ -311,16 +311,23 @@ class Mapperatorinator(nn.Module):
             f_max=cfg.f_max,
             pad_mode=cfg.pad_mode,
         )
-        self.transformer = OsuTransformer(b, embed_inputs=not cfg.embed_decoder_input)
-        if cfg.do_style_embed:
+        # a projected input reaches the stem at d_model channels: flax infers
+        # the stem's input width, which build_config sizes from the name's
+        # size table (the two differ where model.overwrite sets d_model)
+        stem_input = dataclasses.replace(b, num_mel_bins=b.d_model) if cfg.project_encoder_input else b
+        self.transformer = OsuTransformer(stem_input, embed_inputs=not cfg.embed_decoder_input)
+        # under input_raw_wave the samples go to the stem alone: flax creates
+        # no parameter of the mel path, whose modules it never calls
+        mel_path = not cfg.input_raw_wave
+        if cfg.do_style_embed and mel_path:
             self.style_embedder = nn.Embedding(cfg.num_classes + 1, b.d_model)
-        if cfg.do_difficulty_embed:
+        if cfg.do_difficulty_embed and mel_path:
             self.difficulty_embedder = DifficultyEmbedder(cfg.cond_dim)
-        if cfg.do_mapper_embed:
+        if cfg.do_mapper_embed and mel_path:
             self.mapper_embedder = MapperStyleEmbedder(cfg.num_mappers, cfg.cond_dim)
-        if cfg.do_song_position_embed:
+        if cfg.do_song_position_embed and mel_path:
             self.song_pos_embedder = SongPositionEmbedder(cfg.cond_dim)
-        if cfg.project_encoder_input:
+        if cfg.project_encoder_input and mel_path:
             self.encoder_embedder = Dense(encoder_input_width(cfg), b.d_model, True, b.dtype)
         if cfg.embed_decoder_input:
             self.decoder_embedder = nn.Embedding(cfg.vocab_size_in, b.d_model)

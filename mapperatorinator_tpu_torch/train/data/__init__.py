@@ -15,6 +15,6 @@ def build_dataset(args, parser, vocab, test: bool = False, shared=None, subset_i
     if kind == "ors":
         return OrsDataset(args, parser, vocab, test=test, shared=shared)
     if kind in ("mmrs", "web"):
-        raise NotImplementedError(f"dataset_type={kind!r}: not ported yet (ROADMAP queue 1, item 15); "
+        raise NotImplementedError(f"dataset_type={kind!r}: not ported (ROADMAP queue 1, not queued); "
                                   "use dataset_type=ors")
     raise NotImplementedError(f"Unknown dataset type {kind!r}")

@@ -360,20 +360,31 @@ def batch_tokens(batch: dict, cfg) -> float:
     return sum(_batch_token_split(batch, cfg))
 
 
+def attention_widths(backbone) -> tuple[int, int]:
+    """(encoder, decoder) attention widths, heads x head dim: what the score
+    and value products contract over. It is ``d_model`` for every whisper
+    and moonshine size and T5-base; T5-small's 6 heads of 64 span 384 of its
+    512 (the JAX count takes ``d_model``). A head the kernels take padded
+    (moonshine's 36) counts at its own width."""
+    head = backbone.head_dim_override
+    return tuple(h * (head or backbone.d_model // h) for h in (backbone.encoder_heads, backbone.decoder_heads))
+
+
 def _attention_flops(batch: dict, cfg) -> float:
     """fwd + bwd FLOPs of the attention score and value products per step:
-    12 S^2 d_model per layer and batch row (fwd 4, bwd 8), the full S^2
-    (the kernels skip no masked tile)."""
+    12 S^2 W per layer and batch row (fwd 4, bwd 8), W the side's
+    :func:`attention_widths`, the full S^2 (the kernels skip no masked
+    tile)."""
     ids, frames = batch.get("decoder_input_ids"), batch.get("frames")
     if ids is None or cfg is None or cfg.backbone is None:
         return 0.0
     backbone = cfg.backbone
     bsz, s_dec = int(ids.shape[0]), int(ids.shape[-1])
     s_enc = int(encoder_positions(cfg, frames.shape[-1])) if frames is not None else 0
-    d = backbone.d_model
-    per_row = (backbone.encoder_layers * 12.0 * s_enc * s_enc * d
-               + backbone.decoder_layers * 12.0 * s_dec * s_dec * d
-               + backbone.decoder_layers * 12.0 * s_dec * s_enc * d)
+    w_enc, w_dec = attention_widths(backbone)
+    per_row = (backbone.encoder_layers * 12.0 * s_enc * s_enc * w_enc
+               + backbone.decoder_layers * 12.0 * s_dec * s_dec * w_dec
+               + backbone.decoder_layers * 12.0 * s_dec * s_enc * w_dec)
     return float(bsz) * per_row
 
 
@@ -395,8 +406,11 @@ def step_flops(model, batch: dict, cfg) -> float:
     parameterised products, encoder parameters seeing only encoder positions
     and the rest only decoder positions, plus the attention products of
     ``cfg.backbone`` (none where it is None), ``cfg`` being the model's
-    config: the JAX ``step_flops``, which takes 256 samples a position
-    (:func:`encoder_positions` of a v32-family config). Given a LoRA
+    config: the JAX ``step_flops`` for a whisper-stem backbone (v32's family,
+    v28, v29, NWhisper), which takes 256 samples a position for every
+    backbone. The port counts T5's positions a hop (it has no stem),
+    moonshine's from its raw-wave stem (:func:`encoder_positions`), and the
+    attention products at :func:`attention_widths`. Given a LoRA
     adapter, this is the JAX figure for a LoRA step, whose parameters are
     the factors: attention and little else (see :func:`lora_step_flops`)."""
     tok_enc, tok_dec = _batch_token_split(batch, cfg)

@@ -19,10 +19,14 @@ as in the JAX ``train.py``: the checkpoint's dtype wins over
 LoRA factors (``lora``: rank, alpha, targets; seeded with ``seed``) on that
 frozen base and writes the adapter to ``<checkpoint_path>/lora``.
 
-Not ported yet, each raising and naming ROADMAP queue 1, item 15: more than
-one process, tensor and FSDP mesh axes, the ``mmrs`` and ``web`` datasets,
-``adafactor`` and training a T5 backbone (item 15 (b)). v32's ``dataset_type: web`` is therefore overridden to
-``ors``, a local track-folder dataset.
+Every backbone family trains: v32's (``-cn v32``), stock whisper (``-cn
+v28``, ``-cn v29``), T5 v1.1 (``-cn t5_base``), nGPT (``-cn
+nwhisper_base``) and moonshine (``-cn moonshine_tiny``), through one step,
+optimizer and loop. Not ported yet, each raising and naming ROADMAP queue 1:
+more than one process, tensor and FSDP mesh axes, the ``mmrs`` and ``web``
+datasets and ``adafactor``. The recipes' ``dataset_type`` (``web`` for
+v32, ``mmrs`` for v28 and v29) is therefore overridden to ``ors``, a local
+track-folder dataset.
 """
 
 from __future__ import annotations
@@ -75,19 +79,6 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{what}: not ported yet ({ROADMAP_ITEM})")
 
 
-def refuse_backbone(config) -> None:
-    """Training a T5 backbone (its position bias, and kernel C at scale 1.0),
-    an nGPT one (the slerps and normalised weights through C at scale 1.0)
-    or a moonshine one (the raw-wave stem, C at head dims 36 and 52) waits
-    for item 15 (b); serving each is ported."""
-    b = config.backbone
-    for refused, what in ((b.position_scheme == "t5_relpos", "a T5 backbone"),
-                          (b.norm_scheme == "ngpt", "an nGPT (NWhisper) backbone"),
-                          (b.stem_type == "moonshine", "a moonshine backbone")):
-        if refused:
-            raise NotImplementedError(f"training {what}: not ported yet ({ROADMAP_ITEM} (b))")
-
-
 def build_model_and_data(args, device: torch.device):
     """(model, vocab, make_batches): the model on ``device`` with seeded
     random fp32 parameters, computing in the ``mixed_precision`` dtype; or,
@@ -96,12 +87,10 @@ def build_model_and_data(args, device: torch.device):
     data_vocab = build_vocabulary(args)
     parser = BeatmapParser(args, data_vocab)
     config = build_config(args, data_vocab)
-    refuse_backbone(config)
     if args.pretrained_path:
         pretrained = resolve_model_checkpoint_path(args.pretrained_path, gamemode=args.pretrained_gamemode)
         print(f"Loading pretrained weights from {pretrained}")
         model, vocab = load_checkpoint(pretrained)
-        refuse_backbone(model.cfg)
         model, vocab = model.to(device), vocab or data_vocab
         dtype = model.cfg.backbone.dtype
         if dtype != config.backbone.dtype:

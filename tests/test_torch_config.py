@@ -1,9 +1,10 @@
-"""The port's checked-in v32 configs, and the T5, NWhisper and moonshine
-training configs, against the JAX loader.
+"""The port's checked-in v32 configs, the v28 and v29 training recipes, and the
+T5, NWhisper and moonshine training configs, against the JAX loader.
 
 ``mapperatorinator_tpu_torch/configs/v32.json`` is the JAX composition of
 ``configs/inference/v32.yaml`` and ``configs/train_v32.json`` that of
-``configs/train/v32.yaml``, written out as JSON, so the port reads them
+``configs/train/v32.yaml`` (``train_v28.json`` and ``train_v29.json`` of
+``v28.yaml`` and ``v29.yaml`` likewise), written out as JSON, so the port reads them
 without yaml. ``configs/train_t5_base.json`` is the JAX loader's composition
 of ``configs/train/default.yaml`` with ``model=t5_base`` (the T5 v1.1-base
 backbone of the legacy osuT5 releases): the repo has no preset that names
@@ -48,8 +49,14 @@ def composed_v32():
     return compose(REPO_ROOT / "configs" / "inference", "v32", schema_cls=schema.InferenceConfig)
 
 
-def composed_train_v32(overrides=()):
-    return compose(REPO_ROOT / "configs" / "train", "v32", overrides=list(overrides), schema_cls=schema.TrainConfig)
+# the training recipes of ``configs/train/`` that the port checks in as
+# ``train_<name>.json``: v32, and stock whisper's v28 (whisper-base) and v29
+# (whisper-small)
+RECIPES = ("v32", "v28", "v29")
+
+
+def composed_train(name: str = "v32", overrides=()):
+    return compose(REPO_ROOT / "configs" / "train", name, overrides=list(overrides), schema_cls=schema.TrainConfig)
 
 
 T5_BASE_PRESET = "defaults:\n  - default\n  - ../model@model: t5_base\n  - _self_\n"
@@ -100,9 +107,10 @@ def test_loaded_namespace_equals_the_jax_config():
     assert plain(load_config("v32"), keep_enums=True) == plain(composed_v32(), keep_enums=True)
 
 
-def test_checked_in_train_json_is_the_jax_composition():
-    with open(CONFIG_DIR / "train_v32.json", encoding="utf-8") as f:
-        assert json.load(f) == plain(composed_train_v32())
+@pytest.mark.parametrize("name", RECIPES)
+def test_checked_in_train_json_is_the_jax_composition(name):
+    with open(CONFIG_DIR / f"train_{name}.json", encoding="utf-8") as f:
+        assert json.load(f) == plain(composed_train(name))
 
 
 @pytest.mark.parametrize("overrides", [
@@ -110,10 +118,11 @@ def test_checked_in_train_json_is_the_jax_composition():
     ("data.dataset_type=ors", "optim.batch_size=4", "mixed_precision=no", "device=cpu",
      "model.overwrite.d_model=64", "data.dt_augment_range=[1.0, 1.5]", "optim.grad_clip=1.5"),
 ])
-def test_loaded_train_namespace_equals_the_jax_config(overrides):
+@pytest.mark.parametrize("name", RECIPES)
+def test_loaded_train_namespace_equals_the_jax_config(name, overrides):
     """Every field, overrides applied the way the JAX loader applies them."""
-    assert plain(load_train_config("v32", overrides), keep_enums=True) == \
-        plain(composed_train_v32(overrides), keep_enums=True)
+    assert plain(load_train_config(name, overrides), keep_enums=True) == \
+        plain(composed_train(name, overrides), keep_enums=True)
 
 
 T5_OVERRIDES = ("mixed_precision=no", "model.overwrite.d_model=64", "model.spectrogram.implementation=pallas",
@@ -229,7 +238,7 @@ def test_build_config_matches_jax():
 
 
 if __name__ == "__main__":
-    for name, tree in (("v32", composed_v32()), ("train_v32", composed_train_v32()),
+    for name, tree in (("v32", composed_v32()), *((f"train_{recipe}", composed_train(recipe)) for recipe in RECIPES),
                        *((f"train_{model}", composed_train_preset(model)) for model in MODEL_PRESETS)):
         with open(CONFIG_DIR / f"{name}.json", "w", encoding="utf-8") as f:
             json.dump(plain(tree), f, indent=1, sort_keys=True)

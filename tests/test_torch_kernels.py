@@ -13,7 +13,10 @@ through it, and both routes unscaled (``sm_scale`` 1.0) at T5-base's cross
 attention, and the fp32 forward at the mapper classifier's and CM3P's calls
 (windows of pads only included) and through a small classifier, and the
 fp32 backward at DiT-B's and the classifier's training calls (a window of
-pads' dq and dk exactly 0) and through a DiT training step; qmm on
+pads' dq and dk exactly 0) and through a DiT training step, and the bf16
+pair under autograd at the backbone families' training calls (T5's cross
+attention and an nGPT decoder at ``sm_scale`` 1.0, moonshine's D 36 padded
+to 64, causal under a key mask with an empty row); qmm on
 both of its paths (also at T5-base's products) (its GEMV path also for
 bit-equal repeats and a refused launch); the fused mel against both its
 plain versions (the split-TF32 one and fp32), for bit-equal repeats, and
@@ -935,3 +938,64 @@ def test_a_dit_training_step_through_kernels_b_and_c(cuda):
     torch.testing.assert_close(loss, want_loss, rtol=2e-5, atol=0)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * max(w.abs().max().item(), 1e-30))
+
+
+# kernel C (with B) on the bf16 route as the backbone families' training calls it: (label, B, T, S, H, D, causal,
+# key mask, sm_scale); T 384 decoder tokens and S 511 encoder positions of the T5 / nGPT / moonshine training
+# configs (512 source frames, 384 target positions)
+BACKBONE_BWD_CASES = [
+    ("t5-cross", 2, 384, 511, 12, 64, False, "none", 1.0),
+    ("ngpt-decoder-self", 2, 384, 384, 8, 64, True, "ragged", 1.0),
+    ("moonshine-decoder-self", 2, 384, 384, 8, 36, True, "ragged, row 0 empty", None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,b,t,s,h,d,causal,masked,sm_scale", BACKBONE_BWD_CASES,
+                         ids=[case[0] for case in BACKBONE_BWD_CASES])
+def test_bf16_kernel_c_at_the_backbone_training_calls(cuda, label, b, t, s, h, d, causal, masked, sm_scale):
+    """B and C on the bf16 route through ``flash_attention`` under autograd,
+    as bf16 training of T5, nGPT and moonshine calls them: unscaled
+    (``sm_scale`` 1.0) at T5's cross attention, q and k drawn as HF draws
+    T5-base's projections, and at an nGPT decoder self-attention, q and k
+    unit vectors times sqrt(D) and 1; moonshine's D 36 zero-padded to 64,
+    causal under a key mask whose row 0 holds no live key. One launch of
+    each sm90 kernel; the output and dq, dk, dv against both bf16 plain
+    versions (the one that rounds as the route does, and the fp32 one), and
+    a row with no live key gets dq and dk of exactly 0."""
+    gen = torch.Generator().manual_seed(36)
+    if label == "t5-cross":  # unit-RMS states through projections of HF's T5 init
+        x, enc = torch.randn((b, t, h * d), generator=gen), torch.randn((b, s, h * d), generator=gen)
+        wq = torch.randn((h * d, h * d), generator=gen) * (h * d * d) ** -0.5
+        wk, wv = (torch.randn((h * d, h * d), generator=gen) * (h * d) ** -0.5 for _ in range(2))
+        q = (x @ wq).view(b, t, h, d)
+        k, v = ((enc @ w).view(b, s, h, d) for w in (wk, wv))
+    else:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen) for n in (t, s, s))
+        if label.startswith("ngpt"):  # normalised heads, q scaled by sqrt(D)
+            q, k = (torch.nn.functional.normalize(x, dim=-1) for x in (q, k))
+            q = q * d**0.5
+    do = torch.randn((b, t, h, d), generator=gen)
+    kvm = None
+    if masked != "none":
+        lengths = torch.randint(s // 2, s + 1, (b, 1), generator=gen)
+        kvm = torch.arange(s)[None] < lengths
+        if "row 0 empty" in masked:
+            kvm[0] = False
+        kvm = kvm.to(cuda)
+    q, k, v, do = (x.to(cuda, torch.bfloat16) for x in (q, k, v, do))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = launches()
+    out = flash_attention(*leaves, kvm, causal=causal, sm_scale=sm_scale)
+    got = torch.autograd.grad(out, leaves, do)
+    assert launches() == added(before, (0, 0, 1, 1))
+    for fwd, bwd in ((attention_plain_bf16_tc, attention_backward_plain_bf16_tc),
+                     (attention_plain, attention_backward_plain)):
+        want = fwd(q, k, v, kvm, causal=causal, sm_scale=sm_scale)
+        torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=ATTN_TOL[torch.bfloat16])
+        want_grads = bwd(q, k, v, kvm, do, causal=causal, sm_scale=sm_scale)
+        tol = grad_tol(torch.bfloat16, *want_grads)
+        for g, w in zip(got, want_grads):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+    if "row 0 empty" in masked:
+        assert got[0][0].abs().max().item() == 0 and got[1][0].abs().max().item() == 0

@@ -16,8 +16,8 @@ v32 sets it), through the helpers of ``tests/test_torch_ngpt.py``:
   and with int8 weights and KV (the gated decoder feed-forward stays a plain
   ``Dense``); ``generate_forced`` scores on the processed (sampled) logits;
 * ``quantize_model`` bit-equal to the JAX ``quantize_checkpoint``, seeded
-  weights through a native checkpoint into the JAX loader, and training a
-  moonshine backbone refused;
+  weights through a native checkpoint into the JAX loader
+  (``tests/test_torch_backbone_train.py`` trains the family);
 * kernels B and C's head-dim padding (as ``flash_attention`` pads) at D 36
   and 52 on each route's widths (40 / 56 on the fp32 route, 64 on the sm90
   route) through the plain versions that round as each route does, forward
@@ -40,7 +40,6 @@ from mapperatorinator_tpu_torch.ops.attention_kernel import (attention_backward_
                                                              attention_backward_plain_fp32_tc, attention_plain,
                                                              attention_plain_bf16_tc, attention_plain_fp32_tc,
                                                              head_dim_width, pad_head_dim)
-from mapperatorinator_tpu_torch.train import main as train_main
 from tests.test_torch_convert import TINY
 from tests.test_torch_ngpt import (check_cached_decode_logits, check_encoder_states, check_generate_forced,
                                    check_greedy_decode, check_quantize_model, check_seeded_round_trip,
@@ -139,11 +138,6 @@ def test_seeded_weights_round_trip_through_a_native_checkpoint_jax_reads(tmp_pat
     state = check_seeded_round_trip(tmp_path, "moonshine")
     assert torch.equal(state["transformer.encoder.groupnorm.weight"], torch.ones(TINY["d_model"]))
     assert state["transformer.encoder.conv1.weight"].shape == (TINY["d_model"], 1, 127)
-
-
-def test_training_a_moonshine_backbone_raises():
-    with pytest.raises(NotImplementedError, match=r"moonshine.*ROADMAP queue 1, item 15 \(b\)"):
-        train_main.main(["-cn", "moonshine_tiny", "device=cpu"])
 
 
 ROUTE_PLAIN = {"fp32": (torch.float32, attention_plain_fp32_tc, attention_backward_plain_fp32_tc),

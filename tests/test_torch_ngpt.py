@@ -20,7 +20,7 @@ weight drawn at one of its two storage keys, the scales near their inits):
   without CFG;
 * ``quantize_model`` bit-equal to the JAX ``quantize_checkpoint`` (no
   ``QDense`` anywhere), seeded weights through a native checkpoint into the
-  JAX loader, and training an nGPT backbone refused.
+  JAX loader (``tests/test_torch_backbone_train.py`` trains the family).
 
 The helpers here (``family_fixture`` and the ``check_*`` functions, on
 ``tests/test_torch_t5.py``'s engines) serve ``tests/test_torch_moonshine.py``
@@ -46,7 +46,6 @@ from mapperatorinator_tpu_torch.models.mapperatorinator import build_config, bui
 from mapperatorinator_tpu_torch.models.params import init_params, params_from_flax
 from mapperatorinator_tpu_torch.models.transformer import HyperResidual, NormDense, QDense, l2norm
 from mapperatorinator_tpu_torch.osu import build_vocabulary
-from mapperatorinator_tpu_torch.train import main as train_main
 from tests.test_torch_convert import FAMILY_OVERRIDES, TINY, tiny_args, write_hf_checkpoint
 from tests.test_torch_decode import both_pipelines, decode_prompt
 from tests.test_torch_model import audio, prompt
@@ -302,8 +301,3 @@ def test_seeded_weights_round_trip_through_a_native_checkpoint_jax_reads(tmp_pat
     np.testing.assert_allclose(state["transformer.encoder.layers.0.attn_residual.branch_scale.weight"], d**-0.5)
     np.testing.assert_allclose(state["transformer.encoder.layers.0.self_attn.qk_scale.weight"], 1 / d)
     assert state["transformer.encoder.embed_positions"][1, 0] == pytest.approx(np.sin(1.0))
-
-
-def test_training_an_ngpt_backbone_raises():
-    with pytest.raises(NotImplementedError, match=r"nGPT.*ROADMAP queue 1, item 15 \(b\)"):
-        train_main.main(["-cn", "nwhisper_base", "device=cpu"])

@@ -381,7 +381,7 @@ DEFINITION_REPLACED = {
          "            )\n",
          '    if args.dataset_type == "mmrs":\n'
          """        raise NotImplementedError("dataset_type='mmrs': its metadata is parquet, read with pandas; "\n"""
-         '                                  "not ported (ROADMAP queue 1, item 15); use dataset_type=ors")\n'),
+         '                                  "not ported (ROADMAP queue 1, not queued); use dataset_type=ors")\n'),
     ],
     ("calc_fid.py", "generate_beatmaps"): [
         ('        i_args = compose(REPO_ROOT / "configs" / "inference", "v32", '

@@ -11,7 +11,11 @@ model.
 * the classifier (no stem: a position a hop) and moonshine (no spectrogram)
   give the derived count: the hand formula with their positions, within 2
   a row of what the classifier's encoder makes and exactly moonshine's
-  stem length.
+  stem length;
+* every backbone family's training config (v28, v29, T5, nGPT, moonshine):
+  the positions within 1 of what its encoder makes, the tokens, and the
+  hand count at the attention widths heads x head dim, equal to the JAX
+  count for the whisper stems.
 """
 
 from types import SimpleNamespace
@@ -22,6 +26,7 @@ import torch
 
 from mapperatorinator_tpu.train import loop as jax_loop
 from mapperatorinator_tpu_torch.config import load_classifier_config, load_train_config
+from mapperatorinator_tpu_torch.models import Mapperatorinator
 from mapperatorinator_tpu_torch.models.classifier import build_classifier
 from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
 from mapperatorinator_tpu_torch.models.transformer import moonshine_stem_length
@@ -49,10 +54,12 @@ def batch_of(rows: int, samples: int, tokens: int) -> dict:
 
 
 def hand_count(cfg, batch, s_enc: float) -> float:
+    """6 N per token a side, and 12 S^2 (heads x head dim) per layer and row."""
     rows, s_dec = batch["frames"].shape[0], batch["decoder_input_ids"].shape[1]
     b = cfg.backbone
-    attention = rows * 12.0 * b.d_model * (b.encoder_layers * int(s_enc) ** 2 + b.decoder_layers * s_dec ** 2
-                                           + b.decoder_layers * s_dec * int(s_enc))
+    w_enc, w_dec = b.encoder_heads * b.head_dim, b.decoder_heads * b.head_dim
+    attention = rows * 12.0 * (b.encoder_layers * int(s_enc) ** 2 * w_enc + b.decoder_layers * s_dec ** 2 * w_dec
+                               + b.decoder_layers * s_dec * int(s_enc) * w_dec)
     return 6.0 * (N_ENC * rows * s_enc + N_DEC * rows * s_dec) + attention
 
 
@@ -101,3 +108,41 @@ def test_moonshine_counts_its_raw_wave_stem():
     assert loop.step_flops(Counted(), batch, cfg) == pytest.approx(hand_count(cfg, batch, positions), rel=1e-12)
     tok_enc, _ = loop._batch_token_split(batch, cfg)
     assert tok_enc == 4 * positions
+
+
+TINY = ["model.overwrite.d_model=32", "model.overwrite.encoder_layers=1", "model.overwrite.decoder_layers=1",
+        "model.overwrite.encoder_attention_heads=2", "model.overwrite.decoder_attention_heads=2",
+        "model.overwrite.encoder_ffn_dim=32", "model.overwrite.decoder_ffn_dim=32", "mixed_precision=no"]
+# (the backbone's stem, its attention widths encoder and decoder) at full width
+FAMILY_COUNTS = {"v28": ("whisper", 512, 512), "v29": ("whisper", 768, 768), "nwhisper_base": ("whisper", 512, 512),
+                 "t5_base": (None, 768, 768), "moonshine_tiny": ("moonshine", 288, 288)}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_COUNTS))
+def test_each_backbone_family_counts_what_its_encoder_makes(name):
+    """Each family's training config at full width: the encoder positions
+    counted a window are within 1 of what the model's own encoder makes of
+    it (a tiny model of the same stem: a whisper stem halves a position a
+    hop, T5 has no stem, moonshine's raw-wave stem makes its length), the
+    tokens are those positions plus the decoder's, and ``step_flops`` is the
+    hand count at the attention widths heads x head dim (T5's d_kv 64,
+    moonshine's 36); with a whisper stem it equals the JAX ``step_flops``."""
+    args = load_train_config(name)
+    cfg = build_config(args, build_vocabulary(args))
+    stem, w_enc, w_dec = FAMILY_COUNTS[name]
+    b = cfg.backbone
+    assert ((b.stem_type if b.conv_stem else None), *loop.attention_widths(b)) == (stem, w_enc, w_dec)
+    samples = cfg.hop_length * (args.data.src_seq_len - 1)
+    positions = loop.encoder_positions(cfg, samples)
+    tiny_args = load_train_config(name, TINY)
+    tiny = Mapperatorinator(build_config(tiny_args, build_vocabulary(tiny_args)))
+    with torch.no_grad():
+        made = tiny.encode(torch.zeros((1, samples))).shape[1]
+    assert abs(made - positions) <= 1
+    rows, tokens = 4, args.data.tgt_seq_len
+    batch = batch_of(rows, samples, tokens)
+    assert loop.batch_tokens(batch, cfg) == pytest.approx(rows * (positions + tokens), rel=1e-12)
+    assert loop.step_flops(Counted(), batch, cfg) == pytest.approx(hand_count(cfg, batch, positions), rel=1e-12)
+    if stem == "whisper":
+        want = jax_loop.step_flops(Counted.jax_state(), batch, cfg.backbone)
+        assert loop.step_flops(Counted(), batch, cfg) == pytest.approx(want, rel=1e-12)

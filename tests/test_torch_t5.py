@@ -20,7 +20,8 @@ frames and no conv stem):
   ``tests/test_torch_bf16_parity.py``;
 * ``quantize_model`` bit-equal to the JAX ``quantize_checkpoint`` (every
   dense site, ``fc1_gate`` included), seeded weights through a native
-  checkpoint into the JAX loader, and training a T5 backbone refused.
+  checkpoint into the JAX loader (``tests/test_torch_backbone_train.py``
+  trains the family).
 """
 
 import dataclasses
@@ -47,7 +48,6 @@ from mapperatorinator_tpu_torch.models.params import init_params, params_from_fl
 from mapperatorinator_tpu_torch.models.transformer import (Attention, QDense, RelativePositionBias, RMSNorm,
                                                            TransformerConfig, relative_position_bucket)
 from mapperatorinator_tpu_torch.osu import build_vocabulary
-from mapperatorinator_tpu_torch.train import main as train_main
 from tests.test_torch_bf16_parity import ARGMAX_AGREEMENT, REL_TOL
 from tests.test_torch_convert import FAMILY_OVERRIDES, SRC_LEN, TINY, tiny_args, write_hf_checkpoint
 from tests.test_torch_decode import assert_scores_close, both_pipelines, decode_prompt
@@ -356,8 +356,3 @@ def test_seeded_weights_round_trip_through_a_native_checkpoint_jax_reads(tmp_pat
     assert "rel_bias" in jparams["params"]["transformer"]["decoder"]
     want = params_from_flax(jparams)
     assert set(want) == set(state) and all(torch.equal(want[k], state[k]) for k in state)
-
-
-def test_training_a_t5_backbone_raises():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 15 \(b\)"):
-        train_main.main(["-cn", "t5_base", "device=cpu"])
