@@ -65,7 +65,7 @@
    .osu, or on a dense map where that one has no timing point, whose
    teacher-forced decoder must launch kernel B (36 launches a batch), its
    first batch's ``forward_stats`` held against plain attention;
-   ``generate`` with ``super_timing=true`` at v32's 20 ensemble members,
+   ``generate`` with ``super_timing=true`` at 10 ensemble members (v32 has 20),
    every pooled window decoded on the graphed step at up to 32 rows; and the
    batching server (``infer/server.py``) in this process, two greedy
    requests from two client threads batched together on its batch thread,
@@ -239,6 +239,25 @@
    at each family's calls, on the check's own inputs, against both bf16
    plain versions and timed beside SDPA and the bound; these join the bf16
    pair's kernels-line entries and their launches.
+   Then the single-card tools (``tools_phase``), each through its entry
+   point on what earlier phases wrote: the held-out eval harness
+   (``test.main``) on request 3's v32 weights under a config that picks the
+   fused mel, at batch 32, both passes of 2 batches (36 B and one A a batch;
+   the first batch's loss and logits through the kernels held against
+   plain attention); ``dataloading`` (``stats``, ``audition``);
+   ``push_to_hub --stage-dir`` on that checkpoint with a ``gamemode=1``
+   subfolder and one removed mapper (every staged tensor read back equal to
+   its source but the mapper's token rows, which are 0); ``print_ckpt``;
+   the DiT tools on the auxiliary trainers' DiT-B (``dit_test_toy`` at 16
+   predictions, 12 B a sampling step; ``plot_embeddings``,
+   ``find_similar_beatmaps``, ``distance_distance``); ``plot_self_similarity``
+   with CM3P (B); ``plot_difficulties``; and the web UI served from a
+   thread, a v32 generation job on a 4 s song and a MaiMod job on its map,
+   each in a spawned worker on the card whose launches it writes beside its
+   log; then B at the harness's calls (B 32, H 12: 1 024², 2 560² causal
+   with a key mask, 2 560 × 1 024), which join B's kernels-line entry.
+   Super-timing runs 10 members, cut from v32's 20, to keep the whole run
+   inside its limit.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -254,6 +273,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import io
 import itertools
@@ -266,6 +286,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import wave
 from pathlib import Path
 
@@ -353,7 +374,9 @@ LORA_TRACED, LORA_STEADY = (2, 3), (5, 6)
 # every window decodes to tgt_seq_len; a short song keeps to a few windows
 LORA_AUDIO_SECONDS = 4.0
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
-TIMER_ITERATIONS = 20  # super-timing: v32's ensemble size; a cut would be printed here
+# super-timing's ensemble, cut from v32's 20 members to keep the whole run inside its limit (printed with the
+# phase)
+TIMER_ITERATIONS, TIMER_ITERATIONS_V32 = 10, 20
 SERVER_JOIN_S = 600  # the server phase's two requests must return within this
 # the v31 phase's conditions: a set difficulty and a mapper (a user id that
 # datasets/beatmap_users.json holds, so the mapper table's own row)
@@ -2814,20 +2837,22 @@ EVAL_ATTENTION = [("classifier encoder and cross", EVAL_BATCH, 1024, 1024, False
                   ("CM3P beatmap tower", CM3P_BATCH, 512, 512, False, True)]
 
 
-def eval_attention(report: dict) -> list[dict]:
-    """Kernel B at the classifier's and CM3P's calls (``EVAL_ATTENTION``),
-    against both fp32 plain versions at 2e-5, timed beside the plain
-    version, SDPA and the bound. Each key mask pads each row's end, and its
-    batch row 0 is a window of pads only: every query row there sees no key
-    and must average v over all S keys, as the JAX ``_attend`` does."""
+def eval_attention(report: dict, cases=EVAL_ATTENTION, H: int = 8, key: str = "attention_eval",
+                   seed: int = 19) -> list[dict]:
+    """Kernel B at the classifier's and CM3P's calls (``EVAL_ATTENTION``; or
+    ``cases`` at ``H`` heads, the rows kept under ``report[key]``), against
+    both fp32 plain versions at 2e-5, timed beside the plain version, SDPA
+    and the bound. Each key mask pads each row's end, and its batch row 0 is
+    a window of pads only: every query row there sees no key and must
+    average v over all S keys, as the JAX ``_attend`` does."""
     from mapperatorinator_tpu_torch.ops.attention_kernel import attention_plain, attention_plain_fp32_tc, \
         flash_fwd_fp32
 
-    gen = torch.Generator(device="cuda").manual_seed(19)
-    H, D, tol = 8, 64, ATTN_TOL[torch.float32]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, tol = 64, ATTN_TOL[torch.float32]
     scale = D**-0.5
     rows = []
-    for label, B, T, S, causal, masked in EVAL_ATTENTION:
+    for label, B, T, S, causal, masked in cases:
         q = torch.randn((B, T, H, D), generator=gen, device="cuda")
         k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda") for _ in range(2))
         mask = sdpa_mask = None
@@ -2866,7 +2891,7 @@ def eval_attention(report: dict) -> list[dict]:
             raise AssertionError(f"flash_attention fp32 {label}: {err} above {tol}")
         del q, k, v, out, qs, ks, vs, sdpa_mask
     torch.cuda.empty_cache()
-    report["attention_eval"] = rows
+    report[key] = rows
     return rows
 
 
@@ -3487,8 +3512,8 @@ def dit_phase(tmp: Path, wav: Path, report: dict) -> tuple[dict, list[dict]]:
 
 
 def super_timing_phase(tmp: Path, wav: Path, report: dict) -> dict:
-    """``generate`` with ``super_timing=true`` at v32's ``timer_iterations``:
-    the ensemble pools every member's windows into parallel decodes of up to
+    """``generate`` with ``super_timing=true`` at ``TIMER_ITERATIONS`` members
+    (v32's ``timer_iterations`` is 20): the ensemble pools every member's windows into parallel decodes of up to
     ``max_batch_size`` rows on the graphed step. Every window of every member
     must come back decoded; random weights may give no usable timing, and
     the run then falls back to the fixed redline, which is printed."""
@@ -3534,7 +3559,8 @@ def super_timing_phase(tmp: Path, wav: Path, report: dict) -> dict:
     fallback = timing["ensemble_events"] == [0] or timing["timing_points"][:1] == [0]
     result.update(super_timing={"iterations": TIMER_ITERATIONS, "windows": windows, **timing,
                                 "fallback_redline": fallback})
-    print(f"super-timing: {TIMER_ITERATIONS} members, {windows['pooled']} windows pooled, {windows['decoded']} "
+    print(f"super-timing: {TIMER_ITERATIONS} members (cut from v32's {TIMER_ITERATIONS_V32}), {windows['pooled']} "
+          f"windows pooled, {windows['decoded']} "
           f"decoded; decode calls by batch rows: "
           + ", ".join(f"B {rows}: {c['calls']} calls, {c['steps']} steps, {c['ms_per_step']:.3f} ms a step (host "
                       "clock, captures included)" for rows, c in sorted(result["decode_rows"].items()))
@@ -4887,6 +4913,382 @@ def backbone_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict
     return launches_total, checks_total, fwd_rows, bwd_rows
 
 
+# the single-card tools (tools_phase), at full width on the artifacts earlier phases wrote: the eval harness
+# (test.main) on request 3's v32 weights under a config that picks the fused mel, at v32's recipe batch of 32 with
+# eval.steps 2 (of 1 000) in each of its two passes; the DiT toy probe at 16 predictions and TOOLS_DIT_STEPS
+# sampling steps (of 100) on the auxiliary trainers' DiT-B; the web UI's jobs on a 4 s song
+TOOLS_BATCH, TOOLS_EVAL_STEPS = 32, 2
+TOOLS_DIT_PREDICTIONS, TOOLS_DIT_STEPS = 16, 25
+TOOLS_AUDIO_SECONDS = 4.0
+TOOLS_JOB_S = 300  # a web UI job must stream to its end within this
+# kernel B at the eval harness's calls (fp32, H 12, D 64, batch 32): (label, B, T, S, causal, key mask)
+TOOLS_ATTENTION = [("eval harness encoder self", TOOLS_BATCH, 1024, 1024, False, False),
+                   ("eval harness decoder self", TOOLS_BATCH, 2560, 2560, True, True),
+                   ("eval harness cross", TOOLS_BATCH, 2560, 1024, False, False)]
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count in this process, by kernels-line name."""
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.ops.qmm_kernel import qmm
+
+    return {**attention_launches(), "fused_mel": fused_mel.launches, "qmm": qmm.launches_gemv,
+            "qmm_tc": qmm.launches_tc}
+
+
+def ui_counted_worker(worker: str, form: dict, q, log_path=None) -> None:
+    """The web UI's worker ``web_ui.<worker>``, run in its own process; its
+    kernel launches are written beside its log when it ends. (Module-level,
+    under ``functools.partial``, so that a spawned process can unpickle it.)"""
+    from mapperatorinator_tpu_torch import web_ui
+
+    try:
+        getattr(web_ui, worker)(form, q, log_path)
+    finally:
+        Path(f"{log_path}.launches.json").write_text(json.dumps(kernel_launches()))
+
+
+def ui_job(url: str, route: str, form: dict) -> dict:
+    """POST ``form`` to ``route``, read the job's event stream to its end
+    (raising on an ``__ERROR__``), then its worker's launches; returns the
+    wall time, the streamed lines, the suggestions and the launches."""
+    import urllib.parse
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url + route, data=urllib.parse.urlencode(form).encode(), method="POST")
+    with urllib.request.urlopen(req) as resp:
+        job = json.loads(resp.read())
+    if job.get("status") != "success":
+        raise AssertionError(f"{route}: {job}")
+    lines, suggestions, done = [], [], False
+    with urllib.request.urlopen(f"{url}/stream_output?job_id={job['job_id']}", timeout=TOOLS_JOB_S) as resp:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if not line.startswith("data: "):
+                continue
+            line = line[len("data: "):]
+            lines.append(line)
+            if line.startswith("__SUGGESTION__"):
+                suggestions.append(json.loads(line[len("__SUGGESTION__"):]))
+            elif line.startswith("__ERROR__"):
+                raise AssertionError(f"{route}: the worker failed: " + "\n".join(lines[-30:]))
+            elif line == "__DONE__":
+                done = True
+                break
+    launches_file = Path(f"{job['log_path']}.launches.json")
+    deadline = time.perf_counter() + 60
+    while not launches_file.exists() and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if not (done and launches_file.exists()):
+        raise AssertionError(f"{route}: the stream ended without the worker's end: " + "\n".join(lines[-30:]))
+    return {"wall_s": time.perf_counter() - t0, "lines": len(lines), "suggestions": suggestions,
+            "launches": json.loads(launches_file.read_text()), "log": lines[-3:]}
+
+
+def tools_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
+    """The single-card tools through their entry points on the card, on what
+    earlier phases wrote (request 3's v32 checkpoint, the auxiliary trainers'
+    DiT-B bundle, the eval phase's CM3P, train_phase's ``ors`` set, requests
+    1 and 2's maps and the 20 s song):
+
+    * (a) ``test.main``, the held-out eval harness: v32 (d 768, 12 + 12
+      layers, 2 048 frames / 2 560 tokens) from a checkpoint whose config
+      picks the fused mel, at batch ``TOOLS_BATCH``, both passes of
+      ``TOOLS_EVAL_STEPS`` batches: 36 B launches and one A a batch, then the
+      first batch's loss and logits through the kernels against plain
+      attention within ``ENC_TOL``;
+    * (b) ``dataloading`` ``stats`` over 64 windows and ``audition``;
+    * (c) ``push_to_hub --stage-dir`` on the checkpoint with a ``gamemode=1``
+      subfolder and one removed mapper: every staged tensor read back equal
+      to its source but that mapper's token row, which is 0;
+    * (d) ``utils/print_ckpt`` on the staged checkpoint and the DiT bundle;
+    * (e) ``utils/dit_test_toy`` (12 B launches a sampling step),
+      ``plot_embeddings`` (PCA), ``find_similar_beatmaps`` and
+      ``distance_distance``;
+    * (f) ``utils/plot_self_similarity`` with CM3P (B launches);
+    * (g) ``plot_difficulties`` over the ``ors`` set;
+    * (h) the web UI served from a thread: a v32 generation job on a 4 s
+      song, then a MaiMod job on its map, each in a spawned worker on the
+      card, which must write an ``.osu`` and stream suggestions.
+
+    Then B at the harness's calls (``TOOLS_ATTENTION``). Returns the
+    launches (a main path) and B's rows."""
+    from mapperatorinator_tpu_torch import dataloading, plot_difficulties, push_to_hub, web_ui
+    from mapperatorinator_tpu_torch import test as harness
+    from mapperatorinator_tpu_torch.models.io import load_checkpoint
+    from mapperatorinator_tpu_torch.models.params import flax_layout, flax_paths
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel
+    from mapperatorinator_tpu_torch.osu.beatmap import Beatmap
+    from mapperatorinator_tpu_torch.train.step import make_eval_step
+    from mapperatorinator_tpu_torch.utils import (distance_distance, dit_test_toy, find_similar_beatmaps,
+                                                  plot_embeddings, plot_self_similarity, print_ckpt)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    work, record, ors, source = tmp / "tools", {}, tmp / "ors", tmp / "v32-checkpoint"
+    work.mkdir()
+    print(f"tools cuts: the eval harness at eval.steps {TOOLS_EVAL_STEPS} (of 1 000) a pass, the DiT toy probe at "
+          f"{TOOLS_DIT_STEPS} sampling steps (of 100); batches, widths and the DiT's 16 predictions as published")
+
+    # (a) the eval harness, on request 3's weights under a config that picks the fused mel (files linked)
+    fused = work / "v32-fused-mel"
+    fused.mkdir()
+    config = json.loads((source / "model_config.json").read_text())
+    if config["backbone"]["dtype"] != "float32":
+        raise AssertionError(f"request 3's checkpoint computes in {config['backbone']['dtype']}, not fp32")
+    config["spectrogram_implementation"] = "pallas"
+    (fused / "model_config.json").write_text(json.dumps(config))
+    for name in ("params.msgpack", "tokenizer.json"):
+        (fused / name).symlink_to(source / name)
+    first, make = {}, harness.make_eval_step
+
+    def capturing():
+        step = make()
+
+        def eval_step(model, batch):
+            first.setdefault("model", model)
+            first.setdefault("batch", batch)
+            return step(model, batch)
+
+        return eval_step
+
+    argv = ["-cn", "v32", f"checkpoint_path={fused}", *data_overrides(ors), f"optim.batch_size={TOOLS_BATCH}",
+            f"eval.steps={TOOLS_EVAL_STEPS}", "optim.grad_acc=1", "dataloader.num_workers=0"]
+    harness.make_eval_step = capturing
+    torch.cuda.reset_peak_memory_stats()
+    fused_mel.launches = 0
+    try:
+        with contextlib.chdir(work), contextlib.redirect_stdout(io.StringIO()):  # its report tables
+            results = counted("test", lambda: harness.main(argv), record)
+    finally:
+        harness.make_eval_step = make
+    record["test"]["launches"]["fused_mel"] = fused_mel.launches
+    record["test"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    batches = 2 * TOOLS_EVAL_STEPS
+    saved = json.loads((work / "test_results.json").read_text())
+    losses = [v for r in results.values() for k, v in r["stats"].items() if k.endswith("/loss")]
+    want = {"flash_attention_fwd": ATTN_PER_STEP * batches, "flash_attention_bwd": 0, "flash_attention_fwd_sm90": 0,
+            "flash_attention_bwd_sm90": 0, "fused_mel": batches}
+    if set(saved) != {"test_noise", "test"} or not losses or not np.isfinite(losses).all() \
+            or record["test"]["launches"] != want or first["batch"]["frames"].shape[0] != TOOLS_BATCH:
+        raise AssertionError(f"the eval harness: {sorted(saved)}, losses {losses}, launches "
+                             f"{record['test']['launches']} (want {want})")
+    model, batch = first.pop("model"), first.pop("batch")
+    step = make_eval_step()
+    loss, logits = step(model, batch)
+    set_flash(model, False)
+    plain_loss, plain_logits = step(model, batch)
+    del model
+    err, tol = (logits - plain_logits).abs().max().item(), ENC_TOL * plain_logits.abs().max().item()
+    loss_err, loss_tol = abs(loss.item() - plain_loss.item()), ENC_TOL * max(1.0, abs(plain_loss.item()))
+    record["test"].update(logits_shape=list(logits.shape), max_abs_err=err, tol=tol, loss_err=loss_err,
+                          loss_tol=loss_tol, losses=losses)
+    del logits, plain_logits
+    torch.cuda.empty_cache()
+    print(f"tools (a) test.main: {batches} batches of {TOOLS_BATCH} in {record['test']['wall_s']:.2f} s, peak "
+          f"{record['test']['peak_gib']:.2f} GiB, launches {record['test']['launches']}; the first batch through "
+          f"the kernels vs plain attention: logits {record['test']['logits_shape']} max_abs_err {err:.3e} (tol "
+          f"{tol:.3e} = {ENC_TOL:g} x the largest |logit|), loss {loss_err:.3e} (tol {loss_tol:.3e}); losses "
+          + ", ".join(f"{v:.4f}" for v in losses))
+    if not (err <= tol and loss_err <= loss_tol):
+        raise AssertionError(f"the eval harness's first batch through the kernels disagrees: {err}, {loss_err}")
+
+    # (b) dataloading
+    t0 = time.perf_counter()
+    loader = ["-cn", "v32", *data_overrides(ors)]
+    with contextlib.chdir(work), contextlib.redirect_stdout(io.StringIO()):
+        lengths = dataloading.main([*loader, "--mode", "stats", "--limit", "64"])
+        auditioned = dataloading.main([*loader, "--mode", "audition"])
+    record["dataloading"] = {"wall_s": time.perf_counter() - t0, "windows": len(lengths),
+                             "tokens": sum(lengths), "auditioned": len(auditioned)}
+    if len(lengths) != 64 or min(lengths) <= 0 or len(auditioned) != 5 \
+            or any(wave.open(str(work / p)).getnframes() <= 0 for p in auditioned):
+        raise AssertionError(f"dataloading: {lengths}, {auditioned}")
+    print(f"tools (b) dataloading: stats over {len(lengths)} windows ({sum(lengths)} tokens, median "
+          f"{sorted(lengths)[32]}), {len(auditioned)} auditions in {record['dataloading']['wall_s']:.2f} s")
+
+    # (c) push_to_hub --stage-dir: the checkpoint and a gamemode=1 subfolder (both linked), one removed mapper
+    t0 = time.perf_counter()
+    hub = work / "hub"
+    (hub / "gamemode=1").mkdir(parents=True)
+    for name in ("model_config.json", "params.msgpack", "tokenizer.json"):
+        (hub / name).symlink_to(source / name)
+        (hub / "gamemode=1" / name).symlink_to(source / name)
+    source_model, vocab = load_checkpoint(source)
+    user = sorted(vocab.mapper_idx)[0]
+    row = vocab.encode_mapper_id(user)
+    removed_users = push_to_hub.load_removed_users
+    push_to_hub.load_removed_users = lambda path=None: [user]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            staged = push_to_hub.main(["-cn", "v32", f"model_path={hub}", "--stage-dir", str(work / "staged")])
+    finally:
+        push_to_hub.load_removed_users = removed_users
+    stage_s = time.perf_counter() - t0
+    paths, state = flax_paths(source_model), source_model.state_dict()
+    nulled, compared = 0, 0
+    for sub in (staged, staged / "gamemode=1"):
+        staged_model, staged_vocab = load_checkpoint(sub)
+        got = staged_model.state_dict()
+        if user in staged_vocab.mapper_idx or set(got) != set(state):
+            raise AssertionError(f"{sub}: mapper {user} still indexed, or the tensors differ in name")
+        for name, tensor in state.items():
+            want_t = flax_layout(tensor, paths[name]).clone()
+            if any(s in paths[name] for s in push_to_hub.TOKEN_ROWS):
+                if not want_t[row].any():
+                    raise AssertionError(f"{paths[name]} row {row} was 0 before staging")
+                want_t[row] = 0
+                nulled += 1
+            if not torch.equal(flax_layout(got[name], paths[name]), want_t):
+                raise AssertionError(f"{sub}: {paths[name]} staged unequal")
+            compared += 1
+        del staged_model
+    del source_model
+    record["push_to_hub"] = {"stage_s": stage_s, "wall_s": time.perf_counter() - t0, "compared": compared,
+                             "nulled_tensors": nulled, "removed_user": user, "row": row}
+    if nulled != 2:
+        raise AssertionError(f"push_to_hub: {nulled} token tables nulled, not 2")
+    print(f"tools (c) push_to_hub: two checkpoints staged in {stage_s:.2f} s, then read back: all {compared} "
+          f"tensors equal to the source but mapper {user}'s token row {row}, 0 in both decoder tables "
+          f"({record['push_to_hub']['wall_s']:.2f} s)")
+
+    # (d) print_ckpt on the staged checkpoint and the DiT bundle
+    t0 = time.perf_counter()
+    dit = tmp / "aux" / "dit" / "final"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        for target in (staged, dit):
+            if print_ckpt.main([str(target)]) != 0:
+                raise AssertionError(f"print_ckpt {target}")
+    summaries = [line for line in out.getvalue().splitlines() if line.startswith("[")]
+    record["print_ckpt"] = {"wall_s": time.perf_counter() - t0, "summaries": summaries}
+    if len(summaries) != 2 or not all(line.startswith("[native]") for line in summaries):
+        raise AssertionError(f"print_ckpt: {summaries}")
+    print(f"tools (d) print_ckpt in {record['print_ckpt']['wall_s']:.2f} s: " + "; ".join(summaries))
+
+    # (e) the DiT tools on the auxiliary trainers' DiT-B
+    with contextlib.redirect_stdout(io.StringIO()):
+        toy = counted("dit_test_toy", lambda: dit_test_toy.run(dit_test_toy.parse_args(
+            ["--ckpt", str(dit), "--num-predictions", str(TOOLS_DIT_PREDICTIONS),
+             "--num-sampling-steps", str(TOOLS_DIT_STEPS), "--seed", "0"])), record)
+    record["dit_test_toy"]["results"] = toy
+    want = {"flash_attention_fwd": DIT_CALLS * TOOLS_DIT_STEPS, "flash_attention_bwd": 0,
+            "flash_attention_fwd_sm90": 0, "flash_attention_bwd_sm90": 0}
+    if record["dit_test_toy"]["launches"] != want or not all(np.isfinite(r["mean_err_px"]) for r in toy):
+        raise AssertionError(f"dit_test_toy: {toy}, launches {record['dit_test_toy']['launches']} (want {want})")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        points = plot_embeddings.run(plot_embeddings.parse_args(
+            ["--ckpt", str(dit), "--method", "pca", "--out", str(work / "embeddings.png")]))
+        neighbours = find_similar_beatmaps.run(find_similar_beatmaps.parse_args(["--ckpt", str(dit), "--idx", "0",
+                                                                                 "-k", "5"]))
+    embed_s = time.perf_counter() - t0
+    real = Path(report["requests"][0]["osu_path"])
+    other = Path(report["requests"][1]["osu_path"])
+    (work / "distance").mkdir()
+    (work / "distance" / "request2.osu").write_text(other.read_text())
+    (work / "distance" / "request1.osu").write_text(real.read_text())
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        distances = distance_distance.run(types.SimpleNamespace(ref_beatmap=str(real),
+                                                                beatmap=str(work / "distance"), out_dir=str(work)))
+    record["dit_tools"] = {"embed_s": embed_s, "distance_s": time.perf_counter() - t0, "points": list(points.shape),
+                           "neighbours": neighbours, "distances": {r["name"]: (r["mse"], r["mae"]) for r in distances},
+                           "distance_lines": out.getvalue().splitlines()}
+    dist = [d for _, d in neighbours]
+    if points.shape[1] != 2 or not np.isfinite(points).all() or len(neighbours) != 5 or dist != sorted(dist) \
+            or len(distances) not in (1, 2) or min(r["mse"] for r in distances) != 0.0 \
+            or not np.isfinite([r["mse"] for r in distances]).all():
+        raise AssertionError(f"the DiT tools: {points.shape}, {neighbours}, {record['dit_tools']['distances']}")
+    print(f"tools (e) dit_test_toy: {toy[0]['toy']} at {TOOLS_DIT_PREDICTIONS} predictions, "
+          f"{TOOLS_DIT_STEPS} steps: mean error {toy[0]['mean_err_px']} px (random weights: meaningless), "
+          f"{record['dit_test_toy']['wall_s']:.2f} s, B launches {want['flash_attention_fwd']}; plot_embeddings "
+          f"{points.shape[0]} classes to 2-D by PCA and find_similar_beatmaps {neighbours[:2]}... in {embed_s:.2f} s; "
+          f"distance_distance from request 1's map: " + "; ".join(record["dit_tools"]["distance_lines"]))
+
+    # (f) plot_self_similarity with CM3P: request 1's map and the map calc_fid took as its generation, the song
+    generated, generated_source = eval_generation(tmp, report)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ssm = counted("plot_self_similarity", lambda: plot_self_similarity.main(
+            [str(real), str(generated), str(tmp / "song.wav"), "--cm3p", str(tmp / "cm3p")]), record)
+    launched = record["plot_self_similarity"]["launches"]
+    record["plot_self_similarity"].update(ssm_rmse=ssm["ssm_rmse"], windows=[len(ssm["real"]), len(ssm["generated"])],
+                                          generated=generated_source)
+    if not (np.isfinite(ssm["ssm_rmse"]) and launched["flash_attention_fwd"] > 0
+            and launched["flash_attention_fwd"] == sum(launched.values())):
+        raise AssertionError(f"plot_self_similarity: {ssm['ssm_rmse']}, launches {launched}")
+    print(f"tools (f) plot_self_similarity with CM3P on request 1's map and {generated_source}: "
+          f"{record['plot_self_similarity']['windows']} windows, ssm_rmse {ssm['ssm_rmse']:.4f}, "
+          f"{record['plot_self_similarity']['wall_s']:.2f} s, B launches {launched['flash_attention_fwd']}")
+
+    # (g) plot_difficulties over the ors set
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stars = plot_difficulties.main([str(ors), "0", str(ORS_TRACKS)])
+    record["plot_difficulties"] = {"wall_s": time.perf_counter() - t0, "maps": len(stars),
+                                   "stars": [min(stars), float(np.median(stars)), max(stars)]}
+    if len(stars) != ORS_TRACKS * ORS_MAPS or not all(s > 0 for s in stars):
+        raise AssertionError(f"plot_difficulties: {stars}")
+    print(f"tools (g) plot_difficulties: {len(stars)} maps, stars {min(stars)}-{max(stars)} in "
+          f"{record['plot_difficulties']['wall_s']:.2f} s")
+
+    # (h) the web UI on the card: a generation job, then MaiMod on its map, each in a spawned worker
+    ui_wav = write_wav(work / "ui.wav", TOOLS_AUDIO_SECONDS, seed=3)
+    (work / "ui").mkdir()
+    inner = web_ui._inference_worker, web_ui._mai_mod_worker
+    web_ui._inference_worker, web_ui._mai_mod_worker = (functools.partial(ui_counted_worker, name)
+                                                        for name in ("_inference_worker", "_mai_mod_worker"))
+    server = web_ui.serve(0)  # no --device: each worker takes the presets' own, the card
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        generation = ui_job(url, "/start_inference", {
+            "model": "v32", "model_path": str(fused), "audio_path": str(ui_wav), "output_path": str(work / "ui"),
+            "gamemode": "0", "seed": "0", "title": "UI", "artist": "chip_smoke", "creator": "port", "version": "v32"})
+        written = sorted((work / "ui").glob("*.osu"))
+        if len(written) != 1 or Beatmap.from_path(written[0]).title != "UI":
+            raise AssertionError(f"the UI's generation job wrote {written}")
+        osu, osu_source = maimod_map(work, str(written[0]), "the UI job", TOOLS_AUDIO_SECONDS)
+        analysis = ui_job(url, "/start_mai_mod", {"model": "v32", "model_path": str(fused), "beatmap_path": osu,
+                                                  "audio_path": str(ui_wav), "surprisal_threshold": "0"})
+    finally:
+        server.shutdown()
+        server.server_close()
+        web_ui._inference_worker, web_ui._mai_mod_worker = inner
+    with web_ui.JOBS_LOCK:
+        left = list(web_ui.JOBS.values())
+    for job in left:  # a job whose stream was not read to its end
+        job["process"].kill()
+        job["process"].join()
+    if left:
+        raise AssertionError(f"{len(left)} web UI jobs were left running")
+    suggestions = analysis.pop("suggestions")
+    record["web_ui"] = {"generation": generation, "mai_mod": {**analysis, "suggestions": len(suggestions),
+                                                              "map": osu_source}}
+    gen_launches, mod_launches = generation["launches"], analysis["launches"]
+    if not suggestions or not all(s["edit_link"].startswith("osu://edit/") for s in suggestions) \
+            or not gen_launches["flash_attention_fwd"] or not gen_launches["fused_mel"] \
+            or mod_launches["flash_attention_fwd"] % ATTN_PER_STEP or not mod_launches["flash_attention_fwd"]:
+        raise AssertionError(f"the web UI's jobs: {len(suggestions)} suggestions, launches {gen_launches}, "
+                             f"{mod_launches}")
+    print(f"tools (h) web UI: the generation job (spawned worker, fused-mel v32) wrote {written[0].name} in "
+          f"{generation['wall_s']:.2f} s, launches {gen_launches}; MaiMod on {osu_source}: {len(suggestions)} "
+          f"suggestions in {analysis['wall_s']:.2f} s, launches {mod_launches}")
+
+    launches = {name: sum(r["launches"].get(name, 0) for r in (record["test"], record["dit_test_toy"],
+                                                                record["plot_self_similarity"],
+                                                                generation, analysis))
+                for name in kernel_launches()}
+    gc.collect()
+    torch.cuda.empty_cache()  # the plain version at 2 560² takes about 57 GiB
+    rows = eval_attention(report, TOOLS_ATTENTION, H=12, key="attention_tools", seed=23)
+    record["phase_s"] = time.perf_counter() - started
+    report["tools"] = record
+    print(f"tools phase: {record['phase_s']:.1f} s, launches {launches}")
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -4943,11 +5345,12 @@ def main() -> int:
         finetuned, lora_served = finetune_phase(tmp, report)
         aux_trained, aux_checked, aux_fwd_rows, aux_bwd_rows = aux_train_phase(tmp, report)
         backbone_trained, backbone_checked, backbone_fwd_rows, backbone_bwd_rows = backbone_train_phase(tmp, report)
-    # kernel B's entry gains the DiT's, the evaluation models' and the auxiliary trainers' shapes and their
-    # errors; C's fp32 entry the auxiliary trainers'
+        tools, tools_rows = tools_phase(tmp, report)
+    # kernel B's entry gains the DiT's, the evaluation models', the auxiliary trainers' and the eval harness's
+    # shapes and their errors; C's fp32 entry the auxiliary trainers'
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
-    fwd["shapes"] += dit_rows + eval_rows + aux_fwd_rows
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows + eval_rows + aux_fwd_rows
+    fwd["shapes"] += dit_rows + eval_rows + aux_fwd_rows + tools_rows
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], *(e for row in dit_rows + eval_rows + aux_fwd_rows + tools_rows
                                                    for e in row["max_abs_err"].values()))
     bwd = next(entry for entry in kernels if entry["name"] == "flash_attention_bwd")
     bwd["shapes"] += aux_bwd_rows
@@ -4970,10 +5373,11 @@ def main() -> int:
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools,
-    # the auxiliary trainers, the other backbone families' training; the
-    # gradient checks' are listed apart
+    # the auxiliary trainers, the other backbone families' training, the
+    # single-card tools; the gradient checks' are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
-                + evaluated.get(k, 0) + aux_trained.get(k, 0) + backbone_trained.get(k, 0) for k in served}
+                + evaluated.get(k, 0) + aux_trained.get(k, 0) + backbone_trained.get(k, 0) + tools.get(k, 0)
+                for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
@@ -4989,6 +5393,8 @@ def main() -> int:
                                   "auxiliary training (DiT-B, the classifier, OsuR)": aux_trained,
                                   "backbone training (v29, v28, T5-base, NWhisper-base, moonshine-tiny; bf16)":
                                       backbone_trained,
+                                  "single-card tools (the eval harness, dit_test_toy, plot_self_similarity, the "
+                                  "web UI's generation and MaiMod jobs)": tools,
                                   "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32, the five "
                                   "backbones bf16 and their memory probes; not a main path)": checked}
     for entry in kernels:

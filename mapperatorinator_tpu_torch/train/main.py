@@ -99,9 +99,17 @@ def build_model_and_data(args, device: torch.device):
     else:
         model, vocab = Mapperatorinator(config).to(device), data_vocab
         init_params(model, args.seed)
+    return model, vocab, make_batch_factory(args, parser, data_vocab)
+
+
+def make_batch_factory(args, parser: BeatmapParser, vocab):
+    """``make_batches(test) -> iterator of collated batches`` over the
+    configured dataset: the training split (token-balanced, prefetched by
+    ``dataloader.num_workers`` threads) or the test split. It needs no model,
+    so the eval harness builds it alone."""
 
     def make_batches(test: bool):
-        dataset = build_dataset(args.data, parser, data_vocab, test=test)
+        dataset = build_dataset(args.data, parser, vocab, test=test)
         batches = batch_iterator(
             iter(dataset),
             args.optim.batch_size,
@@ -112,7 +120,7 @@ def build_model_and_data(args, device: torch.device):
             batches = prefetch_iterator(batches, buffer_size=2 * args.dataloader.num_workers)
         return batches
 
-    return model, vocab, make_batches
+    return make_batches
 
 
 def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainState:

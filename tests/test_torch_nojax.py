@@ -1,6 +1,6 @@
 """The port runs where jax, flax, optax, yaml, msgpack, safetensors,
-transformers, matplotlib (which the GPU machine lacks) and the JAX package
-cannot be imported, and its copies of the JAX package's host code stay the
+transformers, matplotlib, pandas, sklearn, huggingface_hub (which the GPU
+machine lacks) and the JAX package cannot be imported, and its copies of the JAX package's host code stay the
 JAX package's code.
 
 A subprocess installs an import hook that refuses those packages (the JAX
@@ -32,7 +32,9 @@ port's ``osu/events.py``), ``infer/server.py``, ``mai_mod.py`` (the
 top-level script's) and the host code of ``infer/diffusion_pipeline.py``
 (methods of its pipeline class too), ``calc_fid.py``,
 ``classifier_classify.py`` and ``rcomplexion_inference.py`` (the top-level
-scripts') to the JAX one, imports inside it aside.
+scripts'), and of the single-card tools (``test.py``, ``dataloading.py``,
+``push_to_hub.py``, ``web_ui.py``, ``mai_mod_ui.py`` and the ``utils/``
+scripts) to the JAX one, imports inside it aside.
 """
 
 import ast
@@ -53,7 +55,7 @@ SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "safetensors", "transformers",
-               "mapperatorinator_tpu", "matplotlib"}
+               "mapperatorinator_tpu", "matplotlib", "pandas", "sklearn", "huggingface_hub"}
     attempts = []
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -76,6 +78,11 @@ SCRIPT = textwrap.dedent("""
             "mapperatorinator_tpu_torch.diffusion_train", "mapperatorinator_tpu_torch.classifier_train",
             "mapperatorinator_tpu_torch.rcomplexion_train",
             "mapperatorinator_tpu_torch.diffusion.schedule_sampler"} <= set(modules)
+    # the single-card tools
+    assert {f"mapperatorinator_tpu_torch.{name}" for name in (
+        "test", "dataloading", "push_to_hub", "plot_difficulties", "web_ui", "mai_mod_ui", "utils.print_ckpt",
+        "utils.distance_distance", "utils.dit_test_toy", "utils.plot_embeddings", "utils.find_similar_beatmaps",
+        "utils.plot_self_similarity")} <= set(modules)
 
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config, select_device
@@ -243,7 +250,7 @@ def test_port_needs_no_jax_yaml_or_msgpack(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines() if line.startswith(("MODULES", "WROTE")))
-    assert int(lines["MODULES"]) >= 30
+    assert int(lines["MODULES"]) >= 42
     beatmap = Beatmap.from_path(lines["WROTE"])
     assert beatmap.mode == 0 and beatmap.title == "Unknown Title"
     assert (tmp_path / "ckpt" / "1" / "state.pt").exists() and (tmp_path / "logs" / "metrics.jsonl").exists()
@@ -349,6 +356,20 @@ COPIED_DEFINITIONS = [
     ("classifier_classify.py", "classifier_classify.py",
      ("STEPS_PER_MILLISECOND", "create_example", "get_mapper_names")),
     ("rcomplexion_inference.py", "rcomplexion_inference.py", ("od_to_ms_300", "calc_rhythm_complexity")),
+    ("test.py", "test.py",
+     ("N_TIME_BINS", "MAX_RHYTHM_COMPLEXITY", "N_RHYTHM_BINS", "PRECISION_BIN_RANGE", "LABEL_IGNORE_ID",
+      "_label_times", "Analysis", "print_report")),
+    ("dataloading.py", "dataloading.py", ("STEPS_PER_MILLISECOND", "add_hitsounds")),
+    ("push_to_hub.py", "push_to_hub.py",
+     ("CHECKPOINT_FILES", "load_removed_users", "contains_loadable_model_checkpoint", "discover_submodel_paths")),
+    ("utils/print_ckpt.py", "utils/print_ckpt.py", ("_flatten",)),
+    ("utils/plot_embeddings.py", "utils/plot_embeddings.py", ("reduce_2d",)),
+    ("utils/find_similar_beatmaps.py", "utils/find_similar_beatmaps.py", ("nearest",)),
+    ("web_ui.py", "web_ui.py",
+     ("JOBS_LOCK", "_OPTIONAL_INT", "_OPTIONAL_FLOAT", "_STRINGS", "_CHECKBOXES", "_first", "_queue_writer",
+      "_datasets_dirs", "load_descriptors", "_reap_job", "_spawn", "_job_log_path", "Handler.protocol_version",
+      "Handler.log_message", "Handler._json", "Handler._file", "Handler._stream")),
+    ("mai_mod_ui.py", "mai_mod_ui.py", ("MaiModHandler",)),
     ("mai_mod.py", "mai_mod.py",
      ("MOD_EXPLANATIONS", "POSITION_TYPES", "ANCHOR_TYPES", "HS_TYPES", "TIMING_TYPES_", "HITOBJECT_TYPES",
       "Suggestion", "type_to_str", "_GroupIndex", "_worth_reporting", "_combo_positions", "_attach_editor_locations",
