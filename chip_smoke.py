@@ -239,6 +239,21 @@
    at each family's calls, on the check's own inputs, against both bf16
    plain versions and timed beside SDPA and the bound; these join the bf16
    pair's kernels-line entries and their launches.
+   Then multi-process training (``parallel_phase``): v32 at full width and
+   bf16 through ``train.main`` with the ``parallel.*`` keys. One update of
+   4 rows through plain attention under DDP on one NCCL rank equals the
+   update without a process group bit for bit; (a) one NCCL rank, DDP, 2
+   micro-steps at the recipe's micro-batch 32; (c) the same under FSDP
+   (``parallel.fsdp_axis=data``), its gathered parameters within 2e-2 of
+   (a)'s in norm, its checkpoint restored unsharded; (b) two ranks sharing
+   the card over gloo, spawned (``parallel_rank``), 8 rows a rank at
+   grad_acc 2, 4 micro-steps: parameters bit-equal across ranks after every
+   update, the first loss that of one process on the same 16 rows, rank
+   0's checkpoint restored; (c) again on two gloo ranks beside (b)'s, 4
+   rows a rank and 2 micro-steps (cut to fit the card beside (b) and the
+   whole run inside its limit), after a probe that gloo takes CUDA
+   tensors. Every rank launches one sm90
+   B and C a covered call; these join the bf16 pair's launches.
    Then the single-card tools (``tools_phase``), each through its entry
    point on what earlier phases wrote: the held-out eval harness
    (``test.main``) on request 3's v32 weights under a config that picks the
@@ -4913,6 +4928,475 @@ def backbone_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict
     return launches_total, checks_total, fwd_rows, bwd_rows
 
 
+# multi-process training (parallel_phase): v32 at full width and bf16 through train.main with the parallel.* keys
+# on the one card. (a) one NCCL rank at the recipe's micro-batch 32 and grad_acc 1 (each micro-step an update), 2
+# micro-steps; (b) two ranks sharing the card over gloo, spawned as processes, micro-batch 8 a rank (global 16) at
+# the recipe's grad_acc 2, 4 micro-steps (2 updates); (c) FSDP (parallel.fsdp_axis=data) as (a), then as (b) where
+# gloo's reduce-scatter takes CUDA tensors. One update on a fixed seeded batch of PARALLEL_CHECK_BATCH rows through
+# plain attention, without a process group and under DDP, shows what the group changes.
+PARALLEL_BATCH, PARALLEL_STEPS = 32, 2
+PARALLEL_RANKS, PARALLEL_RANK_BATCH, PARALLEL_GRAD_ACC, PARALLEL_RANK_STEPS = 2, 8, 2, 4
+# (c) on two ranks, run beside (b): 4 rows a rank and 2 micro-steps (one update), cut from (b)'s 8 and 4 to fit
+# the card beside (b) and the whole run inside its limit (Muon gathers each sharded gradient matrix whole through
+# gloo, which copies it through the host)
+PARALLEL_FSDP_RANK_BATCH, PARALLEL_FSDP_RANK_STEPS = 4, 2
+PARALLEL_CHECK_BATCH = 4
+PARALLEL_RANK_TIMEOUT = 600
+# FSDP's gathered parameters against DDP's after the same updates, their difference relative to their norm, all
+# together and each matrix: the bf16 attention bar (ATTN_TOL)
+PARALLEL_PARAM_TOL = 2e-2
+BF16_LOSS_REL = 0.06  # tests/test_torch_bf16_parity.py's bar (REL_TOL), the loss of 2 ranks against one process's
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def param_checksums(model) -> list[int]:
+    """Each parameter's fp32 bit patterns summed as integers (the whole
+    parameter under FSDP, a collective): equal lists mean parameters equal
+    bit for bit, but for a collision."""
+    from mapperatorinator_tpu_torch.parallel.sharding import gathered
+
+    return [int(gathered(p.detach()).contiguous().view(torch.int32).sum(dtype=torch.int64)) for p in model.parameters()]
+
+
+def parallel_rank(argv: list, log_dir: str, probe: bool) -> None:
+    """One rank of ``parallel_phase``'s spawned runs: ``train.main`` on
+    ``argv``, each micro-step's seconds and launches and, after each update,
+    the parameters' checksums, printed as one ``PARALLEL_RANK`` JSON line
+    with the backend and the peak memory. With ``probe``, it first checks
+    that gloo's reduce-scatter and all-gather take CUDA tensors, and where
+    they do not prints ``GLOO_CUDA_UNSUPPORTED`` and stops."""
+    import torch.distributed as dist
+
+    from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.parallel import maybe_initialize, process_index, world_size
+    from mapperatorinator_tpu_torch.train import main as train_main
+
+    # the data pipeline draws its augmentations from random and np.random: seeded alike in every rank and the parent
+    random.seed(0)
+    np.random.seed(0)
+    if probe:
+        maybe_initialize(load_train_config("v32", argv[2:]).parallel, "cuda")
+        try:
+            whole = torch.arange(2.0 * world_size(), device="cuda")
+            part = torch.empty(2, device="cuda")
+            dist.reduce_scatter_tensor(part, whole)
+            dist.all_gather_into_tensor(whole, part)
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            print("GLOO_CUDA_UNSUPPORTED " + json.dumps(str(err)[:400]), flush=True)
+            dist.destroy_process_group()
+            return
+    steps = []
+    make = train_main.make_train_step
+
+    def factory(*a, **k):
+        step = make(*a, **k)
+
+        def run(state, batch):
+            count, before = state.optimizer.count, attention_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            after = attention_launches()
+            record = {"s": time.perf_counter() - t0, "launches": {k_: after[k_] - before[k_] for k_ in after}}
+            if state.optimizer.count != count:
+                record["checksums"] = param_checksums(state.model)
+            steps.append(record)
+            return out
+
+        return run
+
+    train_main.make_train_step = factory
+    torch.cuda.reset_peak_memory_stats()
+    state = train_main.main(argv, log_dir=log_dir)
+    result = {"rank": process_index(), "backend": dist.get_backend(), "steps": steps, "step": state.step,
+              "updates": state.optimizer.count, "final": param_checksums(state.model),
+              "launches": attention_launches(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("PARALLEL_RANK " + json.dumps(result), flush=True)
+    dist.destroy_process_group()
+
+
+def start_ranks(label: str, argv_of, log_dir: Path, probe: bool = False) -> list:
+    """Start :func:`parallel_rank` as ``PARALLEL_RANKS`` processes on the card
+    (``argv_of(rank)`` each), their output to files beside ``log_dir``;
+    :func:`collect_ranks` waits for them."""
+    import subprocess
+
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.parallel_rank(json.loads(sys.argv[2]), sys.argv[3], sys.argv[4] == '1')")
+    started = []
+    for rank in range(PARALLEL_RANKS):
+        out, err = (log_dir.parent / f"{label}_rank{rank}.{kind}" for kind in ("out", "err"))
+        with open(out, "w") as out_f, open(err, "w") as err_f:
+            proc = subprocess.Popen([sys.executable, "-X", "faulthandler", "-c", code, str(REPO),
+                                     json.dumps(argv_of(rank)), str(log_dir), "1" if probe else "0"],
+                                    cwd=REPO, stdout=out_f, stderr=err_f, text=True)
+        started.append((proc, out, err))
+    return started
+
+
+def stop_ranks(started: list) -> None:
+    for proc, _, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def collect_ranks(label: str, started: list):
+    """Wait for :func:`start_ranks`' processes and return each rank's result,
+    or None where the probe found gloo refusing CUDA tensors."""
+    results = []
+    for rank, (proc, out, err) in enumerate(started):
+        proc.wait(timeout=PARALLEL_RANK_TIMEOUT)
+        text = out.read_text()
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: rank {rank} exited {proc.returncode}:\n{text[-2000:]}\n"
+                                 f"{err.read_text()[-4000:]}")
+        lines = {line.split(" ", 1)[0]: line.split(" ", 1)[1] for line in text.splitlines()
+                 if line.startswith(("PARALLEL_RANK ", "GLOO_CUDA_UNSUPPORTED "))}
+        if "GLOO_CUDA_UNSUPPORTED" in lines:
+            print(f"{label}: gloo's reduce-scatter does not take CUDA tensors on this machine "
+                  f"({json.loads(lines['GLOO_CUDA_UNSUPPORTED'])}); the 2-rank FSDP run stays the CPU tests'")
+            return None
+        if "PARALLEL_RANK" not in lines:
+            raise AssertionError(f"{label}: rank {rank} printed no result:\n{text[-2000:]}")
+        results.append(json.loads(lines["PARALLEL_RANK"]))
+    return results
+
+
+def check_ranks(label: str, ranks: list, micro_steps: int, updates: int, backend: str) -> dict:
+    """Every rank ran ``micro_steps`` micro-steps and ``updates`` updates on
+    ``backend``, launched B and C (bf16) once a covered call and nothing
+    else, and held parameters equal bit for bit to every other rank's after
+    every update. Returns the ranks' launches summed."""
+    want = {k: 0 for k in attention_launches()}
+    want["flash_attention_fwd_sm90"] = want["flash_attention_bwd_sm90"] = ATTN_PER_STEP * micro_steps
+    for r in ranks:
+        if (r["step"], r["updates"], r["backend"], r["launches"]) != (micro_steps, updates, backend, want):
+            raise AssertionError(f"{label}: rank {r['rank']} ran {r['step']} micro-steps, {r['updates']} updates on "
+                                 f"{r['backend']}, launched {r['launches']}; want {micro_steps}, {updates}, "
+                                 f"{backend}, {want}")
+    sums = [[s["checksums"] for s in r["steps"] if "checksums" in s] for r in ranks]
+    if len(sums[0]) != updates or any(s != sums[0] for s in sums) or any(r["final"] != ranks[0]["final"]
+                                                                       for r in ranks):
+        raise AssertionError(f"{label}: the ranks' parameters differ after an update")
+    return {k: sum(r["launches"][k] for r in ranks) for k in want}
+
+
+def without_key_biases(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A parameter less the key part of the fused qkv / kv biases, whose exact
+    gradient is zero (softmax ignores a shift shared by a row's logits): both
+    runs update them from rounding noise (``tests/test_torch_train.py``)."""
+    if name.endswith("wqkv.bias"):
+        inner = t.shape[0] // 3
+        return torch.cat([t[:inner], t[2 * inner:]])
+    if name.endswith("wkv.bias"):
+        return t[t.shape[0] // 2:]
+    return t
+
+
+def relative_differences(got: dict, want: dict) -> tuple[float, list, list]:
+    """The norm of the parameters' difference relative to theirs, all
+    together, and (a tensor's difference relative to its norm, its name)
+    for the matrices and for the vectors, the largest first; the key
+    biases' key parts left out."""
+    rows, diff, size = [], 0.0, 0.0
+    for n, w in want.items():
+        a, b = without_key_biases(n, got[n].float()), without_key_biases(n, w.float())
+        d, z = (a - b).norm().item(), b.norm().item()
+        diff, size = diff + d * d, size + z * z
+        rows.append((d / max(z, 1e-30), n, w.dim()))
+    rows.sort(reverse=True)
+    return (diff / size) ** 0.5, [r[:2] for r in rows if r[2] >= 2], [r[:2] for r in rows if r[2] < 2]
+
+
+def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
+    """Multi-process training through ``train.main`` with the
+    ``parallel.*`` keys, v32 at full width and bf16 on train_phase's set
+    (``tmp / "ors"``), on the one card:
+
+    * a fixed seeded batch of ``PARALLEL_CHECK_BATCH`` rows, one update
+      through plain attention (C adds dq with atomics, in no fixed order, so
+      two updates through the kernels differ) without a process group and
+      under DDP at world size 1 (after (a) has made the group): equal bit
+      for bit;
+    * (a) one rank on NCCL (``parallel.coordinator_address`` with
+      ``num_processes=1``): the backend, 2 micro-steps at micro-batch 32,
+      grad_acc 1, one B and C a covered call;
+    * (c) the same under ``parallel.fsdp_axis=data``: the parameters sharded,
+      gathered after the 2 updates within ``PARALLEL_PARAM_TOL`` of (a)'s,
+      the checkpoint restored unsharded into one process equal to them;
+    * (b) two ranks sharing the card over gloo, spawned
+      (:func:`parallel_rank`), 4 micro-steps at 8 rows a rank and grad_acc
+      2: parameters bit-equal across ranks after every update, B and C on
+      every call of every rank, the first global loss within
+      ``BF16_LOSS_REL`` of one process's on the same 16 rows, rank 0's
+      checkpoint restored here equal to its parameters; the card's compute
+      mode must let two processes share it;
+    * (c) again as (b) under FSDP, run beside it (four processes on the
+      card), ``PARALLEL_FSDP_RANK_BATCH`` rows a rank and
+      ``PARALLEL_FSDP_RANK_STEPS`` micro-steps, where gloo's reduce-scatter
+      takes CUDA tensors (a probe says; where it does not, the phase prints
+      that).
+
+    Prints seconds a micro-step, peak GiB, the backend and the B and C
+    launches of every rank beside the card. Returns the main paths'
+    launches (the train.main runs, every rank's) and the fixed-batch
+    checks'."""
+    import subprocess
+
+    import torch.distributed as dist
+
+    from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.osu import BeatmapParser, build_vocabulary
+    from mapperatorinator_tpu_torch.parallel import replicate
+    from mapperatorinator_tpu_torch.parallel.sharding import any_sharded
+    from mapperatorinator_tpu_torch.train import main as train_main
+    from mapperatorinator_tpu_torch.train.loop import CheckpointManager, card_line, full_state_dict
+    from mapperatorinator_tpu_torch.train.optim import build_optimizer
+    from mapperatorinator_tpu_torch.train.step import TrainState, make_train_step, named_flax_params, to_device
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    cuda = torch.device("cuda")
+    card = card_line()
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"parallel: compute mode {mode} ({card})")
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"the card's compute mode is {mode}: a second process cannot share it")
+    ors, work = tmp / "ors", tmp / "parallel"
+    work.mkdir()
+    record = {"card": card, "compute_mode": mode, "part_s": {}}
+    report["parallel"] = record
+    zero = {k: 0 for k in attention_launches()}
+
+    def lap(part: str) -> None:
+        record["part_s"][part] = time.perf_counter() - started - sum(record["part_s"].values())
+    main_launches, check_launches = dict(zero), dict(zero)
+
+    def add(into: dict, launches: dict) -> None:
+        for k in into:
+            into[k] += launches[k]
+
+    def bf16_launches(micro_steps: int) -> dict:
+        return {**zero, "flash_attention_fwd_sm90": ATTN_PER_STEP * micro_steps,
+                "flash_attention_bwd_sm90": ATTN_PER_STEP * micro_steps}
+
+    # the fixed batch: one update, twice without a process group
+    check_args = load_train_config("v32", data_overrides(ors) + [
+        "optim.grad_acc=1", "dataloader.num_workers=0", "dataloader.balancer_buffer_size=0",
+        f"optim.batch_size={PARALLEL_CHECK_BATCH}"])
+    vocab = build_vocabulary(check_args)
+    random.seed(0)
+    np.random.seed(0)
+    fixed = next(iter(train_main.make_batch_factory(check_args, BeatmapParser(check_args, vocab), vocab)(False)))
+
+    def one_update(ddp: bool) -> tuple[dict, float]:
+        # plain attention: C adds dq with atomics, in no fixed order, so two updates through the kernels differ
+        model, _, _ = train_main.build_model_and_data(check_args, cuda)
+        set_flash(model, False)
+        state = TrainState(0, model, build_optimizer(check_args, named_flax_params(model)),
+                           replica=replicate(model, cuda) if ddp else None, group=dist.group.WORLD if ddp else None)
+        reset_attention_launches()
+        state, metrics = make_train_step()(state, fixed)
+        loss = metrics["loss"].item()
+        if attention_launches() != zero:
+            raise AssertionError(f"parallel: the fixed-batch update launched {attention_launches()}")
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params, loss
+
+    plain, plain_loss = one_update(False)
+    lap("fixed batch, the update without a group")
+
+    def run_main(label: str, overrides: list) -> tuple:
+        steps = []
+        random.seed(0)
+        np.random.seed(0)
+        logs = work / f"{label}_logs"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_attention_launches()
+        t0 = time.perf_counter()
+        with timed_steps(train_main, "make_train_step", steps):
+            state = train_main.main(["-cn", "v32", *overrides], log_dir=str(logs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = attention_launches()
+        if launches != bf16_launches(PARALLEL_STEPS) or state.step != PARALLEL_STEPS \
+                or state.optimizer.count != PARALLEL_STEPS:
+            raise AssertionError(f"parallel ({label}): {state.step} micro-steps, {state.optimizer.count} updates, "
+                                 f"launched {launches}")
+        add(main_launches, launches)
+        logged = metrics_steps(logs)
+        if not all(math.isfinite(r["train/loss"]) for r in logged):
+            raise AssertionError(f"parallel ({label}): a loss is not finite: {logged}")
+        run = {"wall_s": wall, "backend": dist.get_backend(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "steps": steps, "losses": [r["train/loss"] for r in logged], "launches": launches}
+        print(f"parallel ({label}): {PARALLEL_STEPS} micro-steps of {PARALLEL_BATCH} rows on backend {run['backend']} "
+              f"in {wall:.1f} s (build, data and the checkpoint included), s a micro-step "
+              f"{[round(s['s'], 3) for s in steps]}, peak {run['peak_gib']:.2f} GiB, losses "
+              f"{[round(x, 4) for x in run['losses']]}, launches {launches} ({card})")
+        return state, run
+
+    port = free_port()
+    group = [f"parallel.coordinator_address=127.0.0.1:{port}", "parallel.num_processes=1", "parallel.process_id=0"]
+    state, record["a"] = run_main("a, DDP, 1 rank", train_overrides(ors, work / "a_ckpt", PARALLEL_BATCH, 1,
+                                                                   PARALLEL_STEPS) + group)
+    if record["a"]["backend"] != "nccl" or state.replica is None:
+        raise AssertionError(f"parallel (a): backend {record['a']['backend']}, replica {type(state.replica)}")
+    after_a = {n: p.detach().float().cpu() for n, p in state.model.named_parameters()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("a")
+
+    ddp, ddp_loss = one_update(True)
+    equal = all(torch.equal(ddp[n], plain[n]) for n in plain)
+    off = max((ddp[n].float() - plain[n].float()).abs().max().item() for n in plain)
+    record["fixed_batch"] = {"rows": PARALLEL_CHECK_BATCH, "bit_equal": equal, "ddp_vs_plain_max_abs": off,
+                             "loss_plain": plain_loss, "loss_ddp": ddp_loss}
+    print(f"parallel: one update on a fixed batch of {PARALLEL_CHECK_BATCH} rows, plain attention (C adds dq with "
+          f"atomics, in no fixed order, so updates through the kernels differ run to run), under DDP (NCCL, 1 rank) "
+          f"against the same without a process group: bit-equal {equal} (largest difference {off:.3e}), loss "
+          f"{ddp_loss:.6f} vs {plain_loss:.6f}")
+    if not equal:
+        raise AssertionError(f"parallel: DDP's update differs from the one without a process group by {off}")
+    del plain, ddp
+    lap("fixed batch, the update under DDP")
+
+    state, record["c"] = run_main("c, FSDP, 1 rank", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1,
+                                                                    PARALLEL_STEPS) + group
+                                  + ["parallel.fsdp_axis=data"])
+    if not any_sharded(state.model.parameters()):
+        raise AssertionError("parallel (c): no parameter is sharded")
+    gathered_c = {n: t.detach().float().cpu() for n, t in full_state_dict(state.model).items()}
+    overall, matrices, vectors = relative_differences(gathered_c, after_a)
+    (worst, name) = matrices[0]
+    record["c"]["vs_a"] = {"overall": overall, "worst_matrix": matrices[:3], "worst_vector": vectors[:3],
+                           "tol": PARALLEL_PARAM_TOL}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    args = load_train_config("v32", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1, PARALLEL_STEPS))
+    fresh, _, _ = train_main.build_model_and_data(args, cuda)
+    restored = CheckpointManager(work / "c_ckpt").restore(TrainState(0, fresh, build_optimizer(
+        args, named_flax_params(fresh))))
+    same = all(torch.equal(p.detach().float().cpu(), gathered_c[n]) for n, p in restored.model.named_parameters())
+    print(f"parallel (c): the gathered parameters after {PARALLEL_STEPS} updates against (a)'s, relative in norm "
+          f"(tol {PARALLEL_PARAM_TOL:g}; the key biases' key parts aside, whose exact gradient is 0): all together "
+          f"{overall:.3e}, the worst matrix {worst:.3e} ({name}); the worst vector {vectors[0][0]:.3e} "
+          f"({vectors[0][1]}; reported, not held: AdamW's normalisation makes a step of either sign of a gradient "
+          f"entry that rounding decides, and C adds dq in no fixed order); the checkpoint restored "
+          f"unsharded in one process: step {restored.step}, parameters equal {same}")
+    if overall > PARALLEL_PARAM_TOL or worst > PARALLEL_PARAM_TOL or not same or restored.step != PARALLEL_STEPS:
+        raise AssertionError(f"parallel (c): {record['c']['vs_a']}, restored equal {same}")
+    del fresh, restored, after_a, gathered_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c, 1 rank, and its restore")
+
+    # (b) and (c) on two ranks sharing the card, the four processes at once: (c) at PARALLEL_FSDP_RANK_BATCH rows a
+    # rank, so that (b)'s 2 x 21.4 GiB and (c)'s 2 x ~11 GiB fit the card together
+    runs = {"b": ([], PARALLEL_RANK_BATCH, PARALLEL_RANK_STEPS),
+            "c2": (["parallel.fsdp_axis=data"], PARALLEL_FSDP_RANK_BATCH, PARALLEL_FSDP_RANK_STEPS)}
+
+    def overrides(label: str) -> list:
+        _, rows, micro_steps = runs[label]
+        return train_overrides(ors, work / f"{label}_ckpt", PARALLEL_RANKS * rows, PARALLEL_GRAD_ACC, micro_steps)
+
+    def ranks_argv(label: str):
+        port_ = free_port()
+        return lambda rank: ["-cn", "v32", *overrides(label), f"parallel.coordinator_address=127.0.0.1:{port_}",
+                             f"parallel.num_processes={PARALLEL_RANKS}", f"parallel.process_id={rank}",
+                             *runs[label][0]]
+
+    # one process's loss on each run's first global batch (the ranks' rows together)
+    model = None
+    one_loss = {}
+    for label, (_, rows, _) in runs.items():
+        args = load_train_config("v32", data_overrides(ors) + ["dataloader.num_workers=0",
+                                                               "dataloader.balancer_buffer_size=0",
+                                                               f"optim.batch_size={PARALLEL_RANKS * rows}"])
+        random.seed(0)
+        np.random.seed(0)
+        first = next(iter(train_main.make_batch_factory(args, BeatmapParser(args, vocab), vocab)(False)))
+        if model is None:
+            model, _, _ = train_main.build_model_and_data(args, cuda)
+            model.train()
+        reset_attention_launches()
+        with torch.no_grad():
+            one_loss[label] = model(**to_device(first, cuda))[1].item()
+        add(check_launches, attention_launches())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("one-process losses")
+
+    t0 = time.perf_counter()
+    started_ranks = {label: start_ranks(f"parallel ({label})", ranks_argv(label), work / f"{label}_logs",
+                                        probe=bool(extra)) for label, (extra, _, _) in runs.items()}
+    try:
+        results = {label: collect_ranks(f"parallel ({label})", procs) for label, procs in started_ranks.items()}
+    finally:
+        for procs in started_ranks.values():
+            stop_ranks(procs)
+    wall = time.perf_counter() - t0
+    lap("b and c2, 2 ranks each, at once")
+    for label, ranks in results.items():
+        extra, rows, micro_steps = runs[label]
+        if ranks is None:
+            record[label] = {"skipped": "gloo's reduce-scatter does not take CUDA tensors"}
+            continue
+        add(main_launches, check_ranks(f"parallel ({label})", ranks, micro_steps, micro_steps // PARALLEL_GRAD_ACC,
+                                       "gloo"))
+        losses = [r["train/loss"] for r in metrics_steps(work / f"{label}_logs")]
+        rel = abs(losses[0] - one_loss[label]) / abs(one_loss[label])
+        same = True
+        if label == "b":  # rank 0's checkpoint, restored here
+            ckpt_args = load_train_config("v32", overrides(label))
+            fresh, _, _ = train_main.build_model_and_data(ckpt_args, cuda)
+            restored = CheckpointManager(work / f"{label}_ckpt").restore(TrainState(0, fresh, build_optimizer(
+                ckpt_args, named_flax_params(fresh))))
+            same = param_checksums(restored.model) == ranks[0]["final"]
+            del fresh, restored
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap("b's restore")
+        record[label] = {"wall_s": wall, "ranks": ranks, "losses": losses, "one_process_loss": one_loss[label],
+                         "relative": rel, "restored_equal": same, "rows": rows}
+        kind = "FSDP" if extra else "DDP"
+        print(f"parallel ({label}, {kind}, {PARALLEL_RANKS} ranks sharing the card over gloo, beside the other "
+              f"run's two): {micro_steps} micro-steps of {rows} rows a rank at grad_acc {PARALLEL_GRAD_ACC}, both "
+              f"runs in {wall:.1f} s (start, build, data and the checkpoints included), parameters bit-equal across "
+              f"ranks after every update, losses {[round(x, 4) for x in losses]}; the first against one process on "
+              f"the same {PARALLEL_RANKS * rows} rows {one_loss[label]:.4f} (relative {rel:.2e}, bar "
+              f"{BF16_LOSS_REL:g})" + (f"; rank 0's checkpoint restored equal {same}" if label == "b" else ""))
+        for r in ranks:
+            print(f"  rank {r['rank']}: backend {r['backend']}, s a micro-step {[round(s['s'], 3) for s in r['steps']]}"
+                  f", peak {r['peak_gib']:.2f} GiB, launches {r['launches']} ({card})")
+        if rel > BF16_LOSS_REL or not same:
+            raise AssertionError(f"parallel ({label}): loss {losses[0]} against {one_loss[label]}, restored equal "
+                                 f"{same}")
+    record["phase_s"] = time.perf_counter() - started
+    print(f"parallel phase: {record['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in record['part_s'].items())}"
+          f"), launches {main_launches} (fixed-batch checks {check_launches})")
+    return main_launches, check_launches
+
+
 # the single-card tools (tools_phase), at full width on the artifacts earlier phases wrote: the eval harness
 # (test.main) on request 3's v32 weights under a config that picks the fused mel, at v32's recipe batch of 32 with
 # eval.steps 2 (of 1 000) in each of its two passes; the DiT toy probe at 16 predictions and TOOLS_DIT_STEPS
@@ -5345,6 +5829,7 @@ def main() -> int:
         finetuned, lora_served = finetune_phase(tmp, report)
         aux_trained, aux_checked, aux_fwd_rows, aux_bwd_rows = aux_train_phase(tmp, report)
         backbone_trained, backbone_checked, backbone_fwd_rows, backbone_bwd_rows = backbone_train_phase(tmp, report)
+        parallel_trained, parallel_checked = parallel_phase(tmp, report)
         tools, tools_rows = tools_phase(tmp, report)
     # kernel B's entry gains the DiT's, the evaluation models', the auxiliary trainers' and the eval harness's
     # shapes and their errors; C's fp32 entry the auxiliary trainers'
@@ -5356,7 +5841,8 @@ def main() -> int:
     bwd["shapes"] += aux_bwd_rows
     bwd["max_abs_err"] = max(bwd["max_abs_err"], *(e for row in aux_bwd_rows for e in row["max_abs_err"].values()))
     checked = {name: checked.get(name, 0) + aux_checked.get(name, 0) + backbone_checked.get(name, 0)
-               for name in set(checked) | set(aux_checked) | set(backbone_checked)}
+               + parallel_checked.get(name, 0)
+               for name in set(checked) | set(aux_checked) | set(backbone_checked) | set(parallel_checked)}
     # kernel C's entries gain moonshine's head dim; the bf16 pair's entries every other backbone family's training
     # calls (T5's and nGPT's at sm_scale 1.0, moonshine's at D 36 padded to 64) and their errors
     for entry in kernels:
@@ -5373,10 +5859,12 @@ def main() -> int:
     served = {k: sum(path.get(k, 0) for path in serving_paths) for k in first}
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools,
-    # the auxiliary trainers, the other backbone families' training, the
-    # single-card tools; the gradient checks' are listed apart
+    # the auxiliary trainers, the other backbone families' training,
+    # multi-process training (every rank's), the single-card tools; the
+    # gradient checks' are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
-                + evaluated.get(k, 0) + aux_trained.get(k, 0) + backbone_trained.get(k, 0) + tools.get(k, 0)
+                + evaluated.get(k, 0) + aux_trained.get(k, 0) + backbone_trained.get(k, 0)
+                + parallel_trained.get(k, 0) + tools.get(k, 0)
                 for k in served}
     report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
@@ -5393,10 +5881,13 @@ def main() -> int:
                                   "auxiliary training (DiT-B, the classifier, OsuR)": aux_trained,
                                   "backbone training (v29, v28, T5-base, NWhisper-base, moonshine-tiny; bf16)":
                                       backbone_trained,
+                                  "multi-process training (v32 bf16: DDP and FSDP on one NCCL rank, DDP and FSDP "
+                                  "on two gloo ranks sharing the card; every rank's)": parallel_trained,
                                   "single-card tools (the eval harness, dit_test_toy, plot_self_similarity, the "
                                   "web UI's generation and MaiMod jobs)": tools,
                                   "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32, the five "
-                                  "backbones bf16 and their memory probes; not a main path)": checked}
+                                  "backbones bf16 and their memory probes, the parallel phase's fixed-batch updates "
+                                  "and one-process loss; not a main path)": checked}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in checked:

@@ -375,9 +375,10 @@ class Mapperatorinator(nn.Module):
     def forward(self, frames: Optional[torch.Tensor] = None, decoder_input_ids=None,
                 decoder_attention_mask=None, encoder_states=None, labels: Optional[torch.Tensor] = None,
                 sample_weights: Optional[torch.Tensor] = None, beatmap_idx=None, difficulty=None, mapper_idx=None,
-                song_position=None):
+                song_position=None, label_count: Optional[torch.Tensor] = None):
         """Teacher-forced forward -> logits (B, T, vocab_size_out), or
-        (logits, loss) when ``labels`` are given."""
+        (logits, loss) when ``labels`` are given (``label_count``:
+        :meth:`loss`)."""
         if encoder_states is None:
             encoder_states = self.encode(frames, beatmap_idx, difficulty, mapper_idx, song_position)
         logits = self.transformer(
@@ -387,14 +388,18 @@ class Mapperatorinator(nn.Module):
         )
         if labels is None:
             return logits
-        return logits, self.loss(logits, labels, sample_weights)
+        return logits, self.loss(logits, labels, sample_weights, label_count)
 
     def loss(self, logits: torch.Tensor, labels: torch.Tensor,
-             sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+             sample_weights: Optional[torch.Tensor] = None,
+             label_count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Rhythm-weighted label-smoothed cross entropy, the mean over labels
         that are not ``LABEL_IGNORE_ID`` (torch's CE with label smoothing:
         (1 - eps) nll + eps mean_k(-log p_k), weighted by the target's class
-        weight and the row's sample weight)."""
+        weight and the row's sample weight). ``label_count`` replaces the
+        batch's own count of such labels as the divisor: across processes it
+        is every rank's count, so that the ranks' losses sum to the global
+        batch's mean."""
         cfg = self.cfg
         valid = labels != LABEL_IGNORE_ID
         safe = torch.where(valid, labels, 0)
@@ -406,7 +411,8 @@ class Mapperatorinator(nn.Module):
         per_tok = ((1 - eps) * nll + eps * -log_probs.mean(-1)) * class_weights[safe] * valid
         if sample_weights is not None:
             per_tok = per_tok * sample_weights[:, None]
-        return per_tok.sum() / valid.sum().clamp(min=1)
+        count = valid.sum() if label_count is None else label_count
+        return per_tok.sum() / count.clamp(min=1)
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         if self.cfg.embed_decoder_input:

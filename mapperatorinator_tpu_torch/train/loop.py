@@ -4,7 +4,8 @@ needs, in PyTorch.
 Streaming-mean logging, per-context eval, checkpoints with total-limit
 retention, a best alias and auto-resume, the FLOPs of a step and the MFU
 gauge against the card's published peak, and a ``torch.profiler`` trace
-over the window ``profile`` configures.
+over the window ``profile`` configures. Across processes rank 0 writes the
+checkpoints and every rank restores them (:class:`CheckpointManager`).
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.transformer import moonshine_stem_length
 from ..osu.events import ContextType, EventType
 from ..osu.vocab import Vocabulary
+from ..parallel.sharding import any_sharded, gathered, local, shard_of
 
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by a substring
 # of torch.cuda.get_device_name: the H100 SXM part at its 700 W limit
@@ -156,12 +159,20 @@ class CheckpointManager:
     ``torch.save`` where the JAX one writes orbax: ``<dir>/<step>/state.pt``
     holds the step, the model's state dict and the optimizer's state. The
     best checkpoint is mirrored to ``<dir>/best``, so retention, which
-    removes only numbered step directories, never loses it."""
+    removes only numbered step directories, never loses it.
+
+    In a process group every rank calls :meth:`save` (under FSDP the full
+    state is gathered from the shards, a collective) and rank 0 alone
+    writes, between two barriers; every rank restores. The file holds the
+    unwrapped model's state dict and the optimizer's full buffers, so one
+    written by a single process, by DDP ranks or by FSDP ranks restores in
+    any of these layouts."""
 
     def __init__(self, directory, total_limit: int = 2):
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.total_limit = total_limit
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
         # called after every save with (step_dir, metadata, is_best); wired to
         # MetricsLogger.log_checkpoint_artifact when a wandb run is live
         self.artifact_sink: Optional[Callable[[Path, dict, bool], None]] = None
@@ -175,18 +186,30 @@ class CheckpointManager:
 
     def set_metadata(self, metadata: dict) -> None:
         self._manifest["metadata"] = {k: _jsonable(v) for k, v in metadata.items()}
-        self._write_manifest()
+        if self.writer:
+            self._write_manifest()
 
     def save(self, step: int, state, metrics: Optional[dict] = None) -> None:
         """``metrics`` may carry ``eval_loss``; a new minimum is recorded as
         the manifest's ``best`` and mirrors the checkpoint to ``<dir>/best``."""
+        saved = {"step": state.step, "model": full_state_dict(state.model),
+                 "optimizer": state.optimizer.state_dict()}
+        if dist.is_initialized():
+            dist.barrier()
+        if self.writer:
+            self._write(step, saved, metrics)
+        if dist.is_initialized():
+            dist.barrier()
+            if not self.writer:
+                self._manifest = json.loads(self._manifest_path.read_text(encoding="utf-8"))
+
+    def _write(self, step: int, saved: dict, metrics: Optional[dict]) -> None:
         step_dir = self.directory / str(step)
         tmp = self.directory / f".{step}.tmp"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir()
-        torch.save({"step": state.step, "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()}, tmp / "state.pt")
+        torch.save(saved, tmp / "state.pt")
         if step_dir.exists():
             shutil.rmtree(step_dir)
         tmp.rename(step_dir)
@@ -252,10 +275,38 @@ class CheckpointManager:
     @staticmethod
     def _load(step_dir: Path, state_template):
         saved = torch.load(step_dir / "state.pt", map_location="cpu", weights_only=True)
-        state_template.model.load_state_dict(saved["model"])
+        load_full_state_dict(state_template.model, saved["model"])
         state_template.optimizer.load_state_dict(saved["optimizer"])
         state_template.step = int(saved["step"])
         return state_template
+
+
+def full_state_dict(model: torch.nn.Module) -> dict:
+    """The model's state dict with every tensor whole: under FSDP each
+    sharded tensor gathered from the ranks (a collective,
+    :func:`..parallel.sharding.gathered`; ``torch.distributed.checkpoint``'s
+    full state dict gathers through ``DTensor.full_tensor``, which ends the
+    process over gloo on CUDA tensors), else the module's own (a DDP
+    wrapper's ``module.`` prefix never reaches it: the state holds the bare
+    model)."""
+    state = model.state_dict()
+    if not any_sharded(model.parameters()):
+        return state
+    return {name: gathered(t.detach()) for name, t in state.items()}
+
+
+@torch.no_grad()
+def load_full_state_dict(model: torch.nn.Module, saved: dict) -> None:
+    """Load a full state dict (:func:`full_state_dict`) into ``model``: each
+    rank copies its own shard of a sharded tensor, without a collective."""
+    if not any_sharded(model.parameters()):
+        model.load_state_dict(saved)
+        return
+    own = model.state_dict()
+    if sorted(own) != sorted(saved):
+        raise KeyError(f"state dict keys differ: {sorted(set(own) ^ set(saved))}")
+    for name, tensor in own.items():
+        local(tensor).copy_(shard_of(saved[name], tensor))
 
 
 class MetricsLogger:
@@ -514,7 +565,7 @@ def run_steps(args, make_batches: Callable[[], Iterable[dict]], train_step: Call
 def train(*, train_step: Callable, eval_step: Callable, state, train_batch_factory: Callable[[], Iterable[dict]],
           eval_batch_factory: Optional[Callable[[], Iterable[dict]]] = None, vocab: Vocabulary, args,
           logger: Optional[MetricsLogger] = None, checkpoints: Optional[CheckpointManager] = None,
-          profile_dir=None, flops: Optional[Callable[[dict], dict]] = None):
+          profile_dir=None, flops: Optional[Callable[[dict], dict]] = None, eval_fn: Optional[Callable] = None):
     """The main loop (reference: train_utils.py:379-434): runs until
     ``optim.total_steps`` with eval, log and checkpoint hooks at their
     configured intervals, remaking the batch stream each epoch, and saves a
@@ -523,7 +574,11 @@ def train(*, train_step: Callable, eval_step: Callable, state, train_batch_facto
     ``flops(batch)`` gives {gauge: FLOPs of a step on ``batch``}; on a card
     with a published peak each gauge is logged as those FLOPs over the peak
     times the seconds per step (by default ``mfu``, :func:`step_flops` of
-    ``state.model``). With
+    ``state.model``). Across processes this is the JAX figure, the global
+    batch's FLOPs over the peak times the device count: every rank's rows
+    have the batch's fixed shapes, so the two ratios are one. ``eval_fn(model,
+    batches, max_steps)``, where given, replaces the per-context eval (the
+    multi-process eval, :func:`.step.eval_model_global`). With
     ``profile_dir``, a trace starts before the step that begins at
     ``profile.wait`` completed steps and stops once ``wait + warmup +
     active`` are complete (the JAX loop's arithmetic, not
@@ -572,8 +627,11 @@ def train(*, train_step: Callable, eval_step: Callable, state, train_batch_facto
                     logger.log(add_prefix("train", stats), step)
 
                 if eval_batch_factory is not None and step % args.eval.every_steps == 0:
-                    eval_stats = eval_model(eval_step, state.model, eval_batch_factory(), vocab, args,
-                                            max_steps=args.eval.steps)
+                    if eval_fn is not None:
+                        eval_stats = eval_fn(state.model, eval_batch_factory(), args.eval.steps)
+                    else:
+                        eval_stats = eval_model(eval_step, state.model, eval_batch_factory(), vocab, args,
+                                                max_steps=args.eval.steps)
                     if "test/loss" in eval_stats:
                         last_eval_loss = eval_stats["test/loss"]
                     if logger is not None:

@@ -22,11 +22,27 @@ frozen base and writes the adapter to ``<checkpoint_path>/lora``.
 Every backbone family trains: v32's (``-cn v32``), stock whisper (``-cn
 v28``, ``-cn v29``), T5 v1.1 (``-cn t5_base``), nGPT (``-cn
 nwhisper_base``) and moonshine (``-cn moonshine_tiny``), through one step,
-optimizer and loop. Not ported yet, each raising and naming ROADMAP queue 1:
-more than one process, tensor and FSDP mesh axes, the ``mmrs`` and ``web``
-datasets and ``adafactor``. The recipes' ``dataset_type`` (``web`` for
-v32, ``mmrs`` for v28 and v29) is therefore overridden to ``ors``, a local
-track-folder dataset.
+optimizer and loop.
+
+More than one process (the JAX ``train.py``'s multi-host run): start one
+command a rank with ``parallel.coordinator_address=host:port
+parallel.num_processes=N parallel.process_id=i`` (or under torchrun with
+the address alone). Each rank takes its own card (``cuda:{i % count}``,
+:func:`..parallel.distributed.choose_backend` for the backend), feeds its
+share of every batch and trains under DDP, or, with
+``parallel.fsdp_axis``, FSDP over a 1-D mesh or HSDP over a ``(data,
+fsdp)`` one (:mod:`..parallel`); the schedule is stretched by the process
+count, as the JAX one by the device count; rank 0 logs to ``log_dir`` and
+writes the checkpoints, rank i to ``<log_dir>/proc{i}``; with more than one
+rank the eval is the global one (loss and accuracy, as in JAX). Under LoRA
+the factors are trained replicated whatever the layout (their gradients
+summed by hand), the frozen base whole on every rank.
+
+Not ported yet, each raising and naming ROADMAP queue 1: the tensor axis
+(and any mesh axis other than the data and fsdp axes), the ``mmrs`` and
+``web`` datasets and ``adafactor``. The recipes' ``dataset_type`` (``web``
+for v32, ``mmrs`` for v28 and v29) is therefore overridden to ``ors``, a
+local track-folder dataset.
 """
 
 from __future__ import annotations
@@ -35,7 +51,10 @@ import sys
 from pathlib import Path
 from typing import Optional, Sequence
 
+import functools
+
 import torch
+import torch.distributed as dist
 
 from ..config import load_train_config, select_device
 from ..models.io import load_checkpoint
@@ -44,13 +63,15 @@ from ..models.mapperatorinator import Mapperatorinator, build_config
 from ..models.params import init_params
 from ..osu import BeatmapParser, build_vocabulary
 from .data import build_dataset
+from ..parallel import (make_global_mesh, maybe_initialize, process_index, process_local_batch_size, replicate,
+                        shard_iterator_by_process, shard_params, world_size)
+from ..parallel.distributed import rank_device
+from ..parallel.sharding import TENSOR_AXIS_ITEM
 from .data.batching import batch_iterator, prefetch_iterator
 from .loop import CheckpointManager, MetricsLogger, card_line, device_peak_flops, lora_step_flops, step_flops, train
 from .optim import build_optimizer
-from .step import (TrainState, make_eval_step, make_lora_eval_step, make_lora_train_step, make_train_step,
-                   named_flax_params)
-
-ROADMAP_ITEM = "ROADMAP queue 1, item 15"
+from .step import (TrainState, _forward, _merged_forward, eval_model_global, make_eval_step, make_global_eval_step,
+                   make_lora_eval_step, make_lora_train_step, make_train_step, named_flax_params)
 
 
 def parse_argv(argv: Sequence[str]) -> tuple[str, list[str]]:
@@ -67,16 +88,14 @@ def parse_argv(argv: Sequence[str]) -> tuple[str, list[str]]:
 
 
 def refuse_unported(args) -> None:
-    """Raise for the training options the port does not cover yet."""
+    """Raise for the training options the port does not cover yet: the
+    tensor axis, and a mesh that names an axis other than the data and fsdp
+    axes."""
     p = args.parallel
-    refused = {
-        "parallel.num_processes / coordinator_address (more than one process)":
-            (p.num_processes or 1) > 1 or p.coordinator_address,
-        "parallel.tensor_axis / fsdp_axis": p.tensor_axis or p.fsdp_axis,
-    }
-    for what, on in refused.items():
-        if on:
-            raise NotImplementedError(f"{what}: not ported yet ({ROADMAP_ITEM})")
+    other = [a for a in (p.axis_names or []) if a not in (p.data_axis, p.fsdp_axis)]
+    if p.tensor_axis or other:
+        raise NotImplementedError(f"parallel.tensor_axis={p.tensor_axis!r}, mesh axes {other}: not ported yet "
+                                  f"({TENSOR_AXIS_ITEM})")
 
 
 def build_model_and_data(args, device: torch.device):
@@ -105,14 +124,16 @@ def build_model_and_data(args, device: torch.device):
 def make_batch_factory(args, parser: BeatmapParser, vocab):
     """``make_batches(test) -> iterator of collated batches`` over the
     configured dataset: the training split (token-balanced, prefetched by
-    ``dataloader.num_workers`` threads) or the test split. It needs no model,
-    so the eval harness builds it alone."""
+    ``dataloader.num_workers`` threads) or the test split. Across processes
+    each rank keeps every N-th example and batches ``optim.batch_size / N``
+    rows. It needs no model, so the eval harness builds it alone."""
+    local_batch_size = process_local_batch_size(args.optim.batch_size)
 
     def make_batches(test: bool):
         dataset = build_dataset(args.data, parser, vocab, test=test)
         batches = batch_iterator(
-            iter(dataset),
-            args.optim.batch_size,
+            shard_iterator_by_process(iter(dataset)),
+            local_batch_size,
             balancer_buffer_size=args.dataloader.balancer_buffer_size if not test else 0,
             drop_last=args.dataloader.drop_last,
         )
@@ -130,22 +151,33 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
     if args.enable_lora and not args.pretrained_path:
         raise ValueError("enable_lora requires pretrained_path (LoRA fine-tunes a base model).")
     device = select_device(args)
+    distributed = maybe_initialize(args.parallel, device.type)
+    device = rank_device(device)
+    mesh = make_global_mesh(args.parallel, device.type)
+    n_processes, is_main = world_size(), process_index() == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if device.type == "cuda":
+    if is_main and device.type == "cuda":
         peak = device_peak_flops(device)
         print(f"Training on {card_line()}; MFU against {peak / 1e12:g} TFLOP/s dense bf16" if peak
               else f"Training on {card_line()}; no published peak for this card, so no MFU")
-    else:
+    elif is_main:
         print("Training on the CPU")
+    if is_main and distributed:
+        print(f"{n_processes} process(es), mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+              f"{'FSDP on ' + args.parallel.fsdp_axis if args.parallel.fsdp_axis else 'DDP'}")
 
     model, vocab, make_batches = build_model_and_data(args, device)
+    replica, hand_reduced, forward = None, (), _forward
     if args.enable_lora:
         lora_cfg = dict(args.lora or {})
         rank = int(lora_cfg.get("r", 64))
         lora_alpha = float(lora_cfg.get("lora_alpha", 128))
         trained = init_lora_params(model, rank=rank, target_modules=lora_cfg.get("target_modules"), seed=args.seed)
         train_step, eval_step = make_lora_train_step(model, lora_alpha), make_lora_eval_step(model, lora_alpha)
+        forward = functools.partial(_merged_forward, model, alpha=lora_alpha)
+        if distributed:
+            hand_reduced = list(trained.parameters())
 
         def flops(batch):
             # what the card computes, beside the JAX figure (the factors as the model)
@@ -155,7 +187,20 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
               f"({sum(p.numel() for p in trained.parameters())} trainable params)")
     else:
         trained, train_step, eval_step, flops = model, make_train_step(), make_eval_step(), None
-    state = TrainState(step=0, model=trained, optimizer=build_optimizer(args, named_flax_params(trained)))
+        if distributed and args.parallel.fsdp_axis:
+            hand_reduced = shard_params(model, mesh, fsdp_axis=args.parallel.fsdp_axis)
+        elif distributed:
+            replica = replicate(model, device)
+    state = TrainState(step=0, model=trained,
+                       optimizer=build_optimizer(args, named_flax_params(trained), num_processes=n_processes),
+                       replica=replica, hand_reduced=hand_reduced, group=dist.group.WORLD if distributed else None)
+    eval_fn = None
+    if n_processes > 1:
+        # built once, for every eval; it merges the LoRA factors, as the single-process eval does
+        global_eval = make_global_eval_step(forward, state.group)
+
+        def eval_fn(trained_model, batches, max_steps):
+            return eval_model_global(global_eval, trained_model, batches, max_steps, state.group)
 
     ckpt_dir = Path(args.checkpoint_path or "checkpoints").resolve()
     checkpoints = CheckpointManager(ckpt_dir, total_limit=args.checkpoint.local_total_limit)
@@ -175,12 +220,15 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
         print(f"Resuming from checkpoint step {latest}")
         state = checkpoints.restore(state)
 
-    logger = MetricsLogger(log_dir, log_with=args.logging.log_with, run_name=args.logging.run_name,
-                           mode=args.logging.mode)
+    # only rank 0 logs to the tracker; rank i keeps its own directory (train.py:222-225)
+    logger = (MetricsLogger(log_dir, log_with=args.logging.log_with, run_name=args.logging.run_name,
+                            mode=args.logging.mode) if is_main
+              else MetricsLogger(Path(log_dir) / f"proc{process_index()}", log_with=None))
     # checkpoint saves also upload to the tracker when one is live (train.py:228-229)
     if logger.wandb_run is not None:
         checkpoints.artifact_sink = logger.log_checkpoint_artifact
-    vocab.save_pretrained(ckpt_dir)
+    if is_main:
+        vocab.save_pretrained(ckpt_dir)
     try:
         state = train(
             train_step=train_step,
@@ -194,10 +242,11 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
             checkpoints=checkpoints,
             profile_dir=Path(log_dir) / "profile" if args.profile.do_profile else None,
             flops=flops,
+            eval_fn=eval_fn,
         )
     finally:
         logger.close()
-    if args.enable_lora:
+    if args.enable_lora and is_main:
         save_lora(ckpt_dir / "lora", state.model, rank=rank, alpha=lora_alpha,
                   target_modules=lora_cfg.get("target_modules"),
                   ckpt_subfolders=args.lora_metadata.ckpt_subfolders)
@@ -207,3 +256,5 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

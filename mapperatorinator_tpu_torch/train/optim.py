@@ -18,6 +18,15 @@ matrix in its flax layout (a Dense kernel is (in, out), a conv kernel
 (k, in, out) reshaped to (k, in * out)), so the update is the JAX one, and
 it runs ``newton_schulz5`` in bf16 with plain matmuls, as the JAX does.
 ``adafactor`` raises.
+
+Under FSDP a parameter is a DTensor sharded over the ranks
+(:func:`..parallel.sharding.shard_params`). Each optimizer then keeps its
+buffers as local shards and updates the local shard in place; what needs
+the whole of a parameter reads it whole: the global norm of clipping and of
+``adamwscale``'s rms sums the squares over the shards, and Muon
+orthogonalises the full gradient matrix (gathered, as GSPMD computes it in
+JAX) and keeps its own shard of the update. The state dicts hold full
+tensors, so a checkpoint is the same whatever the layout that wrote it.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..models.params import flax_layout
+from ..parallel.sharding import any_sharded, gathered, is_sharded, local, shard_of, sharded_norm
 
 Schedule = Callable[[int], float]
 NamedParams = Sequence[tuple[str, torch.Tensor]]  # (flax path, parameter)
@@ -47,7 +57,12 @@ def muon_branch_mask(path: str, param: torch.Tensor) -> bool:
     return param.dim() >= 2 and not any(s in path.lower() for s in _ADAMW_BRANCH_SUBSTRINGS)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], like: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """The L2 norm of all ``tensors`` together; where some are shards (DTensors,
+    or local shards laid out as the DTensors of ``like``), their squares are
+    summed over the ranks (:func:`..parallel.sharding.sharded_norm`)."""
+    if any_sharded(tensors) or (like is not None and any_sharded(like)):
+        return sharded_norm(tensors, like)
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
@@ -68,21 +83,23 @@ def cosine_decay_schedule(init: float, steps: int, alpha: float) -> Schedule:
     return lambda count: init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * min(count, steps) / steps)) + alpha)
 
 
-def build_schedule(optim_args, base_lr: Optional[float] = None) -> Schedule:
+def build_schedule(optim_args, num_processes: int = 1, base_lr: Optional[float] = None) -> Schedule:
     """warmup (0.5 -> 1) -> sustain -> cosine or linear decay, joined at
-    their boundaries as ``optax.join_schedules`` does (one process: the JAX
-    ``num_processes`` factor is 1)."""
+    their boundaries as ``optax.join_schedules`` does, each length
+    stretched by ``num_processes``: the JAX ``train.py`` passes its device
+    count, the port its process count, one card a process."""
     base = base_lr if base_lr is not None else optim_args.base_lr
     segments, boundaries, step = [], [], 0
     if optim_args.warmup_steps > 0:
-        segments.append(linear_schedule(base * 0.5, base, optim_args.warmup_steps))
-        step += optim_args.warmup_steps
+        n = optim_args.warmup_steps * num_processes
+        segments.append(linear_schedule(base * 0.5, base, n))
+        step += n
         boundaries.append(step)
     if optim_args.sustain_steps > 0:
         segments.append(lambda count: base)
-        step += optim_args.sustain_steps
+        step += optim_args.sustain_steps * num_processes
         boundaries.append(step)
-    remaining = optim_args.total_steps - step
+    remaining = optim_args.total_steps * num_processes - step
     if optim_args.lr_scheduler == "cosine":
         segments.append(cosine_decay_schedule(base, remaining, optim_args.final_cosine / base))
     else:
@@ -105,7 +122,9 @@ def build_schedule(optim_args, base_lr: Optional[float] = None) -> Schedule:
 
 class Optimizer:
     """Parameters updated in place from gradients given in their order.
-    ``count`` is the number of updates made, as in the optax states."""
+    ``count`` is the number of updates made, as in the optax states. A
+    sharded parameter is updated through its local shard, from a gradient
+    given as a DTensor or as its local shard."""
 
     def __init__(self, params: NamedParams):
         self.paths = [path for path, _ in params]
@@ -115,8 +134,8 @@ class Optimizer:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.count += 1
-        for param, update in zip(self.params, self.updates(grads)):
-            param.add_(update.to(param.dtype))
+        for param, update in zip(self.params, self.updates([local(g) for g in grads])):
+            local(param).add_(update.to(param.dtype))
 
     def updates(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         raise NotImplementedError
@@ -125,19 +144,27 @@ class Optimizer:
         return {}
 
     def state_dict(self) -> dict:
-        """The count and the live buffers (not copies: save before the next step)."""
-        return {"count": self.count, **{k: list(v) for k, v in self.buffers().items()}}
+        """The count and the buffers: the live ones (not copies: save before
+        the next step), or the full tensors gathered from a sharded
+        parameter's shards (a collective: every rank calls it)."""
+        return {"count": self.count, **{k: [gathered(t, like=p) for t, p in zip(v, self.params)]
+                                        for k, v in self.buffers().items()}}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state["count"])
         for key, tensors in self.buffers().items():
-            for t, saved in zip(tensors, state[key], strict=True):
-                t.copy_(saved)
+            for t, saved, p in zip(tensors, state[key], self.params, strict=True):
+                t.copy_(shard_of(saved, p))
 
 
 def _zeros_like(params) -> list[torch.Tensor]:
-    return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    return [torch.zeros_like(local(p), dtype=torch.float32) for p in params]
+
+
+def _norm(p: torch.Tensor) -> torch.Tensor:
+    """A parameter's L2 norm, whole where it is sharded."""
+    return sharded_norm([p]) if is_sharded(p) else torch.linalg.norm(p.float())
 
 
 class AdamWScale(Optimizer):
@@ -165,7 +192,8 @@ class AdamWScale(Optimizer):
             g = g.float()
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(g * g * (1 - b2))
-            rms = torch.linalg.norm(p.float()) / math.sqrt(p.numel())
+            rms = _norm(p) / math.sqrt(p.numel())
+            p = local(p)
             upd = -(step_size * torch.clamp(rms, min=1e-3)) * m / (v.sqrt() + self.eps)
             if decayed and self.weight_decay > 0:
                 upd = upd - lr * self.weight_decay * p.float()
@@ -198,7 +226,7 @@ class AdamW(Optimizer):
         lr = self.lr(count - 1)
         out = []
         for p, g, m, v, decayed in zip(self.params, grads, self.mu, self.nu, self.decay):
-            g = g.float()
+            g, p = g.float(), local(p)
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(g * g * (1 - b2))
             upd = (m / (1 - b1**count)) / ((v / (1 - b2**count)).sqrt() + self.eps)
@@ -269,12 +297,13 @@ class Muon(Optimizer):
             m1.add_((g - m1) * (1 - b1))
             m2.add_((g * g - m2) * (1 - b2))
             if is_muon:
-                eff = flax_layout(g + buf * self.momentum, path)  # Nesterov
+                # Nesterov; the whole matrix where the parameter is sharded, this rank's shard of the update
+                eff = flax_layout(gathered(g + buf * self.momentum, like=p), path)
                 mat = eff.reshape(eff.shape[0], -1)
                 ortho = newton_schulz5(mat, self.ns_steps) * max(1.0, mat.shape[0] / mat.shape[1]) ** 0.5
-                out.append(flax_layout((-lr * ortho.float()).reshape(eff.shape), path))
+                out.append(shard_of(flax_layout((-lr * ortho.float()).reshape(eff.shape), path), p))
             else:
-                out.append(-adamw_lr * self.wd * p.float() - (lr / adamw_scale) * (m1 / (self.eps + m2.sqrt())))
+                out.append(-adamw_lr * self.wd * local(p).float() - (lr / adamw_scale) * (m1 / (self.eps + m2.sqrt())))
         return out
 
 
@@ -291,10 +320,14 @@ class ClipByGlobalNorm:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        norm = global_norm(grads)
+        norm = global_norm(grads, like=self.params)
         if norm >= self.max_norm:
-            grads = [g / norm.to(g.dtype) * self.max_norm for g in grads]
+            grads = [local(g) / norm.to(g.dtype) * self.max_norm for g in grads]
         self.inner.step(grads)
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        return self.inner.params
 
     @property
     def count(self) -> int:
@@ -315,6 +348,7 @@ class MultiSteps:
 
     def __init__(self, inner, every_k: int, params: Sequence[torch.Tensor]):
         self.inner, self.every_k = inner, every_k
+        self.params = list(params)
         self.mini_step = 0
         self.acc = _zeros_like(params)
 
@@ -322,7 +356,7 @@ class MultiSteps:
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         n = self.mini_step
         for acc, g in zip(self.acc, grads):
-            acc.copy_((g.float() + n * acc) / (n + 1))
+            acc.copy_((local(g).float() + n * acc) / (n + 1))
         if n == self.every_k - 1:
             self.inner.step(self.acc)
             self.mini_step = 0
@@ -336,27 +370,29 @@ class MultiSteps:
         return self.inner.count
 
     def state_dict(self) -> dict:
-        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "acc": list(self.acc)}
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": [gathered(t, like=p) for t, p in zip(self.acc, self.params)]}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         self.inner.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
-        for t, saved in zip(self.acc, state["acc"], strict=True):
-            t.copy_(saved)
+        for t, saved, p in zip(self.acc, state["acc"], self.params, strict=True):
+            t.copy_(shard_of(saved, p))
 
 
-def build_optimizer(args, params: NamedParams):
+def build_optimizer(args, params: NamedParams, num_processes: int = 1):
     """The configured optimizer, schedule, clipping and gradient
-    accumulation over ``params`` (``(flax path, parameter)`` pairs)."""
+    accumulation over ``params`` (``(flax path, parameter)`` pairs), the
+    schedule stretched by ``num_processes`` (:func:`build_schedule`)."""
     optim = args.optim
-    schedule = build_schedule(optim)
+    schedule = build_schedule(optim, num_processes)
     if optim.name == "adamw":
         tx = AdamW(params, schedule, weight_decay=optim.weight_decay)
     elif optim.name == "adamwscale":
         tx = AdamWScale(params, schedule, weight_decay=optim.weight_decay)
     elif optim.name == "muon":
-        tx = Muon(params, schedule, build_schedule(optim, base_lr=optim.base_lr_2),
+        tx = Muon(params, schedule, build_schedule(optim, num_processes, base_lr=optim.base_lr_2),
                   adamw_wd=optim.weight_decay)
     elif optim.name == "adafactor":
         raise NotImplementedError("optim.name=adafactor: not ported yet (ROADMAP queue 1, item 15)")

@@ -171,7 +171,7 @@ def test_train_main_runs_on_the_cpu_and_resumes(ors_root, tmp_path):
     assert [r["step"] for r in records if "train/loss" in r] == [1, 2, 3]  # the second run began at step 2
 
 
-@pytest.mark.parametrize("change", [["parallel.num_processes=2"], ["parallel.fsdp_axis=data"],
+@pytest.mark.parametrize("change", [["parallel.tensor_axis=tensor"], ['parallel.axis_names=["data","tensor"]'],
                                     ["optim.name=adafactor"]])
 def test_unported_training_options_raise(ors_root, tmp_path, change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -13,7 +13,9 @@ JAX package) with int8 weights and KV cache and decodes a few steps from it,
 loads published (HF-format) v28, T5 v1.1, NWhisper and moonshine
 checkpoints from their ``model.safetensors`` and decodes from each (the last
 two with int8 weights and KV),
-runs one step of ``train.main`` on a small ORS dataset, and one step of a
+imports the multi-process modules (``parallel/``) and calls their
+single-process helpers, runs one step of ``train.main`` on a small ORS
+dataset, and one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
 quantized, writes a tiny DiT bundle, loads it with
 ``load_diffusion_model`` and refines the positions of a few events with it,
@@ -83,6 +85,10 @@ SCRIPT = textwrap.dedent("""
         "test", "dataloading", "push_to_hub", "plot_difficulties", "web_ui", "mai_mod_ui", "utils.print_ckpt",
         "utils.distance_distance", "utils.dit_test_toy", "utils.plot_embeddings", "utils.find_similar_beatmaps",
         "utils.plot_self_similarity")} <= set(modules)
+    # multi-process training
+    assert {f"mapperatorinator_tpu_torch.parallel.{name}" for name in ("distributed", "mesh", "sharding")} <= set(modules)
+    from mapperatorinator_tpu_torch import parallel
+    assert parallel.maybe_initialize(None) is False and parallel.make_global_mesh(None, "cpu") is None
 
     from mapperatorinator_tpu_torch import inference
     from mapperatorinator_tpu_torch.config import load_config, select_device
