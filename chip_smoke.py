@@ -253,7 +253,23 @@
    rows a rank and 2 micro-steps (cut to fit the card beside (b) and the
    whole run inside its limit), after a probe that gloo takes CUDA
    tensors. Every rank launches one sm90
-   B and C a covered call; these join the bf16 pair's launches.
+   B and C a covered call; these join the bf16 pair's launches. On the
+   tensor axis (``parallel.tensor_axis``): (e) one NCCL rank with a tensor
+   axis of 1, 128 graphed greedy steps of request 3's first window (fp32,
+   from its checkpoint), the graphs capturing the regions' 36 all-reduces
+   a step, tokens equal to the whole engine's; (d), in (c)'s two processes
+   after it, two gloo ranks at tensor 2, 4 rows (the same on both), 2
+   micro-steps at grad_acc 2 (cut from 8 rows at grad_acc 1 to keep the
+   run in its limit): B and C on every covered call at 6 heads, the
+   replicated leaves bit-equal across ranks after the update, the first
+   loss that of one process, the gathered parameters after the update
+   within 2e-2 of one process's, rank 0's checkpoint restored unsharded;
+   (f), in (b)'s two processes after it, the same 128 steps at tensor 2
+   over gloo, eager by the engine's rule: tokens against (e)'s, the first
+   8 steps' scores within 2e-4 of the whole engine's; (g)
+   ``optim.name=adafactor``, 2 micro-steps at batch 32 on one card, peak
+   GiB beside Muon's; then B and C at a rank's 6 heads of (c)'s 8-row
+   calls (bf16, B 8: 1 024², 2 560² causal, 2 560 × 1 024) beside SDPA.
    Then the single-card tools (``tools_phase``), each through its entry
    point on what earlier phases wrote: the held-out eval harness
    (``test.main``) on request 3's v32 weights under a config that picks the
@@ -271,8 +287,12 @@
    each in a spawned worker on the card whose launches it writes beside its
    log; then B at the harness's calls (B 32, H 12: 1 024², 2 560² causal
    with a key mask, 2 560 × 1 024), which join B's kernels-line entry.
-   Super-timing runs 10 members, cut from v32's 20, to keep the whole run
-   inside its limit.
+   Super-timing runs 10 members, cut from v32's 20; super-timing, request
+   v31-2 and v31's MaiMod fallback decode with 6 of the 12 decoder layers
+   (v31-2's checkpoint holds v31-1's first 6), and each "decode graphs"
+   case starts from a 240-token prompt (window 0's first prompt decoded on
+   greedily, no EOS) and runs to slot 272 (it was 300 steps from the
+   13-token prompt), to keep the whole run inside its limit.
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
@@ -356,7 +376,9 @@ COLD_BYTES = 2**26
 QMM_KERNELS = {"qmm_gemv": "qmm_gemv_cluster_kernel", "qmm_tc": "qmm_tc_kernel"}
 INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreement (test_quantize_checkpoint.py:58-59)
 ENGINE_STEPS = 64
-DECODE_GRAPH_STEPS = 300  # steps of each "decode graphs" case at most
+# each "decode graphs" case: a 240-token prompt (window 0's first prompt decoded on, greedy, with no EOS), decoded to
+# slot 272, 16 slots into the second 256-slot bucket (it was the 13-token prompt and 300 steps: cut for the run's limit)
+DECODE_GRAPH_PROMPT, DECODE_GRAPH_END = 240, 272
 STATS_TOL = 1e-4  # forward_stats vs the host reduction, test_decode.py:424
 GRAD_TOL = 2e-4  # the model bar, times each gradient tensor's largest entry
 # bf16 gradients through the tensor-core kernels, held against the fp32 plain
@@ -1214,6 +1236,10 @@ def fmt_bytes(n: int | None) -> str:
 
 # (d_model, encoder layers, decoder layers, heads, ffn) of the whisper sizes, and of T5 v1.1-base
 WHISPER_SMALL, WHISPER_BASE = (768, 12, 12, 12, 3072), (512, 6, 6, 8, 2048)
+# super-timing, request v31-2 and v31's MaiMod fallback decode with 6 of the decoder's 12 layers, cut to keep the run
+# inside its limit (their windows run to the decode buffer's end, whatever the song's length or the members)
+CUT_DECODER_LAYERS = 6
+WHISPER_SMALL_CUT = (768, 12, CUT_DECODER_LAYERS, 12, 3072)
 T5_BASE = (768, 12, 12, 12, 2048)
 NWHISPER_BASE, MOONSHINE_TINY = (512, 6, 6, 8, 2048), (288, 6, 6, 8, 1152)
 
@@ -1447,7 +1473,7 @@ def decode_graphs(engines: dict, encs: dict, ids, args, vocab) -> dict:
     replaying CUDA graphs against the same engine stepping eagerly, with the
     same prompt and seed, at B 1 and as a CFG pair (B 2, ``cfg_scale`` 2),
     greedy and with the v32 sampling chain. Tokens and the returned position
-    must be equal. Each decode runs ``DECODE_GRAPH_STEPS`` steps at most,
+    must be equal. Each decode runs to slot ``DECODE_GRAPH_END`` at most,
     which takes it past the prompt's bucket of cached slots into the next."""
     from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline, get_eos_token_ids
 
@@ -1455,7 +1481,7 @@ def decode_graphs(engines: dict, encs: dict, ids, args, vocab) -> dict:
     P = ids.shape[1]
     out = {"cases": [], "engines": {}}
     for name, engine in engines.items():
-        max_length = min(P + DECODE_GRAPH_STEPS, engine.max_length)
+        max_length = min(DECODE_GRAPH_END, engine.max_length)
         captures, capture_s = engine.captures, engine.capture_seconds
         for rows, cfg_scale in ((1, 1.0), (2, 2.0)):
             enc = torch.cat([encs[name]] * rows)
@@ -1548,8 +1574,13 @@ def int8_checks(ckpt: Path):
                      "weights_int8": nbytes(model.state_dict()),
                      "kv_cache_fp32": nbytes(fp_engine.model.init_cache(1, engine.max_length, enc)),
                      "kv_cache_int8": nbytes(model.init_cache(1, engine.max_length, enc))}
+        # the prompt: the fp32 engine's greedy tokens from window 0's first prompt, no EOS, to DECODE_GRAPH_PROMPT
+        long, _ = fp_engine.generate(fp_enc, first["ids"][:1], build_logits_pipeline(vocab, do_sample=False), [],
+                                     max_length=DECODE_GRAPH_PROMPT)
         out["decode_graphs"] = decode_graphs({"fp32": fp_engine, "int8": engine}, {"fp32": fp_enc, "int8": enc},
-                                             first["ids"][:1], args, vocab)
+                                             long[:, :DECODE_GRAPH_PROMPT], args, vocab)
+        # the window and prompt of the parallel phase's tensor-parallel decodes
+        np.savez(ckpt.parent / "tensor_decode.npz", frames=frames, ids=first["ids"][:1])
         greedy_chain = (build_logits_pipeline(vocab, do_sample=False), get_eos_token_ids(vocab))
         steps = {"int8": profile_decode(engine, enc, first["ids"][:1], *greedy_chain, int8=True),
                  "fp32": profile_decode(fp_engine, fp_enc, first["ids"][:1], *greedy_chain, int8=False)}
@@ -1783,7 +1814,8 @@ def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
       TIMING + KIAI + MAP + SV, fp32, the FFT mel) with seeded random weights,
       which are then written as a native checkpoint whose config picks the
       fused mel;
-    * request v31-2: greedy from that checkpoint with int8 weights and KV
+    * request v31-2: greedy from that checkpoint (v31-1's first
+      ``CUT_DECODER_LAYERS`` decoder layers) with int8 weights and KV
       (kernels A and B at v31's shapes; D's GEMV, and its tiles on the
       prefills: the JAX gate sends the encoder's 2 048-row products to the
       plain expression), then ``precompile=true``'s warm-up on its engine;
@@ -1805,8 +1837,12 @@ def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
         if vocab.get_mapper_idx(V31_MAPPER) == vocab.num_mapper_classes:
             raise AssertionError(f"mapper {V31_MAPPER} is not in the v31 vocabulary")
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(engine.model.cfg, spectrogram_implementation="pallas")
-        save_checkpoint(ckpt, cfg, engine.model.state_dict(), vocab)
+        # the first CUT_DECODER_LAYERS decoder layers of v31-1's model
+        cfg = dataclasses.replace(engine.model.cfg, spectrogram_implementation="pallas", backbone=dataclasses.replace(
+            engine.model.cfg.backbone, decoder_layers=CUT_DECODER_LAYERS))
+        cut = [f".decoder.layers.{i}." for i in range(CUT_DECODER_LAYERS, engine.model.cfg.backbone.decoder_layers)]
+        state = {k: v for k, v in engine.model.state_dict().items() if not any(c in k for c in cut)}
+        save_checkpoint(ckpt, cfg, state, vocab)
         return {"checkpoint_s": time.perf_counter() - t0,
                 "checkpoint_bytes": (ckpt / "params.msgpack").stat().st_size}
 
@@ -1821,7 +1857,7 @@ def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
     first = serve("v31-1-defaults", tmp, wav, cond, report, check_encoder=True, after=write_checkpoint, config="v31")
     second = serve("v31-2-int8-fused-mel", tmp, wav,
                    [f"model_path={ckpt}", "quantized_weights=true", "quantized_kv=true", "do_sample=false", *cond],
-                   report, check_encoder=True, after=precompile, config="v31")
+                   report, check_encoder=True, after=precompile, config="v31", widths=WHISPER_SMALL_CUT)
     if first["flash_attention_fwd"] == 0 or first["fused_mel"] != 0 or second["flash_attention_fwd"] == 0 \
             or second["fused_mel"] == 0 or second["qmm"] == 0:
         raise AssertionError(f"v31's requests launched {first} and {second}: B on both, A on v31-2 only, D on "
@@ -1837,7 +1873,8 @@ def v31_phase(tmp: Path, wav: Path, report: dict) -> dict:
     if (fallback.version, fallback.gamemode, fallback.model_path) != ("Mapperatorinator V31", 1, str(ckpt)):
         raise AssertionError(f"MaiMod did not fall back to v31 at the checkpoint: {fallback.version}, "
                              f"gamemode {fallback.gamemode}, {fallback.model_path}")
-    maimod, record = maimod_run("v31 MaiMod", fallback, "a taiko map under the v30 preset (gamemodes [0])")
+    maimod, record = maimod_run("v31 MaiMod", fallback, "a taiko map under the v30 preset (gamemodes [0])",
+                                widths=WHISPER_SMALL_CUT)
     report["v31"] = {"maimod": record}
     return {k: first.get(k, 0) + second.get(k, 0) + maimod.get(k, 0) for k in first}
 
@@ -3564,8 +3601,9 @@ def super_timing_phase(tmp: Path, wav: Path, report: dict) -> dict:
     for (cls, name), fn in zip(patched, (pooled, decoded, ensemble, timing_points)):
         setattr(cls, name, fn)
     try:
-        launches = serve("4-super-timing", tmp, wav, ["super_timing=true", f"timer_iterations={TIMER_ITERATIONS}"],
-                         report, check_encoder=False)
+        launches = serve("4-super-timing", tmp, wav, ["super_timing=true", f"timer_iterations={TIMER_ITERATIONS}",
+                                                      f"train.model.overwrite.decoder_layers={CUT_DECODER_LAYERS}"],
+                         report, check_encoder=False, widths=WHISPER_SMALL_CUT)
     finally:
         for (cls, name), fn in patched.items():
             setattr(cls, name, fn)
@@ -4942,9 +4980,22 @@ PARALLEL_RANKS, PARALLEL_RANK_BATCH, PARALLEL_GRAD_ACC, PARALLEL_RANK_STEPS = 2,
 PARALLEL_FSDP_RANK_BATCH, PARALLEL_FSDP_RANK_STEPS = 4, 2
 PARALLEL_CHECK_BATCH = 4
 PARALLEL_RANK_TIMEOUT = 600
+# (a), (b) and (c) at 6 + 6 layers, cut from 12 + 12: their checkpoints, with (d)'s and (g)'s, put the run past the
+# machine's limit on bytes written to its disk (45 GiB)
+PARALLEL_DEPTH = 6
+PARALLEL_CUT = [f"model.overwrite.encoder_layers={PARALLEL_DEPTH}", f"model.overwrite.decoder_layers={PARALLEL_DEPTH}"]
+PARALLEL_ATTN_PER_STEP = 3 * PARALLEL_DEPTH
 # FSDP's gathered parameters against DDP's after the same updates, their difference relative to their norm, all
 # together and each matrix: the bf16 attention bar (ATTN_TOL)
 PARALLEL_PARAM_TOL = 2e-2
+# (d) tensor-parallel training on the two ranks after (c): 4 rows (the same on both ranks), 2 micro-steps at grad_acc 2
+# (one update), the 12 heads split 6 a rank; cut from 8 rows at grad_acc 1, which took 16.1 and 13.5 s a micro-step
+# (the activations' all-reduces and Muon's gathers through gloo) and the run past its limit. (e) and (f) greedy
+# decode on request 3's first window, the first 8 steps' scores compared; 36 all-reduces a decode step (wo, the
+# cross wo and fc2 of 12 layers); (g) adafactor
+TENSOR_ROWS, TENSOR_STEPS, TENSOR_GRAD_ACC, TENSOR_HEADS = 4, 2, 2, 6
+TENSOR_DECODE_STEPS, TENSOR_LOGIT_STEPS, TENSOR_REDUCES_PER_STEP = 128, 8, 36
+ADAFACTOR_STEPS = 2
 BF16_LOSS_REL = 0.06  # tests/test_torch_bf16_parity.py's bar (REL_TOL), the loss of 2 ranks against one process's
 
 
@@ -4958,41 +5009,106 @@ def free_port() -> int:
 
 def param_checksums(model) -> list[int]:
     """Each parameter's fp32 bit patterns summed as integers (the whole
-    parameter under FSDP, a collective): equal lists mean parameters equal
-    bit for bit, but for a collision."""
+    parameter, in flax order, where it is sharded: a collective): equal
+    lists mean parameters equal bit for bit, but for a collision."""
     from mapperatorinator_tpu_torch.parallel.sharding import gathered
 
-    return [int(gathered(p.detach()).contiguous().view(torch.int32).sum(dtype=torch.int64)) for p in model.parameters()]
+    return [int(gathered(p.detach(), like=p).contiguous().view(torch.int32).sum(dtype=torch.int64))
+            for p in model.parameters()]
 
 
-def parallel_rank(argv: list, log_dir: str, probe: bool) -> None:
-    """One rank of ``parallel_phase``'s spawned runs: ``train.main`` on
-    ``argv``, each micro-step's seconds and launches and, after each update,
-    the parameters' checksums, printed as one ``PARALLEL_RANK`` JSON line
-    with the backend and the peak memory. With ``probe``, it first checks
-    that gloo's reduce-scatter and all-gather take CUDA tensors, and where
-    they do not prints ``GLOO_CUDA_UNSUPPORTED`` and stops."""
-    import torch.distributed as dist
+@contextlib.contextmanager
+def attention_heads(heads: set):
+    """A context in which each ``flash_attention`` call of the model adds its
+    head count to ``heads``."""
+    from mapperatorinator_tpu_torch.models import transformer
 
-    from mapperatorinator_tpu_torch.config import load_train_config
-    from mapperatorinator_tpu_torch.parallel import maybe_initialize, process_index, world_size
+    flash = transformer.flash_attention
+
+    def counted(q, *args, **kwargs):
+        heads.add(int(q.shape[2]))
+        return flash(q, *args, **kwargs)
+
+    transformer.flash_attention = counted
+    try:
+        yield
+    finally:
+        transformer.flash_attention = flash
+
+
+def tensor_mesh(size: int):
+    """A ``DeviceMesh`` of one ``tensor`` axis over the process group."""
+    from mapperatorinator_tpu_torch.parallel import make_global_mesh
+
+    return make_global_mesh(types.SimpleNamespace(mesh_shape=[size], axis_names=["tensor"]), "cuda")
+
+
+def tensor_decode(model, vocab, inputs: Path, mesh=None, count: bool = False) -> dict:
+    """``TENSOR_DECODE_STEPS`` greedy steps of ``model`` (request 3's fp32
+    v32 checkpoint, on the CPU) on request 3's first window and prompt
+    (``inputs``), through ``DecodeEngine`` on the card: whole, or placed on
+    ``mesh``'s tensor axis. The tokens, the end, the first ``TENSOR_LOGIT_STEPS``
+    steps' scores, the graphs captured, whether the engine replays graphs,
+    the B launches (the encoder's) and, with ``count``, the tensor regions'
+    all-reduces issued inside a capture and outside one."""
+    from mapperatorinator_tpu_torch.decode import DecodeEngine
+    from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline, get_eos_token_ids
+    from mapperatorinator_tpu_torch.parallel import shard_params
+    from mapperatorinator_tpu_torch.parallel import tensor as tensor_module
+
+    model = model.to("cuda").eval()
+    if mesh is not None:
+        shard_params(model, mesh, tensor_axis="tensor")
+    with np.load(inputs) as f:
+        frames, ids = f["frames"], f["ids"]
+    P = ids.shape[1]
+    engine = DecodeEngine(model, P + TENSOR_DECODE_STEPS, vocab.pad_id, device="cuda")
+    reduces = {"captured": 0, "eager": 0}
+    reduce = tensor_module.all_reduce_sum
+
+    def counted(x, group):
+        reduces["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return reduce(x, group)
+
+    if count:
+        tensor_module.all_reduce_sum = counted
+    heads: set = set()
+    reset_attention_launches()
+    steps = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with attention_heads(heads):
+            enc = engine.encode_with_cond(frames)
+        tokens, end = engine.generate(enc, ids, build_logits_pipeline(vocab, do_sample=False),
+                                      get_eos_token_ids(vocab), seed=0, step_logits=steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        tensor_module.all_reduce_sum = reduce
+    out = {"tokens": tokens, "end": end, "prompt": P, "seconds": seconds, "captures": engine.captures,
+           "graphed": engine.graphable, "launches": attention_launches(), "heads": sorted(heads),
+           "scores": torch.stack(steps[:TENSOR_LOGIT_STEPS]).cpu().numpy(), "reduces": reduces}
+    del engine, model, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_train(job: dict, dist) -> dict:
+    """A train job of :func:`parallel_rank`: ``train.main`` on ``job["argv"]``,
+    each micro-step's seconds and launches and, after each update, the
+    parameters' checksums; with ``first_update``, the full state dict after
+    the first update, which rank 0 writes there."""
+    from torch.distributed.tensor import DTensor
+
+    from mapperatorinator_tpu_torch.parallel import process_index
     from mapperatorinator_tpu_torch.train import main as train_main
+    from mapperatorinator_tpu_torch.train.loop import full_state_dict
 
     # the data pipeline draws its augmentations from random and np.random: seeded alike in every rank and the parent
     random.seed(0)
     np.random.seed(0)
-    if probe:
-        maybe_initialize(load_train_config("v32", argv[2:]).parallel, "cuda")
-        try:
-            whole = torch.arange(2.0 * world_size(), device="cuda")
-            part = torch.empty(2, device="cuda")
-            dist.reduce_scatter_tensor(part, whole)
-            dist.all_gather_into_tensor(whole, part)
-            torch.cuda.synchronize()
-        except RuntimeError as err:
-            print("GLOO_CUDA_UNSUPPORTED " + json.dumps(str(err)[:400]), flush=True)
-            dist.destroy_process_group()
-            return
     steps = []
     make = train_main.make_train_step
 
@@ -5009,35 +5125,102 @@ def parallel_rank(argv: list, log_dir: str, probe: bool) -> None:
             record = {"s": time.perf_counter() - t0, "launches": {k_: after[k_] - before[k_] for k_ in after}}
             if state.optimizer.count != count:
                 record["checksums"] = param_checksums(state.model)
+                if job.get("first_update") and state.optimizer.count == 1:
+                    full = {n: t.detach().float().cpu() for n, t in full_state_dict(state.model).items()}
+                    if process_index() == 0:
+                        torch.save(full, job["first_update"])
+                    del full
             steps.append(record)
             return out
 
         return run
 
+    heads: set = set()
+    started = time.perf_counter()
     train_main.make_train_step = factory
     torch.cuda.reset_peak_memory_stats()
-    state = train_main.main(argv, log_dir=log_dir)
+    reset_attention_launches()
+    try:
+        with attention_heads(heads):
+            state = train_main.main(job["argv"], log_dir=job["log_dir"])
+    finally:
+        train_main.make_train_step = make
     result = {"rank": process_index(), "backend": dist.get_backend(), "steps": steps, "step": state.step,
               "updates": state.optimizer.count, "final": param_checksums(state.model),
-              "launches": attention_launches(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    print("PARALLEL_RANK " + json.dumps(result), flush=True)
-    dist.destroy_process_group()
+              "launches": attention_launches(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "heads": sorted(heads), "sharded": sum(isinstance(p, DTensor) for p in state.model.parameters()),
+              "job_s": time.perf_counter() - started}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
 
 
-def start_ranks(label: str, argv_of, log_dir: Path, probe: bool = False) -> list:
+def rank_decode(job: dict, dist) -> dict:
+    """A decode job of :func:`parallel_rank`: :func:`tensor_decode` on a
+    tensor axis over the job's group, its scores written to
+    ``job["scores"]`` by rank 0."""
+    from mapperatorinator_tpu_torch.models.io import load_checkpoint
+    from mapperatorinator_tpu_torch.parallel import maybe_initialize, process_index
+
+    started = time.perf_counter()
+    maybe_initialize(types.SimpleNamespace(coordinator_address=job["address"], num_processes=job["world"],
+                                           process_id=job["rank"]), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = tensor_decode(*load_checkpoint(job["checkpoint"]), Path(job["inputs"]), mesh=tensor_mesh(job["world"]))
+    if process_index() == 0:
+        np.save(job["scores"], out["scores"])
+    return {"rank": process_index(), "backend": dist.get_backend(), "tokens": out["tokens"].tolist(),
+            "end": out["end"], "seconds": out["seconds"], "captures": out["captures"], "graphed": out["graphed"],
+            "launches": out["launches"], "heads": out["heads"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "job_s": time.perf_counter() - started}
+
+
+def parallel_rank(jobs: list, probe: bool) -> None:
+    """One process of ``parallel_phase``'s spawned runs: it runs ``jobs`` in
+    turn, each in a process group of its own (``train``: :func:`rank_train`,
+    which joins through ``train.main``'s ``parallel.*`` keys; ``decode``:
+    :func:`rank_decode`), and prints each job's result as one
+    ``PARALLEL_RANK <label>`` JSON line. With ``probe``, it first checks
+    that gloo's reduce-scatter and all-gather take CUDA tensors, and where
+    they do not prints ``GLOO_CUDA_UNSUPPORTED`` and stops."""
+    import torch.distributed as dist
+
+    from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.parallel import maybe_initialize, world_size
+
+    if probe:
+        maybe_initialize(load_train_config("v32", jobs[0]["argv"][2:]).parallel, "cuda")
+        try:
+            whole = torch.arange(2.0 * world_size(), device="cuda")
+            part = torch.empty(2, device="cuda")
+            dist.reduce_scatter_tensor(part, whole)
+            dist.all_gather_into_tensor(whole, part)
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            print("GLOO_CUDA_UNSUPPORTED " + json.dumps(str(err)[:400]), flush=True)
+            dist.destroy_process_group()
+            return
+    for job in jobs:
+        result = (rank_train if job["kind"] == "train" else rank_decode)(job, dist)
+        print(f"PARALLEL_RANK {job['label']} " + json.dumps(result), flush=True)
+        dist.destroy_process_group()
+
+
+def start_ranks(label: str, jobs_of, out_dir: Path, probe: bool = False) -> list:
     """Start :func:`parallel_rank` as ``PARALLEL_RANKS`` processes on the card
-    (``argv_of(rank)`` each), their output to files beside ``log_dir``;
+    (``jobs_of(rank)`` each), their output to files in ``out_dir``;
     :func:`collect_ranks` waits for them."""
     import subprocess
 
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-            "chip_smoke.parallel_rank(json.loads(sys.argv[2]), sys.argv[3], sys.argv[4] == '1')")
+            "chip_smoke.parallel_rank(json.loads(sys.argv[2]), sys.argv[3] == '1')")
     started = []
     for rank in range(PARALLEL_RANKS):
-        out, err = (log_dir.parent / f"{label}_rank{rank}.{kind}" for kind in ("out", "err"))
+        out, err = (out_dir / f"{label}_rank{rank}.{kind}" for kind in ("out", "err"))
         with open(out, "w") as out_f, open(err, "w") as err_f:
             proc = subprocess.Popen([sys.executable, "-X", "faulthandler", "-c", code, str(REPO),
-                                     json.dumps(argv_of(rank)), str(log_dir), "1" if probe else "0"],
+                                     json.dumps(jobs_of(rank)), "1" if probe else "0"],
                                     cwd=REPO, stdout=out_f, stderr=err_f, text=True)
         started.append((proc, out, err))
     return started
@@ -5050,35 +5233,40 @@ def stop_ranks(started: list) -> None:
             proc.wait()
 
 
-def collect_ranks(label: str, started: list):
-    """Wait for :func:`start_ranks`' processes and return each rank's result,
-    or None where the probe found gloo refusing CUDA tensors."""
-    results = []
+def collect_ranks(label: str, started: list) -> dict | None:
+    """Wait for :func:`start_ranks`' processes and return {job label: each
+    rank's result}, or None where the probe found gloo refusing CUDA
+    tensors."""
+    results: dict = {}
     for rank, (proc, out, err) in enumerate(started):
         proc.wait(timeout=PARALLEL_RANK_TIMEOUT)
         text = out.read_text()
         if proc.returncode != 0:
             raise AssertionError(f"{label}: rank {rank} exited {proc.returncode}:\n{text[-2000:]}\n"
                                  f"{err.read_text()[-4000:]}")
-        lines = {line.split(" ", 1)[0]: line.split(" ", 1)[1] for line in text.splitlines()
-                 if line.startswith(("PARALLEL_RANK ", "GLOO_CUDA_UNSUPPORTED "))}
-        if "GLOO_CUDA_UNSUPPORTED" in lines:
+        if any(line.startswith("GLOO_CUDA_UNSUPPORTED ") for line in text.splitlines()):
             print(f"{label}: gloo's reduce-scatter does not take CUDA tensors on this machine "
-                  f"({json.loads(lines['GLOO_CUDA_UNSUPPORTED'])}); the 2-rank FSDP run stays the CPU tests'")
+                  f"({text.split('GLOO_CUDA_UNSUPPORTED ', 1)[1].splitlines()[0]}); the 2-rank FSDP run stays the "
+                  f"CPU tests'")
             return None
-        if "PARALLEL_RANK" not in lines:
-            raise AssertionError(f"{label}: rank {rank} printed no result:\n{text[-2000:]}")
-        results.append(json.loads(lines["PARALLEL_RANK"]))
+        for line in text.splitlines():
+            if line.startswith("PARALLEL_RANK "):
+                job, payload = line[len("PARALLEL_RANK "):].split(" ", 1)
+                results.setdefault(job, []).append(json.loads(payload))
+    if not results or any(len(r) != len(started) for r in results.values()):
+        raise AssertionError(f"{label}: a rank printed no result: {sorted(results)}")
     return results
 
 
-def check_ranks(label: str, ranks: list, micro_steps: int, updates: int, backend: str) -> dict:
+def check_ranks(label: str, ranks: list, micro_steps: int, updates: int, backend: str,
+                per_step: int = ATTN_PER_STEP) -> dict:
     """Every rank ran ``micro_steps`` micro-steps and ``updates`` updates on
-    ``backend``, launched B and C (bf16) once a covered call and nothing
-    else, and held parameters equal bit for bit to every other rank's after
-    every update. Returns the ranks' launches summed."""
+    ``backend``, launched B and C (bf16) once a covered call (``per_step``
+    a micro-step) and nothing else, and held parameters equal bit for bit
+    to every other rank's after every update. Returns the ranks' launches
+    summed."""
     want = {k: 0 for k in attention_launches()}
-    want["flash_attention_fwd_sm90"] = want["flash_attention_bwd_sm90"] = ATTN_PER_STEP * micro_steps
+    want["flash_attention_fwd_sm90"] = want["flash_attention_bwd_sm90"] = per_step * micro_steps
     for r in ranks:
         if (r["step"], r["updates"], r["backend"], r["launches"]) != (micro_steps, updates, backend, want):
             raise AssertionError(f"{label}: rank {r['rank']} ran {r['step']} micro-steps, {r['updates']} updates on "
@@ -5118,7 +5306,7 @@ def relative_differences(got: dict, want: dict) -> tuple[float, list, list]:
     return (diff / size) ** 0.5, [r[:2] for r in rows if r[2] >= 2], [r[:2] for r in rows if r[2] < 2]
 
 
-def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
+def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], list[dict]]:
     """Multi-process training through ``train.main`` with the
     ``parallel.*`` keys, v32 at full width and bf16 on train_phase's set
     (``tmp / "ors"``), on the one card:
@@ -5145,19 +5333,41 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
       card), ``PARALLEL_FSDP_RANK_BATCH`` rows a rank and
       ``PARALLEL_FSDP_RANK_STEPS`` micro-steps, where gloo's reduce-scatter
       takes CUDA tensors (a probe says; where it does not, the phase prints
-      that).
+      that);
+    * (e) the fp32 v32 model of request 3's checkpoint (``tmp /
+      "v32-checkpoint"``) on a tensor axis of 1 over one NCCL rank:
+      ``TENSOR_DECODE_STEPS`` graphed greedy steps of request 3's first
+      window (``tmp / "tensor_decode.npz"``), the graphs capturing the
+      regions' all-reduces, tokens equal to the whole engine's;
+    * (d) in (c)'s processes after it: ``train.main`` at tensor 2 over gloo,
+      ``TENSOR_ROWS`` rows on both ranks, ``TENSOR_STEPS`` micro-steps at
+      ``TENSOR_GRAD_ACC``: B and C once a covered call at ``TENSOR_HEADS``
+      heads, parameters bit-equal across ranks after the update, the first
+      loss within ``BF16_LOSS_REL`` of one process's, the gathered
+      parameters after the first update within ``PARALLEL_PARAM_TOL`` of one
+      process's update on the same rows, rank 0's checkpoint restored
+      unsharded;
+    * (f) in (b)'s processes after it: (e)'s decode at tensor 2 over gloo,
+      eager (the engine's rule), tokens against (e)'s, the first
+      ``TENSOR_LOGIT_STEPS`` steps' scores within ``ENC_TOL`` of the whole
+      engine's;
+    * (g) ``optim.name=adafactor`` through ``train.main`` on one card,
+      ``ADAFACTOR_STEPS`` micro-steps at batch 32, peak GiB beside Muon's
+      (``report["training"]``);
+    * B and C at a rank's heads of (c)'s 8-row calls, timed beside SDPA.
 
     Prints seconds a micro-step, peak GiB, the backend and the B and C
     launches of every rank beside the card. Returns the main paths'
-    launches (the train.main runs, every rank's) and the fixed-batch
-    checks'."""
+    launches (the train.main runs and decodes, every rank's), the
+    fixed-batch checks' and the rank-heads rows of B and C."""
     import subprocess
 
     import torch.distributed as dist
 
     from mapperatorinator_tpu_torch.config import load_train_config
+    from mapperatorinator_tpu_torch.models.io import load_checkpoint
     from mapperatorinator_tpu_torch.osu import BeatmapParser, build_vocabulary
-    from mapperatorinator_tpu_torch.parallel import replicate
+    from mapperatorinator_tpu_torch.parallel import maybe_initialize, replicate
     from mapperatorinator_tpu_torch.parallel.sharding import any_sharded
     from mapperatorinator_tpu_torch.train import main as train_main
     from mapperatorinator_tpu_torch.train.loop import CheckpointManager, card_line, full_state_dict
@@ -5188,9 +5398,9 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
         for k in into:
             into[k] += launches[k]
 
-    def bf16_launches(micro_steps: int) -> dict:
-        return {**zero, "flash_attention_fwd_sm90": ATTN_PER_STEP * micro_steps,
-                "flash_attention_bwd_sm90": ATTN_PER_STEP * micro_steps}
+    def bf16_launches(micro_steps: int, per_step: int = ATTN_PER_STEP) -> dict:
+        return {**zero, "flash_attention_fwd_sm90": per_step * micro_steps,
+                "flash_attention_bwd_sm90": per_step * micro_steps}
 
     # the fixed batch: one update, twice without a process group
     check_args = load_train_config("v32", data_overrides(ors) + [
@@ -5235,7 +5445,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = attention_launches()
-        if launches != bf16_launches(PARALLEL_STEPS) or state.step != PARALLEL_STEPS \
+        if launches != bf16_launches(PARALLEL_STEPS, PARALLEL_ATTN_PER_STEP) or state.step != PARALLEL_STEPS \
                 or state.optimizer.count != PARALLEL_STEPS:
             raise AssertionError(f"parallel ({label}): {state.step} micro-steps, {state.optimizer.count} updates, "
                                  f"launched {launches}")
@@ -5254,7 +5464,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     port = free_port()
     group = [f"parallel.coordinator_address=127.0.0.1:{port}", "parallel.num_processes=1", "parallel.process_id=0"]
     state, record["a"] = run_main("a, DDP, 1 rank", train_overrides(ors, work / "a_ckpt", PARALLEL_BATCH, 1,
-                                                                   PARALLEL_STEPS) + group)
+                                                                   PARALLEL_STEPS) + group + PARALLEL_CUT)
     if record["a"]["backend"] != "nccl" or state.replica is None:
         raise AssertionError(f"parallel (a): backend {record['a']['backend']}, replica {type(state.replica)}")
     after_a = {n: p.detach().float().cpu() for n, p in state.model.named_parameters()}
@@ -5278,7 +5488,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     lap("fixed batch, the update under DDP")
 
     state, record["c"] = run_main("c, FSDP, 1 rank", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1,
-                                                                    PARALLEL_STEPS) + group
+                                                                    PARALLEL_STEPS) + group + PARALLEL_CUT
                                   + ["parallel.fsdp_axis=data"])
     if not any_sharded(state.model.parameters()):
         raise AssertionError("parallel (c): no parameter is sharded")
@@ -5291,7 +5501,8 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     dist.destroy_process_group()
-    args = load_train_config("v32", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1, PARALLEL_STEPS))
+    args = load_train_config("v32", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1, PARALLEL_STEPS)
+                             + PARALLEL_CUT)
     fresh, _, _ = train_main.build_model_and_data(args, cuda)
     restored = CheckpointManager(work / "c_ckpt").restore(TrainState(0, fresh, build_optimizer(
         args, named_flax_params(fresh))))
@@ -5309,64 +5520,124 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     lap("c, 1 rank, and its restore")
 
-    # (b) and (c) on two ranks sharing the card, the four processes at once: (c) at PARALLEL_FSDP_RANK_BATCH rows a
-    # rank, so that (b)'s 2 x 21.4 GiB and (c)'s 2 x ~11 GiB fit the card together
-    runs = {"b": ([], PARALLEL_RANK_BATCH, PARALLEL_RANK_STEPS),
-            "c2": (["parallel.fsdp_axis=data"], PARALLEL_FSDP_RANK_BATCH, PARALLEL_FSDP_RANK_STEPS)}
+    # (e) one NCCL rank with a tensor axis of 1: the graphed decode captures the regions' all-reduces
+    ckpt, inputs = tmp / "v32-checkpoint", tmp / "tensor_decode.npz"
+    loaded, decode_vocab = load_checkpoint(ckpt)
+    single = tensor_decode(copy.deepcopy(loaded), decode_vocab, inputs)
+    maybe_initialize(types.SimpleNamespace(coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1,
+                                           process_id=0), "cuda")
+    e = tensor_decode(loaded, decode_vocab, inputs, mesh=tensor_mesh(1), count=True)
+    del loaded
+    record["e"] = {k: v for k, v in e.items() if k not in ("tokens", "scores")}
+    record["e"].update(backend=dist.get_backend(), tokens_equal=bool(np.array_equal(e["tokens"], single["tokens"])),
+                       single_end=single["end"], single_seconds=single["seconds"])
+    dist.destroy_process_group()
+    add(main_launches, e["launches"])
+    per_step = TENSOR_REDUCES_PER_STEP * e["captures"]
+    print(f"parallel (e, a tensor axis of 1 on one NCCL rank): {e['end'] - e['prompt']} greedy steps of request 3's "
+          f"first window (fp32) in {e['seconds']:.2f} s against {single['seconds']:.2f} s whole; {e['captures']} graph"
+          f"(s) captured with {e['reduces']['captured']} all-reduces (want {per_step}: {TENSOR_REDUCES_PER_STEP} a "
+          f"step), {e['reduces']['eager']} eager; tokens equal the ungrouped engine's: "
+          f"{record['e']['tokens_equal']} (ends {e['end']}, {single['end']}); B {e['launches']} at heads "
+          f"{e['heads']} ({card})")
+    if not (record["e"]["tokens_equal"] and e["end"] == single["end"] and e["graphed"] and e["captures"] > 0
+            and e["reduces"]["captured"] == per_step and record["e"]["backend"] == "nccl"):
+        raise AssertionError(f"parallel (e): {record['e']}")
+    lap("e, decode on a tensor axis of 1")
+
+    # (b), (c) and (d) on two ranks sharing the card, the four processes at once: (b)'s ranks run (f) after it, (c)'s
+    # ranks (d); (c) at PARALLEL_FSDP_RANK_BATCH rows a rank, so that (b)'s 2 x 21.4 GiB and (c)'s 2 x ~11 GiB fit
+    # the card together
+    runs = {"b": ([], PARALLEL_RANK_BATCH, PARALLEL_RANK_STEPS, PARALLEL_GRAD_ACC),
+            "c2": (["parallel.fsdp_axis=data"], PARALLEL_FSDP_RANK_BATCH, PARALLEL_FSDP_RANK_STEPS, PARALLEL_GRAD_ACC),
+            "d": (['parallel.axis_names=["tensor"]', f"parallel.mesh_shape=[{PARALLEL_RANKS}]",
+                   "parallel.tensor_axis=tensor"], TENSOR_ROWS, TENSOR_STEPS, TENSOR_GRAD_ACC)}
+
+    def global_rows(label: str) -> int:  # the tensor ranks feed the same rows
+        _, rows, _, _ = runs[label]
+        return rows if label == "d" else PARALLEL_RANKS * rows
 
     def overrides(label: str) -> list:
-        _, rows, micro_steps = runs[label]
-        return train_overrides(ors, work / f"{label}_ckpt", PARALLEL_RANKS * rows, PARALLEL_GRAD_ACC, micro_steps)
+        _, _, micro_steps, grad_acc = runs[label]
+        return (train_overrides(ors, work / f"{label}_ckpt", global_rows(label), grad_acc, micro_steps)
+                + (PARALLEL_CUT if label != "d" else []))
 
-    def ranks_argv(label: str):
-        port_ = free_port()
-        return lambda rank: ["-cn", "v32", *overrides(label), f"parallel.coordinator_address=127.0.0.1:{port_}",
-                             f"parallel.num_processes={PARALLEL_RANKS}", f"parallel.process_id={rank}",
-                             *runs[label][0]]
+    ports = {label: free_port() for label in ("b", "c2", "d", "f")}
 
-    # one process's loss on each run's first global batch (the ranks' rows together)
-    model = None
-    one_loss = {}
-    for label, (_, rows, _) in runs.items():
-        args = load_train_config("v32", data_overrides(ors) + ["dataloader.num_workers=0",
-                                                               "dataloader.balancer_buffer_size=0",
-                                                               f"optim.batch_size={PARALLEL_RANKS * rows}"])
-        random.seed(0)
-        np.random.seed(0)
-        first = next(iter(train_main.make_batch_factory(args, BeatmapParser(args, vocab), vocab)(False)))
-        if model is None:
-            model, _, _ = train_main.build_model_and_data(args, cuda)
-            model.train()
-        reset_attention_launches()
-        with torch.no_grad():
-            one_loss[label] = model(**to_device(first, cuda))[1].item()
-        add(check_launches, attention_launches())
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    lap("one-process losses")
+    def train_job(label: str, rank: int) -> dict:
+        return {"kind": "train", "label": label, "log_dir": str(work / f"{label}_logs"),
+                "first_update": str(work / "d_first_update.pt") if label == "d" else None,
+                "argv": ["-cn", "v32", *overrides(label), f"parallel.coordinator_address=127.0.0.1:{ports[label]}",
+                         f"parallel.num_processes={PARALLEL_RANKS}", f"parallel.process_id={rank}", *runs[label][0]]}
 
+    def decode_job(rank: int) -> dict:
+        return {"kind": "decode", "label": "f", "address": f"127.0.0.1:{ports['f']}", "world": PARALLEL_RANKS,
+                "rank": rank, "checkpoint": str(ckpt), "inputs": str(inputs), "scores": str(work / "f_scores.npy")}
+
+    # the four processes start first; the one-process references below run beside them
     t0 = time.perf_counter()
-    started_ranks = {label: start_ranks(f"parallel ({label})", ranks_argv(label), work / f"{label}_logs",
-                                        probe=bool(extra)) for label, (extra, _, _) in runs.items()}
+    jobs = {"b": lambda rank: [train_job("b", rank), decode_job(rank)],
+            "c2": lambda rank: [train_job("c2", rank), train_job("d", rank)]}
+    started_ranks = {label: start_ranks(f"parallel_{label}", jobs[label], work, probe=label == "c2")
+                     for label in jobs}
     try:
-        results = {label: collect_ranks(f"parallel ({label})", procs) for label, procs in started_ranks.items()}
+        # one process's loss on each run's first global batch (the ranks' rows together); for (d) also its first
+        # update (TENSOR_GRAD_ACC micro-steps, the schedule stretched by the process count, as train.main's); the
+        # calls of (c)'s 8 rows, whose first 6 heads are a rank's calls at B 8
+        model = None
+        one_loss, calls = {}, {}
+        for label in runs:
+            args = load_train_config("v32", data_overrides(ors) + ["dataloader.num_workers=0",
+                                                                   "dataloader.balancer_buffer_size=0",
+                                                                   f"optim.batch_size={global_rows(label)}"]
+                                     + (PARALLEL_CUT if label != "d" else []))
+            random.seed(0)
+            np.random.seed(0)
+            batches = iter(train_main.make_batch_factory(args, BeatmapParser(args, vocab), vocab)(False))
+            first = next(batches)
+            if label in ("b", "d"):  # (b) and (c) at the cut depth, (d) at v32's
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+                model, _, _ = train_main.build_model_and_data(args, cuda)
+                model.train()
+            reset_attention_launches()
+            with torch.no_grad(), (capture_flash_calls(calls) if label == "c2" else contextlib.nullcontext()):
+                one_loss[label] = model(**to_device(first, cuda))[1].item()
+            add(check_launches, attention_launches())
+            if label == "d":
+                d_args = load_train_config("v32", overrides("d") + runs["d"][0])
+                state = TrainState(0, model, build_optimizer(d_args, named_flax_params(model),
+                                                             num_processes=PARALLEL_RANKS))
+                reset_attention_launches()
+                step = make_train_step()
+                for batch in [first] + [next(batches) for _ in range(TENSOR_GRAD_ACC - 1)]:
+                    step(state, batch)
+                add(check_launches, attention_launches())
+                d_one = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+                del state
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        collected = {label: collect_ranks(f"parallel ({label})", procs) for label, procs in started_ranks.items()}
     finally:
         for procs in started_ranks.values():
             stop_ranks(procs)
     wall = time.perf_counter() - t0
-    lap("b and c2, 2 ranks each, at once")
-    for label, ranks in results.items():
-        extra, rows, micro_steps = runs[label]
-        if ranks is None:
-            record[label] = {"skipped": "gloo's reduce-scatter does not take CUDA tensors"}
-            continue
-        add(main_launches, check_ranks(f"parallel ({label})", ranks, micro_steps, micro_steps // PARALLEL_GRAD_ACC,
-                                       "gloo"))
+    lap("b then f, c2 then d: 2 ranks each, at once, beside the one-process references")
+    if collected["c2"] is None:
+        raise AssertionError("parallel (f): gloo does not take CUDA tensors on this machine: no tensor-parallel "
+                             "decode over gloo")
+    results = {**collected["b"], **collected["c2"]}
+    for label in ("b", "c2", "d"):
+        extra, rows, micro_steps, grad_acc = runs[label]
+        ranks = results[label]
+        add(main_launches, check_ranks(f"parallel ({label})", ranks, micro_steps, micro_steps // grad_acc, "gloo",
+                                       ATTN_PER_STEP if label == "d" else PARALLEL_ATTN_PER_STEP))
         losses = [r["train/loss"] for r in metrics_steps(work / f"{label}_logs")]
         rel = abs(losses[0] - one_loss[label]) / abs(one_loss[label])
         same = True
-        if label == "b":  # rank 0's checkpoint, restored here
+        if label in ("b", "d"):  # rank 0's checkpoint, restored here unsharded
             ckpt_args = load_train_config("v32", overrides(label))
             fresh, _, _ = train_main.build_model_and_data(ckpt_args, cuda)
             restored = CheckpointManager(work / f"{label}_ckpt").restore(TrainState(0, fresh, build_optimizer(
@@ -5375,26 +5646,108 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
             del fresh, restored
             gc.collect()
             torch.cuda.empty_cache()
-            lap("b's restore")
+            lap(f"{label}'s restore")
         record[label] = {"wall_s": wall, "ranks": ranks, "losses": losses, "one_process_loss": one_loss[label],
                          "relative": rel, "restored_equal": same, "rows": rows}
-        kind = "FSDP" if extra else "DDP"
+        kind = {"b": "DDP", "c2": "FSDP", "d": "tensor parallel"}[label]
+        rows_text = f"{rows} rows, the same on both ranks" if label == "d" else f"{rows} rows a rank"
         print(f"parallel ({label}, {kind}, {PARALLEL_RANKS} ranks sharing the card over gloo, beside the other "
-              f"run's two): {micro_steps} micro-steps of {rows} rows a rank at grad_acc {PARALLEL_GRAD_ACC}, both "
-              f"runs in {wall:.1f} s (start, build, data and the checkpoints included), parameters bit-equal across "
-              f"ranks after every update, losses {[round(x, 4) for x in losses]}; the first against one process on "
-              f"the same {PARALLEL_RANKS * rows} rows {one_loss[label]:.4f} (relative {rel:.2e}, bar "
-              f"{BF16_LOSS_REL:g})" + (f"; rank 0's checkpoint restored equal {same}" if label == "b" else ""))
+              f"run's two): {micro_steps} micro-steps of {rows_text} at grad_acc {grad_acc}, the runs in {wall:.1f} s "
+              f"(start, build, data and the checkpoints included), parameters bit-equal across ranks after every "
+              f"update, losses {[round(x, 4) for x in losses]}; the first against one process on the same "
+              f"{global_rows(label)} rows {one_loss[label]:.4f} (relative {rel:.2e}, bar {BF16_LOSS_REL:g})"
+              + (f"; rank 0's checkpoint restored equal {same}" if label in ("b", "d") else ""))
         for r in ranks:
             print(f"  rank {r['rank']}: backend {r['backend']}, s a micro-step {[round(s['s'], 3) for s in r['steps']]}"
-                  f", peak {r['peak_gib']:.2f} GiB, launches {r['launches']} ({card})")
+                  f", peak {r['peak_gib']:.2f} GiB, launches {r['launches']} at heads {r['heads']} ({card})")
         if rel > BF16_LOSS_REL or not same:
             raise AssertionError(f"parallel ({label}): loss {losses[0]} against {one_loss[label]}, restored equal "
                                  f"{same}")
+    # (d): every covered call of each rank at its 6 heads, and the parameters after the first update
+    d_ranks = results["d"]
+    if any(r["heads"] != [TENSOR_HEADS] or r["sharded"] == 0 for r in d_ranks):
+        raise AssertionError(f"parallel (d): heads {[r['heads'] for r in d_ranks]}, sharded "
+                             f"{[r['sharded'] for r in d_ranks]}")
+    d_ranks_first = torch.load(work / "d_first_update.pt", weights_only=True)
+    overall, matrices, vectors = relative_differences(d_ranks_first, d_one)
+    record["d"]["vs_one_process"] = {"overall": overall, "worst_matrix": matrices[:3], "worst_vector": vectors[:3],
+                                     "tol": PARALLEL_PARAM_TOL}
+    print(f"parallel (d): the gathered parameters after the first update against one process's update on the same "
+          f"{TENSOR_GRAD_ACC} x {TENSOR_ROWS} rows, relative in norm (tol {PARALLEL_PARAM_TOL:g}; the key biases' key "
+          f"parts aside): all "
+          f"together {overall:.3e}, the worst matrix {matrices[0][0]:.3e} ({matrices[0][1]}); the worst vector "
+          f"{vectors[0][0]:.3e} ({vectors[0][1]}; reported, not held)")
+    if overall > PARALLEL_PARAM_TOL or matrices[0][0] > PARALLEL_PARAM_TOL:
+        raise AssertionError(f"parallel (d): {record['d']['vs_one_process']}")
+    del d_ranks_first, d_one
+
+    # (f): two gloo ranks at tensor 2, eager, against (e) and the whole engine
+    f_ranks = results["f"]
+    scores = np.load(work / "f_scores.npy")
+    want = single["scores"]
+    finite = np.isfinite(want)
+    score_err = float(np.abs(scores[finite] - want[finite]).max()) if finite.any() else 0.0
+    score_tol = ENC_TOL * float(np.abs(want[finite]).max())
+    agree = [float(np.mean(np.asarray(r["tokens"]) == e["tokens"])) for r in f_ranks]
+    record["f"] = {"ranks": [{k: v for k, v in r.items() if k != "tokens"} for r in f_ranks], "agree_with_e": agree,
+                   "scores_err": score_err, "scores_tol": score_tol,
+                   "same_mask": bool(np.array_equal(np.isfinite(scores), finite))}
+    for r in f_ranks:
+        add(main_launches, r["launches"])
+    print(f"parallel (f, a tensor axis of 2 on two gloo ranks, eager): {f_ranks[0]['end'] - e['prompt']} greedy "
+          f"steps in {[round(r['seconds'], 2) for r in f_ranks]} s a rank; tokens agree with (e)'s at {agree}; the "
+          f"first {TENSOR_LOGIT_STEPS} steps' scores against the whole engine's: largest difference {score_err:.3e} "
+          f"(tol {score_tol:.3e}: {ENC_TOL:g} x the largest); B {f_ranks[0]['launches']} a rank at heads "
+          f"{f_ranks[0]['heads']}, graphed {f_ranks[0]['graphed']} ({card})")
+    if any(r["graphed"] or r["backend"] != "gloo" or r["heads"] != [TENSOR_HEADS] for r in f_ranks) \
+            or f_ranks[0]["tokens"] != f_ranks[1]["tokens"] or score_err > score_tol or not record["f"]["same_mask"]:
+        raise AssertionError(f"parallel (f): {record['f']}")
+
+    # (g) adafactor, one process at v32's recipe batch
+    g_steps = []
+    random.seed(0)
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_launches()
+    with timed_steps(train_main, "make_train_step", g_steps):
+        state = train_main.main(["-cn", "v32", *train_overrides(ors, work / "g_ckpt", PARALLEL_BATCH, 2,
+                                                                 ADAFACTOR_STEPS), "optim.name=adafactor"],
+                                log_dir=str(work / "g_logs"))
+    torch.cuda.synchronize()
+    g_launches = attention_launches()
+    g_losses = [r["train/loss"] for r in metrics_steps(work / "g_logs")]
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    muon_peak = report.get("training", {}).get("peak_mem_gib")
+    record["g"] = {"steps": g_steps, "losses": g_losses, "peak_gib": g_peak, "muon_peak_gib": muon_peak,
+                   "launches": g_launches}
+    inner = state.optimizer
+    while hasattr(inner, "inner"):
+        inner = inner.inner
+    record["g"]["optimizer"] = type(inner).__name__
+    add(main_launches, g_launches)
+    print(f"parallel (g, adafactor on one card): {ADAFACTOR_STEPS} micro-steps of {PARALLEL_BATCH} rows at grad_acc "
+          f"2, s a micro-step {[round(x['s'], 3) for x in g_steps]}, losses {[round(x, 4) for x in g_losses]}, peak "
+          f"{g_peak:.2f} GiB against Muon's {muon_peak if muon_peak is None else round(muon_peak, 2)} GiB (the bf16 "
+          f"training phase, the same batch), launches {g_launches} ({card})")
+    if g_launches != bf16_launches(ADAFACTOR_STEPS) or state.step != ADAFACTOR_STEPS or state.optimizer.count != 1 \
+            or record["g"]["optimizer"] != "Adafactor" or not all(math.isfinite(x) for x in g_losses):
+        raise AssertionError(f"parallel (g): {record['g']}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("g, adafactor")
+
+    # B and C at a rank's 6 heads of the calls of (c)'s 8 rows (the one-process forward's inputs, its first 6 heads)
+    rank_calls = {(T, S, TENSOR_HEADS, *rest): tuple(x if x is None or x.dim() < 4
+                                                     else x[:, :, :TENSOR_HEADS].contiguous() for x in tensors)
+                  for (T, S, _, *rest), tensors in calls.items()}
+    fwd_rows, bwd_rows = backbone_attention("tensor-parallel v32 (a rank's heads)", rank_calls)
+    lap("B and C at a rank's heads")
     record["phase_s"] = time.perf_counter() - started
     print(f"parallel phase: {record['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in record['part_s'].items())}"
           f"), launches {main_launches} (fixed-batch checks {check_launches})")
-    return main_launches, check_launches
+    return main_launches, check_launches, fwd_rows, bwd_rows
 
 
 # the single-card tools (tools_phase), at full width on the artifacts earlier phases wrote: the eval harness
@@ -5789,6 +6142,12 @@ def main() -> int:
               "requests": []}
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
+    phase_s, last = {}, [started]
+
+    def mark(name: str) -> None:  # each phase's seconds, for PERF.md's breakdown of the run
+        now = time.perf_counter()
+        phase_s[name], last[0] = now - last[0], now
+        print(f"chip_smoke: {name} took {phase_s[name]:.1f} s ({now - started:.1f} s from the start)", flush=True)
 
     t0 = time.perf_counter()
     logs = _build.build("flash_attention", "flash_attention_sm90", "fused_mel", "qmm", "difficulty")
@@ -5797,18 +6156,23 @@ def main() -> int:
     print(f"built flash_attention.cu, flash_attention_sm90.cu, fused_mel.cu and qmm.cu for sm_90a and "
           f"difficulty.cpp in {report['build_s']:.1f} s")
 
+    mark("build")
     check_attention(report)
     kernels = [*time_attention_fp32(report), check_mel(report), time_qmm_cold(report), check_qmm(report),
                *check_attention_sm90(report)]
+    mark("kernel checks")
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         wav = write_wav(tmp / "song.wav", AUDIO_SECONDS)
         first = serve("1-v32-default", tmp, wav, [], report, check_encoder=True)
+        mark("request 1")
         second = serve("2-greedy-fused-mel", tmp, wav,
                        ["do_sample=false", "train.model.spectrogram.implementation=pallas"],
                        report, check_encoder=False)
+        mark("request 2")
         third = int8_request(tmp, wav, report)
+        mark("request 3 and its checks")
         if first["flash_attention_fwd"] == 0 or second["flash_attention_fwd"] == 0 or second["fused_mel"] == 0 \
                 or third["qmm"] == 0 or third["qmm_tc"] == 0 or third["flash_attention_fwd"] == 0:
             raise AssertionError(f"a kernel of the serving path never launched: {first}, {second}, {third}")
@@ -5816,21 +6180,37 @@ def main() -> int:
         print(f"serving: the three requests generated {tokens} tokens (seeded random weights, greedy decoding "
               f"with near-ties: a count is a property of the seed and the kernels' rounding)")
         maimod = maimod_phase(tmp, wav, report["requests"][1]["osu_path"], report)
+        mark("maimod")
         super_timing = super_timing_phase(tmp, wav, report)
+        mark("super timing")
         server = server_phase(tmp, wav, report)
+        mark("server")
         v31 = v31_phase(tmp, wav, report)
+        mark("v31")
         dit, dit_rows = dit_phase(tmp, wav, report)
+        mark("dit")
         whisper, whisper_entries = whisper_phase(tmp, report)
+        mark("whisper")
         t5, t5_entries = t5_phase(tmp, report)
+        mark("t5")
         ngpt, ngpt_entries = ngpt_phase(tmp, report)
+        mark("ngpt")
         moonshine, moonshine_entries, moonshine_bwd_rows = moonshine_phase(tmp, report)
+        mark("moonshine")
         evaluated, eval_rows = eval_phase(tmp, wav, report)
+        mark("eval")
         trained, trained_fp32, checked = train_phase(tmp, report)
+        mark("train")
         finetuned, lora_served = finetune_phase(tmp, report)
+        mark("finetune")
         aux_trained, aux_checked, aux_fwd_rows, aux_bwd_rows = aux_train_phase(tmp, report)
+        mark("aux train")
         backbone_trained, backbone_checked, backbone_fwd_rows, backbone_bwd_rows = backbone_train_phase(tmp, report)
-        parallel_trained, parallel_checked = parallel_phase(tmp, report)
+        mark("backbone train")
+        parallel_trained, parallel_checked, parallel_fwd_rows, parallel_bwd_rows = parallel_phase(tmp, report)
+        mark("parallel")
         tools, tools_rows = tools_phase(tmp, report)
+        mark("tools")
     # kernel B's entry gains the DiT's, the evaluation models', the auxiliary trainers' and the eval harness's
     # shapes and their errors; C's fp32 entry the auxiliary trainers'
     fwd = next(entry for entry in kernels if entry["name"] == "flash_attention_fwd")
@@ -5849,8 +6229,8 @@ def main() -> int:
         if entry["name"] in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
             route = "fp32" if entry["name"] == "flash_attention_bwd" else "sm90"
             entry.setdefault("shapes", []).extend(row for row in moonshine_bwd_rows if row["route"] == route)
-        rows = {"flash_attention_fwd_sm90": backbone_fwd_rows, "flash_attention_bwd_sm90": backbone_bwd_rows}.get(
-            entry["name"], [])
+        rows = {"flash_attention_fwd_sm90": backbone_fwd_rows + parallel_fwd_rows,
+                "flash_attention_bwd_sm90": backbone_bwd_rows + parallel_bwd_rows}.get(entry["name"], [])
         if rows:
             entry.setdefault("shapes", []).extend(rows)
             entry["max_abs_err"] = max(entry["max_abs_err"], *(e for row in rows for e in row["max_abs_err"].values()))
@@ -5881,8 +6261,10 @@ def main() -> int:
                                   "auxiliary training (DiT-B, the classifier, OsuR)": aux_trained,
                                   "backbone training (v29, v28, T5-base, NWhisper-base, moonshine-tiny; bf16)":
                                       backbone_trained,
-                                  "multi-process training (v32 bf16: DDP and FSDP on one NCCL rank, DDP and FSDP "
-                                  "on two gloo ranks sharing the card; every rank's)": parallel_trained,
+                                  "multi-process training and serving (v32 bf16: DDP and FSDP on one NCCL rank, DDP, "
+                                  "FSDP and the tensor axis on two gloo ranks sharing the card; fp32 decode on a "
+                                  "tensor axis of 1 (NCCL) and 2 (gloo); adafactor on one card; every rank's)":
+                                      parallel_trained,
                                   "single-card tools (the eval harness, dit_test_toy, plot_self_similarity, the "
                                   "web UI's generation and MaiMod jobs)": tools,
                                   "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32, the five "
@@ -5903,6 +6285,7 @@ def main() -> int:
         raise AssertionError(f"the port's path imported {loaded}")
     report["card"] = card
     report["kernels"] = kernels
+    report["phase_s"] = phase_s
     report["total_s"] = time.perf_counter() - started
     print(f"chip_smoke: {report['total_s']:.1f} s from start to here (the build included)")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -40,6 +40,14 @@ draw a step as ``torch.multinomial`` draws it, so graph and eager steps (and
 ``jax.random``: the two frameworks' streams differ, so sampled tokens are
 compared through the processed logits, and greedy decode token for token.
 
+A model placed on the tensor axis (:func:`..parallel.sharding.shard_params`)
+serves through the same engine, every rank calling it with the same inputs:
+the caches hold the rank's heads and the logits are whole on every rank. A
+graph captures the step's all-reduces where the tensor group is NCCL's;
+under a gloo tensor group, whose collectives run on the host and cannot be
+captured, :meth:`generate` steps eagerly (the rule is printed when the
+engine is made).
+
 The other entry points of the JAX engine: :meth:`DecodeEngine.forward` and
 :meth:`DecodeEngine.forward_stats` (teacher-forced logits, and the per-token
 analysis statistics reduced on the device), :meth:`DecodeEngine.generate_forced`
@@ -57,6 +65,7 @@ import torch
 
 from ..models.transformer import decode_read_limit
 from ..ops import launches
+from ..parallel.tensor import tensor_group_of
 from .logits import LogitsPipeline, LogitsState
 
 COND_IDS = frozenset({"beatmap_idx", "mapper_idx"})  # the conditions that are ids
@@ -161,6 +170,13 @@ class DecodeEngine:
         self._states: dict[tuple, _DecodeState] = {}
         self._pool = None  # the graphs' shared memory pool
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        # the tensor group's collectives are captured only where NCCL runs them on the card
+        tg = tensor_group_of(model)
+        self.graphable = tg is None or tg.backend == "nccl"
+        if tg is not None and self.device.type == "cuda":
+            print(f"DecodeEngine: tensor axis of {tg.size} on {tg.backend}: "
+                  + ("CUDA graphs capture its all-reduces" if self.graphable
+                     else "eager steps (gloo's collectives run on the host and cannot be captured)"), flush=True)
 
     @torch.inference_mode()
     def encode_with_cond(self, frames, cond: Optional[dict] = None) -> torch.Tensor:
@@ -209,7 +225,7 @@ class DecodeEngine:
         self._start(state, chain, encoder_states, decoder_input_ids, decoder_attention_mask, eos_ids)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         graphs = state.graphs.setdefault((pipeline, cfg_scale), {})
-        graphed = self.use_graphs and self.device.type == "cuda"
+        graphed = self.use_graphs and self.device.type == "cuda" and self.graphable
         bucket = self.model.cfg.backbone.decode_attend_bucket
         first_logits = len(step_logits) if step_logits is not None else 0
         cur_len = P_orig  # the host's count of the device's write position

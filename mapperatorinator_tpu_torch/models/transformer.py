@@ -60,6 +60,10 @@ captured in a CUDA graph. The KV cache is preallocated and updated in place (the
 returns a new cache; the dicts returned here are the same objects that were
 passed in).
 
+On the tensor axis (``parallel.tensor_axis``) each attention and
+feed-forward block computes on its rank's share (:class:`TensorBlock`,
+:mod:`..parallel.tensor`), where GSPMD partitions the unchanged JAX modules.
+
 The int8 options follow the JAX package too: ``quantized_weights`` makes
 every attention projection, feed-forward layer and untied LM head a
 :class:`QDense` (int8 kernel, fp32 per-column scale, routed through kernel D
@@ -83,6 +87,7 @@ from torch.nn import functional as F
 
 from ..ops.attention_kernel import NEG_INF, flash_attention
 from ..ops.qmm_kernel import qmm, qmm_plain, qmm_supported
+from ..parallel.tensor import column, row, whole_columns, whole_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,8 +193,13 @@ class Dense(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x, self.weight, self.bias)
+
+    def linear(self, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The layer's product with the given weight and bias (a tensor
+        rank's shards of them, :mod:`..parallel.tensor`)."""
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+        return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
 
 
 class QDense(nn.Module):
@@ -388,10 +398,9 @@ class NormDense(Dense):
         super().__init__(in_features, out_features, bias, compute_dtype)
         self.norm_dim_in = norm_dim_in
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        weight = l2norm(self.weight.float(), dim=1 if self.norm_dim_in else 0)
-        return F.linear(x.to(dt), weight.to(dt), None if self.bias is None else self.bias.to(dt))
+    def linear(self, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        # per output row (norm_dim_in) or per input column: local to a column or a row shard
+        return super().linear(x, l2norm(weight.float(), dim=1 if self.norm_dim_in else 0), bias)
 
 
 class HyperResidual(nn.Module):
@@ -537,11 +546,38 @@ def attend(q, k, v, mask: Optional[torch.Tensor], dtype: torch.dtype, bias: Opti
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-class Attention(nn.Module):
+class TensorBlock(nn.Module):
+    """A block whose projections may lie on the tensor axis: ``tp`` is its
+    :class:`..parallel.tensor.TensorGroup` (None: whole, the module's own
+    layers), set by :func:`..parallel.sharding.shard_params`. On a rank's
+    heads (``tp.local``) a column projection gives the rank's columns and a
+    row projection sums the ranks' partial products; otherwise each gives
+    the whole output on every rank."""
+
+    tp = None
+
+    def _col(self, dense, x: torch.Tensor) -> torch.Tensor:
+        tg = self.tp
+        if tg is None:
+            return dense(x)
+        return column(dense, x, tg) if tg.local else whole_columns(dense, x, tg)
+
+    def _row(self, dense, y: torch.Tensor) -> torch.Tensor:
+        tg = self.tp
+        if tg is None:
+            return dense(y)
+        return row(dense, y, tg) if tg.local else whole_rows(dense, y, tg)
+
+
+class Attention(TensorBlock):
     """Self or cross attention with RoPE (under ``position_scheme="rope"``,
     moonshine's partial rotation where ``rope_partial_factor`` < 1) or a
     position bias (``t5_relpos``), causal and sliding-window masks, nGPT's
-    normalised q and k, and a preallocated cache for step-by-step decode."""
+    normalised q and k, and a preallocated cache for step-by-step decode.
+    On the tensor axis (:class:`TensorBlock`) it computes on
+    :attr:`local_heads` heads: the rank's share where the axis divides the
+    heads (nGPT's ``qk_scale`` and T5's position bias then read the rank's
+    heads of their whole tables), all of them otherwise."""
 
     def __init__(self, cfg: TransformerConfig, num_heads: int, is_cross: bool = False,
                  is_causal: bool = False, is_decoder: bool = False, layer_idx: int = 0):
@@ -574,6 +610,19 @@ class Attention(nn.Module):
         self.wo = dense(inner, cfg.d_model, bias, dt)
 
     @property
+    def local_heads(self) -> int:
+        """The heads this rank computes (and caches)."""
+        tg = self.tp
+        return self.num_heads // tg.size if tg is not None and tg.local else self.num_heads
+
+    def _heads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads of a whole per-head tensor along ``dim``."""
+        tg = self.tp
+        if tg is None or not tg.local:
+            return t
+        return t.narrow(dim, tg.rank * self.local_heads, self.local_heads)
+
+    @property
     def rope_theta(self) -> float:
         return self.cfg.rope_local_theta if self.is_local else self.cfg.rope_global_theta
 
@@ -587,10 +636,10 @@ class Attention(nn.Module):
         """The k and v heads (B, S, H, D) of ``source``, before any
         normalisation: the cross cache's contents."""
         b, s, _ = source.shape
-        h = self.num_heads
+        h = self.local_heads
         if self.ngpt:
-            return self.wk(source).view(b, s, h, -1), self.wv(source).view(b, s, h, -1)
-        kv = self.wkv(source).view(b, s, 2 * h, -1)
+            return self._col(self.wk, source).view(b, s, h, -1), self._col(self.wv, source).view(b, s, h, -1)
+        kv = self._col(self.wkv, source).view(b, s, 2 * h, -1)
         return kv[:, :, :h], kv[:, :, h:]
 
     def _qk(self, q: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -600,7 +649,7 @@ class Attention(nn.Module):
         if not self.ngpt:
             return q, k
         d = q.shape[-1]
-        sqk = self.qk_scale().view(1, 1, self.num_heads, d)
+        sqk = self._heads(self.qk_scale().view(self.num_heads, d), 0).view(1, 1, -1, d)
         dt = self.cfg.dtype
         return (sqk * l2norm(q.float()) * d**0.5).to(dt), (sqk * l2norm(k.float())).to(dt)
 
@@ -627,23 +676,25 @@ class Attention(nn.Module):
         with a cache)."""
         cfg = self.cfg
         b, t, _ = x.shape
-        h = self.num_heads
+        h = self.local_heads
         scale = None if self.scaled else 1.0  # flash_attention's sm_scale
+        if pos_bias is not None:
+            pos_bias = self._heads(pos_bias, 1)
 
         if self.is_cross:
-            q = self.wq(x).view(b, t, h, -1)
+            q = self._col(self.wq, x).view(b, t, h, -1)
             k, v = _read_kv(cache, None, cfg.dtype) if cache is not None else self.kv(kv_source)
             q, k = self._qk(q, k)
             if cache is None and self.use_flash and _key_mask_only(attn_mask):
                 out = flash_attention(q, k, v, _key_mask(attn_mask), sm_scale=scale)
             else:
                 out = attend(q, k, v, attn_mask, cfg.dtype, scaled=self.scaled)
-            return self.wo(out.reshape(b, t, -1)), cache
+            return self._row(self.wo, out.reshape(b, t, -1)), cache
 
         if self.ngpt:
-            q, (k, v) = self.wq(x).view(b, t, h, -1), self.kv(x)
+            q, (k, v) = self._col(self.wq, x).view(b, t, h, -1), self.kv(x)
         else:
-            qkv = self.wqkv(x).view(b, t, 3 * h, -1)
+            qkv = self._col(self.wqkv, x).view(b, t, 3 * h, -1)
             q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
         if positions is None:
             positions = torch.arange(t, device=x.device)[None].expand(b, t)
@@ -702,7 +753,7 @@ class Attention(nn.Module):
                 band = sliding_window_mask(pos, pos, cfg.local_attention)[None, None]
                 mask = band if mask is None else mask & band
             out = attend(q, k, v, mask, cfg.dtype, pos_bias, self.scaled)
-        return self.wo(out.reshape(b, t, -1)), cache
+        return self._row(self.wo, out.reshape(b, t, -1)), cache
 
 
 def _key_mask_only(attn_mask: Optional[torch.Tensor]) -> bool:
@@ -713,13 +764,15 @@ def _key_mask(attn_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return attn_mask[:, 0, 0, :] if attn_mask is not None else None
 
 
-class FeedForward(nn.Module):
+class FeedForward(TensorBlock):
     """The JAX ``FeedForward``: ``fc2(act(fc1(x)))``; under ``ffn_gated``
     (T5 v1.1) ``fc2(act(fc1(x)) * fc1_gate(x))``; in a decoder under
     ``decoder_ffn_gated_concat`` (moonshine) one ``fc1`` of twice the width
     split into (hidden, gate), ``fc2(act(gate) * hidden)``, plain ``Dense``
     layers even under int8; under nGPT two :class:`NormDense` without
-    biases, ``fc2`` normalised along its output axis."""
+    biases, ``fc2`` normalised along its output axis. On the tensor axis
+    (:class:`TensorBlock`) a rank computes its share of the hidden width
+    (moonshine's ``fc1`` held as [hidden | gate] of the rank's columns)."""
 
     def __init__(self, cfg: TransformerConfig, ffn_dim: int, is_decoder: bool = False):
         super().__init__()
@@ -741,12 +794,12 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated_concat:
-            hidden, gate = self.fc1(x).chunk(2, dim=-1)
-            return self.fc2(self.act(gate) * hidden)
-        h = self.act(self.fc1(x))
+            hidden, gate = self._col(self.fc1, x).chunk(2, dim=-1)
+            return self._row(self.fc2, self.act(gate) * hidden)
+        h = self.act(self._col(self.fc1, x))
         if hasattr(self, "fc1_gate"):
-            h = h * self.fc1_gate(x)
-        return self.fc2(h)
+            h = h * self._col(self.fc1_gate, x)
+        return self._row(self.fc2, h)
 
 
 class EncoderLayer(nn.Module):
@@ -1003,7 +1056,7 @@ class OsuTransformer(nn.Module):
         """Preallocated self-attention k/v and the cross k/v, computed once;
         int8 with fp32 scales under ``quantized_kv``."""
         cfg = self.cfg
-        h, d = cfg.decoder_heads, cfg.head_dim
+        h, d = self.decoder.layers[0].self_attn.local_heads, cfg.head_dim
         dev = encoder_states.device
         if cfg.quantized_kv:
             parts = {"k": torch.int8, "k_scale": torch.float32, "v": torch.int8, "v_scale": torch.float32}

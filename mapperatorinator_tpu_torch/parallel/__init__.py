@@ -1,9 +1,10 @@
 """Multi-process training on ``torch.distributed``: the JAX package's
 ``parallel/`` (mesh, sharding, distributed) for the port. DDP on the data
-axis, FSDP2 on the fsdp axis (HSDP beside a data axis); the tensor axis
-raises."""
+axis, FSDP2 on the fsdp axis (HSDP beside a data axis), Megatron column /
+row parallelism on the tensor axis (:mod:`.tensor`)."""
 
 from .distributed import (  # noqa: F401
+    data_parallel_rank,
     make_global_batch,
     make_global_mesh,
     maybe_initialize,
@@ -12,5 +13,5 @@ from .distributed import (  # noqa: F401
     shard_iterator_by_process,
     world_size,
 )
-from .mesh import make_mesh, replicate, shard_batch  # noqa: F401
-from .sharding import describe_sharding, param_specs, shard_params  # noqa: F401
+from .mesh import data_parallel_group, make_mesh, replicate, shard_batch  # noqa: F401
+from .sharding import describe_sharding, param_specs, shard_params, tensor_partial  # noqa: F401

@@ -12,7 +12,8 @@ joined by a process group.
   backend :func:`choose_backend` picks;
 * :func:`make_global_mesh` spans a ``DeviceMesh`` over the group's ranks;
 * :func:`process_local_batch_size` and :func:`shard_iterator_by_process`
-  feed each process its share of every batch, round-robin.
+  feed each data-parallel group its share of every batch, round-robin
+  (the ranks of one tensor group the same rows).
 
 Outside a process group every helper is a no-op, so a single-process run is
 unchanged.
@@ -127,21 +128,50 @@ def make_global_batch(local_batch: dict, device) -> dict:
     return to_device(local_batch, device)
 
 
-def process_local_batch_size(global_batch_size: int) -> int:
-    """Rows this process feeds a step (``global_batch_size`` over the
-    process count, which must divide it)."""
-    n = world_size()
+def data_parallel_rank(parallel_args=None) -> tuple[int, int]:
+    """(index, size) of this process among the data-parallel groups: the
+    process index and count, or, where ``parallel.tensor_axis`` names an axis
+    of ``parallel.mesh_shape``, this rank's place on the mesh's other axes
+    (``init_device_mesh`` lays the ranks out row-major), so that the ranks of
+    one tensor group share an index. The JAX functions read
+    ``jax.process_index()``: there the tensor axis lies inside one process
+    (``make_global_mesh``), while a port process is one card and its tensor
+    axis spans processes."""
+    n, i = world_size(), process_index()
+    tensor = getattr(parallel_args, "tensor_axis", None)
+    shape = getattr(parallel_args, "mesh_shape", None)
+    if not tensor or shape is None or tensor not in parallel_args.axis_names:
+        return i, n
+    shape = [int(s) for s in shape]
+    coords, rest = [], i
+    for size in reversed(shape):
+        coords.append(rest % size)
+        rest //= size
+    coords.reverse()
+    index, size = 0, 1
+    for name, c, s in zip(parallel_args.axis_names, coords, shape):
+        if name != tensor:
+            index, size = index * s + c, size * s
+    return index, size
+
+
+def process_local_batch_size(global_batch_size: int, parallel_args=None) -> int:
+    """Rows this process feeds a step: ``global_batch_size`` over the
+    data-parallel groups (:func:`data_parallel_rank`; the process count
+    without a tensor axis), which must divide it."""
+    _, n = data_parallel_rank(parallel_args)
     if global_batch_size % n != 0:
         raise ValueError(f"optim.batch_size={global_batch_size} must be divisible by the process count {n} for "
                          f"per-process feeding")
     return global_batch_size // n
 
 
-def shard_iterator_by_process(it):
-    """Process i keeps every ``process_count``-th example starting at i (the
-    ``DistributedSampler`` equivalent for a streamed dataset); a no-op in a
-    single process."""
-    n = world_size()
+def shard_iterator_by_process(it, parallel_args=None):
+    """Data-parallel group i keeps every n-th example starting at i
+    (:func:`data_parallel_rank`; the ``DistributedSampler`` equivalent for a
+    streamed dataset): the ranks of one tensor group read the same rows. A
+    no-op with one group."""
+    i, n = data_parallel_rank(parallel_args)
     if n <= 1:
         return it
-    return itertools.islice(it, process_index(), None, n)
+    return itertools.islice(it, i, None, n)

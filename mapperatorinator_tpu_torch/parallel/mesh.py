@@ -17,6 +17,7 @@ its device.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -39,6 +40,19 @@ def make_mesh(parallel_args=None, device_type: str = "cuda"):
         raise ValueError(f"parallel.mesh_shape={list(shape)} holds {math.prod(shape)} devices, but the process "
                          f"group has {world} ranks (one device a rank)")
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def data_parallel_group(mesh, tensor_axis: Optional[str] = None):
+    """The process group over which this rank's rows are spread: every
+    rank with this rank's place on the tensor axis (the mesh's other axes
+    flattened), or the whole group where there is no tensor axis. Every
+    rank calls it: each of the subgroups is made by all of them."""
+    if not tensor_axis:
+        return dist.group.WORLD
+    t_dim = tuple(mesh.mesh_dim_names).index(tensor_axis)
+    ranks = mesh.mesh.movedim(t_dim, -1).reshape(-1, mesh.size(t_dim))
+    group, _ = dist.new_subgroups_by_enumeration([ranks[:, c].tolist() for c in range(ranks.shape[1])])
+    return group
 
 
 def _sum_hook(group, bucket):

@@ -286,13 +286,15 @@ def full_state_dict(model: torch.nn.Module) -> dict:
     sharded tensor gathered from the ranks (a collective,
     :func:`..parallel.sharding.gathered`; ``torch.distributed.checkpoint``'s
     full state dict gathers through ``DTensor.full_tensor``, which ends the
-    process over gloo on CUDA tensors), else the module's own (a DDP
-    wrapper's ``module.`` prefix never reaches it: the state holds the bare
-    model)."""
+    process over gloo on CUDA tensors) in flax order (a fused tensor leaf's
+    rank order undone, as its parameter records), else the module's own (a
+    DDP wrapper's ``module.`` prefix never reaches it: the state holds the
+    bare model)."""
     state = model.state_dict()
     if not any_sharded(model.parameters()):
         return state
-    return {name: gathered(t.detach()) for name, t in state.items()}
+    params = dict(model.named_parameters())
+    return {name: gathered(t.detach(), like=params.get(name)) for name, t in state.items()}
 
 
 @torch.no_grad()
@@ -302,11 +304,11 @@ def load_full_state_dict(model: torch.nn.Module, saved: dict) -> None:
     if not any_sharded(model.parameters()):
         model.load_state_dict(saved)
         return
-    own = model.state_dict()
+    own, params = model.state_dict(), dict(model.named_parameters())
     if sorted(own) != sorted(saved):
         raise KeyError(f"state dict keys differ: {sorted(set(own) ^ set(saved))}")
     for name, tensor in own.items():
-        local(tensor).copy_(shard_of(saved[name], tensor))
+        local(tensor).copy_(shard_of(saved[name], params.get(name, tensor)))
 
 
 class MetricsLogger:

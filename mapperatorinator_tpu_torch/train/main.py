@@ -31,18 +31,20 @@ the address alone). Each rank takes its own card (``cuda:{i % count}``,
 :func:`..parallel.distributed.choose_backend` for the backend), feeds its
 share of every batch and trains under DDP, or, with
 ``parallel.fsdp_axis``, FSDP over a 1-D mesh or HSDP over a ``(data,
-fsdp)`` one (:mod:`..parallel`); the schedule is stretched by the process
-count, as the JAX one by the device count; rank 0 logs to ``log_dir`` and
-writes the checkpoints, rank i to ``<log_dir>/proc{i}``; with more than one
-rank the eval is the global one (loss and accuracy, as in JAX). Under LoRA
-the factors are trained replicated whatever the layout (their gradients
-summed by hand), the frozen base whole on every rank.
+fsdp)`` one, or, with ``parallel.tensor_axis``, Megatron column / row
+parallelism on that axis of ``parallel.mesh_shape`` (beside data and fsdp
+axes; :mod:`..parallel`); the ranks of one tensor group feed the same rows.
+The schedule is stretched by the process count, as the JAX one by the
+device count; rank 0 logs to ``log_dir`` and writes the checkpoints, rank i
+to ``<log_dir>/proc{i}``; with more than one rank the eval is the global
+one (loss and accuracy, as in JAX). Under LoRA the factors are trained
+replicated whatever the layout (their gradients summed by hand), the frozen
+base whole on every rank, as the JAX ``train.py`` replicates it.
 
-Not ported yet, each raising and naming ROADMAP queue 1: the tensor axis
-(and any mesh axis other than the data and fsdp axes), the ``mmrs`` and
-``web`` datasets and ``adafactor``. The recipes' ``dataset_type`` (``web``
-for v32, ``mmrs`` for v28 and v29) is therefore overridden to ``ors``, a
-local track-folder dataset.
+A mesh axis other than the data, fsdp and tensor axes raises. The ``mmrs``
+and ``web`` datasets are not ported (ROADMAP): the recipes'
+``dataset_type`` (``web`` for v32, ``mmrs`` for v28 and v29) is overridden
+to ``ors``, a local track-folder dataset.
 """
 
 from __future__ import annotations
@@ -63,10 +65,10 @@ from ..models.mapperatorinator import Mapperatorinator, build_config
 from ..models.params import init_params
 from ..osu import BeatmapParser, build_vocabulary
 from .data import build_dataset
-from ..parallel import (make_global_mesh, maybe_initialize, process_index, process_local_batch_size, replicate,
-                        shard_iterator_by_process, shard_params, world_size)
+from ..parallel import (data_parallel_group, make_global_mesh, maybe_initialize, process_index,
+                        process_local_batch_size, replicate, shard_iterator_by_process, shard_params, tensor_partial,
+                        world_size)
 from ..parallel.distributed import rank_device
-from ..parallel.sharding import TENSOR_AXIS_ITEM
 from .data.batching import batch_iterator, prefetch_iterator
 from .loop import CheckpointManager, MetricsLogger, card_line, device_peak_flops, lora_step_flops, step_flops, train
 from .optim import build_optimizer
@@ -88,14 +90,13 @@ def parse_argv(argv: Sequence[str]) -> tuple[str, list[str]]:
 
 
 def refuse_unported(args) -> None:
-    """Raise for the training options the port does not cover yet: the
-    tensor axis, and a mesh that names an axis other than the data and fsdp
-    axes."""
+    """Raise for a mesh that names an axis other than the data, fsdp and
+    tensor axes, which no rule of the JAX package places anything on."""
     p = args.parallel
-    other = [a for a in (p.axis_names or []) if a not in (p.data_axis, p.fsdp_axis)]
-    if p.tensor_axis or other:
-        raise NotImplementedError(f"parallel.tensor_axis={p.tensor_axis!r}, mesh axes {other}: not ported yet "
-                                  f"({TENSOR_AXIS_ITEM})")
+    other = [a for a in (p.axis_names or []) if a not in (p.data_axis, p.fsdp_axis, p.tensor_axis)]
+    if other:
+        raise NotImplementedError(f"mesh axes {other}: neither parallel.data_axis={p.data_axis!r}, "
+                                  f"parallel.fsdp_axis={p.fsdp_axis!r} nor parallel.tensor_axis={p.tensor_axis!r}")
 
 
 def build_model_and_data(args, device: torch.device):
@@ -125,14 +126,16 @@ def make_batch_factory(args, parser: BeatmapParser, vocab):
     """``make_batches(test) -> iterator of collated batches`` over the
     configured dataset: the training split (token-balanced, prefetched by
     ``dataloader.num_workers`` threads) or the test split. Across processes
-    each rank keeps every N-th example and batches ``optim.batch_size / N``
-    rows. It needs no model, so the eval harness builds it alone."""
-    local_batch_size = process_local_batch_size(args.optim.batch_size)
+    each of the N data-parallel groups (the processes, or the tensor groups
+    under a tensor axis) keeps every N-th example and batches
+    ``optim.batch_size / N`` rows. It needs no model, so the eval harness
+    builds it alone."""
+    local_batch_size = process_local_batch_size(args.optim.batch_size, args.parallel)
 
     def make_batches(test: bool):
         dataset = build_dataset(args.data, parser, vocab, test=test)
         batches = batch_iterator(
-            shard_iterator_by_process(iter(dataset)),
+            shard_iterator_by_process(iter(dataset), args.parallel),
             local_batch_size,
             balancer_buffer_size=args.dataloader.balancer_buffer_size if not test else 0,
             drop_last=args.dataloader.drop_last,
@@ -163,12 +166,19 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
               else f"Training on {card_line()}; no published peak for this card, so no MFU")
     elif is_main:
         print("Training on the CPU")
+    tensor_axis = args.parallel.tensor_axis if distributed else None
+    if args.parallel.tensor_axis and not distributed:
+        print(f"parallel.tensor_axis={args.parallel.tensor_axis!r} without a process group: the model stays whole")
     if is_main and distributed:
+        layout = [f"FSDP on {args.parallel.fsdp_axis}"] if args.parallel.fsdp_axis else []
+        layout += [f"tensor parallel on {tensor_axis}"] if tensor_axis else []
         print(f"{n_processes} process(es), mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
-              f"{'FSDP on ' + args.parallel.fsdp_axis if args.parallel.fsdp_axis else 'DDP'}")
+              f"{', '.join(layout) or 'DDP'}")
+    group = data_parallel_group(mesh, tensor_axis) if distributed else None
+    tensor_group = mesh.get_group(tensor_axis) if tensor_axis else None
 
     model, vocab, make_batches = build_model_and_data(args, device)
-    replica, hand_reduced, forward = None, (), _forward
+    replica, hand_reduced, forward, partial = None, (), _forward, ()
     if args.enable_lora:
         lora_cfg = dict(args.lora or {})
         rank = int(lora_cfg.get("r", 64))
@@ -187,13 +197,21 @@ def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainSt
               f"({sum(p.numel() for p in trained.parameters())} trainable params)")
     else:
         trained, train_step, eval_step, flops = model, make_train_step(), make_eval_step(), None
-        if distributed and args.parallel.fsdp_axis:
-            hand_reduced = shard_params(model, mesh, fsdp_axis=args.parallel.fsdp_axis)
+        if distributed and (args.parallel.fsdp_axis or tensor_axis):
+            hand_reduced = shard_params(model, mesh, tensor_axis=tensor_axis, fsdp_axis=args.parallel.fsdp_axis)
+            partial = tensor_partial(model)
         elif distributed:
             replica = replicate(model, device)
+        if tensor_axis:
+            # the card's share of its group's rows: the JAX figure, the global batch over every device
+            tensor_size = mesh.size(tuple(mesh.mesh_dim_names).index(tensor_axis))
+
+            def flops(batch):
+                return {"mfu": step_flops(model, batch, model.cfg) / tensor_size}
     state = TrainState(step=0, model=trained,
                        optimizer=build_optimizer(args, named_flax_params(trained), num_processes=n_processes),
-                       replica=replica, hand_reduced=hand_reduced, group=dist.group.WORLD if distributed else None)
+                       replica=replica, hand_reduced=hand_reduced, group=group, tensor_partial=partial,
+                       tensor_group=tensor_group)
     eval_fn = None
     if n_processes > 1:
         # built once, for every eval; it merges the LoRA factors, as the single-process eval does

@@ -5,6 +5,7 @@
 * ``adamwscale`` (the default config): AdamW with the step scaled by
   max(1e-3, rms(param));
 * ``adamw``: optax's ``adamw``;
+* ``adafactor``: ``optax.adafactor`` at its defaults (:class:`Adafactor`);
 * warmup (0.5 start factor) -> constant sustain -> cosine or linear decay;
 * clipping by global norm, and gradient accumulation with
   ``optax.MultiSteps`` semantics (:class:`MultiSteps`).
@@ -17,16 +18,18 @@ path of each tensor, as the JAX masks do, not of its torch name: a torch
 matrix in its flax layout (a Dense kernel is (in, out), a conv kernel
 (k, in, out) reshaped to (k, in * out)), so the update is the JAX one, and
 it runs ``newton_schulz5`` in bf16 with plain matmuls, as the JAX does.
-``adafactor`` raises.
 
-Under FSDP a parameter is a DTensor sharded over the ranks
-(:func:`..parallel.sharding.shard_params`). Each optimizer then keeps its
-buffers as local shards and updates the local shard in place; what needs
-the whole of a parameter reads it whole: the global norm of clipping and of
-``adamwscale``'s rms sums the squares over the shards, and Muon
-orthogonalises the full gradient matrix (gathered, as GSPMD computes it in
-JAX) and keeps its own shard of the update. The state dicts hold full
-tensors, so a checkpoint is the same whatever the layout that wrote it.
+Under FSDP or the tensor axis a parameter is a DTensor sharded over the
+ranks (:func:`..parallel.sharding.shard_params`). Each optimizer then keeps
+its buffers as local shards and updates the local shard in place; what
+needs the whole of a parameter reads it whole: the global norm of clipping
+and of ``adamwscale``'s rms sums the squares over the shards, and Muon
+orthogonalises the full gradient matrix (gathered in flax order, as GSPMD
+computes it in JAX) and keeps its own shard of the update; Adafactor
+computes its factored statistics, block RMS and update from the gathered
+gradient likewise. The state dicts hold full tensors in flax order (a fused
+tensor leaf's rank order undone), so a checkpoint is the same whatever the
+layout that wrote it.
 """
 
 from __future__ import annotations
@@ -34,10 +37,11 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..models.params import flax_layout
-from ..parallel.sharding import any_sharded, gathered, is_sharded, local, shard_of, sharded_norm
+from ..parallel.sharding import any_sharded, flax_shape, gathered, is_sharded, local, shard_of, sharded_norm
 
 Schedule = Callable[[int], float]
 NamedParams = Sequence[tuple[str, torch.Tensor]]  # (flax path, parameter)
@@ -307,6 +311,92 @@ class Muon(Optimizer):
         return out
 
 
+def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128) -> Optional[tuple[int, int]]:
+    """optax's ``_factored_dims``: (the second largest, the largest) dims of
+    a flax shape (``np.argsort``'s order among equals), or None where the
+    second largest is below ``min_dim_size_to_factor`` or the leaf has fewer
+    than two dims."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(Optimizer):
+    """``optax.adafactor(schedule)`` at its defaults: factored second moments
+    (``scale_by_factored_rms``: a leaf whose two largest flax dims are both
+    at least 128 keeps row and column means of the squared gradient, any
+    other leaf the whole square; decay ``1 - (count + 1)^-0.8``, eps 1e-30),
+    then ``clip_by_block_rms(1.0)``, the schedule at the count before the
+    increment, ``scale_by_param_block_rms`` (times max(rms(param), 1e-3))
+    and the sign flipped.
+
+    Every statistic is computed in the flax layout, where optax's axes are
+    named, on the whole gradient (gathered where the parameter is sharded);
+    the buffers ``v_row``, ``v_col`` and ``v`` are optax's leaves in that
+    layout, (1,) where unused, whole on every rank, so the state dict is
+    optax's state and any layout restores it."""
+
+    decay_rate, eps, min_dim_size_to_factor, clipping_threshold, min_scale = 0.8, 1e-30, 128, 1.0, 1e-3
+
+    def __init__(self, params: NamedParams, learning_rate: Schedule):
+        super().__init__(params)
+        self.lr = learning_rate
+        self.shapes = [flax_shape(p.shape, path) for path, p in zip(self.paths, self.params)]
+        self.dims = [factored_dims(shape, self.min_dim_size_to_factor) for shape in self.shapes]
+        self.v_row, self.v_col, self.v = [], [], []
+        for p, shape, dims in zip(self.params, self.shapes, self.dims):
+            zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=local(p).device)  # noqa: E731
+            if dims is None:
+                self.v_row.append(zeros(1))
+                self.v_col.append(zeros(1))
+                self.v.append(zeros(*shape))
+            else:
+                d1, d0 = dims
+                self.v_row.append(zeros(*np.delete(shape, d0)))
+                self.v_col.append(zeros(*np.delete(shape, d1)))
+                self.v.append(zeros(1))
+
+    def buffers(self):
+        return {"v_row": self.v_row, "v_col": self.v_col, "v": self.v}
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, **self.buffers()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        for key, tensors in self.buffers().items():
+            for t, saved in zip(tensors, state[key], strict=True):
+                t.copy_(saved)
+
+    def updates(self, grads):
+        count = self.count - 1  # optax's count before this update
+        t = torch.tensor(count + 1, dtype=torch.float32)
+        decay = (1.0 - t ** (-self.decay_rate)).item()
+        lr = self.lr(count)
+        out = []
+        for path, p, g, dims, v_row, v_col, v in zip(self.paths, self.params, grads, self.dims, self.v_row,
+                                                    self.v_col, self.v):
+            g = flax_layout(gathered(g.float(), like=p), path)
+            grad_sqr = g * g + self.eps
+            if dims is not None:
+                d1, d0 = dims
+                v_row.copy_(decay * v_row + (1.0 - decay) * grad_sqr.mean(d0))
+                v_col.copy_(decay * v_col + (1.0 - decay) * grad_sqr.mean(d1))
+                row_col_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                update = g * (v_row / row_col_mean).pow(-0.5).unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+            else:
+                v.copy_(decay * v + (1.0 - decay) * grad_sqr)
+                update = g * v.pow(-0.5)
+            update = update / torch.clamp(update.pow(2).mean().sqrt() / self.clipping_threshold, min=1.0)
+            rms = torch.clamp(_norm(p) / math.sqrt(p.numel()), min=self.min_scale)
+            out.append(shard_of(flax_layout(-(lr * update) * rms, path), p))
+        return out
+
+
 # ---------------------------------------------------------------------------
 # clipping, accumulation and construction
 # ---------------------------------------------------------------------------
@@ -395,7 +485,7 @@ def build_optimizer(args, params: NamedParams, num_processes: int = 1):
         tx = Muon(params, schedule, build_schedule(optim, num_processes, base_lr=optim.base_lr_2),
                   adamw_wd=optim.weight_decay)
     elif optim.name == "adafactor":
-        raise NotImplementedError("optim.name=adafactor: not ported yet (ROADMAP queue 1, item 15)")
+        tx = Adafactor(params, schedule)
     else:
         raise NotImplementedError(optim.name)
     if optim.grad_clip and optim.grad_clip > 0:

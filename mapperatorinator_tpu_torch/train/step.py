@@ -19,7 +19,10 @@ JAX ``sum / max(valid.sum(), 1)`` over the global batch), the gradients are
 summed over the ranks (DDP's hook, FSDP's reduce-scatter, or by hand for the
 parameters neither holds), and the ``loss`` metric is the sum of the ranks'
 parts. :func:`make_global_eval_step` and :func:`eval_model_global` are the
-multi-process eval.
+multi-process eval. Under a tensor axis the group is the data-parallel one
+(the ranks of one tensor group hold the same rows and reduce nothing over
+it), and the gradients of ``TrainState.tensor_partial`` are also summed
+over the tensor group (:func:`..parallel.sharding.tensor_partial`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from ..models.lora import merge_lora
 from ..models.mapperatorinator import LABEL_IGNORE_ID
 from ..models.params import flax_paths
+from ..parallel.sharding import local
 from .optim import global_norm
 
 BATCH_KEYS = ("frames", "decoder_input_ids", "decoder_attention_mask", "labels", "sample_weights")
@@ -53,7 +57,9 @@ class TrainState:
     over, ``replica`` the ``DistributedDataParallel`` wrapper that runs the
     forward (None: the model runs it, as an FSDP model does), and
     ``hand_reduced`` the parameters whose gradients the step sums over the
-    group itself (LoRA's factors, the leaves FSDP leaves replicated)."""
+    group itself (LoRA's factors, the leaves FSDP leaves replicated, every
+    leaf under a tensor axis without FSDP). ``tensor_partial`` are the
+    parameters whose gradients it sums over ``tensor_group`` too."""
 
     step: int
     model: nn.Module
@@ -61,6 +67,8 @@ class TrainState:
     replica: Optional[nn.Module] = None
     hand_reduced: Sequence[nn.Parameter] = ()
     group: Optional[Any] = None
+    tensor_partial: Sequence[nn.Parameter] = ()
+    tensor_group: Optional[Any] = None
 
     @property
     def params(self) -> list[nn.Parameter]:
@@ -109,12 +117,18 @@ def global_label_count(labels: torch.Tensor, group) -> torch.Tensor:
 
 def sum_grads(params: Sequence[nn.Parameter], group) -> None:
     """Sum the gradients of ``params`` over the group in one all-reduce (a
-    parameter the loss did not reach counts as a zero gradient)."""
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    parameter the loss did not reach counts as a zero gradient; a sharded
+    parameter's local shard is summed); nothing over a group of one."""
+    if not params or dist.get_world_size(group) == 1:
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [local(p.grad) for p in params]
     flat = _flatten_dense_tensors(grads)
     dist.all_reduce(flat, group=group)
-    for p, g in zip(params, _unflatten_dense_tensors(flat, grads)):
-        p.grad = g
+    for g, summed in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(summed)
 
 
 def _forward(model, batch: dict):
@@ -149,6 +163,8 @@ def make_train_step(forward: Callable = _forward, weights_l2: bool = True):
         loss.backward()
         loss = loss.detach()
         if state.group is not None:
+            if state.tensor_partial:
+                sum_grads(state.tensor_partial, state.tensor_group)
             if state.hand_reduced:
                 sum_grads(state.hand_reduced, state.group)
             dist.all_reduce(loss, group=state.group)

@@ -5,11 +5,14 @@ It imports torch, numpy and the port only.
     python -m tests.fixtures.torch_parallel_worker SPEC.json RANK
 
 ``SPEC.json`` names the layout (``single``, ``ddp``, ``fsdp``: FSDP over a
-1-D mesh, ``hsdp``: a ``(data, fsdp)`` mesh of 2 x 2, or ``main``: the
-command line of ``train.main``, which joins the group itself), the world
-size, the port of the group's address, the output directory and the tasks,
-each ``{"task": kind, "name": key, ...}``; every rank writes
-``<out>/rank<i>.json`` (rank 0 also ``.npz`` files of tensors).
+1-D mesh, ``hsdp``: a ``(data, fsdp)`` mesh of 2 x 2; on the tensor axis
+``tp2`` and ``tp3``, ``dp2tp2``: a ``(data, tensor)`` mesh of 2 x 2,
+``fsdp2tp2``: ``(fsdp, tensor)``; or ``main``: the command line of
+``train.main``, which joins the group itself), the world size, the port of
+the group's address, the output directory and the tasks, each ``{"task":
+kind, "name": key, ...}``; every rank writes ``<out>/rank<i>.json`` (rank 0
+also ``.npz`` files of tensors). The ranks of one tensor group take the
+same rows.
 """
 
 from __future__ import annotations
@@ -27,22 +30,37 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from mapperatorinator_tpu_torch.config import load_train_config
+from mapperatorinator_tpu_torch.decode import DecodeEngine
+from mapperatorinator_tpu_torch.decode.logits import build_logits_pipeline
+from mapperatorinator_tpu_torch.models import Mapperatorinator
 from mapperatorinator_tpu_torch.models.io import load_checkpoint
 from mapperatorinator_tpu_torch.models.lora import init_lora_params
+from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
 from mapperatorinator_tpu_torch.models.params import flax_layout, flax_paths, init_params
-from mapperatorinator_tpu_torch.parallel import make_global_mesh, maybe_initialize, replicate, shard_params
+from mapperatorinator_tpu_torch.osu import build_vocabulary
+from mapperatorinator_tpu_torch.parallel import (data_parallel_group, data_parallel_rank, make_global_mesh,
+                                                 maybe_initialize, replicate, shard_params, tensor_partial)
 from mapperatorinator_tpu_torch.parallel.sharding import gathered
 from mapperatorinator_tpu_torch.train.loop import CheckpointManager, full_state_dict
 from mapperatorinator_tpu_torch.train.optim import build_optimizer
 from mapperatorinator_tpu_torch.train.step import (TrainState, _merged_forward, eval_model_global,
                                                    make_global_eval_step, make_lora_train_step, make_train_step,
-                                                   named_flax_params)
+                                                   named_flax_params, sum_grads, to_device)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-LAYOUTS = {"single": None, "main": None, "ddp": SimpleNamespace(mesh_shape=None, axis_names=["data"], fsdp_axis=None),
-           "fsdp": SimpleNamespace(mesh_shape=None, axis_names=["data"], fsdp_axis="data"),
-           "hsdp": SimpleNamespace(mesh_shape=[2, 2], axis_names=["data", "fsdp"], fsdp_axis="fsdp")}
+
+
+def mesh_layout(shape, names, fsdp=None, tensor=None):
+    return SimpleNamespace(mesh_shape=shape, axis_names=names, fsdp_axis=fsdp, tensor_axis=tensor)
+
+
+LAYOUTS = {"single": None, "main": None, "ddp": mesh_layout(None, ["data"]),
+           "fsdp": mesh_layout(None, ["data"], fsdp="data"),
+           "hsdp": mesh_layout([2, 2], ["data", "fsdp"], fsdp="fsdp"),
+           "tp2": mesh_layout([2], ["tensor"], tensor="tensor"), "tp3": mesh_layout([3], ["tensor"], tensor="tensor"),
+           "dp2tp2": mesh_layout([2, 2], ["data", "tensor"], tensor="tensor"),
+           "fsdp2tp2": mesh_layout([2, 2], ["fsdp", "tensor"], fsdp="fsdp", tensor="tensor")}
 # the JAX digest's optimizer settings (__graft_entry__._multihost_train_digest); its train step takes no MultiSteps
 DIGEST_OPTIM = ["optim.warmup_steps=10", "optim.total_steps=100", "optim.grad_acc=1"]
 
@@ -50,8 +68,23 @@ DIGEST_OPTIM = ["optim.warmup_steps=10", "optim.total_steps=100", "optim.grad_ac
 class Run:
     def __init__(self, spec: dict, rank: int):
         self.spec, self.layout = spec, spec["layout"]
-        self.group = torch.distributed.group.WORLD if torch.distributed.is_initialized() else None
         self.rank, self.world = rank, spec["world"]
+        self.parallel = LAYOUTS.get(self.layout)
+        self.mesh = self.group = self.tensor_group = None
+        if self.parallel is not None:
+            self.mesh = make_global_mesh(self.parallel, "cpu")
+            self.group = data_parallel_group(self.mesh, self.parallel.tensor_axis)
+            if self.parallel.tensor_axis:
+                self.tensor_group = self.mesh.get_group(self.parallel.tensor_axis)
+
+    def shard(self, model) -> tuple:
+        """(hand-reduced parameters, tensor-partial ones) of ``model`` placed
+        in this layout (DDP aside)."""
+        parallel = self.parallel
+        if parallel is None or self.layout == "ddp":
+            return (), ()
+        hand_reduced = shard_params(model, self.mesh, tensor_axis=parallel.tensor_axis, fsdp_axis=parallel.fsdp_axis)
+        return hand_reduced, tensor_partial(model)
 
     def state(self, checkpoint: str, optim: list, seed: int = 0, n_devices: int = 1, model=None) -> TrainState:
         """A fresh state of ``checkpoint``'s model in this layout (its
@@ -60,18 +93,18 @@ class Run:
             model, _ = load_checkpoint(checkpoint)
             if seed:
                 init_params(model, seed)
-        replica, hand_reduced, parallel = None, (), LAYOUTS[self.layout]
-        if self.layout == "ddp":
-            replica = replicate(model, CPU)
-        elif parallel is not None:
-            hand_reduced = shard_params(model, make_global_mesh(parallel, "cpu"), fsdp_axis=parallel.fsdp_axis)
+        replica = replicate(model, CPU) if self.layout == "ddp" else None
+        hand_reduced, partial = self.shard(model)
         args = load_train_config("v32", optim)
         return TrainState(0, model, build_optimizer(args, named_flax_params(model), num_processes=n_devices),
-                          replica=replica, hand_reduced=hand_reduced, group=self.group)
+                          replica=replica, hand_reduced=hand_reduced, group=self.group, tensor_partial=partial,
+                          tensor_group=self.tensor_group)
 
     def rows(self, full: dict) -> dict:
-        n = next(iter(full.values())).shape[0] // self.world
-        return {k: v[self.rank * n:(self.rank + 1) * n] for k, v in full.items()}
+        """This rank's data-parallel group's share of the rows."""
+        index, groups = data_parallel_rank(self.parallel) if self.parallel is not None else (0, 1)
+        n = next(iter(full.values())).shape[0] // groups
+        return {k: v[index * n:(index + 1) * n] for k, v in full.items()}
 
 
 def random_batch(vocab, seed: int, rows: int, length: int = 32, samples: int = 128 * 63) -> dict:
@@ -92,15 +125,16 @@ def flax_tensors(model, tensors) -> dict:
 
 
 def full_params(model) -> list[torch.Tensor]:
-    return [gathered(p.detach()) for p in model.parameters()]
+    return [gathered(p.detach(), like=p) for p in model.parameters()]
 
 
 def record_updates(state: TrainState, into: list) -> None:
     """Keep (a gathered copy of) the gradients of every optimizer step."""
     inner = state.optimizer.step
+    params = state.params
 
     def step(grads):
-        into.append([gathered(g).clone() for g in grads])
+        into.append([gathered(g, like=p).clone() for g, p in zip(grads, params)])
         inner(grads)
 
     state.optimizer.step = step
@@ -297,8 +331,77 @@ def task_main(run: Run, spec: dict, out: Path) -> dict:
             "backend": torch.distributed.get_backend() if torch.distributed.is_initialized() else None}
 
 
+def family_model(spec: dict):
+    """The spec's training config (``config``, ``overrides``) as a model
+    holding the parameters saved at ``state``."""
+    args = load_train_config(spec["config"], spec["overrides"])
+    model = Mapperatorinator(build_config(args, build_vocabulary(args)))
+    model.load_state_dict(torch.load(spec["state"], weights_only=True))
+    return model
+
+
+def task_grads(run: Run, spec: dict, out: Path) -> dict:
+    """One forward and backward of a family's model in this layout on the
+    spec's batch: the loss, the logits and every gradient (gathered, flax
+    order), the tensor-partial leaves summed over the tensor group and
+    every gradient over the data-parallel one, as the train step sums
+    them."""
+    model = family_model(spec)
+    hand_reduced, partial = run.shard(model)
+    with np.load(spec["batch"]) as f:
+        batch = run.rows({k: f[k] for k in f.files})
+    model.train()
+    logits, loss = model(**to_device(batch, CPU))
+    loss.backward()
+    if run.tensor_group is not None:
+        sum_grads(partial, run.tensor_group)
+        sum_grads(hand_reduced, run.group)
+    grads = [gathered(p.grad, like=p) for p in model.parameters()]
+    save_npz(run, out / f"{spec['name']}.npz", {"logits": logits.detach().numpy(),
+                                                  **{f"grad/{k}": v for k, v in flax_tensors(model, grads).items()}})
+    blocks = [m.tp for m in model.modules() if getattr(m, "tp", None) is not None]
+    return {"loss": loss.item(), "blocks": len(blocks), "local_blocks": sum(tg.local for tg in blocks),
+            "partial": len(partial), "sharded": sum(isinstance(p, DTensor) for p in model.parameters())}
+
+
+def task_decode(run: Run, spec: dict, out: Path) -> dict:
+    """Greedy decode of the spec's prompts (this data-parallel group's rows)
+    on the tiny checkpoint placed in this layout, through ``DecodeEngine``."""
+    model, vocab = load_checkpoint(spec["checkpoint"])
+    run.shard(model)
+    model.eval()
+    with np.load(spec["inputs"]) as f:
+        rows = run.rows({"frames": f["frames"], "ids": f["ids"]})
+    engine = DecodeEngine(model, spec["max_length"], vocab.pad_id, device="cpu")
+    enc = engine.encode_with_cond(rows["frames"])
+    tokens, end = engine.generate(enc, rows["ids"], build_logits_pipeline(vocab, do_sample=False), [vocab.eos_id],
+                                  seed=0)
+    caches = engine._states[next(iter(engine._states))].cache[0]["self"]["k"].shape
+    return {"tokens": tokens.tolist(), "end": end, "cache_heads": caches[2]}
+
+
+def task_adafactor(run: Run, spec: dict, out: Path) -> dict:
+    """Three adafactor updates (grad_acc 1) on ``fsdp_batch`` in this
+    layout, a save, a restore into a scrambled state, and one more update:
+    the losses and the parameters after."""
+    optim = ["optim.name=adafactor", "optim.warmup_steps=10", "optim.total_steps=100", "optim.grad_acc=1"]
+    state = run.state(spec["checkpoint"], optim)
+    batch = run.rows(fsdp_batch(load_checkpoint(spec["checkpoint"])[1]))
+    step = make_train_step()
+    losses = [step(state, batch)[1]["loss"].item() for _ in range(3)]
+    checkpoints = CheckpointManager(spec["ckpt_dir"], total_limit=2)
+    checkpoints.save(3, state)
+    restored = run.state(spec["checkpoint"], optim, seed=99)
+    scramble(restored)
+    restored = checkpoints.restore(restored, step=3)
+    losses.append(step(restored, batch)[1]["loss"].item())
+    save_npz(run, out / f"{spec['name']}.npz", flax_tensors(restored.model, full_params(restored.model)))
+    return {"losses": losses, "count": restored.optimizer.count}
+
+
 TASKS = {"digest": task_digest, "layout": task_layout, "restore": task_restore, "unequal": task_unequal,
-         "lora_train": task_lora_train, "lora_eval": task_lora_eval, "main": task_main}
+         "lora_train": task_lora_train, "lora_eval": task_lora_eval, "main": task_main, "grads": task_grads,
+         "decode": task_decode, "adafactor": task_adafactor}
 
 
 def main(spec_path: str, rank: int) -> None:

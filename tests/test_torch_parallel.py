@@ -1,9 +1,10 @@
 """The port's ``parallel/`` in one process, against the JAX package's
 ``parallel/``: the helpers outside a process group, per-process feeding as
-1, 2 and 4 processes see it, the fsdp rule leaf for leaf on the tiny
-checkpoint, the backend rule, the schedule stretched by the process count,
-and the tensor axis, which raises. The multi-process runs are
-``tests/test_torch_parallel_train.py``'s and ``test_torch_parallel_fsdp.py``'s.
+1, 2 and 4 processes see it (and the data-parallel groups of a ``(data,
+tensor)`` mesh), the fsdp rule leaf for leaf on the tiny checkpoint, the
+backend rule and the schedule stretched by the process count. The
+multi-process runs are ``tests/test_torch_parallel_train.py``'s,
+``test_torch_parallel_fsdp.py``'s and ``test_torch_tensor_parallel*.py``'s.
 """
 
 from types import SimpleNamespace
@@ -21,7 +22,6 @@ from mapperatorinator_tpu_torch.models.params import flax_paths
 from mapperatorinator_tpu_torch.parallel import distributed
 from mapperatorinator_tpu_torch.parallel.sharding import flax_shape, gathered, shard_of, sharded_norm, torch_dim
 from mapperatorinator_tpu_torch.train import optim
-from mapperatorinator_tpu_torch.train.main import refuse_unported
 from tests.test_torch_model import tiny  # noqa: F401  (module fixture)
 from tests.test_torch_train import configs
 
@@ -39,23 +39,47 @@ def test_single_process_helpers_are_noops():
     assert batch["labels"].dtype == torch.long and batch["frames"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("processes", [1, 2, 4])
-def test_per_process_feeding_matches_jax(monkeypatch, processes):
+# (processes, mesh): the process count alone, or a mesh with a tensor axis (axis names, shape)
+FEEDING = [(1, None), (2, None), (4, None), (4, (("data", "tensor"), (2, 2))), (4, (("tensor",), (4,))),
+           (8, (("data", "fsdp", "tensor"), (2, 2, 2))), (6, (("tensor", "data"), (2, 3)))]
+
+
+@pytest.mark.parametrize("processes,mesh", FEEDING)
+def test_per_process_feeding_matches_jax(monkeypatch, processes, mesh):
     """Each process's examples and its share of the batch, as the JAX
-    functions give them for the same process count and index."""
+    functions give them for the same process count and index; under a
+    tensor axis, for the data-parallel groups' count and index: the ranks of
+    one tensor group get the same rows, and the groups disjoint ones that
+    cover the stream."""
+    names, shape = mesh or (("data",), (processes,))
+    args = SimpleNamespace(axis_names=list(names), mesh_shape=list(shape),
+                           tensor_axis="tensor" if "tensor" in names else None)
+    rows = {}
     for index in range(processes):
+        coords = np.unravel_index(index, shape)
+        kept = [(c, s) for c, s, name in zip(coords, shape, names) if name != "tensor"]
+        group = int(np.ravel_multi_index([c for c, _ in kept], [s for _, s in kept])) if kept else 0
+        groups = int(np.prod([s for _, s in kept]))
         monkeypatch.setattr(distributed, "world_size", lambda: processes)
         monkeypatch.setattr(distributed, "process_index", lambda: index)
-        monkeypatch.setattr(jax, "process_count", lambda: processes)
-        monkeypatch.setattr(jax, "process_index", lambda: index)
-        got = list(parallel.shard_iterator_by_process(iter(range(11))))
+        monkeypatch.setattr(jax, "process_count", lambda: groups)
+        monkeypatch.setattr(jax, "process_index", lambda: group)
+        assert parallel.data_parallel_rank(args) == (group, groups)
+        got = list(parallel.shard_iterator_by_process(iter(range(11)), args))
         assert got == list(jax_parallel.shard_iterator_by_process(iter(range(11))))
-        assert got == list(range(index, 11, processes))
-        assert parallel.process_local_batch_size(16) == jax_parallel.process_local_batch_size(16) == 16 // processes
-        if processes == 4:
-            for fn in (parallel.process_local_batch_size, jax_parallel.process_local_batch_size):
+        assert got == list(range(group, 11, groups))
+        assert parallel.process_local_batch_size(24, args) == jax_parallel.process_local_batch_size(24) \
+            == 24 // groups
+        rows.setdefault(group, []).append(got)
+        if mesh is None:  # without a mesh the process is its own group
+            assert list(parallel.shard_iterator_by_process(iter(range(11)))) == got
+        if groups == 4:
+            for fn in (lambda n: parallel.process_local_batch_size(n, args), jax_parallel.process_local_batch_size):
                 with pytest.raises(ValueError, match="divisible"):
                     fn(6)
+    assert all(r == members[0] for members in rows.values() for r in members)
+    firsts = [members[0] for members in rows.values()]
+    assert sorted(x for r in firsts for x in r) == list(range(11))
 
 
 def jax_specs(jparams, mesh: Mesh, fsdp_axis: str) -> dict:
@@ -90,21 +114,6 @@ def test_param_specs_match_jax_leaf_for_leaf(tiny, layout):  # noqa: F811
             dim = spec.index(fsdp)
             assert param.shape[torch_dim(dim, param.dim(), paths[name])] == flax_shape(param.shape, paths[name])[dim]
     assert len(got) == len(list(tmodel.parameters()))
-
-
-def test_the_tensor_axis_raises_and_names_the_next_item(tiny):  # noqa: F811
-    _, _, _, tmodel, _ = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15 \\(b\\): the tensor axis"):
-        parallel.param_specs(tmodel, tensor_axis="tensor", mesh={"tensor": 2})
-    with pytest.raises(NotImplementedError, match="the tensor axis"):
-        parallel.shard_params(tmodel, None, tensor_axis="tensor", fsdp_axis="data")
-    for change in (["parallel.tensor_axis=tensor"], ['parallel.axis_names=["data","tensor"]']):
-        _, args = configs(change)
-        with pytest.raises(NotImplementedError, match="the tensor axis"):
-            refuse_unported(args)
-    for change in (["parallel.fsdp_axis=data"], ['parallel.axis_names=["data","fsdp"]', "parallel.fsdp_axis=fsdp"],
-                   ["parallel.num_processes=2"]):
-        refuse_unported(configs(change)[1])
 
 
 def test_backend_rule(monkeypatch):
