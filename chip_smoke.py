@@ -171,11 +171,18 @@
    over all keys) and CM3P's beatmap tower (B 16, T = S = 512, the same
    mask) against both plain versions and timed beside SDPA; these join B's
    kernels-line entry and its launches.
-5. Training: ``mapperatorinator_tpu_torch.train.main`` on the same
+5. Training: first the port's parquet reader reads the committed
+   fixtures (``tests/fixtures/parquet/``, written by pandas: SNAPPY,
+   dictionary pages), whose rows must equal the JSON beside each. Then
+   ``mapperatorinator_tpu_torch.train.main -cn v32`` on the same
    full-width model with Muon, bf16 mixed precision, batch 32 and grad_acc 2
-   for 6 micro-steps (3 updates) on a synthesized ``ors`` dataset, then a
-   checkpoint. First, on the first batch in fp32 at batch 2, the loss and
-   every gradient through the kernels must match the plain attention path;
+   for 6 micro-steps (3 updates) from its own ``web`` dataset (a shard of 8
+   synthesized sets under ``compressed/``, written by the script's plain
+   parquet writer, ``write_parquet``), then a checkpoint. The same sets
+   are written as ``ors`` track folders, for the checks, and as an MMRS
+   root (the committed ``metadata.parquet`` and the folders it names).
+   First, on the first batch in fp32 at batch 2, the loss and every
+   gradient through the kernels must match the plain attention path;
    afterwards, every step's loss must be finite, both attention kernels
    must have launched, and restoring the checkpoint must give the same step
    and parameters. One more micro-step is profiled by kernel.
@@ -189,11 +196,11 @@
    Fine-tuning: a base checkpoint of the bf16 v32 training model with
    seeded random weights, the fused mel in its config, is written under
    ``base/gamemode=0``, and ``train.main -cn lora_v32`` (rank-64 LoRA on
-   wq/wkv/wqkv/wo, Muon, bf16, batch 32) runs 4 micro-steps at grad_acc 2
-   from it, with a profiler window over micro-steps 2 and 3. Each
-   micro-step must launch the tensor-core pair 36 times each, nothing
-   else of B or C, and A once; the losses must be finite, the base stay
-   bit-equal to the checkpoint, B leave zero at the first update, the
+   wq/wkv/wqkv/wo, Muon, bf16, batch 32) runs 6 micro-steps at grad_acc 2
+   from it on its own ``mmrs`` dataset, with a profiler window over
+   micro-steps 2 and 3. Each micro-step must launch the tensor-core pair
+   36 times each, nothing else of B or C, and A once; the losses must be
+   finite, the base stay bit-equal to the checkpoint, B leave zero at the first update, the
    trainable count be the sum of r (in + out) over the targets, the Chrome
    trace name both sm90 kernels and the adapter's config carry
    ``ckpt_subfolders: ["gamemode=0"]``. Two greedy requests are then
@@ -221,10 +228,10 @@
    exactly 0) against both plain versions and timed beside SDPA and the
    bound; these join B's and C's kernels-line entries and their launches.
    Last, every other backbone family trains (``backbone_train_phase``)
-   through ``train.main`` on the same set, at full width, its recipe's bf16
-   and ``adamwscale``, from seeded random weights: ``-cn v29``
-   (whisper-small) and ``v28`` (whisper-base), both whisper_abs with
-   ``data.dataset_type=ors`` for their ``mmrs``, ``t5_base`` (T5
+   through ``train.main`` on the same sets, at full width, its recipe's bf16,
+   ``adamwscale`` and ``dataset_type``, from seeded random weights: ``-cn
+   v29`` (whisper-small) and ``v28`` (whisper-base), both whisper_abs,
+   from the MMRS root, ``t5_base`` (T5
    v1.1-base), ``nwhisper_base`` (nGPT) and ``moonshine_tiny``; 4
    micro-steps at grad_acc 2 each, at the recipe's micro-batch 128 where
    the peak reckoned from two memory probes fits 85% of the card, else the
@@ -296,8 +303,8 @@
 6. Prints per-phase figures, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and as its last line
    ``{"ok": true, "device": {...}}``. Any failed check raises; the run fails
-   if jax, flax, yaml, optax, msgpack, safetensors, transformers or the JAX
-   package was imported.
+   if jax, flax, yaml, optax, msgpack, safetensors, transformers, pandas,
+   pyarrow, datasets, huggingface_hub or the JAX package was imported.
 
 Details (compiler logs, all numbers) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -308,6 +315,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import datetime
 import functools
 import gc
 import io
@@ -376,6 +384,9 @@ COLD_BYTES = 2**26
 QMM_KERNELS = {"qmm_gemv": "qmm_gemv_cluster_kernel", "qmm_tc": "qmm_tc_kernel"}
 INT8_BARS = (0.06, 0.8)  # int8 vs fp logits: relative max error, argmax agreement (test_quantize_checkpoint.py:58-59)
 ENGINE_STEPS = 64
+# the decode steps profile_decode traces with the profiler, of the 48 it times (cut from 48 for the run's limit:
+# request 3's four decode profiles took 123.2 s at 48 traced steps, most of the profiler's post-processing)
+PROFILED_DECODE_STEPS = {"graphs": 16, "eager": 8}
 # each "decode graphs" case: a 240-token prompt (window 0's first prompt decoded on, greedy, with no EOS), decoded to
 # slot 272, 16 slots into the second 256-slot bucket (it was the 13-token prompt and 300 steps: cut for the run's limit)
 DECODE_GRAPH_PROMPT, DECODE_GRAPH_END = 240, 272
@@ -411,6 +422,10 @@ LORA_TRACED, LORA_STEADY = (2, 3), (5, 6)
 # every window decodes to tgt_seq_len; a short song keeps to a few windows
 LORA_AUDIO_SECONDS = 4.0
 ORS_TRACKS, ORS_MAPS, ORS_SECONDS = 8, 4, 60.0
+# the committed parquet fixtures (tests/fixtures/parquet_fixtures.py writes them with pandas), and the folder of
+# each MMRS set that write_mmrs makes for the rows of mmrs_metadata.parquet
+PARQUET_FIXTURES = REPO / "tests" / "fixtures" / "parquet"
+MMRS_FOLDER = "{:05d} Artist - Title"
 # super-timing's ensemble, cut from v32's 20 members to keep the whole run inside its limit (printed with the
 # phase)
 TIMER_ITERATIONS, TIMER_ITERATIONS_V32 = 10, 20
@@ -455,7 +470,7 @@ MOONSHINE_HEAD_DIMS = (36, 52)
 MOONSHINE_WINDOW = 681
 REFERENCE_EVENTS = "osuT5.osuT5.event"
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "optax", "msgpack", "safetensors", "transformers",
-           "mapperatorinator_tpu")
+           "mapperatorinator_tpu", "pandas", "pyarrow", "datasets", "huggingface_hub")
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1408,41 +1423,48 @@ def nbytes(tree) -> int:
     return sum(nbytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
 
 
-def profile_decode(engine, enc, ids, pipeline, eos, int8: bool, steps: int = 48) -> dict:
+def profile_decode(engine, enc, ids, pipeline, eos, int8: bool, steps: int = 48,
+                   modes: tuple = ("graphs", "eager")) -> dict:
     """Greedy decode steps on ``engine``, replaying its CUDA graphs and, for
-    comparison, stepping eagerly (``use_graphs`` cleared): for each, host ms
-    a step without the profiler (the call's wall time over the steps up to
-    its stop, after a warm-up call of the same length that captures the
-    graphs), then, profiled, device ms and kernel launches a step, the
-    device's idle share of the host time, the kernels with the most device
-    time a step, and the device time of kernel D's launches (the GEMV
-    path's, found by name inside the replays, and the tensor-core path's in
-    the prefill), all from device kernels only, found by the names in
-    ``QMM_KERNELS``. An ``int8`` engine's profile that holds no GEMV kernel
-    raises: a renamed kernel would otherwise read 0."""
+    comparison, stepping eagerly (``use_graphs`` cleared): for each of
+    ``modes``, host ms a step without the profiler (the call's wall time
+    over ``steps`` steps up to its stop, after warm-up calls that capture
+    the graphs), then, profiled over ``PROFILED_DECODE_STEPS[mode]`` steps
+    (fewer: the profiler's own cost grows with the events it traces), device
+    ms and kernel launches a step, the device's idle share of the host time,
+    the kernels with the most device time a step, and the device time of
+    kernel D's launches (the GEMV path's, found by name inside the replays,
+    and the tensor-core path's in the prefill), all from device kernels
+    only, found by the names in ``QMM_KERNELS``. An ``int8`` engine's
+    profile that holds no GEMV kernel raises: a renamed kernel would
+    otherwise read 0."""
     from torch.profiler import ProfilerActivity, profile
 
     P = ids.shape[1]
     out = {}
     for mode, graphs in (("graphs", True), ("eager", False)):
+        if mode not in modes:
+            continue
         engine.use_graphs = graphs
-        engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
+        traced = min(steps, PROFILED_DECODE_STEPS[mode])
+        for length in (steps, traced):
+            engine.generate(enc, ids, pipeline, eos, max_length=P + length)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, end = engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
         torch.cuda.synchronize()
-        n = end - P
-        wall = (time.perf_counter() - t0) * 1e3 / n
+        wall = (time.perf_counter() - t0) * 1e3 / (end - P)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            engine.generate(enc, ids, pipeline, eos, max_length=P + steps)
+            _, end = engine.generate(enc, ids, pipeline, eos, max_length=P + traced)
             torch.cuda.synchronize()
+        n = end - P
         kernels = device_kernels(prof.key_averages())
         device = sum(e.self_device_time_total for e in kernels) / 1e3
         paths = {path: [e for e in kernels if name in e.key] for path, name in QMM_KERNELS.items()}
         if int8 and not paths["qmm_gemv"]:
             raise AssertionError(f"the int8 decode steps' profile ({mode}) holds no {QMM_KERNELS['qmm_gemv']}: "
                                  f"{sorted(e.key[:60] for e in kernels)}")
-        step = {"steps": n, "host_ms_per_step": wall, "device_ms_per_step": device / n,
+        step = {"steps": n, "timed_steps": steps, "host_ms_per_step": wall, "device_ms_per_step": device / n,
                 "idle_share": 1 - device / n / wall, "kernels_per_step": sum(e.count for e in kernels) / n,
                 "qmm_device_ms_per_step": sum(e.self_device_time_total for es in paths.values() for e in es) / 1e3 / n,
                 "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / n,
@@ -1552,6 +1574,12 @@ def int8_checks(ckpt: Path):
         from mapperatorinator_tpu_torch.models.transformer import QDense
 
         model, out = engine.model, {}
+        seconds, last = {}, [time.perf_counter()]
+
+        def lap(name: str) -> None:  # each check's seconds, for the run's breakdown by phase
+            now = time.perf_counter()
+            seconds[name], last[0] = now - last[0], now
+
         n_qdense = sum(isinstance(m, QDense) for m in model.modules())
         if n_qdense != 133 or not model.cfg.backbone.quantized_kv:
             raise AssertionError(f"the int8 model has {n_qdense} QDense modules (want 133), "
@@ -1562,6 +1590,7 @@ def int8_checks(ckpt: Path):
         # keep every decoder QDense but fc2 under the qmm gate
         seq = first["tokens"][:1, :min(int(first["end"]), 512)]
         out["qmm_logits_check"], with_kernel = check_qmm_logits("3", engine, enc, seq)
+        lap("qmm logits")
 
         # the fp model from the same checkpoint
         fp_engine, _ = inference.load_model(load_config("v32", ["seed=0", "gamemode=0", f"model_path={ckpt}"]))
@@ -1575,15 +1604,18 @@ def int8_checks(ckpt: Path):
                      "kv_cache_fp32": nbytes(fp_engine.model.init_cache(1, engine.max_length, enc)),
                      "kv_cache_int8": nbytes(model.init_cache(1, engine.max_length, enc))}
         # the prompt: the fp32 engine's greedy tokens from window 0's first prompt, no EOS, to DECODE_GRAPH_PROMPT
+        lap("fp32 engine and sizes")
         long, _ = fp_engine.generate(fp_enc, first["ids"][:1], build_logits_pipeline(vocab, do_sample=False), [],
                                      max_length=DECODE_GRAPH_PROMPT)
         out["decode_graphs"] = decode_graphs({"fp32": fp_engine, "int8": engine}, {"fp32": fp_enc, "int8": enc},
                                              long[:, :DECODE_GRAPH_PROMPT], args, vocab)
         # the window and prompt of the parallel phase's tensor-parallel decodes
         np.savez(ckpt.parent / "tensor_decode.npz", frames=frames, ids=first["ids"][:1])
+        lap("decode graphs")
         greedy_chain = (build_logits_pipeline(vocab, do_sample=False), get_eos_token_ids(vocab))
         steps = {"int8": profile_decode(engine, enc, first["ids"][:1], *greedy_chain, int8=True),
                  "fp32": profile_decode(fp_engine, fp_enc, first["ids"][:1], *greedy_chain, int8=False)}
+        lap("decode step profiles")
         for name, modes in steps.items():
             for mode, st in modes.items():
                 print(f"request 3 decode steps, {name} weights and KV, {mode}: {st['host_ms_per_step']:.3f} ms a "
@@ -1650,6 +1682,9 @@ def int8_checks(ckpt: Path):
               f"{'the same' if greedy else 'ending on a retired EOS'}), with 2 beams length {int(lengths2[0])}")
         out["engine_checks"] = {"stats_max_err": stats_err, "forced_tokens": int(forced.shape[1]),
                                 "beam1_tokens": n, "beam1_is_greedy": greedy, "beams2_length": int(lengths2[0])}
+        lap("engine entry points")
+        out["check_s"] = seconds
+        print("request 3 checks, seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
         return out
 
     return checks
@@ -2646,7 +2681,7 @@ def ngpt_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
         seq = first["tokens"][:1, :min(int(first["end"]), 512)]
         out = {"teacher_forced_check": check_teacher_forced("ngpt-a", engine, enc, seq)}
         out["decode_profile"] = profile_decode(engine, enc, first["ids"][:1], build_logits_pipeline(
-            vocab, do_sample=False), get_eos_token_ids(vocab), int8=False, steps=16)["graphs"]
+            vocab, do_sample=False), get_eos_token_ids(vocab), int8=False, steps=16, modes=("graphs",))["graphs"]
         st = out["decode_profile"]
         print(f"request ngpt-a: a graphed greedy decode step {st['host_ms_per_step']:.3f} ms of host time over "
               f"{st['device_ms_per_step']:.3f} ms of device kernels (idle {st['idle_share']:.3f}), "
@@ -3771,11 +3806,9 @@ def write_ors(root: Path, tracks: int = ORS_TRACKS) -> Path:
         write_wav(track / "audio.wav", ORS_SECONDS, seed=track_i, freq=220.0 + 30 * track_i)
         metadata = {"Beatmaps": {}}
         for bm_i in range(ORS_MAPS):
-            objects = "\n".join(
-                f"{int(rng.integers(50, 450))},{int(rng.integers(50, 330))},{500 + k * 50},"
-                f"{5 if k % 8 == 0 else 1},0,0:0:0:0:" for k in range(int((ORS_SECONDS - 1) * 20)))
             bid = track_i * 10 + bm_i
-            (track / "beatmaps" / f"map{bm_i}.osu").write_text(OSU_TEMPLATE.format(i=bm_i, bid=bid, objects=objects))
+            (track / "beatmaps" / f"map{bm_i}.osu").write_text(
+                OSU_TEMPLATE.format(i=bm_i, bid=bid, objects=osu_objects(rng, ORS_SECONDS)))
             metadata["Beatmaps"][f"map{bm_i}"] = {"BeatmapId": bid, "Index": track_i * ORS_MAPS + bm_i,
                                                   "StandardStarRating": {"0": 5.0, "64": 6.2}, "RankedYear": 2020}
         (track / "metadata.json").write_text(json.dumps(metadata))
@@ -3783,11 +3816,245 @@ def write_ors(root: Path, tracks: int = ORS_TRACKS) -> Path:
 
 
 def data_overrides(ors: Path) -> list[str]:
-    # v32 streams the web dataset; the port trains on local track folders,
-    # which read the descriptor table from the repo's csv
+    # the local track folders, for the checks and the paths that train on them: they read the descriptor table
+    # from the repo's csv
     return ["data.dataset_type=ors", "data.descriptors_path=datasets/beatmap_descriptors.csv",
             f"data.train_dataset_path={ors}", "data.train_dataset_start=0", f"data.train_dataset_end={ORS_TRACKS}",
             f"data.test_dataset_path={ors}", "data.test_dataset_start=0", f"data.test_dataset_end={ORS_TRACKS}"]
+
+
+# --- parquet: a plain writer (UNCOMPRESSED, PLAIN, one data page a column) and rows as JSON ---
+
+PARQUET_TYPES = {"BOOLEAN": 0, "INT32": 1, "INT64": 2, "DOUBLE": 5, "BYTE_ARRAY": 6}
+PARQUET_PLAIN = {"INT32": "<i4", "INT64": "<i8", "DOUBLE": "<f8"}
+PARQUET_REPETITION = {"REQUIRED": 0, "OPTIONAL": 1, "REPEATED": 2}
+PARQUET_CONVERTED = {"UTF8": 0, "LIST": 3}
+THRIFT_TYPES = {"i32": 5, "i64": 6, "binary": 8, "struct": 12}
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def thrift_value(kind: str, value) -> bytes:
+    """A Thrift compact-protocol value: "i32", "i64", "binary", "struct"
+    (``[(field id, kind, value)]`` in ascending id order) or "list_<kind>"."""
+    if kind in ("i32", "i64"):
+        return _varint((value << 1) ^ (value >> 63))
+    if kind == "binary":
+        data = value.encode("utf-8") if isinstance(value, str) else value
+        return _varint(len(data)) + data
+    if kind == "struct":
+        out, last = bytearray(), 0
+        for fid, field_kind, field in value:
+            out.append(((fid - last) << 4) | THRIFT_TYPES.get(field_kind, 9))
+            out += thrift_value(field_kind, field)
+            last = fid
+        return bytes(out) + b"\0"
+    element = kind.removeprefix("list_")
+    size = len(value)
+    header = bytes([(size << 4) | THRIFT_TYPES[element]]) if size < 15 else \
+        bytes([0xF0 | THRIFT_TYPES[element]]) + _varint(size)
+    return header + b"".join(thrift_value(element, v) for v in value)
+
+
+def _rle_levels(levels: list[int], max_level: int) -> bytes:
+    """Levels as RLE runs of the hybrid encoding, behind their byte length."""
+    width = (max_level.bit_length() + 7) // 8
+    out = b"".join(_varint(len(list(run)) << 1) + value.to_bytes(width, "little")
+                   for value, run in itertools.groupby(levels))
+    return len(out).to_bytes(4, "little") + out
+
+
+def _plain_values(ptype: str, values: list) -> bytes:
+    if ptype == "BYTE_ARRAY":
+        data = [v.encode("utf-8") if isinstance(v, str) else v for v in values]
+        return b"".join(len(v).to_bytes(4, "little") + v for v in data)
+    if ptype == "BOOLEAN":
+        return np.packbits(np.asarray(values, bool), bitorder="little").tobytes()
+    return np.asarray(values, PARQUET_PLAIN[ptype]).tobytes()
+
+
+def write_parquet(path: Path, schema: list[dict], columns: list[tuple], num_rows: int) -> None:
+    """A parquet file of one row group, each column one PLAIN data page,
+    uncompressed, from the elements of ``schema`` under the root in
+    depth-first order (``name``, ``repetition``, and ``type`` for a leaf,
+    ``num_children`` for a group, ``converted_type``) and, for each leaf,
+    ``(non-null values, definition levels, repetition levels)`` (None where
+    the leaf has no such level)."""
+    leaves, pos = [], 0
+
+    def walk(prefix: list, max_def: int, max_rep: int) -> None:
+        nonlocal pos
+        element = schema[pos]
+        pos += 1
+        max_def += element["repetition"] != "REQUIRED"
+        max_rep += element["repetition"] == "REPEATED"
+        if "type" in element:
+            leaves.append((element, [*prefix, element["name"]], max_def, max_rep))
+        for _ in range(element.get("num_children", 0)):
+            walk([*prefix, element["name"]], max_def, max_rep)
+
+    top = 0
+    while pos < len(schema):
+        walk([], 0, 0)
+        top += 1
+    body, chunks = bytearray(b"PAR1"), []
+    for (element, leaf_path, max_def, max_rep), (values, defs, reps) in zip(leaves, columns, strict=True):
+        count = len(defs) if defs is not None else len(values)
+        page = ((_rle_levels(reps, max_rep) if max_rep else b"") + (_rle_levels(defs, max_def) if max_def else b"")
+                + _plain_values(element["type"], values))
+        header = thrift_value("struct", [(1, "i32", 0), (2, "i32", len(page)), (3, "i32", len(page)),
+                                         (5, "struct", [(1, "i32", count), (2, "i32", 0), (3, "i32", 3),
+                                                        (4, "i32", 3)])])
+        offset = len(body)
+        body += header + page
+        size = len(header) + len(page)
+        meta = [(1, "i32", PARQUET_TYPES[element["type"]]), (2, "list_i32", [0, 3]), (3, "list_binary", leaf_path),
+                (4, "i32", 0), (5, "i64", count), (6, "i64", size), (7, "i64", size), (9, "i64", offset)]
+        chunks.append([(2, "i64", offset), (3, "struct", meta)])
+    elements = [[(4, "binary", "schema"), (5, "i32", top)]]
+    for e in schema:
+        fields = [(1, "i32", PARQUET_TYPES[e["type"]])] if "type" in e else []
+        fields += [(3, "i32", PARQUET_REPETITION[e["repetition"]]), (4, "binary", e["name"])]
+        fields += [(5, "i32", e["num_children"])] if "num_children" in e else []
+        fields += [(6, "i32", PARQUET_CONVERTED[e["converted_type"]])] if "converted_type" in e else []
+        elements.append(fields)
+    group = [(1, "list_struct", chunks), (2, "i64", len(body) - 4), (3, "i64", num_rows)]
+    footer = thrift_value("struct", [(1, "i32", 1), (2, "list_struct", elements), (3, "i64", num_rows),
+                                     (4, "list_struct", [group]), (6, "binary", "chip_smoke.py write_parquet")])
+    path.write_bytes(bytes(body) + footer + len(footer).to_bytes(4, "little") + b"PAR1")
+
+
+def write_web_shard(path: Path, rows: list[dict]) -> None:
+    """A web-dataset shard of ``{"json": str or None, "opus": {"bytes":
+    bytes or None} or None}`` rows, the schema pandas writes for them."""
+    schema = [{"name": "json", "repetition": "OPTIONAL", "type": "BYTE_ARRAY", "converted_type": "UTF8"},
+              {"name": "opus", "repetition": "OPTIONAL", "num_children": 1},
+              {"name": "bytes", "repetition": "OPTIONAL", "type": "BYTE_ARRAY"}]
+    opus = [0 if r["opus"] is None else 1 if r["opus"]["bytes"] is None else 2 for r in rows]
+    write_parquet(path, schema, [([r["json"] for r in rows if r["json"] is not None],
+                                  [int(r["json"] is not None) for r in rows], None),
+                                 ([r["opus"]["bytes"] for r, d in zip(rows, opus) if d == 2], opus, None)],
+                  len(rows))
+
+
+def encode_cell(value):
+    """A cell of a parquet row as JSON: Python scalars as they are, the rest
+    tagged (a non-finite float, bytes as hex, datetimes, dates, arrays with
+    their dtype, dicts)."""
+    if isinstance(value, np.generic):
+        value = value.item()
+    if value is None or isinstance(value, (bool, int, str)):
+        return value
+    if isinstance(value, float):
+        return value if math.isfinite(value) else {"float": repr(value)}
+    if isinstance(value, bytes):
+        return {"bytes": value.hex()}
+    if isinstance(value, datetime.datetime):
+        return {"datetime": value.isoformat()}
+    if isinstance(value, datetime.date):
+        return {"date": value.isoformat()}
+    if isinstance(value, np.ndarray):
+        return {"array": str(value.dtype), "values": [encode_cell(v) for v in value]}
+    if isinstance(value, dict):
+        return {"dict": {k: encode_cell(v) for k, v in value.items()}}
+    raise TypeError(f"no JSON form for a cell of type {type(value).__name__}")
+
+
+def encode_rows(rows: list[dict], index: list) -> dict:
+    return {"index": [encode_cell(i) for i in index], "rows": [{k: encode_cell(v) for k, v in r.items()} for r in rows]}
+
+
+def parquet_phase(report: dict) -> None:
+    """The port's reader on every committed fixture (written by pandas and
+    pyarrow: SNAPPY, dictionary pages): its rows must equal the rows
+    recorded beside each file."""
+    from mapperatorinator_tpu_torch.train.data.parquet import read_table, table_row
+
+    report["parquet"] = out = {}
+    for path in sorted(PARQUET_FIXTURES.glob("*.parquet")):
+        t0 = time.perf_counter()
+        columns, index = read_table(path)
+        rows = [table_row(columns, i) for i in range(len(index))]
+        seconds = time.perf_counter() - t0
+        equal = encode_rows(rows, list(index)) == json.loads(path.with_suffix(".json").read_text())
+        out[path.name] = {"rows": len(rows), "columns": len(columns), "bytes": path.stat().st_size,
+                          "read_s": seconds, "equal": equal}
+        print(f"parquet reader: {path.name} ({path.stat().st_size} bytes, {len(rows)} rows x {len(columns)} "
+              f"columns) read in {seconds:.4f} s; rows equal to the recorded ones: {equal}")
+        if not equal:
+            raise AssertionError(f"the reader's rows of {path} differ from {path.with_suffix('.json').name}")
+    if len(out) < 2:
+        raise AssertionError(f"the committed parquet fixtures are missing: {sorted(out)}")
+
+
+def osu_objects(rng, seconds: float) -> str:
+    """Hit objects one every 50 ms (a new combo every eighth): they fill a
+    window's 2 560-token target."""
+    return "\n".join(f"{int(rng.integers(50, 450))},{int(rng.integers(50, 330))},{500 + k * 50},"
+                     f"{5 if k % 8 == 0 else 1},0,0:0:0:0:" for k in range(int((seconds - 1) * 20)))
+
+
+def write_mmrs(root: Path) -> Path:
+    """An MMRS dataset: the committed ``metadata.parquet`` (written by pandas,
+    ``tests/fixtures/parquet_fixtures.py``) and the folders and files its
+    rows name, made from a seed as ``write_ors`` makes its tracks."""
+    rng = np.random.default_rng(0)
+    root.mkdir(parents=True)
+    (root / "metadata.parquet").write_bytes((PARQUET_FIXTURES / "mmrs_metadata.parquet").read_bytes())
+    for set_i in range(ORS_TRACKS):
+        folder = root / "data" / MMRS_FOLDER.format(set_i)
+        folder.mkdir(parents=True)
+        write_wav(folder / "audio.wav", ORS_SECONDS, seed=set_i, freq=220.0 + 30 * set_i)
+        for bm_i in range(ORS_MAPS):
+            (folder / f"map{bm_i}.osu").write_text(OSU_TEMPLATE.format(
+                i=bm_i, bid=set_i * 10 + bm_i, objects=osu_objects(rng, ORS_SECONDS)))
+    return root
+
+
+def web_beatmap(set_i: int, bm_i: int, content: str) -> dict:
+    """A beatmap's osu!web metadata in a web row's ``json``."""
+    return {"beatmap_id": set_i * 10 + bm_i, "beatmapset_id": 1000 + set_i, "mode": 0, "approved": 1,
+            "approved_date": "2020-05-01 10:00:00", "submit_date": "2019-05-01 10:00:00", "difficultyrating": 5.0,
+            "user_id": 42, "content": content}
+
+
+def write_web(root: Path) -> Path:
+    """A web dataset: one shard under ``compressed/`` (v32's
+    ``dataset_subset``) of ``ORS_TRACKS`` sets, each a row with
+    ``ORS_MAPS`` maps in its ``json`` and ``ORS_SECONDS`` s of WAV audio
+    embedded, written by :func:`write_web_shard` (pyarrow, which writes the
+    real shards, is not on the machine)."""
+    rng = np.random.default_rng(0)
+    (root / "compressed").mkdir(parents=True)
+    rows = []
+    for set_i in range(ORS_TRACKS):
+        wav = write_wav(root / "audio.wav", ORS_SECONDS, seed=set_i, freq=220.0 + 30 * set_i)
+        beatmaps = [web_beatmap(set_i, bm_i, OSU_TEMPLATE.format(i=bm_i, bid=set_i * 10 + bm_i,
+                                                                  objects=osu_objects(rng, ORS_SECONDS)))
+                    for bm_i in range(ORS_MAPS)]
+        rows.append({"json": json.dumps({"beatmaps": beatmaps}), "opus": {"bytes": wav.read_bytes()}})
+    (root / "audio.wav").unlink()
+    write_web_shard(root / "compressed" / "train-00000.parquet", rows)
+    return root
+
+
+def web_overrides(web: Path) -> list[str]:
+    # v32's own dataset_type (web) and subset (compressed), from a local directory of shards
+    return [f"data.train_dataset_path={web}", "data.train_dataset_start=0", "data.train_dataset_end=1",
+            f"data.test_dataset_path={web}", "data.test_dataset_start=0", "data.test_dataset_end=1"]
+
+
+def mmrs_overrides(mmrs: Path) -> list[str]:
+    # the recipe's own dataset_type (mmrs), from an MMRS root of ORS_TRACKS sets
+    return [f"data.train_dataset_path={mmrs}", "data.train_dataset_start=0", f"data.train_dataset_end={ORS_TRACKS}",
+            f"data.test_dataset_path={mmrs}", "data.test_dataset_start=0", f"data.test_dataset_end={ORS_TRACKS}"]
 
 
 def check_gradients(ors: Path, report: dict) -> dict:
@@ -3865,8 +4132,8 @@ def check_gradients(ors: Path, report: dict) -> dict:
     return {name: fp32_launches[name] + launches[name] for name in launches}
 
 
-def train_overrides(ors: Path, ckpt: Path, batch: int, grad_acc: int, steps: int) -> list[str]:
-    return data_overrides(ors) + [
+def train_overrides(data: list[str], ckpt: Path, batch: int, grad_acc: int, steps: int) -> list[str]:
+    return data + [
         f"optim.batch_size={batch}", f"optim.grad_acc={grad_acc}", f"optim.total_steps={steps}",
         "dataloader.balancer_buffer_size=0", "eval.every_steps=0", "checkpoint.every_steps=1000000",
         f"checkpoint_path={ckpt}", "logging.every_steps=1", "logging.log_with=none"]
@@ -3886,7 +4153,7 @@ def train_fp32(tmp: Path, ors: Path, report: dict) -> dict:
     from mapperatorinator_tpu_torch.train import main as train_main
 
     logs = tmp / "logs_fp32"
-    overrides = train_overrides(ors, tmp / "ckpt_fp32", FP32_TRAIN_BATCH, 1, FP32_TRAIN_STEPS)
+    overrides = train_overrides(data_overrides(ors), tmp / "ckpt_fp32", FP32_TRAIN_BATCH, 1, FP32_TRAIN_STEPS)
     reset_attention_launches()
     t0 = time.perf_counter()
     state = train_main.main(["-cn", "v32", *overrides, "mixed_precision=no"], log_dir=str(logs))
@@ -3918,19 +4185,31 @@ def train_phase(tmp: Path, report: dict) -> dict:
     from mapperatorinator_tpu_torch.train.optim import build_optimizer
     from mapperatorinator_tpu_torch.train.step import TrainState, make_train_step, named_flax_params
 
-    t0 = time.perf_counter()
-    ors = write_ors(tmp / "ors")
-    print(f"ors dataset: {ORS_TRACKS} tracks x {ORS_MAPS} maps, {ORS_SECONDS:g} s of audio each, written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    from mapperatorinator_tpu_torch.train.data.parquet import read_table
+
     report["training"] = {}
+    for name, write in (("ors", write_ors), ("web", write_web), ("mmrs", write_mmrs)):
+        t0 = time.perf_counter()
+        write(tmp / name)
+        report["training"][f"{name}_write_s"] = time.perf_counter() - t0
+    shard = next((tmp / "web" / "compressed").glob("*.parquet"))
+    t0 = time.perf_counter()
+    read_table(shard)
+    report["training"]["web_shard_read_s"] = read_s = time.perf_counter() - t0
+    print(f"datasets: {ORS_TRACKS} sets x {ORS_MAPS} maps, {ORS_SECONDS:g} s of audio each, as ors track folders, "
+          f"a web shard ({shard.stat().st_size / 2**20:.1f} MiB, the audio embedded; read by the port's parquet "
+          f"reader in {read_s:.3f} s) and an MMRS root, written in "
+          + ", ".join(f"{report['training'][f'{n}_write_s']:.1f} s" for n in ("ors", "web", "mmrs")))
+    ors, web = tmp / "ors", tmp / "web"
     check_launches = check_gradients(ors, report)
     fp32_launches = train_fp32(tmp, ors, report)
 
     ckpt, logs = tmp / "ckpt", tmp / "logs"
-    overrides = train_overrides(ors, ckpt, TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS)
+    overrides = train_overrides(web_overrides(web), ckpt, TRAIN_BATCH, TRAIN_GRAD_ACC, TRAIN_MICRO_STEPS)
     print(f"training cuts: {TRAIN_MICRO_STEPS} micro-steps ({TRAIN_MICRO_STEPS // TRAIN_GRAD_ACC} updates) of v32's "
-          f"batch {TRAIN_BATCH} x grad_acc {TRAIN_GRAD_ACC}; no eval; token balancer off (its 2048-sample buffer "
-          "outlasts the run); width and depth as published")
+          f"batch {TRAIN_BATCH} x grad_acc {TRAIN_GRAD_ACC}; its own dataset_type web from one local shard of the "
+          "synthesized sets; no eval; token balancer off (its 2048-sample buffer outlasts the run); width and depth "
+          "as published")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_attention_launches()
@@ -3967,6 +4246,8 @@ def train_phase(tmp: Path, report: dict) -> dict:
 
     # restore the final checkpoint into a fresh state
     args = load_train_config("v32", overrides)
+    if args.data.dataset_type != "web":
+        raise AssertionError(f"v32 trained from dataset_type {args.data.dataset_type!r}, not its own web")
     fresh, _, make_batches = train_main.build_model_and_data(args, torch.device("cuda"))
     restored = CheckpointManager(ckpt).restore(TrainState(0, fresh, build_optimizer(args, named_flax_params(fresh))))
     trained = dict(state.model.named_parameters())
@@ -4077,10 +4358,10 @@ def finetune_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
     from mapperatorinator_tpu_torch.train.loop import batch_tokens, card_line
 
     report["finetune"] = out = {}
-    ors = tmp / "ors"  # the training phase's dataset
+    mmrs = tmp / "mmrs"  # the training phase's MMRS root: lora_v32's own dataset_type
     t0 = time.perf_counter()
-    args = load_train_config("lora_v32", data_overrides(ors) + ["pretrained_path=", "dataloader.num_workers=0",
-                                                                "model.spectrogram.implementation=pallas"])
+    args = load_train_config("lora_v32", mmrs_overrides(mmrs) + ["pretrained_path=", "dataloader.num_workers=0",
+                                                                 "model.spectrogram.implementation=pallas"])
     model, vocab, _ = train_main.build_model_and_data(args, torch.device("cuda"))
     check_full_width(model)
     if model.cfg.backbone.dtype != torch.bfloat16:
@@ -4093,17 +4374,17 @@ def finetune_phase(tmp: Path, report: dict) -> tuple[dict, dict]:
           f"under {base.name}/gamemode=0 in {time.perf_counter() - t0:.1f} s")
 
     ckpt, logs = tmp / "lora_ckpt", tmp / "logs_lora"
-    overrides = data_overrides(ors) + [
+    overrides = mmrs_overrides(mmrs) + [
         f"pretrained_path={base}", "pretrained_gamemode=0", f"optim.grad_acc={LORA_GRAD_ACC}",
         f"optim.total_steps={LORA_MICRO_STEPS}", "eval.every_steps=0", "checkpoint.every_steps=1000000",
         f"checkpoint_path={ckpt}", "logging.every_steps=1", "logging.log_with=none", "profile.do_profile=true",
         "profile.wait=1", "profile.warmup=1", "profile.active=1", "dataloader.drop_last=true"]
     print(f"fine-tune cuts: pretrained_path {base.name} (seeded random weights; the published v32 checkpoint is a "
-          f"download), dataset ors on the synthesized tracks (lora_v32 reads a private mmrs set), grad_acc 16 -> "
-          f"{LORA_GRAD_ACC}, {LORA_MICRO_STEPS} micro-steps ({LORA_MICRO_STEPS // LORA_GRAD_ACC} updates) of 1000, "
-          f"no eval, drop_last on (every micro-step 32 rows; the synthesized set's epoch ends in a partial batch); "
-          f"rank, alpha, targets, Muon, bf16 and batch 32 as published; the trace covers micro-steps "
-          f"{LORA_TRACED[0]}-{LORA_TRACED[-1]}")
+          f"download), its own dataset_type mmrs from the synthesized MMRS root (train_dataset_end {ORS_TRACKS} of "
+          f"10), grad_acc 16 -> {LORA_GRAD_ACC}, {LORA_MICRO_STEPS} micro-steps "
+          f"({LORA_MICRO_STEPS // LORA_GRAD_ACC} updates) of 1000, no eval, drop_last on (every micro-step 32 rows; "
+          f"the synthesized set's epoch ends in a partial batch); rank, alpha, targets, Muon, bf16 and batch 32 as "
+          f"published; the trace covers micro-steps {LORA_TRACED[0]}-{LORA_TRACED[-1]}")
 
     def counts() -> dict:
         return {**attention_launches(), "fused_mel": fused_mel.launches}
@@ -4834,14 +5115,16 @@ def backbone_attention(label: str, calls: dict) -> tuple[list[dict], list[dict]]
 
 def backbone_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], list[dict]]:
     """Training every other backbone family through ``train.main`` (``-cn
-    <name>``) on the card, on train_phase's synthesized set (``tmp /
-    "ors"``, ``data.dataset_type=ors`` for v28's and v29's ``mmrs``), each
-    at full width and its recipe's bf16 (``BACKBONE_TRAIN``): v29
+    <name>``) on the card, on train_phase's synthesized sets, each from its
+    recipe's own ``dataset_type`` (v28's and v29's ``mmrs``: ``tmp /
+    "mmrs"``; the others' ``ors``: ``tmp / "ors"``), at full width and its
+    recipe's bf16 (``BACKBONE_TRAIN``): v29
     (whisper-small) and v28 (whisper-base), T5 v1.1-base, NWhisper-base and
     moonshine-tiny. For each:
 
-    * a gradient check (:func:`backbone_gradient_check`) and the two memory
-      probes that pick the micro-batch (:func:`backbone_micro_batch`);
+    * a gradient check (:func:`backbone_gradient_check`, on the ``ors``
+      tracks) and the two memory probes that pick the micro-batch
+      (:func:`backbone_micro_batch`);
     * ``BACKBONE_MICRO_STEPS`` micro-steps at grad_acc ``BACKBONE_GRAD_ACC``:
       every loss finite, ``state.step`` the micro-steps run, two updates,
       the published widths in bf16, and a B and a C launched a covered call
@@ -4870,9 +5153,9 @@ def backbone_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict
     card = card_line()
     print(f"backbone training cuts: {BACKBONE_MICRO_STEPS} micro-steps at grad_acc {BACKBONE_GRAD_ACC} (two updates) "
           f"of the recipes' grad_acc 8 (v28, t5_base, nwhisper_base, moonshine_tiny) and 32 (v29); warmup_steps 1 of "
-          f"10 000 (a cosine decay needs steps after its warmup); no eval; the synthesized ors set for v28's and "
-          f"v29's mmrs; the recipe's micro-batch 128 where the reckoned peak fits {BACKBONE_MEMORY_SHARE:g} of the "
-          f"card; seeded random weights; widths and depths as published")
+          f"10 000 (a cosine decay needs steps after its warmup); no eval; the recipe's dataset_type on the "
+          f"synthesized sets (v28's and v29's mmrs, the others' ors); the recipe's micro-batch 128 where the reckoned "
+          f"peak fits {BACKBONE_MEMORY_SHARE:g} of the card; seeded random weights; widths and depths as published")
     launches_total = {k: 0 for k in attention_launches()}
     checks_total = dict(launches_total)
     fwd_rows, bwd_rows = [], []
@@ -4892,7 +5175,8 @@ def backbone_train_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict
         checks_total = {k: checks_total[k] + probed["launches"][k] for k in checks_total}
 
         ckpt, logs = work / f"{name}_ckpt", work / f"{name}_logs"
-        overrides = train_overrides(ors, ckpt, batch, BACKBONE_GRAD_ACC, BACKBONE_MICRO_STEPS) + [
+        data = mmrs_overrides(tmp / "mmrs") if args.data.dataset_type == "mmrs" else data_overrides(ors)
+        overrides = train_overrides(data, ckpt, batch, BACKBONE_GRAD_ACC, BACKBONE_MICRO_STEPS) + [
             "optim.warmup_steps=1"]
         steps = []
 
@@ -5385,6 +5669,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], lis
     if "exclusive" in mode.lower():
         raise AssertionError(f"the card's compute mode is {mode}: a second process cannot share it")
     ors, work = tmp / "ors", tmp / "parallel"
+    ors_data = data_overrides(ors)
     work.mkdir()
     record = {"card": card, "compute_mode": mode, "part_s": {}}
     report["parallel"] = record
@@ -5463,7 +5748,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], lis
 
     port = free_port()
     group = [f"parallel.coordinator_address=127.0.0.1:{port}", "parallel.num_processes=1", "parallel.process_id=0"]
-    state, record["a"] = run_main("a, DDP, 1 rank", train_overrides(ors, work / "a_ckpt", PARALLEL_BATCH, 1,
+    state, record["a"] = run_main("a, DDP, 1 rank", train_overrides(ors_data, work / "a_ckpt", PARALLEL_BATCH, 1,
                                                                    PARALLEL_STEPS) + group + PARALLEL_CUT)
     if record["a"]["backend"] != "nccl" or state.replica is None:
         raise AssertionError(f"parallel (a): backend {record['a']['backend']}, replica {type(state.replica)}")
@@ -5487,7 +5772,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], lis
     del plain, ddp
     lap("fixed batch, the update under DDP")
 
-    state, record["c"] = run_main("c, FSDP, 1 rank", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1,
+    state, record["c"] = run_main("c, FSDP, 1 rank", train_overrides(ors_data, work / "c_ckpt", PARALLEL_BATCH, 1,
                                                                     PARALLEL_STEPS) + group + PARALLEL_CUT
                                   + ["parallel.fsdp_axis=data"])
     if not any_sharded(state.model.parameters()):
@@ -5501,7 +5786,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], lis
     gc.collect()
     torch.cuda.empty_cache()
     dist.destroy_process_group()
-    args = load_train_config("v32", train_overrides(ors, work / "c_ckpt", PARALLEL_BATCH, 1, PARALLEL_STEPS)
+    args = load_train_config("v32", train_overrides(ors_data, work / "c_ckpt", PARALLEL_BATCH, 1, PARALLEL_STEPS)
                              + PARALLEL_CUT)
     fresh, _, _ = train_main.build_model_and_data(args, cuda)
     restored = CheckpointManager(work / "c_ckpt").restore(TrainState(0, fresh, build_optimizer(
@@ -5559,7 +5844,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], lis
 
     def overrides(label: str) -> list:
         _, _, micro_steps, grad_acc = runs[label]
-        return (train_overrides(ors, work / f"{label}_ckpt", global_rows(label), grad_acc, micro_steps)
+        return (train_overrides(ors_data, work / f"{label}_ckpt", global_rows(label), grad_acc, micro_steps)
                 + (PARALLEL_CUT if label != "d" else []))
 
     ports = {label: free_port() for label in ("b", "c2", "d", "f")}
@@ -5711,7 +5996,7 @@ def parallel_phase(tmp: Path, report: dict) -> tuple[dict, dict, list[dict], lis
     torch.cuda.reset_peak_memory_stats()
     reset_attention_launches()
     with timed_steps(train_main, "make_train_step", g_steps):
-        state = train_main.main(["-cn", "v32", *train_overrides(ors, work / "g_ckpt", PARALLEL_BATCH, 2,
+        state = train_main.main(["-cn", "v32", *train_overrides(ors_data, work / "g_ckpt", PARALLEL_BATCH, 2,
                                                                  ADAFACTOR_STEPS), "optim.name=adafactor"],
                                 log_dir=str(work / "g_logs"))
     torch.cuda.synchronize()
@@ -6199,6 +6484,8 @@ def main() -> int:
         mark("moonshine")
         evaluated, eval_rows = eval_phase(tmp, wav, report)
         mark("eval")
+        parquet_phase(report)
+        mark("parquet")
         trained, trained_fp32, checked = train_phase(tmp, report)
         mark("train")
         finetuned, lora_served = finetune_phase(tmp, report)

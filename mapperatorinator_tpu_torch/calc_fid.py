@@ -11,9 +11,10 @@ maps, and the drain, BPM and star-rating mean squared errors.
 Generation runs through the port's ``inference.generate``: inline where
 ``num_processes`` <= 0, else in spawned workers that each load the engine
 on the card (``inference.device``). The classifier and CM3P run on the
-device ``inference.device`` selects. The ``mmrs`` dataset is not ported
-(its metadata is parquet, read with pandas): only ``ors`` scans. The host
-code is the JAX script's (``tests/test_torch_nojax.py`` holds it to it).
+device ``inference.device`` selects. The dataset scan reads ``ors`` track
+folders or an ``mmrs`` root (its ``metadata.parquet`` through the port's
+parquet reader). The host code is the JAX script's
+(``tests/test_torch_nojax.py`` holds it to it).
 """
 
 from __future__ import annotations
@@ -57,8 +58,27 @@ def get_beatmap_paths_by_gamemode(args) -> dict[int, list[Path]]:
     by_gm: dict[int, list[Path]] = {}
 
     if args.dataset_type == "mmrs":
-        raise NotImplementedError("dataset_type='mmrs': its metadata is parquet, read with pandas; "
-                                  "not ported (ROADMAP queue 1, not queued); use dataset_type=ors")
+        from .train.data.mmrs import (
+            filter_mmrs_metadata,
+            load_mmrs_metadata,
+        )
+
+        df = load_mmrs_metadata(root)
+        df = filter_mmrs_metadata(
+            df,
+            start=args.dataset_start,
+            end=args.dataset_end,
+            gamemodes=list(args.gamemodes),
+            min_year=args.min_year,
+            max_year=args.max_year,
+            min_difficulty=args.min_difficulty,
+            max_difficulty=args.max_difficulty,
+        )
+        for _, item in df.iterrows():
+            gm = int(item["ModeInt"])
+            by_gm.setdefault(gm, []).append(
+                root / "data" / item["BeatmapSetFolder"] / item["BeatmapFile"]
+            )
     elif args.dataset_type == "ors":
         for i in range(args.dataset_start, args.dataset_end):
             beatmaps = root / f"Track{i:05d}" / "beatmaps"

@@ -5,9 +5,10 @@
 ``stats``: iterate the training dataset and print token-length and context
 statistics. ``audition``: write a WAV per inspected sample (at most 5, under
 ``audition/`` in the working directory) with a click at every TIME_SHIFT
-token. The dataset is the port's :func:`.train.data.build_dataset`: the
-``ors`` track folders (``data.dataset_type=ors``); ``mmrs`` and ``web``
-raise there. It runs on the host: no model, no card.
+token. The dataset is the port's :func:`.train.data.build_dataset`, of the
+recipe's ``data.dataset_type``: ``web`` shards in a local directory, an
+``mmrs`` root or ``ors`` track folders. It runs on the host: no model, no
+card.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Diffusion data: beatmap -> 19-dim coordinate feature sequences. A copy of
 the JAX ``diffusion/data.py`` (``tests/test_torch_nojax.py`` holds it to its
 source); ``diffusion_sample`` uses its sequence and class-vector helpers,
-and training (not ported yet) its dataset.
+and ``diffusion_train`` its dataset.
 
 Port of the reference's data loading (reference:
 ``osu_diffusion/utils/data_loading.py:29-230, 467-521``): per-hit-object

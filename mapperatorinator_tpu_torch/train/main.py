@@ -41,10 +41,15 @@ one (loss and accuracy, as in JAX). Under LoRA the factors are trained
 replicated whatever the layout (their gradients summed by hand), the frozen
 base whole on every rank, as the JAX ``train.py`` replicates it.
 
-A mesh axis other than the data, fsdp and tensor axes raises. The ``mmrs``
-and ``web`` datasets are not ported (ROADMAP): the recipes'
-``dataset_type`` (``web`` for v32, ``mmrs`` for v28 and v29) is overridden
-to ``ors``, a local track-folder dataset.
+A mesh axis other than the data, fsdp and tensor axes raises. Each recipe
+trains from its own ``dataset_type``: ``web`` (v32, ``lora``,
+``v32-mini_ft``) reads the ``*.parquet`` shards of a local directory, under
+``data.dataset_subset`` (``compressed``) where it is set, as in ``-cn v32
+data.train_dataset_path=<dir>``; ``mmrs`` (v28, v29, ``lora_v32``) an MMRS
+root (``metadata.parquet`` and ``data/<set folder>/``); ``ors`` a folder of
+tracks. Parquet is read by the port's own reader
+(:mod:`.data.parquet`); a web source that is not a directory (a Hugging
+Face repo id) raises, since streaming it needs the network.
 """
 
 from __future__ import annotations

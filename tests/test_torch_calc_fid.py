@@ -10,8 +10,8 @@ tiny CM3P bundle the JAX package writes). The JSON keys must be equal, the
 host metrics equal, and the FID figures within 2e-4 of each other, relative
 to their size. Then the inline generation path (``num_processes=0``) on the
 tiny checkpoint with ``inference.device=cpu``, which writes each map's
-regeneration under ``generated/`` and reports on the pairs; and the
-``mmrs`` scan, which raises.
+regeneration under ``generated/`` and reports on the pairs. The ``mmrs``
+scan is held to the JAX one in ``test_torch_mmrs_web.py``.
 """
 
 import json
@@ -108,8 +108,3 @@ def test_no_card_and_no_cpu_asked_raises(setup):
     args = load_fid_config("calc_fid", [f"classifier_ckpt={classifier}"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calc_fid.load_classifier(args)
-
-
-def test_mmrs_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="mmrs"):
-        calc_fid.get_beatmap_paths(load_fid_config("calc_fid", [f"dataset_path={tmp_path}", "dataset_type=mmrs"]))

@@ -25,7 +25,7 @@ from mapperatorinator_tpu.train.data.batching import batch_iterator as jax_batch
 from mapperatorinator_tpu_torch.config import load_train_config
 from mapperatorinator_tpu_torch.osu import BeatmapParser, build_vocabulary
 from mapperatorinator_tpu_torch.train import main as train_main
-from mapperatorinator_tpu_torch.train.data import OrsDataset, build_dataset
+from mapperatorinator_tpu_torch.train.data import OrsDataset
 from mapperatorinator_tpu_torch.train.data.batching import batch_iterator
 from tests.fixtures.tiny_checkpoint import REPO_ROOT
 
@@ -128,15 +128,6 @@ def test_ors_batches_equal_the_jax_ones(ors_root, test, balancer):
         assert sorted(g) == sorted(w)
         for key in w:
             np.testing.assert_array_equal(g[key], w[key], err_msg=key)
-
-
-def test_unported_datasets_raise(ors_root):
-    args = load_train_config("v32", data_overrides(ors_root))
-    vocab = build_vocabulary(args)
-    for kind in ("web", "mmrs"):
-        args.data.dataset_type = kind
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_dataset(args.data, BeatmapParser(args, vocab), vocab)
 
 
 TINY_MODEL = ["model.overwrite.d_model=64", "model.overwrite.encoder_layers=1", "model.overwrite.decoder_layers=2",

@@ -1,7 +1,8 @@
 """The port runs where jax, flax, optax, yaml, msgpack, safetensors,
-transformers, matplotlib, pandas, sklearn, huggingface_hub (which the GPU
-machine lacks) and the JAX package cannot be imported, and its copies of the JAX package's host code stay the
-JAX package's code.
+transformers, matplotlib, pandas, pyarrow, sklearn, huggingface_hub,
+datasets (which the GPU machine lacks) and the JAX package cannot be
+imported, and its copies of the JAX package's host code stay the JAX
+package's code.
 
 A subprocess installs an import hook that refuses those packages (the JAX
 package ``mapperatorinator_tpu`` included) and records every attempt,
@@ -15,7 +16,8 @@ checkpoints from their ``model.safetensors`` and decodes from each (the last
 two with int8 weights and KV),
 imports the multi-process modules (``parallel/``) and calls their
 single-process helpers, runs one step of ``train.main`` on a small ORS
-dataset, and one step of a
+dataset, reads a parquet file (the committed MMRS metadata) with the port's
+reader, and runs one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
 quantized, writes a tiny DiT bundle, loads it with
 ``load_diffusion_model`` and refines the positions of a few events with it,
@@ -29,7 +31,8 @@ The drift guard holds each copied file (``osu/``, ``native/``,
 ``torch.cat``) to its source: equal but for imports and the module
 docstring, and, where named below, the lines that point the copy at the
 port's own build or engine; and each copied definition of
-``models/lora.py``, ``models/legacy.py`` (its module map pointed at the
+``train/data/mmrs.py`` and ``train/data/web.py`` (their table operations
+and shard reading aside), ``models/lora.py``, ``models/legacy.py`` (its module map pointed at the
 port's ``osu/events.py``), ``infer/server.py``, ``mai_mod.py`` (the
 top-level script's) and the host code of ``infer/diffusion_pipeline.py``
 (methods of its pipeline class too), ``calc_fid.py``,
@@ -57,7 +60,7 @@ SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "safetensors", "transformers",
-               "mapperatorinator_tpu", "matplotlib", "pandas", "sklearn", "huggingface_hub"}
+               "mapperatorinator_tpu", "matplotlib", "pandas", "pyarrow", "sklearn", "huggingface_hub", "datasets"}
     attempts = []
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -87,6 +90,8 @@ SCRIPT = textwrap.dedent("""
         "utils.plot_self_similarity")} <= set(modules)
     # multi-process training
     assert {f"mapperatorinator_tpu_torch.parallel.{name}" for name in ("distributed", "mesh", "sharding")} <= set(modules)
+    # the parquet reader and the datasets that read it
+    assert {f"mapperatorinator_tpu_torch.train.data.{name}" for name in ("parquet", "mmrs", "web")} <= set(modules)
     from mapperatorinator_tpu_torch import parallel
     assert parallel.maybe_initialize(None) is False and parallel.make_global_mesh(None, "cpu") is None
 
@@ -169,6 +174,14 @@ SCRIPT = textwrap.dedent("""
     split = sys.argv.index("--")
     state = train_main.main(sys.argv[11:split], log_dir=sys.argv[4])
     assert state.step == 1
+
+    # an MMRS metadata.parquet that pandas wrote (SNAPPY, dictionary pages), read without pandas or pyarrow
+    import os, shutil
+    from mapperatorinator_tpu_torch.train.data.mmrs import filter_mmrs_metadata, load_mmrs_metadata
+    os.makedirs(f"{sys.argv[3]}/mmrs")
+    shutil.copy(f"{sys.argv[1]}/tests/fixtures/parquet/mmrs_metadata.parquet", f"{sys.argv[3]}/mmrs/metadata.parquet")
+    table = load_mmrs_metadata(f"{sys.argv[3]}/mmrs")
+    assert len(filter_mmrs_metadata(table, start=0, end=2)) == 8 and table.row(0)["StarRating"].shape == (7,)
 
     # a LoRA fine-tune of the checkpoint, its adapter merged at load and quantized
     lora_state = train_main.main(sys.argv[split + 1:], log_dir=sys.argv[4])
@@ -341,6 +354,13 @@ def test_copies_do_not_drift_from_their_source(copy):
 
 # (the port's copy, its source, the top-level definitions the copy holds verbatim)
 COPIED_DEFINITIONS = [
+    ("train/data/mmrs.py", "mapperatorinator_tpu/train/data/mmrs.py",
+     ("SPEED_RATIOS", "MmrsDataset.__init__", "MmrsDataset._get_filtered_metadata", "MmrsDataset._get_difficulty",
+      "MmrsDataset.__iter__", "MmrsDataset._iter_set", "MmrsDataset._iter_beatmap")),
+    ("train/data/web.py", "mapperatorinator_tpu/train/data/web.py",
+     ("parse_web_datetime", "get_web_ranked_date", "get_web_submitted_date", "filter_web_beatmaps", "load_web_audio",
+      "WebDataset.__init__", "WebDataset.__iter__", "WebDataset._get_difficulty", "WebDataset._iter_row",
+      "WebDataset._iter_beatmap")),
     ("models/lora.py", "mapperatorinator_tpu/models/lora.py",
      ("LORA_CONFIG_FILENAME", "LORA_WEIGHTS_FILENAME", "_TARGET_ALIASES", "DEFAULT_TARGETS", "normalize_targets",
       "_GAMEMODE_SUBFOLDER_PATTERN", "get_model_checkpoint_subfolder", "resolve_model_checkpoint_path",
@@ -382,33 +402,25 @@ COPIED_DEFINITIONS = [
       "_mmssms", "_edit_address", "_SURPRISAL_TIERS", "_surprisal_text", "_categorize", "ai_mod",
       "select_config_for_gamemode", "run_analysis", "main")),
 ]
-# (copy, name) -> [(source text, the copy's text)]: the port's harness raises on the mmrs scan, reads its own
-# resolved configs, spawns no JAX platform choice, loads CM3P on the device the config selects and holds
-# (model, config, vocab) bundles; OsuR's softmax is torch's; the port's MaiMod reads its own resolved configs; the
-# diffusion pipeline embeds the context's times with the port's timestep embedding; the legacy module map
-# routes the reference's paths to the port's events
+# (copy, name) -> [(source text, the copy's text)]: the MMRS dataset's table operations are the port table's
+# (mmrs.MmrsTable); the port's harness reads its own resolved configs, spawns no JAX platform choice, loads CM3P on
+# the device the config selects and holds (model, config, vocab) bundles; OsuR's softmax is torch's; the port's
+# MaiMod reads its own resolved configs; the diffusion pipeline embeds the context's times with the port's timestep
+# embedding; the legacy module map routes the reference's paths to the port's events
 DEFINITION_REPLACED = {
-    ("calc_fid.py", "get_beatmap_paths_by_gamemode"): [
-        ('    if args.dataset_type == "mmrs":\n\n'
-         "        df = load_mmrs_metadata(root)\n"
-         "        df = filter_mmrs_metadata(\n"
-         "            df,\n"
-         "            start=args.dataset_start,\n"
-         "            end=args.dataset_end,\n"
-         "            gamemodes=list(args.gamemodes),\n"
-         "            min_year=args.min_year,\n"
-         "            max_year=args.max_year,\n"
-         "            min_difficulty=args.min_difficulty,\n"
-         "            max_difficulty=args.max_difficulty,\n"
-         "        )\n"
-         "        for _, item in df.iterrows():\n"
-         '            gm = int(item["ModeInt"])\n'
-         "            by_gm.setdefault(gm, []).append(\n"
-         '                root / "data" / item["BeatmapSetFolder"] / item["BeatmapFile"]\n'
-         "            )\n",
-         '    if args.dataset_type == "mmrs":\n'
-         """        raise NotImplementedError("dataset_type='mmrs': its metadata is parquet, read with pandas; "\n"""
-         '                                  "not ported (ROADMAP queue 1, not queued); use dataset_type=ors")\n'),
+    ("train/data/mmrs.py", "MmrsDataset.__iter__"): [
+        ("        set_ids = metadata.index.get_level_values(0).unique().to_numpy()\n",
+         "        set_ids = metadata.unique_set_ids()\n"),
+        ("            yield from self._iter_set(metadata.loc[set_id])\n",
+         "            yield from self._iter_set(metadata.loc(set_id))\n"),
+    ],
+    ("train/data/mmrs.py", "MmrsDataset._iter_set"): [
+        ('set_metadata.iloc[0]["BeatmapSetFolder"]', 'set_metadata.row(0)["BeatmapSetFolder"]'),
+        ('set_metadata.iloc[0]["AudioFile"]', 'set_metadata.row(0)["AudioFile"]'),
+    ],
+    ("train/data/mmrs.py", "MmrsDataset._iter_beatmap"): [
+        ("                other_metadata = set_metadata.drop(i).sample().iloc[0]\n",
+         "                other_metadata = set_metadata.drop(i).sample()\n"),
     ],
     ("calc_fid.py", "generate_beatmaps"): [
         ('        i_args = compose(REPO_ROOT / "configs" / "inference", "v32", '
