@@ -35,6 +35,13 @@
    cores at its 2 048-row products. A
    device time is the sum of the profiler's device kernels only
    (``device_kernels``), so a kernel launched through an op counts once.
+   Then the config layer (``config_phase``): the 24 files of ``configs/``
+   that the scripts compose and the port's three backbone presets, through
+   the port's own YAML reader and loader (``yaml`` is not imported), timed;
+   ``-cn v32 model.spectrogram.hop_length=256`` must give
+   ``data.hop_length`` 256, and the model's mel front end built from that
+   config runs kernel A once on one window at hop 256 (a main-path launch),
+   which is then held against both its plain versions and timed.
 4. Serving: three requests through ``mapperatorinator_tpu_torch.inference``
    (``load_model`` / ``generate``) on the full-width v32 model (d_model 768,
    12 + 12 layers, 12 heads, ffn 3072, 2048 source / 2560 target tokens) with
@@ -123,7 +130,7 @@
    at the cross attention, held against the plain path), MaiMod on its
    .osu or a dense map (T5's cross attention takes B there, 12 launches a
    batch), and a greedy request from the legacy one with
-   ``configs/train_t5_base.json`` and the fused mel, int8 weights and KV
+   the port's ``t5_base`` preset and the fused mel, int8 weights and KV
    (A and D; its teacher-forced logits through D held); B unscaled at the
    cross attention's own q, k and v on both routes against both plain
    versions and float64, A at 388 mels and D at T5-base's products, each
@@ -450,7 +457,7 @@ WHISPER_AUDIO_SECONDS = 4.0
 DIT_TOL = 1e-4  # a DiT forward and a p_sample step through kernel B against the plain path
 # the T5 phase (T5 v1.1-base, t5_relpos): the same 4 s song. Request (a) serves the published checkpoint under
 # -cn v32 (2 048-frame windows, 2 560 target slots); request (b) the legacy checkpoint under its training
-# config's windows (configs/train_t5_base.json: 512 frames, 384 target slots), with the fused mel that config
+# config's windows (the port's t5_base preset: 512 frames, 384 target slots), with the fused mel that config
 # then asks for. The legacy tokenizer is pickled under this reference module path.
 T5_AUDIO_SECONDS = 4.0
 T5_LEGACY_TRAIN = ("model.spectrogram.implementation=pallas",)
@@ -993,6 +1000,98 @@ def check_mel(report: dict) -> dict:
                for key, case in (("cfg_batch2", cases[1]), ("lora_batch32", cases[2]), ("v31_4096x80", cases[3]))}}
 
 
+# the config phase: -cn v32 with this hop (a multiple of 16, which kernel A takes), which data.hop_length derives
+CONFIG_HOP = 256
+CONFIG_SCHEMAS = {"train": "TrainConfig", "inference": "InferenceConfig", "diffusion": "DiffusionTrainConfig",
+                  "classifier": "ClassifierConfig", "rcomplexion": "RcomplexionConfig"}
+
+
+def config_phase(report: dict) -> tuple[dict, dict]:
+    """The port's config layer on the machine without ``yaml``: every file
+    of ``configs/`` that a script composes (all but the model fragments),
+    each with the schema its JAX script uses, and the port's three backbone
+    presets, timed; then ``-cn v32 model.spectrogram.hop_length=CONFIG_HOP``
+    (and the fused mel), whose ``data.hop_length`` must follow, and the
+    model's mel front end, built from that config, on one window of
+    ``(src_seq_len - 1) * data.hop_length`` seeded samples: kernel A at that
+    hop, its launches counted, then held against both its plain versions on
+    the same frames and timed beside them. Returns (the launches, A's row)."""
+    from mapperatorinator_tpu_torch.audio.mel import MelSpectrogram
+    from mapperatorinator_tpu_torch.config import CONFIGS, PORT_CONFIGS, compose_config, load_train_config, schema
+    from mapperatorinator_tpu_torch.ops.mel_kernel import fused_mel, mel_plain, mel_plain_tf32x3
+
+    started = time.perf_counter()
+    names = []
+    for path in sorted(CONFIGS.rglob("*.yaml")):
+        group = path.parent.relative_to(CONFIGS).as_posix()
+        if group == "model":
+            continue
+        group = "" if group == "." else group
+        cls = CONFIG_SCHEMAS.get(group) or ("FidConfig" if "fid" in path.stem else "MaiModConfig")
+        compose_config(group, path.stem, (), getattr(schema, cls))
+        names.append(f"{group}/{path.stem}".lstrip("/"))
+    for path in sorted((PORT_CONFIGS / "train").glob("*.yaml")):
+        compose_config("train", path.stem, (), schema.TrainConfig)
+        names.append(f"train/{path.stem} (the port's preset)")
+    composed_s = time.perf_counter() - started
+    if len(names) != 27 or "yaml" in sys.modules:
+        raise AssertionError(f"the config layer composed {names} (yaml imported: {'yaml' in sys.modules})")
+    print(f"config layer: composed {len(names)} configs (the 24 of configs/ that the scripts compose, the port's "
+          f"3 backbone presets) without yaml in {composed_s:.3f} s ({composed_s / len(names) * 1e3:.2f} ms each)")
+
+    t0 = time.perf_counter()
+    args = load_train_config("v32", [f"model.spectrogram.hop_length={CONFIG_HOP}",
+                                     "model.spectrogram.implementation=pallas"])
+    v32_s = time.perf_counter() - t0
+    sp, data = args.model.spectrogram, args.data
+    if (data.hop_length, sp.hop_length, data.sample_rate) != (CONFIG_HOP, CONFIG_HOP, sp.sample_rate):
+        raise AssertionError(f"-cn v32 model.spectrogram.hop_length={CONFIG_HOP}: data.hop_length "
+                             f"{data.hop_length}, model.spectrogram.hop_length {sp.hop_length}")
+    mel = MelSpectrogram(sp.implementation, sp.log_scale, sp.sample_rate, sp.n_fft, sp.n_mels, sp.hop_length, sp.f_min,
+                         sp.f_max, sp.pad_mode).cuda()
+    n = (data.src_seq_len - 1) * data.hop_length
+    t = np.arange(n) / sp.sample_rate
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy((0.5 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.standard_normal(n)).astype(np.float32))
+    audio = audio[None].cuda()
+    fused_mel.launches = 0
+    got = mel(audio)
+    torch.cuda.synchronize()
+    launches = {"fused_mel": fused_mel.launches}
+    if launches["fused_mel"] != 1 or got.shape != (1, data.src_seq_len, sp.n_mels):
+        raise AssertionError(f"the mel front end at hop {CONFIG_HOP}: {launches} launches, shape {tuple(got.shape)}")
+
+    padded = torch.nn.functional.pad(audio[:, None], (sp.n_fft // 2, sp.n_fft // 2), mode=sp.pad_mode)[:, 0]
+    frames = padded.unfold(1, sp.n_fft, sp.hop_length)[:, :data.src_seq_len]
+    tables = (mel.w_re, mel.w_im, mel.fbanks, mel.log_scale)
+    kernel = fused_mel(frames, *tables)
+    want, want3 = mel_plain(frames, *tables), mel_plain_tf32x3(frames, *tables)
+
+    def excess(ref, tol):  # the largest |got - ref| - tol |ref|: at most tol passes rtol = atol = tol
+        return ((kernel - ref).abs() - tol * ref.abs()).max().item()
+
+    err, err3 = (kernel - want).abs().max().item(), (kernel - want3).abs().max().item()
+    if (not torch.equal(kernel, got) or not bool(torch.isfinite(kernel).all()) or excess(want, MEL_TOL) > MEL_TOL
+            or excess(want, MEL_TC_TOL) > MEL_TC_TOL or excess(want3, MEL_TC_TOL) > MEL_TC_TOL):
+        raise AssertionError(f"kernel A at hop {CONFIG_HOP} disagrees with its plain versions: {err:.3e}, {err3:.3e}")
+    ms, plain_ms, _ = paired_ms(lambda: fused_mel(frames, *tables), lambda: mel_plain(frames, *tables))
+    n_bins = mel.w_re.shape[1]
+    bounds = fp32_bounds(*mel_work(1, data.src_seq_len, sp.n_fft, n_bins, sp.n_mels, padded.numel()))
+    seconds = time.perf_counter() - started
+    print(f"config layer: -cn v32 model.spectrogram.hop_length={CONFIG_HOP} composed in {v32_s * 1e3:.2f} ms, "
+          f"data.hop_length {data.hop_length}; fused_mel at hop {CONFIG_HOP}, {data.src_seq_len} frames, "
+          f"{sp.n_fft} -> {n_bins} -> {sp.n_mels}: {launches['fused_mel']} launch from the front end, max_abs_err "
+          f"{err:.3e} against mel_plain, {err3:.3e} against mel_plain_tf32x3 (rtol = atol = {MEL_TC_TOL:g}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bounds['bound_ms']:.4f} ms ({bounds['bound_by']}); "
+          f"the phase {seconds:.1f} s")
+    row = {"shape": f"hop {CONFIG_HOP}: {data.src_seq_len} frames, {sp.n_fft}->{n_bins}->{sp.n_mels} log1p fp32",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"],
+           "max_abs_err": err, "max_abs_err_tf32x3": err3}
+    report["config_phase"] = {"configs": names, "composed_s": composed_s, "v32_hop_s": v32_s, "seconds": seconds,
+                              "launches": launches, "fused_mel": row}
+    return launches, row
+
+
 def qmm_bound(rows: int, k: int, n: int, dtype) -> tuple[float, str]:
     """Kernel D's least time: the int8 weight, x and the scale read once and
     the output written once, against the operations at the peak rate for
@@ -1309,7 +1408,7 @@ def check_encoder_states(label: str, engine, frames, cond: dict, positions: int)
 
 def serve(label: str, tmp: Path, wav: Path, overrides: list[str], report: dict, check_encoder: bool,
           after=None, config: str = "v32", widths=WHISPER_SMALL, load=None) -> dict:
-    """One request under ``configs/<config>.json`` on a full-width model of
+    """One request under ``configs/inference/<config>.yaml`` on a full-width model of
     ``widths``; ``after(engine, args, vocab, first)`` runs more checks on the
     engine before it is freed, ``first`` holding the first decode call's
     prompt, tokens and end and the first encode call's windows and
@@ -2215,7 +2314,7 @@ def write_legacy_tokenizer(path: Path, vocab) -> None:
 
 def write_t5_checkpoints(directory: Path, seed: int):
     """One set of seeded T5 v1.1-base weights at full width
-    (:func:`t5_reference_state`), of the model ``configs/train_t5_base.json``
+    (:func:`t5_reference_state`), of the model the port's ``t5_base`` preset
     builds with v32's vocabulary (so that ``-cn v32`` serves it), written in
     two forms: a published (HF-format) directory (``config.json`` with
     ``backbone_model_name`` google/t5-v1_1-base and T5Config's names,
@@ -2397,7 +2496,7 @@ def t5_phase(tmp: Path, report: dict) -> tuple[dict, list[dict]]:
       position bias and runs plain), 12 launches a batch, held against the
       plain path;
     * request (b): the legacy directory through ``load_legacy_checkpoint``
-      with ``configs/train_t5_base.json`` and the fused mel, served with
+      with the port's ``t5_base`` preset and the fused mel, served with
       int8 weights and KV (``inference.serving_engine``) at that config's
       windows, greedy: A and D; its first window's teacher-forced logits
       through D held against the plain version.
@@ -6446,6 +6545,8 @@ def main() -> int:
     kernels = [*time_attention_fp32(report), check_mel(report), time_qmm_cold(report), check_qmm(report),
                *check_attention_sm90(report)]
     mark("kernel checks")
+    configured, config_row = config_phase(report)
+    mark("config")
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -6527,13 +6628,14 @@ def main() -> int:
     # each kernel's launches on the main paths that run it: serving (fp32),
     # fp32 training, bf16 training, the LoRA fine-tune, the evaluation tools,
     # the auxiliary trainers, the other backbone families' training,
-    # multi-process training (every rank's), the single-card tools; the
-    # gradient checks' are listed apart
+    # multi-process training (every rank's), the single-card tools, the
+    # config phase's mel front end; the gradient checks' are listed apart
     launches = {k: served.get(k, 0) + trained_fp32.get(k, 0) + trained.get(k, 0) + finetuned.get(k, 0)
                 + evaluated.get(k, 0) + aux_trained.get(k, 0) + backbone_trained.get(k, 0)
-                + parallel_trained.get(k, 0) + tools.get(k, 0)
+                + parallel_trained.get(k, 0) + tools.get(k, 0) + configured.get(k, 0)
                 for k in served}
-    report["launches_by_path"] = {"serving": served, "int8 serving (request 3)": third, "maimod": maimod,
+    report["launches_by_path"] = {"config (the v32 front end at hop 256)": configured,
+                                  "serving": served, "int8 serving (request 3)": third, "maimod": maimod,
                                   "super-timing": super_timing, "server": server,
                                   "v31 (two requests and MaiMod's fallback)": v31,
                                   "DiT refinement (the dense song and a v32 request)": dit,
@@ -6557,6 +6659,7 @@ def main() -> int:
                                   "gradient checks (v32 fp32 and bf16, DiT-B and the classifier fp32, the five "
                                   "backbones bf16 and their memory probes, the parallel phase's fixed-batch updates "
                                   "and one-process loss; not a main path)": checked}
+    next(entry for entry in kernels if entry["name"] == "fused_mel")["config_hop256"] = config_row
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in checked:

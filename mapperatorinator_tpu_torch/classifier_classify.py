@@ -6,7 +6,7 @@ mappers printed with their confidences.
         beatmap_path=map.osu [audio_path=song.wav] [time=S] [mappers_path=...] [device=cpu]
 
 ``model_path`` holds the classifier's ``params.msgpack`` (the flax tree);
-the model is built from the config (``configs/classifier_<name>.json``) and
+the model is built from the config (``configs/classifier/<name>.yaml``) and
 runs on the card unless ``device=cpu`` is given.
 """
 

@@ -14,8 +14,8 @@ refined variant, as a new ``.osu`` difficulty. Banded attention over the
 an optional refine model's ``p_sample`` steps at t = 0, and a scatter plot
 of a time window where matplotlib is installed (a message where it is not).
 The class vocabulary is ``DiffusionVocab.from_args`` of the diffusion config
-the model was trained with (``--config-name``, from the port's resolved
-configs), or a serialized one (``--vocab``).
+the model was trained with (``--config-name``, ``configs/diffusion/<name>.yaml``),
+or a serialized one (``--vocab``).
 
 Noise comes from a ``torch.Generator`` seeded with ``--seed`` on the device,
 or, through :func:`main`'s ``noise``, a keyed callable ``noise(shape,

@@ -3,8 +3,8 @@ reference: ``osu_diffusion/train.py:90-255``).
 
     python -m mapperatorinator_tpu_torch.diffusion_train -cn v1 [key=value ...] [device=cpu]
 
-The config is ``configs/diffusion/<name>.yaml`` as the JAX loader composes
-it (``config.load_diffusion_config``). The DiT starts from flax's
+The config is ``configs/diffusion/<name>.yaml``, composed as the JAX loader
+composes it (``config.load_diffusion_config``). The DiT starts from flax's
 initialisation (``models/params.init_dit_flax``), timesteps come from a
 capped-uniform draw (``randint(0, max_diffusion_step)``) or the
 loss-second-moment sampler (``model.schedule_sampler``), and each step

@@ -49,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import load_config, select_device
+from .config import load_config, parse_argv, select_device
 from .decode import DecodeEngine
 from .infer import GenerationConfig, Preprocessor, Processor, generation_config_from_beatmap
 from .infer.diffusion_pipeline import DiffusionPipeline
@@ -500,19 +500,9 @@ def load_diffusion_model(ckpt_path, device) -> Optional[torch.nn.Module]:
 
 def main(argv=None):
     """``python -m mapperatorinator_tpu_torch.inference [-cn NAME] key=value ...``:
-    the configuration ``configs/NAME.json`` (default v32) with the overrides,
+    the configuration ``configs/inference/NAME.yaml`` (default v32) with the overrides,
     then :func:`run`. Returns what :func:`generate` returns."""
-    argv = sys.argv[1:] if argv is None else argv
-    config_name = "v32"
-    overrides = []
-    i = 0
-    while i < len(argv):
-        if argv[i] in ("-cn", "--config-name"):
-            config_name = argv[i + 1]
-            i += 2
-        else:
-            overrides.append(argv[i])
-            i += 1
+    config_name, overrides, _ = parse_argv(sys.argv[1:] if argv is None else argv, "v32", {})
     return run(load_config(config_name, overrides))
 
 

@@ -9,12 +9,13 @@ command line, on the card unless ``inference.device=cpu`` is given:
     python -m mapperatorinator_tpu_torch.mai_mod beatmap_path=map.osu audio_path=song.wav \
         inference.model_path=ckpt/ [raw_output=true]
 
-The configuration is ``configs/mai_mod.json`` (the JAX ``configs/mai_mod.yaml``:
-v32 under ``inference``). Where the beatmap's gamemode is not one the config
-was trained on, :func:`select_config_for_gamemode` falls back to the v31
-preset (``configs/v31.json``), which covers all four modes. The host code is
+The configuration is ``configs/mai_mod.yaml`` (v32 under ``inference``),
+composed as the JAX script composes it. Where the beatmap's gamemode is not
+one the config was trained on, :func:`select_config_for_gamemode` falls back
+to the v31 preset (``configs/inference/v31.yaml``, re-composed with the
+``inference.*`` overrides), which covers all four modes. The host code is
 the JAX file's (``tests/test_torch_nojax.py`` holds it to its source), each
-package reading its own resolved configs.
+package composing with its own loader.
 """
 
 from __future__ import annotations

@@ -230,7 +230,7 @@ def load_classifier_bundle(directory) -> tuple[OsuClassifier, types.SimpleNamesp
     """(classifier on the CPU, its config as ``model`` and ``data``
     namespaces, vocabulary) of a bundle, as ``calc_fid.py:load_classifier``
     rebuilds one: the model fields over those of
-    ``configs/classifier_train_v1.json``, the data fields (but the context
+    ``configs/classifier/train_v1.yaml``, the data fields (but the context
     types, which the classifier does not read) over the JAX ``DataConfig()``
     defaults the parser reads."""
     directory = Path(directory)

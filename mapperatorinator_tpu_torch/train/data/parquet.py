@@ -591,7 +591,7 @@ def read_table(path) -> tuple[dict[str, np.ndarray], np.ndarray]:
     return out, index
 
 
-def _native(value):
+def as_python(value):
     """A cell as pandas boxes it in ``to_dict``: Python scalars, a
     ``datetime`` for a timestamp (None for NaT)."""
     if isinstance(value, np.datetime64):
@@ -603,4 +603,4 @@ def _native(value):
 
 def table_row(columns: dict[str, np.ndarray], i: int) -> dict:
     """Row ``i`` as ``df.iloc[i].to_dict()`` gives it."""
-    return {name: _native(col[i]) for name, col in columns.items()}
+    return {name: as_python(col[i]) for name, col in columns.items()}

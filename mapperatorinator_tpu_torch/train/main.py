@@ -2,7 +2,7 @@
 
     python -m mapperatorinator_tpu_torch.train.main -cn v32 [key=value ...]
 
-Loads ``configs/train_<name>.json`` with the overrides, builds the
+Composes ``configs/train/<name>.yaml`` with the overrides, builds the
 vocabulary, parser, dataset, model (seeded random weights, or a native
 checkpoint's with ``pretrained_path``), optimizer and checkpoint manager,
 resumes from the latest checkpoint under ``checkpoint_path``, saves
@@ -63,7 +63,7 @@ import functools
 import torch
 import torch.distributed as dist
 
-from ..config import load_train_config, select_device
+from ..config import load_train_config, parse_argv, select_device
 from ..models.io import load_checkpoint
 from ..models.lora import init_lora_params, resolve_model_checkpoint_path, save_lora
 from ..models.mapperatorinator import Mapperatorinator, build_config
@@ -79,19 +79,6 @@ from .loop import CheckpointManager, MetricsLogger, card_line, device_peak_flops
 from .optim import build_optimizer
 from .step import (TrainState, _forward, _merged_forward, eval_model_global, make_eval_step, make_global_eval_step,
                    make_lora_eval_step, make_lora_train_step, make_train_step, named_flax_params)
-
-
-def parse_argv(argv: Sequence[str]) -> tuple[str, list[str]]:
-    """``-cn <name>`` (or ``--config-name``) and the ``key=value`` overrides."""
-    config_name, overrides, i = "v32", [], 0
-    while i < len(argv):
-        if argv[i] in ("-cn", "--config-name"):
-            config_name = argv[i + 1]
-            i += 2
-        else:
-            overrides.append(argv[i])
-            i += 1
-    return config_name, overrides
 
 
 def refuse_unported(args) -> None:
@@ -153,7 +140,7 @@ def make_batch_factory(args, parser: BeatmapParser, vocab):
 
 
 def main(argv: Optional[Sequence[str]] = None, log_dir: str = "logs") -> TrainState:
-    config_name, overrides = parse_argv(sys.argv[1:] if argv is None else argv)
+    config_name, overrides, _ = parse_argv(sys.argv[1:] if argv is None else argv, "v32", {})
     args = load_train_config(config_name, overrides)
     refuse_unported(args)
     if args.enable_lora and not args.pretrained_path:

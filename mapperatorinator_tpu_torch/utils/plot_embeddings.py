@@ -17,12 +17,14 @@ tool says so and prints the 2-D points instead. It runs on the host.
 from __future__ import annotations
 
 import argparse
+import csv
 from pathlib import Path
 
 import numpy as np
 
 from ..diffusion.vocab import DiffusionVocab
 from ..models.io import read_flax_msgpack
+from ..train.data.parquet import as_python, read_table as read_parquet, table_row
 
 
 def load_style_embeddings(ckpt: str, num_classes: int | None = None, vocab_path: str | None = None):
@@ -65,6 +67,20 @@ def read_table(path: str):
         return None
     table = Path(path)
     return pd.read_parquet(table) if table.suffix == ".parquet" else pd.read_csv(table)
+
+
+def metadata_table(path: str) -> tuple[list, list[dict]]:
+    """(index labels, rows) of a beatmap table without pandas: a parquet
+    file through the port's reader (the labels and cells as pandas gives
+    them), a csv through the ``csv`` module (labels 0, 1, ...; cells as
+    text)."""
+    table = Path(path)
+    if table.suffix == ".parquet":
+        columns, index = read_parquet(table)
+        return [as_python(label) for label in index], [table_row(columns, i) for i in range(len(index))]
+    with open(table, newline="", encoding="utf-8") as f:
+        rows = list(csv.DictReader(f))
+    return list(range(len(rows))), rows
 
 
 def run(args) -> np.ndarray:

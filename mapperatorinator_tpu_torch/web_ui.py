@@ -16,7 +16,7 @@ Run::
 
     python -m mapperatorinator_tpu_torch.web_ui [--port 8765] [--device cpu] [--window]
 
-The form composes the port's resolved presets (``configs/<model>.json``).
+The form composes the repo's inference presets (``configs/inference/<model>.yaml``).
 Jobs start in a ``spawn`` context, so the server process never touches
 CUDA: each worker selects its device itself (:func:`.config.select_device`),
 the one ``--device`` names, by default the presets' own, which is the card.
@@ -38,7 +38,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
-from .config import CONFIG_DIR, load_config
+from .config import CONFIGS, load_config
 from .osu.events import ContextType
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -232,14 +232,12 @@ def validate_and_autofill(form: dict) -> dict:
 
 
 def list_model_presets() -> list[str]:
-    """The port's inference presets: each resolved config with a nested
-    training config and an audio path (v28-v32 and v32-mini)."""
-    names = []
-    for path in sorted(CONFIG_DIR.glob("*.json")):
-        with open(path, encoding="utf-8") as f:
-            tree = json.load(f)
-        if "train" in tree and "audio_path" in tree:
-            names.append(path.stem)
+    """The inference presets, ``configs/inference/*.yaml`` but the default,
+    as the JAX UI lists them."""
+    names = sorted(
+        p.stem for p in (CONFIGS / "inference").glob("*.yaml")
+        if p.stem != "default"
+    )
     return names
 
 

@@ -1,24 +1,21 @@
-"""The port's checked-in v32 configs, the v28 and v29 training recipes, and the
-T5, NWhisper and moonshine training configs, against the JAX loader.
+"""The port's compositions of the v32 configs, the v28 and v29 training
+recipes, and the T5, NWhisper and moonshine training configs, against the
+JAX loader.
 
-``mapperatorinator_tpu_torch/configs/v32.json`` is the JAX composition of
-``configs/inference/v32.yaml`` and ``configs/train_v32.json`` that of
-``configs/train/v32.yaml`` (``train_v28.json`` and ``train_v29.json`` of
-``v28.yaml`` and ``v29.yaml`` likewise), written out as JSON, so the port reads them
-without yaml. ``configs/train_t5_base.json`` is the JAX loader's composition
-of ``configs/train/default.yaml`` with ``model=t5_base`` (the T5 v1.1-base
-backbone of the legacy osuT5 releases): the repo has no preset that names
-it, so the composition is of a preset written for it in a copy of
-``configs/``, ``defaults: [default, ../model@model: t5_base, _self_]``, as
-``configs/train/v32.yaml`` names its model; ``train_nwhisper_base.json``
-and ``train_moonshine_tiny.json`` are composed alike with
-``model=nwhisper_base`` and ``model=moonshine_tiny``. These tests recompose them and
-fail on any drift. To regenerate the files after a config change:
-``JAX_PLATFORMS=cpu python -m tests.test_torch_config``.
+The port composes ``configs/inference/v32.yaml`` and
+``configs/train/{v32,v28,v29}.yaml`` itself (``mapperatorinator_tpu_torch/config/``,
+without yaml). ``t5_base`` is ``configs/train/default.yaml`` with
+``model=t5_base`` (the T5 v1.1-base backbone of the legacy osuT5
+releases): the repo has no preset that names it, so the port keeps one of
+its own (``mapperatorinator_tpu_torch/configs/train/t5_base.yaml``,
+``defaults: [default, ../model@model: t5_base, _self_]``, as
+``configs/train/v32.yaml`` names its model), and the JAX loader composes the
+same text written into a copy of ``configs/``; ``nwhisper_base`` and
+``moonshine_tiny`` likewise. Every field must be equal, with and without
+overrides.
 """
 
 import dataclasses
-import json
 import shutil
 import tempfile
 from enum import Enum
@@ -32,14 +29,9 @@ from mapperatorinator_tpu.models.mapperatorinator import build_config as jax_bui
 import pytest
 
 from mapperatorinator_tpu.osu import build_vocabulary as jax_build_vocabulary
-from mapperatorinator_tpu_torch.config import (
-    CONFIG_DIR,
-    PLAIN_DICT_FIELDS,
-    TRAIN_DICT_FIELDS,
-    load_config,
-    load_train_config,
-    select_device,
-)
+from mapperatorinator_tpu.config.loader import ConfigCompositionError
+from mapperatorinator_tpu_torch.config import ConfigError, compose_config, load_config, load_train_config, select_device
+from mapperatorinator_tpu_torch.config import schema as port_schema
 from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
 from mapperatorinator_tpu_torch.osu import build_vocabulary
 from tests.fixtures.tiny_checkpoint import REPO_ROOT
@@ -98,8 +90,9 @@ def plain(node, keep_enums: bool = False):
 
 
 def test_checked_in_json_is_the_jax_composition():
-    with open(CONFIG_DIR / "v32.json", encoding="utf-8") as f:
-        assert json.load(f) == plain(composed_v32())
+    """The port's compose of v32, the schema dataclasses, field for field."""
+    got = compose_config("inference", "v32", (), port_schema.InferenceConfig)
+    assert plain(got, keep_enums=True) == plain(composed_v32(), keep_enums=True)
 
 
 def test_loaded_namespace_equals_the_jax_config():
@@ -109,8 +102,8 @@ def test_loaded_namespace_equals_the_jax_config():
 
 @pytest.mark.parametrize("name", RECIPES)
 def test_checked_in_train_json_is_the_jax_composition(name):
-    with open(CONFIG_DIR / f"train_{name}.json", encoding="utf-8") as f:
-        assert json.load(f) == plain(composed_train(name))
+    got = compose_config("train", name, (), port_schema.TrainConfig)
+    assert plain(got, keep_enums=True) == plain(composed_train(name), keep_enums=True)
 
 
 @pytest.mark.parametrize("overrides", [
@@ -130,8 +123,8 @@ T5_OVERRIDES = ("mixed_precision=no", "model.overwrite.d_model=64", "model.spect
 
 
 def test_checked_in_train_t5_base_json_is_the_jax_composition():
-    with open(CONFIG_DIR / "train_t5_base.json", encoding="utf-8") as f:
-        assert json.load(f) == plain(composed_train_t5_base())
+    got = compose_config("train", "t5_base", (), port_schema.TrainConfig)
+    assert plain(got, keep_enums=True) == plain(composed_train_t5_base(), keep_enums=True)
 
 
 @pytest.mark.parametrize("overrides", [(), T5_OVERRIDES])
@@ -160,8 +153,8 @@ def test_t5_build_config_matches_jax(overrides):
 
 @pytest.mark.parametrize("model", ["nwhisper_base", "moonshine_tiny"])
 def test_checked_in_train_json_of_each_backbone_is_the_jax_composition(model):
-    with open(CONFIG_DIR / f"train_{model}.json", encoding="utf-8") as f:
-        assert json.load(f) == plain(composed_train_preset(model))
+    got = compose_config("train", model, (), port_schema.TrainConfig)
+    assert plain(got, keep_enums=True) == plain(composed_train_preset(model), keep_enums=True)
 
 
 # (model preset, its backbone as build_config resolves it: name, norm scheme, stem, head dim, d_model, layers,
@@ -191,23 +184,26 @@ def test_backbone_build_config_matches_jax(model, overrides):
 
 
 def test_unknown_override_raises():
-    with pytest.raises(KeyError):
+    """The schema's typo protection, in both loaders."""
+    with pytest.raises(ConfigError, match="no_such_field"):
         load_train_config("v32", ["optim.no_such_field=1"])
+    with pytest.raises(ConfigCompositionError, match="no_such_field"):
+        composed_train("v32", ["optim.no_such_field=1"])
 
 
 def test_plain_dict_fields_are_the_schemas_dict_fields():
-    found = set()
+    """The loaded namespace keeps exactly the JAX schema's dict-valued fields
+    as dicts: every other config node is a namespace."""
+    def dict_fields(node, path=""):
+        if dataclasses.is_dataclass(node) or isinstance(node, SimpleNamespace):
+            items = vars(node).items() if isinstance(node, SimpleNamespace) else \
+                ((f.name, getattr(node, f.name)) for f in dataclasses.fields(node))
+            return set().union(*(dict_fields(v, f"{path}.{k}" if path else k) for k, v in items))
+        return {path} if isinstance(node, dict) else set()
 
-    def walk(node, path):
-        if dataclasses.is_dataclass(node):
-            for f in dataclasses.fields(node):
-                walk(getattr(node, f.name), f"{path}.{f.name}" if path else f.name)
-        elif isinstance(node, dict):
-            found.add(path)
-
-    walk(composed_v32(), "")
-    assert found == set(PLAIN_DICT_FIELDS)
-    assert {f"train.{f}" for f in TRAIN_DICT_FIELDS} == set(PLAIN_DICT_FIELDS)
+    want = dict_fields(composed_v32())
+    assert dict_fields(load_config("v32")) == want
+    assert want == {f"train.{f}" for f in ("lora", "model.rope_scaling", "model.overwrite", "model.add_config")}
 
 
 def test_vocabulary_matches_jax():
@@ -236,10 +232,3 @@ def test_build_config_matches_jax():
     assert got == want
     assert got["backbone"]["dtype"] == "bfloat16" and build_config(train, vocab).backbone.dtype == torch.bfloat16
 
-
-if __name__ == "__main__":
-    for name, tree in (("v32", composed_v32()), *((f"train_{recipe}", composed_train(recipe)) for recipe in RECIPES),
-                       *((f"train_{model}", composed_train_preset(model)) for model in MODEL_PRESETS)):
-        with open(CONFIG_DIR / f"{name}.json", "w", encoding="utf-8") as f:
-            json.dump(plain(tree), f, indent=1, sort_keys=True)
-            f.write("\n")

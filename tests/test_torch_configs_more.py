@@ -1,19 +1,15 @@
-"""The port's other checked-in configs against the JAX loader, and v32-mini
-on the port.
+"""The port's compositions of the other configs against the JAX loader, and
+v32-mini on the port.
 
-``mapperatorinator_tpu_torch/configs/v32-mini.json`` is the JAX composition
-of ``configs/inference/v32-mini.yaml`` (``v31``, ``v30``, ``v29`` and
-``v28.json`` likewise), ``train_<name>.json`` that of
+The port composes ``configs/inference/{v32-mini,v31,v30,v29,v28}.yaml``,
 ``configs/train/<name>.yaml`` for v32-mini and the fine-tune configs
-(``lora``, ``lora_v32``, ``v32_ft``, ``v32-mini_ft``), and ``mai_mod.json`` that of
-``configs/mai_mod.yaml`` (``MaiModConfig``, the v32 inference config under
-``inference``), ``classifier_train_v1.json`` that of
+(``lora``, ``lora_v32``, ``v32_ft``, ``v32-mini_ft``), ``configs/mai_mod.yaml``
+(``MaiModConfig``, the v32 inference config under ``inference``),
 ``configs/classifier/train_v1.yaml`` (``ClassifierConfig``),
-``rcomplexion_train_v1.json`` and ``rcomplexion_inference_v1.json`` those of
-``configs/rcomplexion/`` (``RcomplexionConfig``) and ``calc_fid.json`` that
-of ``configs/calc_fid.yaml`` (``FidConfig``, v32 under ``inference``),
-written out as JSON as ``tests/test_torch_config.py`` does for the v32 pair. These tests recompose them and fail on any drift; to regenerate
-them: ``JAX_PLATFORMS=cpu python -m tests.test_torch_configs_more``.
+``configs/rcomplexion/{train_v1,inference_v1}.yaml`` (``RcomplexionConfig``)
+and ``configs/calc_fid.yaml`` (``FidConfig``, v32 under ``inference``)
+itself; each must equal the JAX composition field for field, with and
+without overrides.
 
 v32-mini's backbone is VarWhisper-base: 6 + 6 layers, all attention global.
 On a tiny checkpoint of that depth and layout, at narrow widths, both
@@ -22,7 +18,6 @@ decode call and the .osu bytes must be equal.
 """
 
 import dataclasses
-import json
 
 import pytest
 import torch
@@ -32,8 +27,9 @@ from mapperatorinator_tpu.config import compose, schema
 from mapperatorinator_tpu.models.mapperatorinator import build_config as jax_build_config
 from mapperatorinator_tpu.osu import build_vocabulary as jax_build_vocabulary
 from mapperatorinator_tpu_torch import inference
-from mapperatorinator_tpu_torch.config import (CONFIG_DIR, load_classifier_config, load_config, load_fid_config,
+from mapperatorinator_tpu_torch.config import (compose_config, load_classifier_config, load_config, load_fid_config,
                                                load_mai_mod_config, load_rcomplexion_config, load_train_config)
+from mapperatorinator_tpu_torch.config import schema as port_schema
 from mapperatorinator_tpu_torch.models.mapperatorinator import build_config
 from mapperatorinator_tpu_torch.osu import build_vocabulary
 from tests.fixtures.tiny_checkpoint import REPO_ROOT, make_tiny_checkpoint, make_wav
@@ -43,7 +39,7 @@ torch.set_num_threads(1)
 
 TRAIN_CONFIGS = ("v32-mini", "lora", "lora_v32", "v32_ft", "v32-mini_ft")
 INFERENCE_CONFIGS = ("v32-mini", "v31", "v30", "v29", "v28")
-CONFIGS = {  # checked-in file -> (JAX config directory, config name, schema)
+CONFIGS = {  # case -> (config directory under configs/, config name, schema)
     **{name: ("inference", name, schema.InferenceConfig) for name in INFERENCE_CONFIGS},
     **{f"train_{name}": ("train", name, schema.TrainConfig) for name in TRAIN_CONFIGS},
     "mai_mod": ("", "mai_mod", schema.MaiModConfig),
@@ -90,8 +86,10 @@ def composed(name, overrides=()):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_checked_in_json_is_the_jax_composition(name):
-    with open(CONFIG_DIR / f"{name}.json", encoding="utf-8") as f:
-        assert json.load(f) == plain(composed(name))
+    """The port's compose, the schema dataclasses, field for field."""
+    directory, config_name, schema_cls = CONFIGS[name]
+    got = compose_config(directory, config_name, (), getattr(port_schema, schema_cls.__name__))
+    assert plain(got, keep_enums=True) == plain(composed(name), keep_enums=True)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -207,9 +205,3 @@ def test_v32_mini_greedy_tokens_and_osu_equal_jax(tmp_path):
     text, _ = inference.main(["-cn", "v32-mini", *overrides, f"output_path={tmp_path / 'cli'}"])
     assert text == got
 
-
-if __name__ == "__main__":
-    for name in CONFIGS:
-        with open(CONFIG_DIR / f"{name}.json", "w", encoding="utf-8") as f:
-            json.dump(plain(composed(name)), f, indent=1, sort_keys=True)
-            f.write("\n")

@@ -66,9 +66,9 @@ def record(sink, export):
 
 
 def test_diffusion_config_is_the_jax_composition():
-    """``--config-name v1``: the port's resolved ``configs/diffusion/v1.yaml``
-    (the ``diffusion`` node of ``configs/v32.json``) is what the JAX loader
-    composes, and gives the bundles' 48 classes."""
+    """``--config-name v1``: the port's composition of
+    ``configs/diffusion/v1.yaml`` is what the JAX loader composes, and gives
+    the bundles' 48 classes."""
     composed = compose(REPO_ROOT / "configs" / "diffusion", "v1", schema_cls=schema.DiffusionTrainConfig)
     loaded = load_diffusion_config("v1")
     assert plain(loaded) == plain(composed)

@@ -1,6 +1,6 @@
 """Legacy accelerate checkpoints on the port against the JAX package.
 
-A tiny T5 v1.1 model of ``configs/train_t5_base.json`` (d_model 32, 2 + 2
+A tiny T5 v1.1 model of the port's ``t5_base`` training preset (d_model 32, 2 + 2
 layers; the default model config's style embedder and projected input, a
 tied head) is written as the reference's training runs wrote one:
 ``custom_checkpoint_0.pkl``, a ``torch.save`` of the tokenizer state whose
@@ -82,7 +82,7 @@ def pickled_state(vocab: Vocabulary, mod) -> dict:
 
 
 def write_legacy_checkpoint(directory, mod, fmt: str):
-    """A legacy directory of the tiny ``train_t5_base.json`` model: the
+    """A legacy directory of the tiny ``t5_base`` model: the
     pickled tokenizer and the reference state dict (``bin`` or two
     ``safetensors`` shards). Returns (the training config, the vocabulary,
     the state dict)."""

@@ -21,12 +21,15 @@ reader, and runs one step of a
 LoRA fine-tune of that checkpoint, whose adapter it then loads, merged and
 quantized, writes a tiny DiT bundle, loads it with
 ``load_diffusion_model`` and refines the positions of a few events with it,
-and writes a tiny classifier and CM3P bundle and runs every metric of
+runs ``embedding_svm`` (its least-squares probe) and ``find_unique_beatmaps``
+on it, composes ``-cn v32`` with a spectrogram override and the port's
+``t5_base`` preset from the repo's YAML, and writes a tiny classifier and CM3P bundle and runs every metric of
 ``calc_fid`` with them on the ORS set's maps.
 
 The drift guard holds each copied file (``osu/``, ``native/``,
 ``csrc/difficulty.cpp``, ``train/data/``, ``diffusion/{vocab,data,export}.py``,
 ``audio/io.py``, ``eval/``, ``rcomplexion/``, ``utils/batched_apply.py``,
+``utils/excepthook.py``, ``config/schema.py``,
 ``infer/super_timing.py``, and ``infer/processor.py``, whose CFG folds use
 ``torch.cat``) to its source: equal but for imports and the module
 docstring, and, where named below, the lines that point the copy at the
@@ -87,7 +90,11 @@ SCRIPT = textwrap.dedent("""
     assert {f"mapperatorinator_tpu_torch.{name}" for name in (
         "test", "dataloading", "push_to_hub", "plot_difficulties", "web_ui", "mai_mod_ui", "utils.print_ckpt",
         "utils.distance_distance", "utils.dit_test_toy", "utils.plot_embeddings", "utils.find_similar_beatmaps",
-        "utils.plot_self_similarity")} <= set(modules)
+        "utils.plot_self_similarity", "utils.embedding_svm", "utils.find_unique_beatmaps",
+        "utils.excepthook")} <= set(modules)
+    # the config layer: the repo's configs/**/*.yaml composed without yaml
+    assert {f"mapperatorinator_tpu_torch.config.{name}"
+            for name in ("loader", "yaml_reader", "schema")} <= set(modules)
     # multi-process training
     assert {f"mapperatorinator_tpu_torch.parallel.{name}" for name in ("distributed", "mesh", "sharding")} <= set(modules)
     # the parquet reader and the datasets that read it
@@ -99,6 +106,9 @@ SCRIPT = textwrap.dedent("""
     from mapperatorinator_tpu_torch.config import load_config, select_device
     from mapperatorinator_tpu_torch.train import main as train_main
 
+    from mapperatorinator_tpu_torch.config import load_train_config
+    assert load_train_config("v32", ["model.spectrogram.hop_length=256"]).data.hop_length == 256
+    assert load_train_config("t5_base").model.name == "google/t5-v1_1-base"
     args = load_config("v32")
     assert not torch.cuda.is_available()
     try:  # "auto": no card, so no device, rather than the CPU
@@ -209,6 +219,22 @@ SCRIPT = textwrap.dedent("""
               Event(EventType.DISTANCE, 80) if k == 1 else Event(EventType.CIRCLE) for i in range(3) for k in range(3)]
     refined = DiffusionPipeline(args, dit, dit).generate(events, GenerationConfig(), timing=None)
     assert [e.type for e in refined].count(EventType.POS_X) == 3
+    # the embedding tools on that bundle: the least-squares probe (no sklearn) and a creator's ranking (no pandas)
+    from mapperatorinator_tpu_torch.utils import embedding_svm, find_unique_beatmaps
+    with open(f"{sys.argv[3]}/labels.csv", "w") as f:
+        f.write("idx,label\\n" + "".join(f"{i},{i % 2}\\n" for i in range(8)))
+    with open(f"{sys.argv[3]}/maps.csv", "w") as f:
+        f.write("Title,Creator\\n" + "".join(f"Song {i},{'A' if i % 3 else 'B'}\\n" for i in range(48)))
+    probe = embedding_svm.run(embedding_svm.parse_args(["--ckpt", f"{sys.argv[3]}/dit", "--labels",
+                                                        f"{sys.argv[3]}/labels.csv", "--metadata",
+                                                        f"{sys.argv[3]}/maps.csv"]))
+    assert probe["probs"].shape == (48,)
+    # the probe picks its branch by trying sklearn, as the JAX script's does: that one attempt is the design
+    assert attempts and {a.split(".")[0] for a in attempts} == {"sklearn"}, attempts
+    attempts.clear()
+    ranked = find_unique_beatmaps.run(find_unique_beatmaps.parse_args(["--ckpt", f"{sys.argv[3]}/dit", "--metadata",
+                                                                      f"{sys.argv[3]}/maps.csv", "--creator", "B"]))
+    assert len(ranked) == 10
     # the evaluation harness on the CPU: a classifier and a CM3P bundle the port writes and reads without
     # msgpack, every metric of calc_fid on the ORS set's maps and their "generated" copies
     from mapperatorinator_tpu_torch import calc_fid
@@ -293,6 +319,8 @@ COPIES = {
     **{f"rcomplexion/{name}.py": f"mapperatorinator_tpu/rcomplexion/{name}.py"
        for name in ("__init__", "vocab", "parser", "data")},
     "utils/batched_apply.py": "mapperatorinator_tpu/utils/batched_apply.py",
+    "utils/excepthook.py": "mapperatorinator_tpu/utils/excepthook.py",
+    "config/schema.py": "mapperatorinator_tpu/config/schema.py",
 }
 # (source text, the copy's text): the copy builds its library with the port's
 # ops/_build.py; the Processor folds its CFG batches with torch.cat; the FID
@@ -391,6 +419,8 @@ COPIED_DEFINITIONS = [
     ("utils/print_ckpt.py", "utils/print_ckpt.py", ("_flatten",)),
     ("utils/plot_embeddings.py", "utils/plot_embeddings.py", ("reduce_2d",)),
     ("utils/find_similar_beatmaps.py", "utils/find_similar_beatmaps.py", ("nearest",)),
+    ("utils/embedding_svm.py", "utils/embedding_svm.py", ("fit_probe",)),
+    ("utils/find_unique_beatmaps.py", "utils/find_unique_beatmaps.py", ("rank_by_mean_distance",)),
     ("web_ui.py", "web_ui.py",
      ("JOBS_LOCK", "_OPTIONAL_INT", "_OPTIONAL_FLOAT", "_STRINGS", "_CHECKBOXES", "_first", "_queue_writer",
       "_datasets_dirs", "load_descriptors", "_reap_job", "_spawn", "_job_log_path", "Handler.protocol_version",

@@ -179,7 +179,8 @@ def test_static_assets_and_i18n(server, path, marker):
 
 def test_json_routes(server, tmp_path, monkeypatch):
     status, body = _get(server + "/models")
-    assert status == 200 and json.loads(body) == ["v28", "v29", "v30", "v31", "v32-mini", "v32"]
+    assert status == 200 and json.loads(body) == jax_web_ui.list_model_presets() == \
+        ["v28", "v29", "v30", "v31", "v32", "v32-mini"]
     status, body = _get(server + "/descriptors")
     assert status == 200 and json.loads(body) == jax_web_ui.load_descriptors()
     assert _get(server + "/check_bf16_support") == (200, json.dumps({"supported": True}))
